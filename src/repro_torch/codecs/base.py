@@ -1,0 +1,101 @@
+"""Container-codec registry: the one place container names mean something.
+
+A ``Codec`` packs a float tensor into a ``PackedTensor`` (named payload
+tensors plus the shape and dtype to rebuild it) and unpacks it back. The
+serving KV cache resolves its container through ``get()``. Containers of
+the JAX package that this port does not carry yet resolve to a clear
+"not yet ported" error instead of an unknown-name error.
+"""
+from __future__ import annotations
+
+import abc
+import difflib
+import re
+from typing import Dict, Tuple
+
+import torch
+
+# Registered in the JAX package, still to be ported here, and the
+# pattern of its parametric names (dense and fixed-lane SFP families).
+NOT_YET_PORTED = ("bit_exact", "gecko8")
+PARAMETRIC = re.compile(r"sfp(8|16)?-m(\d+)e(\d+)$")
+
+
+class PackedTensor:
+    """A compressed tensor: named payload tensors + reconstruction meta."""
+
+    __slots__ = ("codec", "shape", "dtype", "data")
+
+    def __init__(self, codec: str, shape: Tuple[int, ...],
+                 dtype: torch.dtype, data: Dict[str, torch.Tensor]):
+        self.codec = codec
+        self.shape = tuple(shape)
+        self.dtype = dtype
+        self.data = dict(data)
+
+    def __repr__(self):
+        parts = ", ".join(f"{k}:{tuple(v.shape)}"
+                          for k, v in sorted(self.data.items()))
+        return (f"PackedTensor({self.codec}, shape={self.shape}, "
+                f"dtype={self.dtype}, {parts})")
+
+
+class Codec(abc.ABC):
+    """Uniform interface of every compressed-tensor representation."""
+
+    name: str = "?"
+
+    @abc.abstractmethod
+    def pack(self, x: torch.Tensor, bits=None) -> PackedTensor:
+        """Compress ``x`` (``bits`` would quantize mantissas first)."""
+
+    @abc.abstractmethod
+    def unpack(self, packed: PackedTensor) -> torch.Tensor:
+        """Rebuild the tensor from its packed form."""
+
+    @abc.abstractmethod
+    def packed_bits(self, x: torch.Tensor, bits=None) -> float:
+        """Exact footprint of pack(x, bits), in bits."""
+
+    def pack_fields(self, dtype):
+        """Payload word geometry for fused consumers, or None."""
+        del dtype
+        return None
+
+
+class NotYetPorted(NotImplementedError):
+    """A container the JAX package has and this port does not yet."""
+
+
+_REGISTRY: Dict[str, Codec] = {}
+
+
+def register(codec: Codec) -> Codec:
+    _REGISTRY[codec.name] = codec
+    return codec
+
+
+def get(name: str) -> Codec:
+    if name in _REGISTRY:
+        return _REGISTRY[name]
+    if name in NOT_YET_PORTED or PARAMETRIC.match(name):
+        raise NotYetPorted(f"container {name!r} is not yet ported to "
+                           f"repro_torch; ported: {names()}")
+    raise KeyError(f"unknown container codec {name!r}; registered: {names()}")
+
+
+def names():
+    return sorted(_REGISTRY)
+
+
+def validate_name(name: str, *, what: str = "container codec") -> Codec:
+    """Resolve ``name``, raising ValueError with a did-you-mean hint."""
+    try:
+        return get(name)
+    except NotYetPorted as e:
+        raise ValueError(str(e)) from e
+    except KeyError:
+        pass
+    best = difflib.get_close_matches(name, names(), n=1, cutoff=0.55)
+    hint = f"; did you mean {best[0]!r}?" if best else ""
+    raise ValueError(f"unknown {what} {name!r}{hint} (registered: {names()})")

@@ -1,0 +1,8 @@
+"""Config registry of the port: the architectures whose path is ported.
+
+Use ``repro_torch.configs.get(name)``.
+"""
+from repro_torch.configs.base import (  # noqa: F401
+    ArchConfig, GLOBAL, LOCAL, get, reduced, register,
+)
+from repro_torch.configs.gemma2_2b import GEMMA2_2B  # noqa: F401

@@ -1,0 +1,51 @@
+"""Turn the JAX package's parameter tree into the port's.
+
+The JAX model stacks each period's layers on a leading ``n_periods`` axis
+(it scans over them) under ``params["periods"]["slot{i}"]`` and keeps the
+remainder layers under ``params["rem"]``. The port keeps one dict per
+layer in order: period 0 slot 0, period 0 slot 1, ..., then the
+remainder. Input leaves are numpy arrays (e.g. ``np.asarray`` of the JAX
+arrays); bf16 arrives as an ``ml_dtypes`` array and is reinterpreted
+through its 16-bit pattern, so ``ml_dtypes`` is never imported.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+
+def to_tensor(a: np.ndarray, device="cpu") -> torch.Tensor:
+    """A numpy array (bf16 included) as a tensor with the same bits."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":
+        bits = torch.from_numpy(a.view(np.uint16).view(np.int16).copy())
+        return bits.view(torch.bfloat16).to(device)
+    return torch.from_numpy(a.copy()).to(device)
+
+
+def _tree(x, fn):
+    if isinstance(x, dict):
+        return {k: _tree(v, fn) for k, v in x.items()}
+    return fn(x)
+
+
+def _index(tree, i: int):
+    return _tree(tree, lambda a: a[i])
+
+
+def from_jax(params: Dict[str, Any], cfg, device="cpu") -> Dict[str, Any]:
+    """JAX ``DecoderModel`` params (nested dicts of numpy arrays) -> the
+    port's ``{"embed", "final_norm", "layers": [...]}``."""
+    conv = lambda t: _tree(t, lambda a: to_tensor(np.asarray(a), device))
+    layers = []
+    for p in range(cfg.n_periods):
+        period = _index(params["periods"], p)
+        for i in range(len(cfg.period)):
+            layers.append(conv(period[f"slot{i}"]))
+    for i in range(len(cfg.remainder)):
+        layers.append(conv(params["rem"][f"slot{i}"]))
+    return {"embed": conv(params["embed"]),
+            "final_norm": conv(params["final_norm"]),
+            "layers": layers}

@@ -1,0 +1,235 @@
+// Fused decompress-attend decode over a contiguous SFP-packed KV cache.
+//
+// Replaces the TPU kernel src/repro/kernels/packed_flash_decode.py:
+// packed_flash_decode (_decode_kernel), fixed-lane word branch. One query
+// token per batch row attends an L-slot cache stored as payload words
+// (B, L, KH*hd) uint8/uint16 plus one uint8 base per 128-lane group
+// (B, L, KH*hd/128). Groups run along the flattened KH*hd axis and may
+// straddle heads (hd = 288: 9 groups over 4 heads), so a feature's base is
+// found by (flat feature index / 128). Per-row decode positions; a
+// window > 0 means an L-slot ring buffer (floor mod, as the JAX mask).
+// The recurrence is the JAX kernel's: per block_l-slot tile, scores in
+// f32, softcap, -1e30 on masked slots, online softmax, acc += p . v.
+//
+// Bound on this card: memory. Each live slot costs (D + D/128) bytes for K
+// and again for V with 8-bit words. Design, simple first: one CTA of 256
+// threads per (batch row, KV head). Per tile the CTA stages the head's
+// packed K and V rows and their group bases into shared memory with 4-byte
+// loads, expands words to f32 in registers with the word bit machine (the
+// bf16 cache never exists in device memory), takes q.k for the rep query
+// heads of that KV head (one warp per slot, shuffle reduction), runs the
+// online softmax (one warp per query head) and accumulates p.v (one thread
+// per feature). Tiles that no slot of the row may see are skipped, an exact
+// no-op of the JAX recurrence. Only B*KH CTAs run: split-KV is later work.
+#include "sfp_common.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxRep = 8;
+constexpr int kMaxDPerThread = 2;  // hd <= 512
+
+__device__ __forceinline__ bool slot_valid(int slot, int pos, int L,
+                                           int window) {
+  if (slot >= L) return false;
+  if (window <= 0) return slot <= pos;
+  int r = (pos - slot) % L;
+  if (r < 0) r += L;  // floor mod
+  const int kpos = pos - r;
+  return kpos >= 0 && kpos <= pos && kpos > pos - window;
+}
+
+template <typename W>
+__global__ void __launch_bounds__(kThreads)
+packed_flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
+                           const W* __restrict__ kp,
+                           const uint8_t* __restrict__ kb,
+                           const W* __restrict__ vp,
+                           const uint8_t* __restrict__ vb,
+                           const int* __restrict__ pos_arr,
+                           __nv_bfloat16* __restrict__ out, int L, int H,
+                           int KH, int hd, int G, int BL, int window,
+                           SfpFields f, float softcap, float scale) {
+  const int b = blockIdx.x, h = blockIdx.y;
+  const int rep = H / KH;
+  const int D = G * SFP_GROUP;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int pos = pos_arr[b];
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem);          // [rep][hd]
+  float* st = qs + rep * hd;                           // [rep][BL]
+  float* ms = st + rep * BL;                           // [kMaxRep]
+  float* ls = ms + kMaxRep;
+  float* als = ls + kMaxRep;
+  W* kt = reinterpret_cast<W*>(als + kMaxRep);         // [BL][hd]
+  W* vt = kt + BL * hd;                                // [BL][hd]
+  uint8_t* kbt = reinterpret_cast<uint8_t*>(vt + BL * hd);  // [BL][G]
+  uint8_t* vbt = kbt + BL * G;
+
+  for (int i = tid; i < rep * hd; i += kThreads)
+    qs[i] = __bfloat162float(q[((size_t)b * H + h * rep) * hd + i]);
+  if (tid < kMaxRep) { ms[tid] = SFP_NEG_INF; ls[tid] = 0.f; als[tid] = 1.f; }
+
+  float acc[kMaxRep][kMaxDPerThread];
+#pragma unroll
+  for (int g = 0; g < kMaxRep; ++g)
+#pragma unroll
+    for (int j = 0; j < kMaxDPerThread; ++j) acc[g][j] = 0.f;
+
+  const int row_words = hd * (int)sizeof(W) / 4;  // uint32 per head row
+  for (int t = 0; t * BL < L; ++t) {
+    const int s0 = t * BL;
+    int any = 0;
+    for (int l = tid; l < BL; l += kThreads) any |= slot_valid(s0 + l, pos, L, window);
+    if (!__syncthreads_or(any)) continue;  // barrier: last tile's readers done
+
+    for (int idx = tid; idx < BL * row_words; idx += kThreads) {
+      const int l = idx / row_words, c = idx % row_words;
+      const size_t off = ((size_t)b * L + s0 + l) * D + (size_t)h * hd;
+      reinterpret_cast<uint32_t*>(kt + l * hd)[c] =
+          reinterpret_cast<const uint32_t*>(kp + off)[c];
+      reinterpret_cast<uint32_t*>(vt + l * hd)[c] =
+          reinterpret_cast<const uint32_t*>(vp + off)[c];
+    }
+    for (int idx = tid; idx < BL * G; idx += kThreads) {
+      const size_t off = ((size_t)b * L + s0) * G + idx;
+      kbt[idx] = kb[off];
+      vbt[idx] = vb[off];
+    }
+    __syncthreads();
+
+    // Scores: one warp per slot, lanes over 4-feature chunks of the head.
+    for (int l = warp; l < BL; l += kWarps) {
+      float part[kMaxRep];
+#pragma unroll
+      for (int g = 0; g < kMaxRep; ++g) part[g] = 0.f;
+      for (int d4 = lane * 4; d4 < hd; d4 += 128) {
+        const int base = kbt[l * G + ((h * hd + d4) >> 7)];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float kv = sfp_decode_word((uint32_t)kt[l * hd + d4 + e], base, f);
+#pragma unroll
+          for (int g = 0; g < kMaxRep; ++g)
+            if (g < rep) part[g] = fmaf(qs[g * hd + d4 + e], kv, part[g]);
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < kMaxRep; ++g) {
+        if (g >= rep) break;
+        float x = part[g];
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+        if (lane == 0) st[g * BL + l] = x;
+      }
+    }
+    __syncthreads();
+
+    // Online softmax: one warp per query head of the group.
+    if (warp < rep) {
+      const int g = warp;
+      float mcur = SFP_NEG_INF;
+      for (int l = lane; l < BL; l += 32) {
+        float x = st[g * BL + l] * scale;
+        if (softcap > 0.f) x = softcap * tanhf(x / softcap);
+        x = slot_valid(s0 + l, pos, L, window) ? x : SFP_NEG_INF;
+        st[g * BL + l] = x;
+        mcur = fmaxf(mcur, x);
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        mcur = fmaxf(mcur, __shfl_xor_sync(0xffffffffu, mcur, o));
+      const float m_new = fmaxf(ms[g], mcur);
+      float sum = 0.f;
+      for (int l = lane; l < BL; l += 32) {
+        const float p = expf(st[g * BL + l] - m_new);
+        st[g * BL + l] = p;
+        sum += p;
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      if (lane == 0) {
+        const float alpha = expf(ms[g] - m_new);
+        ls[g] = alpha * ls[g] + sum;
+        ms[g] = m_new;
+        als[g] = alpha;
+      }
+    }
+    __syncthreads();
+
+    // acc = acc * alpha + p . v, one thread per feature of the head.
+#pragma unroll
+    for (int j = 0; j < kMaxDPerThread; ++j) {
+      const int d = tid + j * kThreads;
+      if (d >= hd) break;
+      const int gi = (h * hd + d) >> 7;
+#pragma unroll
+      for (int g = 0; g < kMaxRep; ++g)
+        if (g < rep) acc[g][j] *= als[g];
+      for (int l = 0; l < BL; ++l) {
+        const float vv = sfp_decode_word((uint32_t)vt[l * hd + d], vbt[l * G + gi], f);
+#pragma unroll
+        for (int g = 0; g < kMaxRep; ++g)
+          if (g < rep) acc[g][j] = fmaf(st[g * BL + l], vv, acc[g][j]);
+      }
+    }
+  }
+  __syncthreads();
+
+#pragma unroll
+  for (int j = 0; j < kMaxDPerThread; ++j) {
+    const int d = tid + j * kThreads;
+    if (d >= hd) break;
+#pragma unroll
+    for (int g = 0; g < kMaxRep; ++g) {
+      if (g >= rep) break;
+      out[((size_t)b * H + h * rep + g) * hd + d] =
+          __float2bfloat16(acc[g][j] / fmaxf(ls[g], 1e-30f));
+    }
+  }
+}
+
+template <typename W>
+int launch(const void* q, const void* kp, const void* kb, const void* vp,
+           const void* vb, const void* pos, void* out, int B, int L, int H,
+           int KH, int hd, int G, int BL, int window, SfpFields f,
+           float softcap, float scale, cudaStream_t stream) {
+  const int rep = H / KH;
+  const size_t smem = (size_t)(rep * hd + rep * BL + 3 * kMaxRep) * 4
+                      + 2 * (size_t)BL * hd * sizeof(W) + 2 * (size_t)BL * G;
+  cudaError_t err = cudaFuncSetAttribute(
+      packed_flash_decode_kernel<W>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(B, KH);
+  packed_flash_decode_kernel<W><<<grid, kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const W*>(kp),
+      static_cast<const uint8_t*>(kb), static_cast<const W*>(vp),
+      static_cast<const uint8_t*>(vb), static_cast<const int*>(pos),
+      static_cast<__nv_bfloat16*>(out), L, H, KH, hd, G, BL, window, f,
+      softcap, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int packed_flash_decode_launch(
+    const void* q, const void* kp, const void* kb, const void* vp,
+    const void* vb, const void* pos, void* out, int B, int L, int H, int KH,
+    int hd, int G, int block_l, int window, int man_keep, int dexp_bits,
+    int payload_bits, float softcap, float scale, void* stream) {
+  if (B == 0 || KH == 0) return 0;
+  if (H % KH != 0 || H / KH > kMaxRep || hd > kThreads * kMaxDPerThread
+      || hd % 4 != 0 || L % block_l != 0)
+    return (int)cudaErrorInvalidValue;
+  const SfpFields f{man_keep, dexp_bits, payload_bits};
+  auto s = static_cast<cudaStream_t>(stream);
+  if (payload_bits == 8)
+    return launch<uint8_t>(q, kp, kb, vp, vb, pos, out, B, L, H, KH, hd, G,
+                           block_l, window, f, softcap, scale, s);
+  if (payload_bits == 16)
+    return launch<uint16_t>(q, kp, kb, vp, vb, pos, out, B, L, H, KH, hd, G,
+                            block_l, window, f, softcap, scale, s);
+  return (int)cudaErrorInvalidValue;
+}

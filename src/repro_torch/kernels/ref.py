@@ -1,0 +1,268 @@
+"""Plain PyTorch versions of the kernels on the serving path.
+
+They repeat the arithmetic of the JAX package's oracles
+(``repro.kernels.ref``): the fixed-lane SFP word machine, the ring-slot
+validity mask, the packed decode's block recurrence and dense attention.
+The CPU path runs them, the tests hold them against the JAX package, and
+``chip_smoke.py`` holds each CUDA kernel against them on the card.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.core import containers
+
+GROUP = 128
+NEG_INF = -1e30
+
+
+class PackFields(NamedTuple):
+    """Payload geometry of an SFP container. Only fixed-lane words (one
+    8/16-bit word per value) are ported; ``dense`` (bit planes) is kept so
+    the tuple matches the JAX package's, and is always False here."""
+
+    man_keep: int       # mantissa bits kept in the payload
+    dexp_bits: int      # delta-exponent field width
+    payload_bits: int   # total payload word width (8 or 16)
+    dense: bool = False
+
+    @property
+    def word_dtype(self) -> torch.dtype:
+        return torch.uint8 if self.payload_bits <= 8 else torch.uint16
+
+    @property
+    def sign_shift(self) -> int:
+        return self.payload_bits - 1
+
+    @property
+    def dexp_shift(self) -> int:
+        return self.payload_bits - 1 - self.dexp_bits
+
+    @property
+    def man_shift(self) -> int:
+        return self.payload_bits - 1 - self.dexp_bits - self.man_keep
+
+    @property
+    def dexp_max(self) -> int:
+        return (1 << self.dexp_bits) - 1
+
+
+# ---------------------------------------------------------------------------
+# Fixed-lane SFP words: one shared max-exponent base per 128-lane group.
+# ---------------------------------------------------------------------------
+
+
+def _pack_words(x: torch.Tensor, f: PackFields,
+                spec: containers.FloatSpec) -> Tuple[torch.Tensor,
+                                                      torch.Tensor]:
+    """Pack body over the last (128-lane) axis -> (int32 words, int32
+    base with a kept last axis). Zero and subnormal inputs flush and lose
+    their sign; values more than ``dexp_max`` binades below the group's
+    max exponent flush; the base counts zeros too."""
+    sign, e, man = containers.split_fields(x)
+    base = torch.amax(e, dim=-1, keepdim=True)
+    dexp = base - e
+    man_top = man >> (spec.man_bits - f.man_keep)
+    flush = (e == 0) | (dexp > f.dexp_max)
+    dexp = torch.where(flush, f.dexp_max, torch.clamp(dexp, max=f.dexp_max))
+    man_top = torch.where(flush, 0, man_top)
+    sign = torch.where(e == 0, 0, sign)
+    word = ((sign << f.sign_shift) | (dexp << f.dexp_shift)
+            | (man_top << f.man_shift))
+    return word, base
+
+
+def _unpack_words(p: torch.Tensor, base: torch.Tensor, f: PackFields,
+                  spec: containers.FloatSpec) -> torch.Tensor:
+    """Inverse of ``_pack_words``: int32 words + broadcastable int32 base
+    -> floats of ``spec``. (dexp_max, man 0) decodes to +0."""
+    p = p.to(torch.int32)
+    sign = (p >> f.sign_shift) & 1
+    dexp = (p >> f.dexp_shift) & f.dexp_max
+    man_top = (p >> f.man_shift) & ((1 << f.man_keep) - 1)
+    e = torch.clamp(base.to(torch.int32) - dexp, min=0)
+    man = man_top << (spec.man_bits - f.man_keep)
+    flush = (dexp == f.dexp_max) & (man_top == 0)
+    e = torch.where(flush, 0, e)
+    man = torch.where(flush, 0, man)
+    sign = torch.where(flush, 0, sign)
+    return containers.combine_fields(sign, e, man, spec)
+
+
+def sfp_pack_rows(x: torch.Tensor, fields: PackFields):
+    """(R, 128) floats -> (payload (R, 128) words, bases (R, 1) uint8):
+    the function of the ``sfp_pack`` kernel."""
+    spec = containers.spec_for(x)
+    word, base = _pack_words(x, fields, spec)
+    return word.to(fields.word_dtype), base.to(torch.uint8)
+
+
+def to_rows(x: torch.Tensor) -> torch.Tensor:
+    """Flatten to (rows, 128) lane groups, zero-padding the tail."""
+    flat = x.reshape(-1)
+    pad = (-flat.numel()) % GROUP
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    return flat.reshape(-1, GROUP)
+
+
+def sfp_unpack(payload: torch.Tensor, bases: torch.Tensor, shape: tuple,
+               dtype: torch.dtype, fields: PackFields) -> torch.Tensor:
+    spec = containers.spec_for(dtype)
+    out = _unpack_words(payload, bases, fields, spec)
+    n = 1
+    for s in shape:
+        n *= s
+    return out.reshape(-1)[:n].reshape(shape)
+
+
+def sfp_pack_nd(x: torch.Tensor, fields: PackFields):
+    """Rank-preserving pack: groups along the last dim (% 128 == 0).
+    payload has x's shape; bases (*x.shape[:-1], D // 128) uint8."""
+    D = x.shape[-1]
+    if D % GROUP:
+        raise ValueError(f"last dim {D} is not a multiple of {GROUP}")
+    payload, base = sfp_pack_rows(x.reshape(-1, GROUP), fields)
+    return (payload.reshape(x.shape),
+            base.reshape(*x.shape[:-1], D // GROUP))
+
+
+def sfp_unpack_nd(payload: torch.Tensor, bases: torch.Tensor,
+                  dtype: torch.dtype, fields: PackFields) -> torch.Tensor:
+    spec = containers.spec_for(dtype)
+    D = payload.shape[-1]
+    p = payload.reshape(*payload.shape[:-1], D // GROUP, GROUP)
+    out = _unpack_words(p, bases.to(torch.int32)[..., None], fields, spec)
+    return out.reshape(payload.shape)
+
+
+def unpack_tile(payload: torch.Tensor, bases: torch.Tensor,
+                fields: PackFields, spec: containers.FloatSpec, *, rows: int,
+                KH: int, hd: int) -> torch.Tensor:
+    """Fixed-lane tile decompressor of the packed decode: payload
+    (rows, KH*hd) words and bases (rows, G) -> (rows, KH, hd) float32.
+    Groups span the flattened KH*hd axis, so a group may straddle heads."""
+    G = (KH * hd) // GROUP
+    p = payload.to(torch.int32).reshape(rows, G, GROUP)
+    x = _unpack_words(p, bases.to(torch.int32).reshape(rows, G, 1), fields,
+                      spec)
+    return x.reshape(rows, KH, hd).to(torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# Decode over the packed KV cache
+# ---------------------------------------------------------------------------
+
+
+def decode_kv_mask(pos, L: int, window: Optional[int] = None, slots=None):
+    """Validity of each KV-cache slot for a decode query at ``pos``.
+
+    Global caches store position p at slot p. Local caches are L-slot
+    ring buffers: slot s holds the latest position p <= pos with
+    p = s (mod L), valid inside the window. The modulus is a floor mod
+    (``torch.remainder``), as in the JAX package."""
+    if slots is None:
+        slots = torch.arange(L, device=pos.device if isinstance(
+            pos, torch.Tensor) else None)
+    if window is None:
+        return (slots <= pos) & (slots < L)
+    k_pos = pos - torch.remainder(pos - slots, L)
+    return ((k_pos >= 0) & (k_pos <= pos) & (k_pos > pos - window)
+            & (slots < L))
+
+
+def packed_flash_decode(q: torch.Tensor, k_payload: torch.Tensor,
+                        k_bases: torch.Tensor, v_payload: torch.Tensor,
+                        v_bases: torch.Tensor, pos, fields: PackFields, *,
+                        window: Optional[int] = None,
+                        softcap: Optional[float] = None,
+                        block_l: Optional[int] = None) -> torch.Tensor:
+    """Unpack-then-attend decode over a packed contiguous cache.
+
+    q (B, 1, H, hd); payload (B, L, KH*hd) words; bases (B, L, KH*hd//128);
+    ``pos`` scalar or (B,). Same online-softmax block recurrence over
+    ``block_l``-slot blocks as the kernel (the block shrinks to a divisor
+    of L); batch rows are independent, so they run side by side."""
+    B, _, H, hd = q.shape
+    L, G = k_bases.shape[1], k_bases.shape[2]
+    D = G * GROUP
+    KH = D // hd
+    rep = H // KH
+    spec = containers.spec_for(q.dtype)
+    pos = torch.as_tensor(pos, dtype=torch.int64, device=q.device)
+    pos = pos.reshape(-1).expand(B)
+    bl = L if block_l is None else min(block_l, L)
+    while L % bl:
+        bl -= 1
+
+    def unp(payload, bases):
+        x = unpack_tile(payload.reshape(B * L, D), bases.reshape(B * L, G),
+                        fields, spec, rows=B * L, KH=KH, hd=hd)
+        return x.reshape(B, L, KH, hd)
+
+    k = unp(k_payload, k_bases)
+    v = unp(v_payload, v_bases)
+    qf = q.reshape(B, KH, rep, hd).to(torch.float32)
+    scale = 1.0 / (hd ** 0.5)
+    m = torch.full((B, KH, rep, 1), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, KH, rep, 1), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, KH, rep, hd), dtype=torch.float32, device=q.device)
+    for ki in range(L // bl):
+        k_c = k[:, ki * bl:(ki + 1) * bl]
+        v_c = v[:, ki * bl:(ki + 1) * bl]
+        s = torch.einsum("bhgd,blhd->bhgl", qf, k_c) * scale
+        if softcap is not None:
+            s = softcap * torch.tanh(s / softcap)
+        slots = ki * bl + torch.arange(bl, device=q.device)
+        valid = decode_kv_mask(pos[:, None], L, window, slots=slots[None])
+        s = torch.where(valid[:, None, None, :], s, NEG_INF)
+        m_cur = torch.amax(s, dim=-1, keepdim=True)
+        m_new = torch.maximum(m, m_cur)
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + torch.sum(p, dim=-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("bhgl,blhd->bhgd", p, v_c)
+        m = m_new
+    o = acc / torch.clamp(l, min=1e-30)
+    return o.reshape(B, 1, H, hd).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: Optional[int] = None,
+              softcap: Optional[float] = None, q_rep: int = 1
+              ) -> torch.Tensor:
+    """Dense GQA attention in f32, O(Sq*Sk). q (B, Sq, H, D), k/v
+    (B, Sk, KH, D); q head h reads kv head h // (H // KH).
+
+    ``q_rep`` > 1 is the folded layout of the flash kernel: q is
+    (B, S*q_rep, KH, D), rows ordered (seq, group member), so the causal
+    position of query row r is r // q_rep."""
+    B, Sq, H, D = q.shape
+    Sk, KH = k.shape[1], k.shape[2]
+    rep = H // KH
+    kq = k.repeat_interleave(rep, dim=2) if rep > 1 else k
+    vq = v.repeat_interleave(rep, dim=2) if rep > 1 else v
+    scale = 1.0 / torch.sqrt(torch.tensor(D, dtype=torch.float32))
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
+                          kq.to(torch.float32)) * scale.to(q.device)
+    if softcap is not None:
+        logits = softcap * torch.tanh(logits / softcap)
+    q_pos = (torch.arange(Sq, device=q.device) // q_rep)[:, None]
+    k_pos = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = k_pos <= q_pos
+    if window is not None:
+        mask = mask & (k_pos > q_pos - window)
+    logits = torch.where(mask[None, None], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, vq.to(torch.float32))
+    return out.to(q.dtype)

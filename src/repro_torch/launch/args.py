@@ -1,0 +1,14 @@
+"""Shared argparse types for the launchers."""
+from __future__ import annotations
+
+import argparse
+
+
+def container_name(value: str) -> str:
+    """argparse ``type=`` for container-codec flags."""
+    from repro_torch import codecs
+    try:
+        codecs.validate_name(value)
+    except ValueError as e:
+        raise argparse.ArgumentTypeError(str(e))
+    return value

@@ -1,0 +1,111 @@
+"""Codec-compressed contiguous KV cache (default: the paper's sfp8).
+
+Decode is bound by the KV cache read; the cache stores the packed
+representation of a registry codec and each decode step packs only the
+new token's K/V row. Attention reads the packed (payload, bases) pair
+straight through ``ops.packed_flash_decode``: the bf16 cache never exists
+in device memory. The paged pool of the JAX package is not ported yet.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch import codecs
+from repro_torch.configs.base import ArchConfig, LOCAL
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import GROUP
+from repro_torch.models import attention
+
+
+class PackedKV(NamedTuple):
+    k: codecs.PackedTensor  # parts shaped (B, L, ...), D = KH * head_dim
+    v: codecs.PackedTensor
+
+
+def cache_len(cfg: ArchConfig, kind: str, max_len: int) -> int:
+    """Packed-cache sequence allocation for a budget ``max_len``: past one
+    decode block, round up to a block multiple so the decode kernel always
+    gets full tiles. Extra slots stay masked (global) or are ring slack
+    (local; the modulus is the allocated length everywhere)."""
+    L = min(max_len, cfg.window) if kind == LOCAL else max_len
+    block = ops.DECODE_BLOCK_L
+    if L > block:
+        L = -(-L // block) * block
+    return L
+
+
+def _codec(container: Optional[str]) -> codecs.Codec:
+    return codecs.get(container or codecs.DEFAULT_CONTAINER)
+
+
+def packed_cache_init(cfg: ArchConfig, kind: str, batch: int, max_len: int,
+                      container: Optional[str] = None, *,
+                      device) -> PackedKV:
+    """An all-zero packed cache (built directly, no pack launched)."""
+    codec = _codec(container)
+    D = cfg.n_kv_heads * cfg.head_dim_
+    if D % GROUP:
+        raise ValueError(f"KV feature dim {D} must align to {GROUP} lanes")
+    L = cache_len(cfg, kind, max_len)
+    fields = codec.pack_fields(cfg.compute_dtype)
+
+    def part():
+        return codecs.PackedTensor(codec.name, (batch, L, D),
+                                   cfg.compute_dtype, {
+            "payload": torch.zeros((batch, L, D), dtype=fields.word_dtype,
+                                   device=device),
+            "bases": torch.zeros((batch, L, D // GROUP), dtype=torch.uint8,
+                                 device=device)})
+    return PackedKV(k=part(), v=part())
+
+
+def _splice(cache_pt: codecs.PackedTensor, new_pt: codecs.PackedTensor,
+            slot: torch.Tensor) -> None:
+    """Write one packed token row per batch row at ``slot`` (B,), in
+    place (the JAX package donates the cache and updates it in place)."""
+    rows = torch.arange(slot.shape[0], device=slot.device)
+    for k in cache_pt.data:
+        cache_pt.data[k][rows, slot] = new_pt.data[k][:, 0]
+
+
+def attention_decode_packed(params, h_tok: torch.Tensor, cache: PackedKV,
+                            pos: torch.Tensor, cfg: ArchConfig, *, kind: str,
+                            container: Optional[str] = None
+                            ) -> Tuple[torch.Tensor, PackedKV]:
+    """One-token decode over the compressed cache, spliced in place.
+    h_tok (B, 1, d); pos (B,) int64 decode positions."""
+    codec = _codec(container)
+    B = h_tok.shape[0]
+    hd, H, KH = cfg.head_dim_, cfg.n_heads, cfg.n_kv_heads
+    D = KH * hd
+    L = cache.k.shape[1]
+    dtype = h_tok.dtype
+    q, k_new, v_new = attention._project_qkv(params, h_tok, cfg,
+                                             pos[:, None])
+    slot = attention.decode_slot_index(pos, L, kind)
+    _splice(cache.k, codec.pack(k_new.reshape(B, 1, D).to(dtype)), slot)
+    _splice(cache.v, codec.pack(v_new.reshape(B, 1, D).to(dtype)), slot)
+    fields = codec.pack_fields(dtype)
+    if fields is None:
+        raise codecs.NotYetPorted(f"codec {codec.name!r} has no fixed-width "
+                                  f"payload; the unpack fallback is not "
+                                  f"ported")
+    window = cfg.window if kind == LOCAL else None
+    o = ops.packed_flash_decode(
+        q.to(dtype),
+        ops.Packed(cache.k.data["payload"], cache.k.data["bases"]),
+        ops.Packed(cache.v.data["payload"], cache.v.data["bases"]),
+        pos, fields=fields, window=window, softcap=cfg.attn_softcap)
+    out = o.reshape(B, 1, H * hd) @ params["wo"]
+    return out, cache
+
+
+def pack_prefill_cache(cache_kv: attention.KVCache,
+                       container: Optional[str] = None) -> PackedKV:
+    """Compress a prefill-produced bf16 cache in one shot."""
+    codec = _codec(container)
+    B, L, KH, hd = cache_kv.k.shape
+    return PackedKV(k=codec.pack(cache_kv.k.reshape(B, L, KH * hd)),
+                    v=codec.pack(cache_kv.v.reshape(B, L, KH * hd)))

@@ -1,0 +1,84 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Marked ``cuda``: each test skips (inside the fixture) where there is no
+GPU. On a machine with one:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Tolerance as in ``chip_smoke.py``: both sides accumulate in f32 and round
+to bf16 once, so they differ by at most one bf16 ulp: |d| <= 2^-7 |plain|
++ 1e-3. sfp_pack is integer arithmetic and must be byte-equal.
+"""
+import pytest
+import torch
+
+from repro_torch.codecs import fields_for
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ops
+from repro_torch.kernels import packed_flash_decode as pfd
+from repro_torch.kernels import sfp_pack as sp
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _close(got, want):
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= 1e-3 + 2 ** -7 * want.float().abs()).all()), \
+        err.max().item()
+
+
+@pytest.mark.parametrize("container", ["sfp8", "sfp16"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_sfp_pack_kernel_bytes(dev, container, dtype):
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((333, 128), generator=g, device=dev)
+    x = x * torch.exp2(torch.randint(-30, 30, x.shape, generator=g,
+                                     device=dev).float())
+    x[::7] = 0.0
+    x[1::11] = 1e-39
+    x = x.to(dtype)
+    f = fields_for(container, dtype)
+    kp, kb = sp.sfp_pack(x, f)
+    pp, pb = sp.plain(x, f)
+    assert torch.equal(kp, pp) and torch.equal(kb, pb)
+
+
+@pytest.mark.parametrize("hd,S,rep,window", [(64, 70, 1, None),
+                                             (192, 100, 2, 24),
+                                             (288, 129, 2, None)])
+def test_flash_attention_kernel(dev, hd, S, rep, window):
+    g = torch.Generator(device=dev).manual_seed(1)
+    B, KH = 2, 2
+    q = (torch.randn((B, S * rep, KH, hd), generator=g, device=dev) * 3
+         ).to(torch.bfloat16)
+    k = torch.randn((B, S, KH, hd), generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn((B, S, KH, hd), generator=g, device=dev).to(torch.bfloat16)
+    kw = dict(causal=True, window=window, softcap=50.0, q_rep=rep)
+    _close(fa.flash_attention(q, k, v, **kw), fa.plain(q, k, v, **kw))
+
+
+@pytest.mark.parametrize("container", ["sfp8", "sfp16"])
+@pytest.mark.parametrize("L,window,pos", [(48, None, [47, 10]),
+                                          (256, None, [255, 130]),
+                                          (128, 64, [300, 77])])
+def test_packed_flash_decode_kernel(dev, container, L, window, pos):
+    g = torch.Generator(device=dev).manual_seed(2)
+    B, H, KH, hd = 2, 4, 2, 192
+    f = fields_for(container, torch.bfloat16)
+    kc = torch.randn((B, L, KH * hd), generator=g, device=dev)
+    vc = torch.randn((B, L, KH * hd), generator=g, device=dev)
+    kp = ops.sfp_compress_nd(kc.to(torch.bfloat16), f)
+    vp = ops.sfp_compress_nd(vc.to(torch.bfloat16), f)
+    q = (torch.randn((B, 1, H, hd), generator=g, device=dev) * 3
+         ).to(torch.bfloat16)
+    p = torch.tensor(pos, dtype=torch.int32, device=dev)
+    args = (q, kp.payload, kp.bases, vp.payload, vp.bases, p, f)
+    kw = dict(window=window, softcap=50.0)
+    _close(pfd.packed_flash_decode(*args, **kw), pfd.plain(*args, **kw))

@@ -1,0 +1,198 @@
+"""Structure of the PyTorch port: import boundaries, config parity, device
+rules, kernel wrappers that never fall back, codec coverage, conversion."""
+import ast
+import dataclasses
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+import torch
+
+from repro import configs as jconfigs
+from repro.configs.base import reduced as jreduced
+from repro_torch import codecs as tcodecs
+from repro_torch import configs as tconfigs
+from repro_torch import convert
+from repro_torch.configs.base import reduced as treduced
+from repro_torch.kernels import _lib
+from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import packed_flash_decode as tpfd
+from repro_torch.kernels import sfp_pack as tsp
+from repro_torch.launch import serve as tserve
+from repro_torch.models.model import DecoderModel
+from repro_torch.serve import engine
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _imports(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_neither_jax_nor_repro(path):
+    bad = [m for m in _imports(path)
+           if m.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes")]
+    assert not bad, f"{path} imports {bad}"
+
+
+def _same_fields(jc, tc):
+    for f in dataclasses.fields(jc):
+        assert getattr(tc, f.name) == getattr(jc, f.name), f.name
+    assert {f.name for f in dataclasses.fields(tc)} == \
+        {f.name for f in dataclasses.fields(jc)}
+    assert str(tc.compute_dtype).split(".")[-1] == jnp.dtype(
+        jc.compute_dtype).name
+
+
+@pytest.mark.parametrize("cut", [None, dict(), dict(n_layers=4, d_model=256)])
+def test_gemma2_2b_config_matches_jax(cut):
+    jc, tc = jconfigs.get("gemma2-2b"), tconfigs.get("gemma2-2b")
+    if cut is not None:
+        jc, tc = jreduced(jc, **cut), treduced(tc, **cut)
+    _same_fields(jc, tc)
+    assert tc.layer_kinds() == tuple(
+        jc.period[i % len(jc.period)] for i in range(jc.n_layers))
+
+
+def _no_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_raise_without_gpu(monkeypatch):
+    _no_gpu(monkeypatch)
+    cfg = treduced(tconfigs.get("gemma2-2b"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DecoderModel(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tserve.main(["--arch", "gemma2-2b", "--preset", "tiny"])
+    model = DecoderModel(cfg, device="cpu")
+    params = model.init(0)
+    model.device = torch.device("cuda")  # a model placed on the card
+    with pytest.raises(RuntimeError, match="CUDA"):
+        engine.generate(model, params, torch.zeros((1, 4), dtype=torch.long),
+                        2)
+
+
+def test_launcher_runs_on_cpu_when_asked(monkeypatch):
+    _no_gpu(monkeypatch)
+    rep = tserve.run_batch(tserve.build_parser().parse_args(
+        ["--arch", "gemma2-2b", "--preset", "tiny", "--batch", "2",
+         "--prompt-len", "8", "--max-new", "3", "--kv-container", "sfp8",
+         "--device", "cpu"]))
+    assert rep["tokens"] == 6 and len(rep["sample"]) == 3
+
+
+def _meta(shape, dtype):
+    """A tensor that is not on the CPU (stands in for a CUDA tensor)."""
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _wrapper_calls(fields):
+    q = _meta((2, 1, 4, 192), torch.bfloat16)
+    pay = _meta((2, 16, 384), torch.uint8)
+    bas = _meta((2, 16, 3), torch.uint8)
+    pos = _meta((2,), torch.int32)
+    x = _meta((2, 16, 2, 192), torch.bfloat16)
+    return [
+        ("sfp_pack", lambda: tsp.sfp_pack(_meta((8, 128), torch.bfloat16),
+                                          fields)),
+        ("flash_attention", lambda: tfa.flash_attention(x, x, x, q_rep=1)),
+        ("packed_flash_decode", lambda: tpfd.packed_flash_decode(
+            q, pay, bas, pay, bas, pos, fields)),
+        ("ops.sfp_compress_nd", lambda: tops.sfp_compress_nd(
+            _meta((2, 16, 384), torch.bfloat16), fields)),
+        ("ops.attention", lambda: tops.attention(
+            _meta((2, 16, 4, 192), torch.bfloat16), x, x, softcap=50.0)),
+        ("ops.packed_flash_decode", lambda: tops.packed_flash_decode(
+            q, tops.Packed(pay, bas), tops.Packed(pay, bas), pos,
+            fields=fields)),
+    ]
+
+
+@pytest.mark.parametrize("i", range(6))
+def test_wrappers_raise_when_library_cannot_load(monkeypatch, i):
+    """A tensor off the CPU goes to the kernel or raises: never to the
+    plain version, even when the kernel library is unavailable."""
+    def fail():
+        raise _lib.KernelUnavailable("mocked: no kernel library")
+    monkeypatch.setattr(_lib, "load", fail)
+    name, call = _wrapper_calls(tcodecs.fields_for("sfp8", torch.bfloat16))[i]
+    with pytest.raises(_lib.KernelUnavailable, match="mocked"):
+        call()
+
+
+def test_wrappers_check_device_before_launch(monkeypatch):
+    monkeypatch.setattr(_lib, "load", lambda: object())
+    for name, call in _wrapper_calls(
+            tcodecs.fields_for("sfp8", torch.bfloat16))[:3]:
+        with pytest.raises(ValueError):
+            call()
+
+
+def test_unpack_has_no_kernel_yet(monkeypatch):
+    packed = tops.Packed(_meta((2, 128), torch.uint8),
+                         _meta((2, 1), torch.uint8))
+    with pytest.raises(NotImplementedError, match="not ported"):
+        tops.sfp_decompress_nd(packed, torch.bfloat16,
+                               tcodecs.fields_for("sfp8", torch.bfloat16))
+
+
+def test_plain_backend_hook_is_test_only():
+    tops.force_backend("plain")
+    try:
+        x = torch.randn(4, 256).to(torch.bfloat16)
+        p = tops.sfp_compress_nd(x, tcodecs.fields_for("sfp8", x.dtype))
+        assert p.payload.shape == (4, 256) and p.bases.shape == (4, 2)
+    finally:
+        tops.force_backend(None)
+    with pytest.raises(ValueError):
+        tops.force_backend("interpret")
+
+
+@pytest.mark.parametrize("name", ["bit_exact", "gecko8", "sfp-m2e4",
+                                  "sfp8-m2e5"])
+def test_unported_containers_say_so(name):
+    with pytest.raises(tcodecs.NotYetPorted, match="not yet ported"):
+        tcodecs.get(name)
+    with pytest.raises(ValueError, match="not yet ported"):
+        tcodecs.validate_name(name)
+
+
+def test_codec_names_and_validation():
+    assert tcodecs.names() == ["sfp16", "sfp8"]
+    with pytest.raises(ValueError, match="did you mean 'sfp8'"):
+        tcodecs.validate_name("spf8")
+    with pytest.raises(tcodecs.NotYetPorted):
+        tcodecs.get("sfp8").pack(torch.zeros(128, dtype=torch.bfloat16),
+                                 bits=3)
+
+
+def test_convert_keeps_bits_and_unstacks_periods():
+    rng = np.random.default_rng(0)
+    bf = jnp.asarray(rng.standard_normal((3, 4)), jnp.bfloat16)
+    t = convert.to_tensor(np.asarray(bf))
+    assert t.dtype == torch.bfloat16
+    np.testing.assert_array_equal(t.view(torch.int16).numpy().view(np.uint16),
+                                  np.asarray(bf).view(np.uint16))
+    cfg = dataclasses.replace(treduced(tconfigs.get("gemma2-2b")),
+                              n_layers=5)
+    stacked = {"embed": {"table": np.zeros((2, 2), np.float32)},
+               "final_norm": {"scale": np.zeros(2, np.float32)},
+               "periods": {f"slot{s}": {"w": np.arange(2, dtype=np.float32)
+                                        * 10 + s} for s in range(2)},
+               "rem": {"slot0": {"w": np.float32(99)}}}
+    layers = convert.from_jax(stacked, cfg)["layers"]
+    assert [float(layer["w"]) for layer in layers] == [0, 1, 10, 11, 99]
