@@ -5,12 +5,18 @@
 1. Prints the card (nvidia-smi name, power limit) and builds the CUDA
    kernels from ``src/repro_torch/csrc``.
 2. Holds each kernel against its plain PyTorch version on the card, at the
-   shapes the serving path gives it, and times both.
+   shapes the serving and training paths give it, and times both.
 3. Serves gemma2-2b at full width (random weights from a seed, batch 4,
    1024-token prompts, 64 new tokens, sfp8 KV cache) through
    ``serve.engine.generate``; checks by the wrappers' launch counters that
-   the run went through every kernel; repeats it on the plain path and
-   compares logits and greedy tokens.
+   the run went through every serving kernel; repeats it on the plain path
+   and compares logits and greedy tokens.
+4. Trains gemma2-2b at full width (``launch.train --preset full --policy qm
+   --container sfp8 --batch 4 --seq 1024``, weights and data from seed 0)
+   for 4 steps through ``train.step``; checks every step's launch counts;
+   repeats the 4 steps on the plain path and compares losses and the
+   learned act bitlengths. Then 2 steps with ``--container bit_exact`` at
+   4 layers, which run the mantissa_quantize kernel.
 
 Any failure exits non-zero. The last line is the device JSON.
 """
@@ -18,6 +24,7 @@ from __future__ import annotations
 
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -40,14 +47,59 @@ SLEEP_CYCLES = 20_000_000
 # flip the final bf16 rounding by one ulp (2^-8 relative): |d| <= 2^-7
 # |plain| + 1e-3.
 KERNEL_RTOL, KERNEL_ATOL = 2 ** -7, 1e-3
+# Attention backward vs autograd through the plain version. Both round
+# dq/dk/dv to bf16 once (2^-9 of each element), but a gradient is a sum
+# of many terms of both signs, so its small elements carry the rounding
+# and summation-order error of its large ones; and the kernel takes
+# delta = rowsum(dO * O) from the bf16-rounded forward output (as FA2
+# does) where autograd uses the f32 one, a 2^-9 relative shift of delta
+# that every dS of the row inherits. Held per tensor to 2^-6 of its
+# largest element.
+GRAD_TOL = 2 ** -6
 # End to end, kernel path vs plain path: those one-ulp flips in 26 layers'
 # attention outputs ride the residual stream into the 2304-wide tied
 # unembedding (bf16, softcapped at 30). Held to max 1.0 and mean 0.1 on
 # the prefill logits; greedy streams must agree up to a first difference
 # that falls where the plain run's top-2 margin is below twice the max.
 E2E_MAX, E2E_MEAN = 1.0, 0.1
+# Training, kernel path vs plain path: the mean cross-entropy over 4096
+# tokens averages those per-logit flips; from step 2 on AdamW moves every
+# weight by ~lr in the direction of sign(m / sqrt(v)), which the two paths
+# can disagree on only where a gradient element is near 0. Per-step losses
+# are held to 5e-3 relative. The global gradient norm sums 2.66 G squares,
+# in which those per-element differences (of both signs) mostly cancel;
+# it is held to 1e-2 relative, so a gradient off by a constant factor
+# (which AdamW would hide from the losses) fails. The learned bitlengths
+# move by the footprint penalty, the same for every period and on both
+# paths, and by the estimators. A period whose stash estimator is zero
+# (it drew n = floor(n)) must end bit-equal on both paths, and the two
+# paths must agree on which periods those are. The stash estimator is a
+# sum over 9.4 M values of dh * (h_q - Q(h_q, floor n)) that cancels to
+# 1/550 - 1/11000 of the sum of its magnitudes; the forward's one-ulp
+# attention flips shift it by up to 3e-4 of that sum (the size of the
+# loss gap), which can be 1/9 of the largest period's move (measured on
+# the H100 by ``repro_torch.launch.probe_estimator``, where swapping the
+# backward kernel for autograd moved each estimate by under 1%): each
+# period's estimator move is held to 1/4 of the largest. Each step's mean
+# weight bits are held to 5e-2 of their largest move from the start, plus
+# 1e-5.
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL = 5e-3, 1e-2
+TRAIN_ACT_MOVE_RTOL, TRAIN_BITS_RTOL, TRAIN_BITS_ATOL = 0.25, 5e-2, 1e-5
 
 B, PROMPT, MAX_NEW, CONTAINER, SEED = 4, 1024, 64, "sfp8", 0
+TRAIN_SEQ, TRAIN_STEPS, BIT_EXACT_LAYERS, BIT_EXACT_STEPS = 1024, 4, 4, 2
+assert PROMPT == TRAIN_SEQ, "flash_attention is timed at the prefill shape"
+# The main run starts the learned bitlengths at the launcher's default, the
+# full 7 bits of bf16, where sfp8's 3 kept mantissa bits leave the mask
+# and the stash estimator nothing to do. A second, shorter run starts them
+# at 2.5: the drawn n (2 or 3) masks the stash in sfp_quantize_pack, and
+# the estimator sees h_q - Q(h_q, 2) != 0 whenever 3 was drawn. It takes
+# one step, from identical states and draws: with the weights
+# fake-quantized to 2-3 mantissa bits, a one-ulp difference in a weight
+# after AdamW can flip its truncated value by a whole bit, and a bitlength
+# that differs by 1e-3 can flip a later draw, so the paths' gap compounds
+# step by step (on the H100: loss 3e-4, 7e-4, 9e-4, then 7.9e-3 relative).
+QM_INIT_BITS, SFP8_KEPT_BITS, LOW_BITS, LOW_BITS_STEPS = 7.0, 3, 2.5, 1
 
 
 def fail(msg: str) -> None:
@@ -99,57 +151,43 @@ def check_close(torch, name, got, want):
     return err.max().item()
 
 
-def main() -> int:
-    if not (SRC / "repro_torch").is_dir():
-        fail(f"{SRC / 'repro_torch'} not found: run from a checkout")
-    sys.path.insert(0, str(SRC))
-    import torch
-    if not torch.cuda.is_available():
-        fail("torch.cuda.is_available() is false: this smoke test needs a GPU")
+def bound(ops: float, nbytes: float):
+    """(least time in ms, what bounds it) for this work on the card."""
+    t_ops, t_bytes = ops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops > t_bytes else "bytes")
 
-    from repro_torch import configs
+
+def wide_range(torch, gen, shape, dev, dtype):
+    """Normal values over 2^+-40 with 5% zeros and 3% subnormals."""
+    x = torch.randn(shape, generator=gen, device=dev)
+    x = x * torch.exp2(torch.randint(-40, 40, x.shape, generator=gen,
+                                     device=dev).float())
+    r = torch.rand(x.shape, generator=gen, device=dev)
+    x = torch.where(r < 0.05, torch.zeros_like(x), x)
+    x = torch.where((r >= 0.05) & (r < 0.08), x.sign() * 1e-39, x)
+    return x.to(dtype)
+
+
+def serving_kernels(torch, cfg, gen, flush, results):
+    """sfp_pack, flash_attention and packed_flash_decode against their
+    plain versions at the serving shapes."""
     from repro_torch.codecs import fields_for
-    from repro_torch.kernels import _lib, ops, ref
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
     from repro_torch.kernels import packed_flash_decode as pfd
     from repro_torch.kernels import sfp_pack as sp
-    from repro_torch.models.model import DecoderModel
-    from repro_torch.serve import engine
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    card = card_line()
-    print(f"card: {card}")
-    t0 = time.perf_counter()
-    _lib.load()
-    print(f"kernel build+load: {time.perf_counter() - t0:.2f} s "
-          f"(nvcc {_lib.build_seconds:.2f} s)")
-    for line in _lib.ptxas_log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
-            print(f"  ptxas: {line.strip()}")
-
-    cfg = configs.get("gemma2-2b")
     H, KH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     rep, D = H // KH, KH * hd
     L = PROMPT + MAX_NEW
     L = -(-L // ops.DECODE_BLOCK_L) * ops.DECODE_BLOCK_L          # 1152
     G = D // ref.GROUP
     fields = fields_for(CONTAINER, torch.bfloat16)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(SEED)
-    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
-    results = {}
 
     # -- sfp_pack at the prefill cache shape --------------------------------
-    x = torch.randn((B, L, D), generator=gen, device=dev)
-    x = x * torch.exp2(torch.randint(-40, 40, x.shape, generator=gen,
-                                     device=dev).float())
-    r = torch.rand(x.shape, generator=gen, device=dev)
-    x = torch.where(r < 0.05, torch.zeros_like(x), x)
-    x = torch.where((r >= 0.05) & (r < 0.08), x.sign() * 1e-39, x)
-    x = x.to(torch.bfloat16)
-    rows = x.reshape(-1, ref.GROUP)
+    rows = wide_range(torch, gen, (B, L, D), dev,
+                      torch.bfloat16).reshape(-1, ref.GROUP)
     kp, kb = sp.sfp_pack(rows, fields)
     pp, pb = sp.plain(rows, fields)
     torch.cuda.synchronize()
@@ -157,14 +195,15 @@ def main() -> int:
         fail("sfp_pack: kernel bytes differ from the plain version")
     n = rows.numel()
     results["sfp_pack"] = dict(
-        replaces="src/repro/kernels/sfp_pack.py:155",
+        path="serve", replaces="src/repro/kernels/sfp_pack.py:155",
         source="src/repro_torch/csrc/sfp_pack.cu", max_abs_err=0.0,
         ms=time_ms(torch, lambda: sp.sfp_pack(rows, fields), reps=20,
                    flush=flush),
         plain_ms=time_ms(torch, lambda: sp.plain(rows, fields), reps=5,
                          flush=flush),
-        bound_ms=(n * 2 + n * 1 + n // ref.GROUP) / HBM_BYTES_PER_S * 1e3,
-        bound_by="bytes", library_ms=None)
+        library_ms=None)
+    results["sfp_pack"]["bound_ms"], results["sfp_pack"]["bound_by"] = \
+        bound(0, n * 2 + n * 1 + n // ref.GROUP)
 
     # -- flash_attention at the prefill shape (GQA folded) ------------------
     q = torch.randn((B, PROMPT, H, hd), generator=gen, device=dev) * 4
@@ -184,25 +223,25 @@ def main() -> int:
                                          f"window={window}", got, want))
     kw = dict(causal=True, window=None, softcap=cfg.attn_softcap, q_rep=rep)
     pairs = PROMPT * (PROMPT + 1) // 2
-    fa_ops = 2 * 2 * B * H * hd * pairs
-    fa_bytes = 2 * (q.numel() * 2 + k.numel() + v.numel())
     qs = q.transpose(1, 2)
     ks, vs = (t.repeat_interleave(rep, dim=2).transpose(1, 2) for t in (k, v))
     sdpa_ms = time_ms(torch, lambda: torch.nn.functional
                       .scaled_dot_product_attention(qs, ks, vs,
                                                     is_causal=True), reps=10)
+    # Timed here, at the prefill shape, which is also the training shape
+    # (PROMPT == TRAIN_SEQ); its launches are counted on the training path.
     results["flash_attention"] = dict(
-        replaces="src/repro/kernels/flash_attention.py:120",
+        path="train", replaces="src/repro/kernels/flash_attention.py:120",
         source="src/repro_torch/csrc/flash_attention.cu", max_abs_err=fa_err,
         ms=time_ms(torch, lambda: fa.flash_attention(qf, k, v, **kw), reps=10),
         plain_ms=time_ms(torch, lambda: fa.plain(qf, k, v, **kw), reps=3),
-        bound_ms=max(fa_ops / BF16_OPS_PER_S, fa_bytes / HBM_BYTES_PER_S)
-        * 1e3,
-        bound_by="operations" if fa_ops / BF16_OPS_PER_S
-        > fa_bytes / HBM_BYTES_PER_S else "bytes",
         library_ms=None,
         note=f"scaled_dot_product_attention without softcap (a different "
              f"function) took {sdpa_ms:.4f} ms")
+    results["flash_attention"]["bound_ms"], \
+        results["flash_attention"]["bound_by"] = bound(
+            2 * 2 * B * H * hd * pairs, 2 * (q.numel() * 2 + k.numel()
+                                             + v.numel()))
 
     # -- packed_flash_decode at the decode shape ----------------------------
     kc = torch.randn((B, L, D), generator=gen, device=dev).to(torch.bfloat16)
@@ -225,28 +264,181 @@ def main() -> int:
             torch, f"packed_flash_decode window={window}", got, want))
     kw = dict(window=None, softcap=cfg.attn_softcap)
     live = sum(min(int(p) + 1, L) for p in pos_global.tolist())
-    pd_bytes = live * 2 * (D + G) + 2 * qd.numel() * 2
     results["packed_flash_decode"] = dict(
-        replaces="src/repro/kernels/packed_flash_decode.py:196",
+        path="serve", replaces="src/repro/kernels/packed_flash_decode.py:196",
         source="src/repro_torch/csrc/packed_flash_decode.cu",
         max_abs_err=pd_err,
         ms=time_ms(torch, lambda: pfd.packed_flash_decode(
             *args, pos_global, fields, **kw), reps=50, flush=flush),
         plain_ms=time_ms(torch, lambda: pfd.plain(*args, pos_global, fields,
                                                   **kw), reps=5, flush=flush),
-        bound_ms=max(pd_bytes / HBM_BYTES_PER_S,
-                     2 * 2 * H * hd * live / BF16_OPS_PER_S) * 1e3,
-        bound_by="bytes", library_ms=None)
-    del x, rows, kp, kb, pp, pb, q, k, v, qf, qs, ks, vs, kc, vc, kpk, vpk
-    torch.cuda.empty_cache()
+        library_ms=None)
+    results["packed_flash_decode"]["bound_ms"], _ = bound(
+        2 * 2 * H * hd * live, live * 2 * (D + G) + 2 * qd.numel() * 2)
+    results["packed_flash_decode"]["bound_by"] = "bytes"
 
-    # -- end to end: gemma2-2b, full width ----------------------------------
+
+def training_kernels(torch, cfg, gen, flush, results):
+    """sfp_quantize_pack, sfp_unpack, mantissa_quantize and the
+    flash_attention backward against their plain versions at the shapes
+    of the training step (stash (B, S, d); attention of one layer)."""
+    from repro_torch.codecs import fields_for
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mantissa_quant as mq
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sfp_pack as sp
+    dev = torch.device("cuda")
+    d = cfg.d_model
+    shape = (B, TRAIN_SEQ, d)
+
+    # -- sfp_quantize_pack and sfp_unpack at the stash shape ----------------
+    packed = {}
+    for dtype, container, ns in ((torch.bfloat16, "sfp8", (0, 3, 7)),
+                                 (torch.float32, "sfp16", (0, 10, 23))):
+        rows = wide_range(torch, gen, shape, dev, dtype).reshape(-1,
+                                                                 ref.GROUP)
+        f = fields_for(container, dtype)
+        for n in ns:
+            kp, kb = sp.sfp_quantize_pack(rows, n, f)
+            pp, pb = sp.plain(rows, f, n)
+            torch.cuda.synchronize()
+            if not (torch.equal(kp, pp) and torch.equal(kb, pb)):
+                fail(f"sfp_quantize_pack {dtype} n={n}: kernel bytes differ "
+                     f"from the plain version")
+            ku = sp.sfp_unpack(kp, kb, dtype, f)
+            pu = sp.plain_unpack(kp, kb, dtype, f)
+            torch.cuda.synchronize()
+            if not torch.equal(ku.view(torch.uint8), pu.view(torch.uint8)):
+                fail(f"sfp_unpack {dtype} n={n}: kernel bits differ from the "
+                     f"plain version")
+            packed[(dtype, n)] = (rows, f, kp, kb)
+    rows, f, kp, kb = packed[(torch.bfloat16, 3)]
+    n = rows.numel()
+    nd = torch.tensor(3, dtype=torch.int32, device=dev)
+    results["sfp_quantize_pack"] = dict(
+        path="train", replaces="src/repro/kernels/sfp_pack.py:191",
+        source="src/repro_torch/csrc/sfp_pack.cu", max_abs_err=0.0,
+        ms=time_ms(torch, lambda: sp.sfp_quantize_pack(rows, nd, f), reps=20,
+                   flush=flush),
+        plain_ms=time_ms(torch, lambda: sp.plain(rows, f, nd), reps=5,
+                         flush=flush),
+        library_ms=None)
+    results["sfp_unpack"] = dict(
+        path="train", replaces="src/repro/kernels/sfp_pack.py:230",
+        source="src/repro_torch/csrc/sfp_pack.cu", max_abs_err=0.0,
+        ms=time_ms(torch, lambda: sp.sfp_unpack(kp, kb, torch.bfloat16, f),
+                   reps=20, flush=flush),
+        plain_ms=time_ms(torch, lambda: sp.plain_unpack(
+            kp, kb, torch.bfloat16, f), reps=5, flush=flush),
+        library_ms=None)
+    for name in ("sfp_quantize_pack", "sfp_unpack"):
+        results[name]["bound_ms"], results[name]["bound_by"] = bound(
+            0, 3 * n + n // ref.GROUP)
+
+    # -- mantissa_quantize: every n, bf16 and f32 ---------------------------
+    for dtype, top in ((torch.bfloat16, 7), (torch.float32, 23)):
+        x = packed[(dtype, 0)][0].reshape(shape)
+        ints = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        for n in range(top + 1):
+            got = mq.mantissa_quantize(x, n)
+            want = mq.plain(x, n)
+            torch.cuda.synchronize()
+            if not torch.equal(got.view(ints), want.view(ints)):
+                fail(f"mantissa_quantize {dtype} n={n}: kernel bits differ")
+    x = packed[(torch.bfloat16, 0)][0].reshape(shape)
+    mask = torch.tensor((0xFF80 | 0x70) - 0x10000, dtype=torch.int16,
+                        device=dev)                     # keep 3 of 7 bits
+    if not torch.equal(torch.bitwise_and(x.view(torch.int16), mask),
+                       mq.mantissa_quantize(x, nd).view(torch.int16)):
+        fail("mantissa_quantize: the library yardstick computes another "
+             "function")
+    results["mantissa_quantize"] = dict(
+        path="train bit_exact",
+        replaces="src/repro/kernels/mantissa_quant.py:56",
+        source="src/repro_torch/csrc/mantissa_quant.cu", max_abs_err=0.0,
+        ms=time_ms(torch, lambda: mq.mantissa_quantize(x, nd), reps=20,
+                   flush=flush),
+        plain_ms=time_ms(torch, lambda: mq.plain(x, nd), reps=5,
+                         flush=flush),
+        library_ms=time_ms(torch, lambda: torch.bitwise_and(
+            x.view(torch.int16), mask), reps=20, flush=flush))
+    results["mantissa_quantize"]["bound_ms"], \
+        results["mantissa_quantize"]["bound_by"] = bound(0, 4 * x.numel())
+    del packed, rows, kp, kb, x
+
+    # -- flash_attention backward at one layer's training shape -------------
+    H, KH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    rep = H // KH
+    S = TRAIN_SEQ
+    q = (torch.randn((B, S * rep, KH, hd), generator=gen, device=dev) * 4
+         ).to(torch.bfloat16)
+    k, v, do = (torch.randn(shape_, generator=gen, device=dev).to(
+        torch.bfloat16) for shape_ in ((B, S, KH, hd), (B, S, KH, hd),
+                                       (B, S * rep, KH, hd)))
+    err = {}
+    for window in (None, 256):
+        kw = dict(causal=True, window=window, softcap=cfg.attn_softcap,
+                  q_rep=rep)
+        o, lse = fa._forward(q, k, v, kw["causal"], window, kw["softcap"],
+                             rep, with_lse=True)
+        got = fa.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+        want = fa.plain_bwd(q, k, v, do, **kw)
+        torch.cuda.synchronize()
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            if not torch.isfinite(g.float()).all():
+                fail(f"flash_attention_bwd {name}: non-finite output")
+            e = (g.float() - w.float()).abs().max().item()
+            rel = e / max(w.float().abs().max().item(), 1e-30)
+            print(f"  flash_attention_bwd window={window} {name}: max |d| "
+                  f"{e:.4e}, {rel:.4e} of max |plain|")
+            if rel > GRAD_TOL:
+                fail(f"flash_attention_bwd window={window} {name}: max |d| "
+                     f"{rel:.3e} of max |plain| > {GRAD_TOL}")
+            err[(window, name)] = e
+    kw = dict(causal=True, window=None, softcap=cfg.attn_softcap, q_rep=rep)
+    o, lse = fa._forward(q, k, v, True, None, cfg.attn_softcap, rep,
+                         with_lse=True)
+    pairs = S * (S + 1) // 2
+    # q, k, v, o, dO and the f32 lse read once; dq, dk, dv written once.
+    nbytes = 2 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel()
+                  + o.numel() + do.numel()) + 4 * lse.numel()
+    qs = q.reshape(B, S, rep, KH, hd).transpose(2, 3).reshape(
+        B, S, H, hd).transpose(1, 2).detach().requires_grad_()
+    ks, vs = (t.repeat_interleave(rep, dim=2).transpose(1, 2).detach()
+              .requires_grad_() for t in (k, v))
+    so = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs,
+                                                          is_causal=True)
+    gs = torch.randn_like(so)
+    sdpa_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
+        so, (qs, ks, vs), gs, retain_graph=True), reps=10)
+    results["flash_attention_bwd"] = dict(
+        path="train", replaces="src/repro/kernels/flash_attention.py:120",
+        source="src/repro_torch/csrc/flash_attention_bwd.cu",
+        max_abs_err=max(err.values()),
+        ms=time_ms(torch, lambda: fa.flash_attention_bwd(
+            q, k, v, o, do, lse, **kw), reps=5),
+        plain_ms=time_ms(torch, lambda: fa.plain_bwd(q, k, v, do, **kw),
+                         reps=3),
+        library_ms=None,
+        note=f"the backward of scaled_dot_product_attention without softcap "
+             f"(a different function) took {sdpa_bwd_ms:.4f} ms")
+    results["flash_attention_bwd"]["bound_ms"], \
+        results["flash_attention_bwd"]["bound_by"] = bound(
+            2 * 5 * B * H * hd * pairs, nbytes)
+
+
+def serve_run(torch, cfg, gen, counters):
+    """gemma2-2b full width through engine.generate; returns the e2e
+    record and the serving kernels' launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import DecoderModel
+    from repro_torch.serve import engine
+    dev = torch.device("cuda")
     model = DecoderModel(cfg, kv_container=CONTAINER, device=dev)
     params = model.init(SEED)
     prompt = torch.randint(0, cfg.vocab, (B, PROMPT), generator=gen,
                            device=dev)
     engine.generate(model, params, prompt[:, :64], 2)      # warm-up
-    counters = (sp.sfp_pack, fa.flash_attention, pfd.packed_flash_decode)
     for c in counters:
         c.launches = 0
     torch.cuda.synchronize()
@@ -256,11 +448,12 @@ def main() -> int:
     total_s = time.perf_counter() - t0
     launches = {c.__name__: c.launches for c in counters}
     n_layers, steps = cfg.n_layers, MAX_NEW - 1
-    expect = {"flash_attention": n_layers,
-              "packed_flash_decode": n_layers * steps,
-              "sfp_pack": 2 * n_layers * (1 + steps)}
+    expect = {c.__name__: 0 for c in counters}
+    expect.update({"flash_attention": n_layers,
+                   "packed_flash_decode": n_layers * steps,
+                   "sfp_pack": 2 * n_layers * (1 + steps)})
     if launches != expect:
-        fail(f"launch counts {launches} != expected {expect}")
+        fail(f"serving launch counts {launches} != expected {expect}")
     toks = res.tokens
     if toks.shape != (B, MAX_NEW) or not bool(
             ((toks >= 0) & (toks < cfg.vocab)).all()):
@@ -290,7 +483,7 @@ def main() -> int:
     finally:
         ops.force_backend(None)
     if any(c.launches for c in counters):
-        fail("the plain run launched a kernel")
+        fail("the plain serving run launched a kernel")
     d = (res.prefill_logits - plain_res.prefill_logits).abs()
     if d.max().item() > E2E_MAX or d.mean().item() > E2E_MEAN:
         fail(f"prefill logits: max {d.max().item():.4f} mean "
@@ -310,7 +503,7 @@ def main() -> int:
         agree.append(t)
     same = (toks.cpu() == plain_res.tokens.cpu()).float().mean().item()
     e2e = {"arch": cfg.name, "batch": B, "prompt": PROMPT,
-           "max_new": MAX_NEW, "kv": CONTAINER, "card": card,
+           "max_new": MAX_NEW, "kv": CONTAINER,
            "total_s": total_s, "prefill_ms": prefill_ms,
            "decode_ms_per_step": decode_ms,
            "tok_per_s": B * MAX_NEW / total_s, "plain_total_s": plain_s,
@@ -319,19 +512,266 @@ def main() -> int:
            "tokens_equal_before_first_difference": agree,
            "token_agreement": same, "launches": launches,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
-    print("e2e: " + json.dumps(e2e))
+    return e2e, launches
 
+
+def train_steps(torch, argv, counters, expect_per_step=None, n_layers=None):
+    """Build the launcher's model and state from ``argv`` (cut to
+    ``n_layers`` when given) and run its steps one by one through
+    train.step, checking the launch counts of every step. Returns
+    (per-step records, final state, model)."""
+    import dataclasses
+    from repro_torch.data import synthetic
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.models.model import DecoderModel
+    from repro_torch.train import step as step_mod
+    args = tlaunch.build_parser().parse_args(argv)
+    cfg, model, tc, batch, seq = tlaunch.build(args)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        model = DecoderModel(cfg, model.policy, device=model.device)
+    state = step_mod.init_state(model, args.seed, tc)
+    step_fn = step_mod.make_train_step(model, tc)
+    corpus = synthetic.MarkovCorpus(synthetic.SyntheticConfig(
+        vocab=cfg.vocab, seq_len=seq, global_batch=batch, seed=args.seed))
+    records = []
+    for i in range(args.steps):
+        b = {k: torch.from_numpy(v).long().to(model.device)
+             for k, v in corpus.batch(i).items()}
+        for c in counters:
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step_fn(state, b)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = {c.__name__: c.launches for c in counters}
+        if expect_per_step is not None and launches != expect_per_step:
+            fail(f"train step {i}: launch counts {launches} != expected "
+                 f"{expect_per_step}")
+        rec = {k: float(met[k]) for k in ("loss", "xent", "grad_norm",
+                                          "qm_act_mean", "qm_w_mean")}
+        rec.update(step_s=dt, launches=launches)
+        for k in ("loss", "xent", "grad_norm"):
+            if not math.isfinite(rec[k]):
+                fail(f"train step {i}: {k} = {rec[k]}")
+        records.append(rec)
+    return records, state, model
+
+
+def total_launches(records):
+    """Launches of a run: the per-step counts summed over its steps."""
+    return {k: sum(r["launches"][k] for r in records)
+            for k in records[0]["launches"]}
+
+
+def train_run(torch, cfg, counters, init_bits, steps):
+    """``steps`` training steps at full width on the kernel path, then the
+    same steps on the plain path from the same seed, held to the TRAIN_*
+    limits."""
+    from repro_torch import codecs
+    from repro_torch.kernels import ops
+    argv = ["--arch", cfg.name, "--preset", "full", "--policy", "qm",
+            "--container", CONTAINER, "--batch", str(B), "--seq",
+            str(TRAIN_SEQ), "--steps", str(steps), "--seed", str(SEED),
+            "--qm-init-bits", str(init_bits)]
+    n_periods, n_layers = cfg.n_periods, cfg.n_layers
+    expect = {c.__name__: 0 for c in counters}
+    expect.update({"sfp_quantize_pack": n_periods,
+                   "sfp_unpack": 2 * n_periods,
+                   "flash_attention": 2 * n_layers,
+                   "flash_attention_bwd": n_layers})
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    records, state, model = train_steps(torch, argv, counters, expect)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    act = state.pstate.learn["act"].detach().cpu()
+    if not bool((act != init_bits).all()):
+        fail(f"the learned act bitlengths did not move: {act.tolist()}")
+    # The penalty moves every period's act bits alike; only the stash
+    # estimator, fed by the masked stash, can set them apart.
+    if init_bits < SFP8_KEPT_BITS and act.unique().numel() < 2:
+        fail(f"the stash estimator did not move the act bitlengths: "
+             f"{act.tolist()}")
+    h = torch.empty((B, TRAIN_SEQ, cfg.d_model), dtype=torch.bfloat16,
+                    device="meta")
+    stash_bytes = codecs.get(CONTAINER).packed_bits(h) / 8 * n_periods
+    launches = total_launches(records)
+    del state, model
+    torch.cuda.empty_cache()
+
+    for c in counters:
+        c.launches = 0
+    ops.force_backend("plain")
+    try:
+        plain_records, plain_state, _ = train_steps(torch, argv, counters)
+    finally:
+        ops.force_backend(None)
+    if any(c.launches for c in counters):
+        fail("the plain training run launched a kernel")
+    plain_act = plain_state.pstate.learn["act"].detach().cpu()
+    del plain_state
+    torch.cuda.empty_cache()
+
+    def rel(key):
+        return [abs(a[key] - b[key]) / abs(b[key])
+                for a, b in zip(records, plain_records)]
+
+    loss_rel, grad_rel = rel("loss"), rel("grad_norm")
+    # The penalty-only value: the one most periods share on the plain path.
+    vals, counts = plain_act.unique(return_counts=True)
+    v0 = vals[counts.argmax()]
+    still, plain_still = act == v0, plain_act == v0
+    move, plain_move = act - v0, plain_act - v0
+    act_d = (move - plain_move).abs().max().item()
+    act_lim = TRAIN_ACT_MOVE_RTOL * plain_move.abs().max().item()
+    w_d = max(abs(a["qm_w_mean"] - b["qm_w_mean"])
+              for a, b in zip(records, plain_records))
+    w_lim = TRAIN_BITS_RTOL * max(abs(b["qm_w_mean"] - init_bits)
+                                  for b in plain_records) + TRAIN_BITS_ATOL
+    compare = {"loss_rel_diff": loss_rel, "grad_norm_rel_diff": grad_rel,
+               "act_bits_penalty_only": v0.item(),
+               "act_bits_periods_penalty_only": int(plain_still.sum()),
+               "act_estimator_move_max_diff": act_d,
+               "act_estimator_move_limit": act_lim,
+               "w_bits_mean_max_diff": w_d, "w_bits_limit": w_lim,
+               "act_bits": act.tolist(), "plain_act_bits": plain_act.tolist()}
+    print(f"train compare (init bits {init_bits}): " + json.dumps(compare))
+    if (max(loss_rel) > TRAIN_LOSS_RTOL or max(grad_rel) > TRAIN_GRAD_RTOL
+            or counts.max() < 2 or not torch.equal(still, plain_still)
+            or act_d > act_lim or w_d > w_lim):
+        fail(f"training kernel vs plain beyond its limits (loss "
+             f"{TRAIN_LOSS_RTOL}, grad norm {TRAIN_GRAD_RTOL}, penalty-only "
+             f"periods equal on both paths): {compare}")
+    timed = records[1:] or records  # the first step also warms up
+    step_ms = statistics.median(r["step_s"] for r in timed) * 1e3
+    e2e = {"arch": cfg.name, "policy": "qm", "container": CONTAINER,
+           "qm_init_bits": init_bits,
+           "batch": B, "seq": TRAIN_SEQ, "steps": steps,
+           "step_ms_median_from_step_2": step_ms,
+           "tokens_per_s": B * TRAIN_SEQ / step_ms * 1e3,
+           "peak_mem_gb": peak_gb,
+           "stash_bytes_per_step": stash_bytes,
+           "stash_bytes_bf16": 2 * B * TRAIN_SEQ * cfg.d_model * n_periods,
+           "loss": [r["loss"] for r in records],
+           "plain_loss": [r["loss"] for r in plain_records],
+           "grad_norm": [r["grad_norm"] for r in records],
+           "plain_grad_norm": [r["grad_norm"] for r in plain_records],
+           "w_bits_mean": [r["qm_w_mean"] for r in records],
+           "plain_w_bits_mean": [r["qm_w_mean"] for r in plain_records],
+           **compare,
+           "step_s": [r["step_s"] for r in records],
+           "plain_step_s": [r["step_s"] for r in plain_records],
+           "launches_per_step": expect}
+    return e2e, launches
+
+
+def bit_exact_run(torch, cfg, counters):
+    """--container bit_exact at full width and 4 layers, 2 steps: the
+    stash goes through mantissa_quantize (one launch per period)."""
+    n_periods = BIT_EXACT_LAYERS // len(cfg.period)
+    argv = ["--arch", cfg.name, "--preset", "full", "--policy", "qm",
+            "--container", "bit_exact", "--batch", str(B), "--seq",
+            str(TRAIN_SEQ), "--steps", str(BIT_EXACT_STEPS), "--seed",
+            str(SEED)]
+    expect = {c.__name__: 0 for c in counters}
+    expect.update({"mantissa_quantize": n_periods,
+                   "flash_attention": 2 * BIT_EXACT_LAYERS,
+                   "flash_attention_bwd": BIT_EXACT_LAYERS})
+    records, state, _ = train_steps(torch, argv, counters, expect,
+                                    n_layers=BIT_EXACT_LAYERS)
+    del state
+    torch.cuda.empty_cache()
+    return ({"layers": BIT_EXACT_LAYERS, "loss": [r["loss"] for r in records],
+             "launches_per_step": expect}, total_launches(records))
+
+
+def main() -> int:
+    if not (SRC / "repro_torch").is_dir():
+        fail(f"{SRC / 'repro_torch'} not found: run from a checkout")
+    sys.path.insert(0, str(SRC))
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke test needs a GPU")
+
+    from repro_torch import configs
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mantissa_quant as mq
+    from repro_torch.kernels import packed_flash_decode as pfd
+    from repro_torch.kernels import sfp_pack as sp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    card = card_line()
+    print(f"card: {card}")
+    t0 = time.perf_counter()
+    _lib.load()
+    print(f"kernel build+load: {time.perf_counter() - t0:.2f} s "
+          f"(nvcc {_lib.build_seconds:.2f} s)")
+    for line in _lib.ptxas_log.splitlines():
+        if "registers" in line or "spill" in line or "error" in line:
+            print(f"  ptxas: {line.strip()}")
+
+    cfg = configs.get("gemma2-2b")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    counters = (sp.sfp_pack, sp.sfp_quantize_pack, sp.sfp_unpack,
+                mq.mantissa_quantize, fa.flash_attention,
+                fa.flash_attention_bwd, pfd.packed_flash_decode)
+    results = {}
+    t0 = time.perf_counter()
+    serving_kernels(torch, cfg, gen, flush, results)
+    training_kernels(torch, cfg, gen, flush, results)
+    del flush
+    torch.cuda.empty_cache()
+    print(f"kernel checks: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    serve_e2e, serve_launches = serve_run(torch, cfg, gen, counters)
+    serve_e2e["card"] = card
+    print("e2e: " + json.dumps(serve_e2e))
+    print(f"serving: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    train_e2e, train_launches = train_run(torch, cfg, counters, QM_INIT_BITS,
+                                          TRAIN_STEPS)
+    train_e2e["card"] = card
+    print("train: " + json.dumps(train_e2e))
+    print(f"training: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    low_e2e, _ = train_run(torch, cfg, counters, LOW_BITS, LOW_BITS_STEPS)
+    low_e2e["card"] = card
+    print("train low bits: " + json.dumps(low_e2e))
+    print(f"low-bits training: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    be_e2e, be_launches = bit_exact_run(torch, cfg, counters)
+    print("train bit_exact: " + json.dumps(be_e2e))
+    print(f"bit_exact training: {time.perf_counter() - t0:.1f} s")
+
+    path_launches = {"serve": serve_launches, "train": train_launches,
+                     "train bit_exact": be_launches}
     kernels = []
-    for name in ("sfp_pack", "flash_attention", "packed_flash_decode"):
+    for name in ("sfp_pack", "sfp_quantize_pack", "sfp_unpack",
+                 "mantissa_quantize", "flash_attention",
+                 "flash_attention_bwd", "packed_flash_decode"):
         r = results[name]
+        path = r["path"]
+        if name == "flash_attention":
+            r["note"] += (f"; {serve_launches[name]} launches per generate "
+                          f"on the serving path")
         kernels.append(dict(name=name, route="cuda", source=r["source"],
-                            replaces=r["replaces"], launches=launches[name],
+                            replaces=r["replaces"],
+                            launches=path_launches[path][name], path=path,
                             max_abs_err=r["max_abs_err"], ms=r["ms"],
                             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"],
                             library_ms=r["library_ms"],
                             **({"note": r["note"]} if "note" in r else {})))
     for r in kernels:
+        if r["launches"] <= 0:
+            fail(f"{r['name']}: no launch on its path ({r['path']})")
         for key in ("ms", "plain_ms", "bound_ms", "max_abs_err"):
             if not math.isfinite(r[key]):
                 fail(f"{r['name']}: {key} is not finite")

@@ -12,6 +12,11 @@ from typing import Optional, Union
 import torch
 
 
+class NotYetPorted(NotImplementedError):
+    """A container, policy or feature the JAX package has and this port
+    does not yet."""
+
+
 def resolve_device(device: Optional[Union[str, torch.device]] = None
                    ) -> torch.device:
     """The device an entry point runs on: CUDA unless ``device`` says

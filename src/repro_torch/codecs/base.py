@@ -2,9 +2,10 @@
 
 A ``Codec`` packs a float tensor into a ``PackedTensor`` (named payload
 tensors plus the shape and dtype to rebuild it) and unpacks it back. The
-serving KV cache resolves its container through ``get()``. Containers of
-the JAX package that this port does not carry yet resolve to a clear
-"not yet ported" error instead of an unknown-name error.
+serving KV cache and the training stash resolve their container through
+``get()``. Containers of the JAX package that this port does not carry yet
+resolve to a clear "not yet ported" error instead of an unknown-name
+error.
 """
 from __future__ import annotations
 
@@ -15,9 +16,11 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch import NotYetPorted
+
 # Registered in the JAX package, still to be ported here, and the
 # pattern of its parametric names (dense and fixed-lane SFP families).
-NOT_YET_PORTED = ("bit_exact", "gecko8")
+NOT_YET_PORTED = ("gecko8",)
 PARAMETRIC = re.compile(r"sfp(8|16)?-m(\d+)e(\d+)$")
 
 
@@ -61,10 +64,6 @@ class Codec(abc.ABC):
         """Payload word geometry for fused consumers, or None."""
         del dtype
         return None
-
-
-class NotYetPorted(NotImplementedError):
-    """A container the JAX package has and this port does not yet."""
 
 
 _REGISTRY: Dict[str, Codec] = {}

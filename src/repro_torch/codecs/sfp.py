@@ -3,9 +3,11 @@
   sfp8   byte = sign<<7 | dexp4<<3 | man3            (bf16-range payload)
   sfp16  word = sign<<15 | dexp5<<10 | manK<<(10-K)  (K=10 f32 / 7 bf16)
 
-One shared 8-bit base exponent per 128-lane group. The dense bit-plane
-family ``sfp-m{K}e{E}``, the fixed-lane ``sfp{8|16}-m{K}e{E}`` family and
-the fused quantize+pack (``bits``) are not ported yet.
+One shared 8-bit base exponent per 128-lane group. ``pack(x, bits)``
+uses the fused quantize+pack kernel: the Quantum Mantissa truncation and
+the container encoding happen in one pass over the tensor. The dense
+bit-plane family ``sfp-m{K}e{E}`` and the fixed-lane
+``sfp{8|16}-m{K}e{E}`` family are not ported yet.
 """
 from __future__ import annotations
 
@@ -46,14 +48,11 @@ class SFPCodec(base.Codec):
         return fields_for(self.name, dtype)
 
     def pack(self, x: torch.Tensor, bits=None) -> base.PackedTensor:
-        if bits is not None:
-            raise base.NotYetPorted("fused quantize+pack (bits=...) needs the "
-                                    "sfp_quantize_pack kernel, not yet ported")
         f = self.pack_fields(x.dtype)
         if _nd_layout(x.shape):
-            packed = ops.sfp_compress_nd(x, f)
+            packed = ops.sfp_compress_nd(x, f, n=bits)
         else:
-            packed = ops.sfp_compress(x, f)
+            packed = ops.sfp_quantize_compress(x, bits, f)
         return base.PackedTensor(self.name, x.shape, x.dtype,
                                  {"payload": packed.payload,
                                   "bases": packed.bases})
@@ -67,6 +66,8 @@ class SFPCodec(base.Codec):
         return ops.sfp_decompress(raw, packed.shape, packed.dtype, f)
 
     def packed_bits(self, x: torch.Tensor, bits=None) -> float:
+        """Realized bytes of pack(x), in bits: fixed-width, so independent
+        of the quantization signal ``bits``."""
         f = self.pack_fields(x.dtype)
         n = int(math.prod(x.shape)) if x.shape else 1
         if _nd_layout(x.shape):

@@ -1,4 +1,5 @@
-"""Turn the JAX package's parameter tree into the port's.
+"""Turn the JAX package's parameter tree and training state into the
+port's.
 
 The JAX model stacks each period's layers on a leading ``n_periods`` axis
 (it scans over them) under ``params["periods"]["slot{i}"]`` and keeps the
@@ -14,6 +15,10 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+
+from repro_torch.optim import adamw
+from repro_torch.policies import PolicyState
+from repro_torch.train.state import TrainState
 
 
 def to_tensor(a: np.ndarray, device="cpu") -> torch.Tensor:
@@ -49,3 +54,24 @@ def from_jax(params: Dict[str, Any], cfg, device="cpu") -> Dict[str, Any]:
     return {"embed": conv(params["embed"]),
             "final_norm": conv(params["final_norm"]),
             "layers": layers}
+
+
+def state_from_jax(state, cfg, device="cpu", seed: int = 0) -> TrainState:
+    """A JAX ``TrainState`` (its leaves as numpy arrays) -> the port's:
+    parameters (requiring grad), AdamW m/v/count, the learned bitlengths
+    and the step. The JAX key has no torch counterpart; the port's
+    generator is seeded with ``seed``. Controller state is not carried
+    (no ported policy has one)."""
+    params = from_jax(state.params, cfg, device)
+    for p in adamw.leaves(params):
+        p.requires_grad_(True)
+    opt = adamw.AdamWState(m=from_jax(state.opt.m, cfg, device),
+                           v=from_jax(state.opt.v, cfg, device),
+                           count=int(np.asarray(state.opt.count)))
+    learn = {k: to_tensor(np.asarray(v, np.float32), device).requires_grad_()
+             for k, v in state.pstate.learn.items()}
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return TrainState(params=params, opt=opt,
+                      pstate=PolicyState(learn=learn, ctrl={}),
+                      step=int(np.asarray(state.step)), gen=gen)

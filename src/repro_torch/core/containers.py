@@ -3,11 +3,13 @@
 Bit math runs in int32 (int64 where a 32-bit word is rebuilt): CPU torch
 has no shifts on uint16/uint32. Splitting and combining are exact
 reinterpretations, so every payload the port packs is bit-for-bit the
-JAX package's.
+JAX package's. Mantissa truncation masks the signed integer view of the
+float with the same bits.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Sequence
 
 import torch
 
@@ -78,6 +80,54 @@ def combine_fields(sign: torch.Tensor, exp: torch.Tensor, man: torch.Tensor,
     u = ((sign.to(torch.int64) << spec.sign_shift)
          | ((exp.to(torch.int64) & spec.exp_mask) << spec.exp_shift)
          | (man.to(torch.int64) & spec.man_mask))
+    return _signed(u, spec).view(spec.dtype)
+
+
+def _signed(u: torch.Tensor, spec: FloatSpec) -> torch.Tensor:
+    """A non-negative int64 word as the signed integer view of ``spec``."""
     half = 1 << (spec.total_bits - 1)
-    u = torch.where(u >= half, u - (half << 1), u)   # two's complement view
-    return u.to(spec.int_dtype).view(spec.dtype)
+    return torch.where(u >= half, u - (half << 1), u).to(spec.int_dtype)
+
+
+def mantissa_keep_mask(n, spec: FloatSpec, device=None) -> torch.Tensor:
+    """Bitmask (int64) keeping the top ``n`` mantissa bits, ``n`` clamped
+    to [0, man_bits]; ``man_mask ^ (2^(m-n) - 1)`` as in the JAX package.
+    ``n`` may be an int or an integer tensor."""
+    n = torch.as_tensor(n, device=device).to(torch.int64)
+    n = torch.clamp(n, 0, spec.man_bits)
+    low = torch.bitwise_left_shift(torch.ones_like(n), spec.man_bits - n) - 1
+    return spec.man_mask ^ low
+
+
+def truncate_mantissa(x: torch.Tensor, n) -> torch.Tensor:
+    """Q(M, n): zero all but the top ``n`` mantissa bits (paper eq. 5).
+
+    ``n`` is an int or an integer tensor (a 0-d tensor keeps a bitlength
+    drawn on the device there). Not differentiable: see
+    ``core.quantum_mantissa.qm_quantize`` for the estimator."""
+    spec = spec_for(x)
+    keep = mantissa_keep_mask(n, spec, x.device)
+    full = (1 << spec.total_bits) - 1
+    mask = _signed((full & ~spec.man_mask) | keep, spec)
+    return torch.bitwise_and(x.view(spec.int_dtype), mask).view(spec.dtype)
+
+
+def stochastic_bitlength(n_float: torch.Tensor, generator: torch.Generator,
+                         max_bits: int, shape: Optional[Sequence[int]] = None
+                         ) -> torch.Tensor:
+    """Eq. (6): floor(n) + Bernoulli(frac(n)), clipped to [0, max_bits],
+    as int32 on ``n_float``'s device.
+
+    The Bernoulli draw is ``u < frac(n)`` with ``u`` uniform from
+    ``generator`` (the JAX package draws ``jax.random.bernoulli``; the two
+    streams differ, the distribution is the same). ``shape`` draws that
+    many independent bitlengths from the one parameter (default: one, the
+    shape of ``n_float``)."""
+    nf = torch.clamp(n_float.detach().to(torch.float32), 0.0,
+                     float(max_bits))
+    floor_n = torch.floor(nf)
+    frac = nf - floor_n
+    shape = tuple(nf.shape) if shape is None else tuple(shape)
+    u = torch.rand(shape, generator=generator, device=nf.device)
+    bump = (u < frac).to(torch.int32)
+    return torch.clamp(floor_n.to(torch.int32) + bump, 0, max_bits)

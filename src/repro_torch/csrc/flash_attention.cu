@@ -7,7 +7,10 @@
 // r / q_rep. Masks: causal, a sliding window (k > q - window) and keys past
 // Sk; masked logits are -1e30 (not -inf), as in the JAX kernel. Logit
 // softcap c: s = c * tanh(s / c). Scores, softmax and the output
-// accumulator are f32; the output is bf16.
+// accumulator are f32; the output is bf16. An optional f32 output holds
+// each row's log-sum-exp (m + log l, shape (B*H, Sq)), which the backward
+// kernels (flash_attention_bwd.cu) use to rebuild the probabilities; a
+// null pointer skips it (serving).
 //
 // Bound on this card: operations (2 * 2 * rows * keys * D per head, halved
 // by the causal mask). Design, simple first: one CTA of 256 threads per
@@ -33,7 +36,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
                        const __nv_bfloat16* __restrict__ k,
                        const __nv_bfloat16* __restrict__ v,
-                       __nv_bfloat16* __restrict__ out, int Sq, int Sk, int H,
+                       __nv_bfloat16* __restrict__ out,
+                       float* __restrict__ lse, int Sq, int Sk, int H,
                        int q_rep, int causal, int window, float softcap,
                        float scale) {
   constexpr int D = NJ * 16;
@@ -175,6 +179,8 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
     const int r = r0 + ty * 4 + i;
     if (r >= Sq) continue;
     const float inv = 1.f / fmaxf(l_i[i], 1e-30f);
+    if (lse != nullptr && tx == 0)
+      lse[(size_t)bh * Sq + r] = m_i[i] + logf(fmaxf(l_i[i], 1e-30f));
     __nv_bfloat16* o = out + (((size_t)b * Sq + r) * H + h) * D;
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
@@ -183,9 +189,9 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 template <int NJ>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Sq, int Sk, int H, int q_rep, int causal, int window,
-           float softcap, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int B, int Sq, int Sk, int H, int q_rep, int causal,
+           int window, float softcap, float scale, cudaStream_t stream) {
   constexpr int D = NJ * 16;
   const size_t smem = (size_t)BQ * (D + 2) * 2 + (size_t)BK * (D + 2) * 2
                       + (size_t)BK * D * 2 + (size_t)BQ * (BK + 1) * 4;
@@ -197,25 +203,27 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   flash_attention_kernel<NJ><<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      Sq, Sk, H, q_rep, causal, window, softcap, scale);
+      lse, Sq, Sk, H, q_rep, causal, window, softcap, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* out, int B, int Sq,
-                                      int Sk, int H, int D, int q_rep,
+                                      const void* v, void* out, void* lse,
+                                      int B, int Sq, int Sk, int H, int D,
+                                      int q_rep,
                                       int causal, int window, float softcap,
                                       float scale, void* stream) {
   if (B * H == 0 || Sq == 0) return 0;
   auto s = static_cast<cudaStream_t>(stream);
+  auto l = static_cast<float*>(lse);
   switch (D) {
-    case 64: return launch<4>(q, k, v, out, B, Sq, Sk, H, q_rep, causal, window, softcap, scale, s);
-    case 128: return launch<8>(q, k, v, out, B, Sq, Sk, H, q_rep, causal, window, softcap, scale, s);
-    case 192: return launch<12>(q, k, v, out, B, Sq, Sk, H, q_rep, causal, window, softcap, scale, s);
-    case 256: return launch<16>(q, k, v, out, B, Sq, Sk, H, q_rep, causal, window, softcap, scale, s);
-    case 288: return launch<18>(q, k, v, out, B, Sq, Sk, H, q_rep, causal, window, softcap, scale, s);
+    case 64: return launch<4>(q, k, v, out, l, B, Sq, Sk, H, q_rep, causal, window, softcap, scale, s);
+    case 128: return launch<8>(q, k, v, out, l, B, Sq, Sk, H, q_rep, causal, window, softcap, scale, s);
+    case 192: return launch<12>(q, k, v, out, l, B, Sq, Sk, H, q_rep, causal, window, softcap, scale, s);
+    case 256: return launch<16>(q, k, v, out, l, B, Sq, Sk, H, q_rep, causal, window, softcap, scale, s);
+    case 288: return launch<18>(q, k, v, out, l, B, Sq, Sk, H, q_rep, causal, window, softcap, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,5 +1,8 @@
-// Shared device helpers of the SFP kernels: the fixed-lane word geometry
-// and its decode (the ``_unpack_words`` bit machine of kernels/ref.py).
+// Shared device helpers of the SFP kernels: the fixed-lane word geometry,
+// its encode (the ``_pack_words`` bit machine of kernels/ref.py, with the
+// optional fused mantissa truncation Q(M, n)) and its decode
+// (``_unpack_words``). Both pack kernels and every decoder call these, so
+// the plain and fused packs cannot drift apart.
 #pragma once
 
 #include <cstdint>
@@ -21,6 +24,34 @@ struct SfpFields {
   }
   __host__ __device__ int dexp_max() const { return (1 << dexp_bits) - 1; }
 };
+
+// Mask of the mantissa bits Q(M, n) keeps: the top n of man_bits, with n
+// clamped to [0, man_bits] (containers._mantissa_keep_mask).
+__device__ __forceinline__ uint32_t sfp_keep_mask(int n, int man_bits) {
+  n = n < 0 ? 0 : (n > man_bits ? man_bits : n);
+  const uint32_t man_mask = (1u << man_bits) - 1u;
+  return man_mask ^ ((1u << (man_bits - n)) - 1u);
+}
+
+// Encode one value (raw bits u of a bf16 or f32 container with man_bits
+// mantissa bits) against its group base into a payload word. man_keep_mask
+// is all ones for the plain pack and sfp_keep_mask(n) for the fused one.
+// Zero/subnormal inputs flush to (dexp_max, 0) with the sign cleared;
+// values more than dexp_max binades below the base flush too.
+__device__ __forceinline__ uint32_t sfp_encode_word(uint32_t u, int e, int base,
+                                                    int src_bits, int man_bits,
+                                                    uint32_t man_keep_mask,
+                                                    const SfpFields f) {
+  const uint32_t sign = (u >> (src_bits - 1)) & 1u;
+  const uint32_t man = u & ((1u << man_bits) - 1u) & man_keep_mask;
+  const int dmax = f.dexp_max();
+  int dexp = base - e;
+  uint32_t man_top = man >> (man_bits - f.man_keep);
+  if (e == 0 || dexp > dmax) { dexp = dmax; man_top = 0u; }
+  const uint32_t s = (e == 0) ? 0u : sign;
+  return (s << f.sign_shift()) | ((uint32_t)dexp << f.dexp_shift())
+         | (man_top << f.man_shift());
+}
 
 // Decode one payload word against its group base into the f32 value of
 // the bf16 or f32 container it was packed from (both have an 8-bit

@@ -27,13 +27,18 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 
 # C signature of every exported launcher: each returns a cudaError_t.
 SIGNATURES = {
     "sfp_pack_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                               _I, _F, _F, _P],
+    "sfp_quantize_pack_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "sfp_unpack_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "mantissa_quantize_launch": [_P, _P, _P, _L, _I, _P],
+    "flash_attention_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                               _I, _I, _F, _F, _P],
+    "flash_attention_bwd_launch": [_P] * 10 + [_I] * 8 + [_F, _F, _P],
     "packed_flash_decode_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                    _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
                                    _P],

@@ -1,6 +1,6 @@
 """Dispatch between the CUDA kernels and their plain versions.
 
-Every model and serving call goes through here. A CUDA tensor goes to the
+Every model, training and serving call goes through here. A CUDA tensor goes to the
 kernel (or the kernel's wrapper raises); a CPU tensor goes to the plain
 version. ``force_backend("plain")`` is a test hook that sends CUDA tensors
 to the plain versions too, so a run on the card can be compared with the
@@ -15,6 +15,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import mantissa_quant as _mq
 from repro_torch.kernels import packed_flash_decode as _pfd
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import sfp_pack as _sp
@@ -46,49 +47,76 @@ class Packed(NamedTuple):
     bases: torch.Tensor
 
 
+# -- mantissa quantization ---------------------------------------------------
+
+
+def mantissa_quantize(x: torch.Tensor, n) -> torch.Tensor:
+    """Q(M, n) on any bf16/f32 tensor; ``n`` an int or 0-d integer tensor."""
+    if not _kernel(x):
+        return _ref.mantissa_truncate(x, n)
+    return _mq.mantissa_quantize(x, n)
+
+
 # -- SFP containers ----------------------------------------------------------
 
 
-def sfp_compress_nd(x: torch.Tensor, fields: PackFields) -> Packed:
+def _pack_rows(rows: torch.Tensor, fields: PackFields, n):
+    if n is None:
+        return _sp.sfp_pack(rows, fields)
+    return _sp.sfp_quantize_pack(rows, n, fields)
+
+
+def sfp_compress_nd(x: torch.Tensor, fields: PackFields, n=None) -> Packed:
     """Rank-preserving pack (last dim % 128 == 0): payload has x's shape,
-    bases (*x.shape[:-1], D // 128)."""
+    bases (*x.shape[:-1], D // 128). ``n`` fuses Q(M, n) into the pack
+    (one read of x instead of mantissa_quantize then pack)."""
     if not _kernel(x):
-        return Packed(*_ref.sfp_pack_nd(x, fields))
+        return Packed(*_ref.sfp_pack_nd(x, fields, n=n))
     D = x.shape[-1]
     if D % _ref.GROUP:
         raise ValueError(f"last dim {D} is not a multiple of {_ref.GROUP}")
-    payload, bases = _sp.sfp_pack(x.contiguous().reshape(-1, _ref.GROUP),
-                                  fields)
+    payload, bases = _pack_rows(x.contiguous().reshape(-1, _ref.GROUP),
+                                fields, n)
     return Packed(payload=payload.reshape(x.shape),
                   bases=bases.reshape(*x.shape[:-1], D // _ref.GROUP))
 
 
 def sfp_compress(x: torch.Tensor, fields: PackFields) -> Packed:
     """Flat pack over the zero-padded 128-lane rows of the flattened x."""
+    return sfp_quantize_compress(x, None, fields)
+
+
+def sfp_quantize_compress(x: torch.Tensor, n, fields: PackFields) -> Packed:
+    """Fused Q(M, n) + flat pack (``n`` None: the plain pack)."""
     rows = _ref.to_rows(x.contiguous())
     if not _kernel(x):
-        return Packed(*_ref.sfp_pack_rows(rows, fields))
-    return Packed(*_sp.sfp_pack(rows, fields))
-
-
-def _no_unpack_kernel(t: torch.Tensor) -> None:
-    if _kernel(t):
-        raise NotImplementedError(
-            "the sfp_unpack kernel is not ported yet; the serving path "
-            "decompresses inside packed_flash_decode")
+        return Packed(*_ref.sfp_pack_rows(rows, fields, n))
+    return Packed(*_pack_rows(rows, fields, n))
 
 
 def sfp_decompress_nd(packed: Packed, dtype, fields: PackFields
                       ) -> torch.Tensor:
-    _no_unpack_kernel(packed.payload)
-    return _ref.sfp_unpack_nd(packed.payload, packed.bases, dtype, fields)
+    """Inverse of ``sfp_compress_nd``: floats of the payload's shape."""
+    if not _kernel(packed.payload):
+        return _ref.sfp_unpack_nd(packed.payload, packed.bases, dtype, fields)
+    out = _sp.sfp_unpack(packed.payload.contiguous().reshape(-1, _ref.GROUP),
+                         packed.bases.contiguous().reshape(-1, 1), dtype,
+                         fields)
+    return out.reshape(packed.payload.shape)
 
 
 def sfp_decompress(packed: Packed, shape: tuple, dtype,
                    fields: PackFields) -> torch.Tensor:
-    _no_unpack_kernel(packed.payload)
-    return _ref.sfp_unpack(packed.payload, packed.bases, tuple(shape), dtype,
-                           fields)
+    """Inverse of ``sfp_compress``: the first prod(shape) values."""
+    if not _kernel(packed.payload):
+        return _ref.sfp_unpack(packed.payload, packed.bases, tuple(shape),
+                               dtype, fields)
+    out = _sp.sfp_unpack(packed.payload.contiguous(),
+                         packed.bases.contiguous(), dtype, fields)
+    n = 1
+    for s in shape:
+        n *= s
+    return out.reshape(-1)[:n].reshape(shape)
 
 
 # -- attention ---------------------------------------------------------------
@@ -96,7 +124,9 @@ def sfp_decompress(packed: Packed, shape: tuple, dtype,
 
 def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
               softcap: Optional[float] = None) -> torch.Tensor:
-    """GQA attention, q (B, Sq, H, D), k/v (B, Sk, KH, D).
+    """GQA attention, q (B, Sq, H, D), k/v (B, Sk, KH, D); differentiable
+    on both routes (autograd through the plain version, or the backward
+    kernel).
 
     On the kernel route the query head group is folded into the rows
     (row r of the folded axis is position r // rep, group member r % rep),

@@ -1,8 +1,9 @@
-"""Plain PyTorch versions of the kernels on the serving path.
+"""Plain PyTorch versions of the port's kernels.
 
 They repeat the arithmetic of the JAX package's oracles
-(``repro.kernels.ref``): the fixed-lane SFP word machine, the ring-slot
-validity mask, the packed decode's block recurrence and dense attention.
+(``repro.kernels.ref``): mantissa truncation, the fixed-lane SFP word
+machine (with the fused Q(M, n)), the ring-slot validity mask, the packed
+decode's block recurrence and dense attention.
 The CPU path runs them, the tests hold them against the JAX package, and
 ``chip_smoke.py`` holds each CUDA kernel against them on the card.
 """
@@ -49,19 +50,29 @@ class PackFields(NamedTuple):
         return (1 << self.dexp_bits) - 1
 
 
+def mantissa_truncate(x: torch.Tensor, n) -> torch.Tensor:
+    """Q(M, n): keep the top ``n`` mantissa bits (the function of the
+    ``mantissa_quantize`` kernel)."""
+    return containers.truncate_mantissa(x, n)
+
+
 # ---------------------------------------------------------------------------
 # Fixed-lane SFP words: one shared max-exponent base per 128-lane group.
 # ---------------------------------------------------------------------------
 
 
 def _pack_words(x: torch.Tensor, f: PackFields,
-                spec: containers.FloatSpec) -> Tuple[torch.Tensor,
-                                                      torch.Tensor]:
+                spec: containers.FloatSpec, n=None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pack body over the last (128-lane) axis -> (int32 words, int32
-    base with a kept last axis). Zero and subnormal inputs flush and lose
+    base with a kept last axis). ``n`` (int or integer tensor) fuses
+    Q(M, n) into the same pass. Zero and subnormal inputs flush and lose
     their sign; values more than ``dexp_max`` binades below the group's
     max exponent flush; the base counts zeros too."""
     sign, e, man = containers.split_fields(x)
+    if n is not None:
+        keep = containers.mantissa_keep_mask(n, spec, x.device)
+        man = man & keep.to(torch.int32)
     base = torch.amax(e, dim=-1, keepdim=True)
     dexp = base - e
     man_top = man >> (spec.man_bits - f.man_keep)
@@ -91,12 +102,21 @@ def _unpack_words(p: torch.Tensor, base: torch.Tensor, f: PackFields,
     return containers.combine_fields(sign, e, man, spec)
 
 
-def sfp_pack_rows(x: torch.Tensor, fields: PackFields):
+def sfp_pack_rows(x: torch.Tensor, fields: PackFields, n=None):
     """(R, 128) floats -> (payload (R, 128) words, bases (R, 1) uint8):
-    the function of the ``sfp_pack`` kernel."""
+    the function of the ``sfp_pack`` kernel, and with ``n`` of the fused
+    ``sfp_quantize_pack`` kernel."""
     spec = containers.spec_for(x)
-    word, base = _pack_words(x, fields, spec)
+    word, base = _pack_words(x, fields, spec, n)
     return word.to(fields.word_dtype), base.to(torch.uint8)
+
+
+def sfp_unpack_rows(payload: torch.Tensor, bases: torch.Tensor,
+                    dtype: torch.dtype, fields: PackFields) -> torch.Tensor:
+    """(R, 128) words + (R, 1) bases -> (R, 128) floats: the function of
+    the ``sfp_unpack`` kernel."""
+    return _unpack_words(payload, bases.to(torch.int32), fields,
+                         containers.spec_for(dtype))
 
 
 def to_rows(x: torch.Tensor) -> torch.Tensor:
@@ -118,13 +138,14 @@ def sfp_unpack(payload: torch.Tensor, bases: torch.Tensor, shape: tuple,
     return out.reshape(-1)[:n].reshape(shape)
 
 
-def sfp_pack_nd(x: torch.Tensor, fields: PackFields):
+def sfp_pack_nd(x: torch.Tensor, fields: PackFields, n=None):
     """Rank-preserving pack: groups along the last dim (% 128 == 0).
-    payload has x's shape; bases (*x.shape[:-1], D // 128) uint8."""
+    payload has x's shape; bases (*x.shape[:-1], D // 128) uint8. ``n``
+    fuses Q(M, n) into the pack."""
     D = x.shape[-1]
     if D % GROUP:
         raise ValueError(f"last dim {D} is not a multiple of {GROUP}")
-    payload, base = sfp_pack_rows(x.reshape(-1, GROUP), fields)
+    payload, base = sfp_pack_rows(x.reshape(-1, GROUP), fields, n)
     return (payload.reshape(x.shape),
             base.reshape(*x.shape[:-1], D // GROUP))
 

@@ -1,9 +1,12 @@
-"""Fixed-lane SFP pack: CUDA kernel wrapper and its plain version.
+"""Fixed-lane SFP pack, fused quantize+pack and unpack: CUDA kernel
+wrappers and their plain versions.
 
-Replaces the TPU kernel ``src/repro/kernels/sfp_pack.py:sfp_pack``. The
-kernel is ``csrc/sfp_pack.cu`` (one warp per 128-lane group, base by a
-warp max of the exponent field); it is bound by memory on the H100: 2 B
-read and ~1.008 B written per bf16 value.
+Replace the TPU kernels ``src/repro/kernels/sfp_pack.py:sfp_pack``,
+``sfp_quantize_pack`` and ``sfp_unpack``. The kernels are in
+``csrc/sfp_pack.cu`` (one warp per 128-lane group, base by a warp max of
+the exponent field; the fused pack masks the mantissa to ``n`` bits first,
+``n`` read from device memory). All three are bound by memory on the
+H100: 2 B per bf16 value one way, ~1.008 B of payload and base the other.
 """
 from __future__ import annotations
 
@@ -13,7 +16,60 @@ from repro_torch.kernels import _lib
 from repro_torch.kernels import ref
 from repro_torch.kernels.ref import GROUP, PackFields
 
-plain = ref.sfp_pack_rows
+plain = ref.sfp_pack_rows          # with n=: the fused pack's plain version
+plain_unpack = ref.sfp_unpack_rows
+
+_FLOAT_BITS = {torch.bfloat16: 16, torch.float32: 32}
+
+
+def _check_fields(name: str, fields: PackFields) -> None:
+    if fields.dense or fields.payload_bits not in (8, 16):
+        raise ValueError(f"{name} handles fixed-lane 8/16-bit words, got "
+                         f"{fields}")
+
+
+def _check_rows(name: str, x: torch.Tensor) -> None:
+    if not x.is_cuda:
+        raise ValueError(f"{name} needs a CUDA tensor, got {x.device}")
+    if x.dtype not in _FLOAT_BITS:
+        raise ValueError(f"{name} takes bf16 or f32, got {x.dtype}")
+    if x.dim() != 2 or x.shape[1] != GROUP or not x.is_contiguous():
+        raise ValueError(f"{name} takes contiguous (R, {GROUP}) rows, got "
+                         f"{tuple(x.shape)}")
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name} needs a 16-byte aligned input")
+
+
+def device_bits(n, device: torch.device) -> torch.Tensor:
+    """A bitlength as the 0-d int32 tensor on ``device`` that a kernel
+    reads (a tensor already there is used as it is, with no host sync)."""
+    if isinstance(n, torch.Tensor):
+        if n.device != device:
+            raise ValueError(f"bitlength on {n.device}, tensor on {device}")
+        return n.reshape(()).to(torch.int32)
+    return torch.tensor(int(n), dtype=torch.int32, device=device)
+
+
+def _pack(name: str, x: torch.Tensor, fields: PackFields, n=None):
+    lib = _lib.load()
+    _check_rows(name, x)
+    _check_fields(name, fields)
+    R = x.shape[0]
+    payload = torch.empty((R, GROUP), dtype=fields.word_dtype,
+                          device=x.device)
+    bases = torch.empty((R, 1), dtype=torch.uint8, device=x.device)
+    geometry = (R, _FLOAT_BITS[x.dtype], fields.man_keep, fields.dexp_bits,
+                fields.payload_bits, _lib.stream_ptr(x))
+    if n is None:
+        err = lib.sfp_pack_launch(x.data_ptr(), payload.data_ptr(),
+                                  bases.data_ptr(), *geometry)
+    else:
+        nd = device_bits(n, x.device)
+        err = lib.sfp_quantize_pack_launch(x.data_ptr(), nd.data_ptr(),
+                                           payload.data_ptr(),
+                                           bases.data_ptr(), *geometry)
+    _lib.check(err, name)
+    return payload, bases
 
 
 def sfp_pack(x: torch.Tensor, fields: PackFields):
@@ -22,30 +78,53 @@ def sfp_pack(x: torch.Tensor, fields: PackFields):
     tensor launches the CUDA kernel or raises."""
     if x.device.type == "cpu":
         return plain(x, fields)
-    lib = _lib.load()
-    if not x.is_cuda:
-        raise ValueError(f"sfp_pack needs a CUDA tensor, got {x.device}")
-    if x.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"sfp_pack takes bf16 or f32, got {x.dtype}")
-    if x.dim() != 2 or x.shape[1] != GROUP or not x.is_contiguous():
-        raise ValueError(f"sfp_pack takes contiguous (R, {GROUP}) rows, got "
-                         f"{tuple(x.shape)}")
-    if fields.dense or fields.payload_bits not in (8, 16):
-        raise ValueError(f"sfp_pack packs fixed-lane 8/16-bit words, got "
-                         f"{fields}")
-    if x.data_ptr() % 16:
-        raise ValueError("sfp_pack needs a 16-byte aligned input")
-    R = x.shape[0]
-    payload = torch.empty((R, GROUP), dtype=fields.word_dtype,
-                          device=x.device)
-    bases = torch.empty((R, 1), dtype=torch.uint8, device=x.device)
-    err = lib.sfp_pack_launch(
-        x.data_ptr(), payload.data_ptr(), bases.data_ptr(), R,
-        32 if x.dtype == torch.float32 else 16, fields.man_keep,
-        fields.dexp_bits, fields.payload_bits, _lib.stream_ptr(x))
-    _lib.check(err, "sfp_pack")
+    out = _pack("sfp_pack", x, fields)
     sfp_pack.launches += 1
-    return payload, bases
+    return out
+
+
+def sfp_quantize_pack(x: torch.Tensor, n, fields: PackFields):
+    """Q(M, n) fused into the pack: as ``sfp_pack`` after keeping the top
+    ``n`` mantissa bits of every value (``n`` an int or a 0-d integer
+    tensor on x's device, clamped to [0, man_bits])."""
+    if x.device.type == "cpu":
+        return plain(x, fields, n)
+    out = _pack("sfp_quantize_pack", x, fields, n)
+    sfp_quantize_pack.launches += 1
+    return out
+
+
+def sfp_unpack(payload: torch.Tensor, bases: torch.Tensor, dtype,
+               fields: PackFields) -> torch.Tensor:
+    """(R, 128) payload words + (R, 1) uint8 bases -> (R, 128) floats of
+    ``dtype`` (bf16 or f32)."""
+    if payload.device.type == "cpu":
+        return plain_unpack(payload, bases, dtype, fields)
+    lib = _lib.load()
+    _check_fields("sfp_unpack", fields)
+    if dtype not in _FLOAT_BITS:
+        raise ValueError(f"sfp_unpack writes bf16 or f32, got {dtype}")
+    for name, t, want in (("payload", payload, fields.word_dtype),
+                          ("bases", bases, torch.uint8)):
+        if not t.is_cuda or t.dtype != want or not t.is_contiguous():
+            raise ValueError(f"sfp_unpack: {name} must be a contiguous "
+                             f"{want} CUDA tensor, got {t.dtype} on "
+                             f"{t.device}")
+    R = payload.shape[0]
+    if payload.shape != (R, GROUP) or bases.shape != (R, 1):
+        raise ValueError(f"sfp_unpack takes (R, {GROUP}) words and (R, 1) "
+                         f"bases, got {tuple(payload.shape)} "
+                         f"{tuple(bases.shape)}")
+    out = torch.empty((R, GROUP), dtype=dtype, device=payload.device)
+    err = lib.sfp_unpack_launch(
+        payload.data_ptr(), bases.data_ptr(), out.data_ptr(), R,
+        _FLOAT_BITS[dtype], fields.man_keep, fields.dexp_bits,
+        fields.payload_bits, _lib.stream_ptr(payload))
+    _lib.check(err, "sfp_unpack")
+    sfp_unpack.launches += 1
+    return out
 
 
 sfp_pack.launches = 0
+sfp_quantize_pack.launches = 0
+sfp_unpack.launches = 0

@@ -12,3 +12,13 @@ def container_name(value: str) -> str:
     except ValueError as e:
         raise argparse.ArgumentTypeError(str(e))
     return value
+
+
+def policy_name(value: str) -> str:
+    """argparse ``type=`` for precision-policy flags."""
+    from repro_torch import policies
+    try:
+        policies.validate_name(value)
+    except ValueError as e:
+        raise argparse.ArgumentTypeError(str(e))
+    return value

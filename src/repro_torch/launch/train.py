@@ -1,0 +1,130 @@
+"""Training launcher.
+
+  python -m repro_torch.launch.train --arch gemma2-2b --preset full \
+      --policy qm --container sfp8 --batch 4 --seq 1024 --steps 4
+
+``--policy`` takes a registered precision policy (none, qm); ``--container``
+the stash codec (sfp8, sfp16, bit_exact). Runs on CUDA; ``--device cpu``
+runs the plain PyTorch path on the CPU. Weights are random, drawn from
+``--seed``; batches come from the seeded synthetic Markov corpus. The
+tiny and small presets shrink the config and fix batch 8 and sequence 64
+or 128, as the JAX launcher does. ``--profile-steps N`` brackets
+``torch.profiler`` around steps 1..N and prints device time by kernel.
+The final report is the last step's metrics and the modeled stash
+footprint under the learned decisions.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+
+import torch
+
+from repro_torch import codecs, configs, policies, resolve_device
+from repro_torch.configs.base import reduced
+from repro_torch.data import synthetic
+from repro_torch.launch.args import container_name, policy_name
+from repro_torch.models.model import DecoderModel
+from repro_torch.optim import adamw
+from repro_torch.optim.schedule import Schedule
+from repro_torch.train import loop as loop_mod
+from repro_torch.train import step as step_mod
+
+PROFILE_START = 1  # profile after the first (warm-up) step
+
+
+def build_policy(args) -> policies.Policy:
+    kw = (dict(gamma=args.gamma, lr=args.qm_lr, init_bits=args.qm_init_bits)
+          if args.policy == "qm" else {})
+    return policies.get(args.policy, container=args.container, **kw)
+
+
+def build(args):
+    cfg = configs.get(args.arch)
+    if args.preset == "tiny":
+        cfg = reduced(cfg)
+        batch, seq = 8, 64
+    elif args.preset == "small":
+        cfg = reduced(cfg, n_layers=max(2 * len(cfg.period), 4), d_model=256)
+        batch, seq = 8, 128
+    else:
+        batch, seq = args.batch, args.seq
+    model = DecoderModel(cfg, build_policy(args),
+                         device=resolve_device(args.device))
+    tc = step_mod.TrainConfig(
+        opt=adamw.AdamWConfig(lr=args.lr),
+        schedule=Schedule(kind="cosine", base_lr=args.lr,
+                          warmup_steps=min(50, args.steps // 10),
+                          total_steps=args.steps),
+        num_microbatches=args.microbatches)
+    return cfg, model, tc, batch, seq
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--preset", default="tiny",
+                    choices=["tiny", "small", "full"])
+    ap.add_argument("--policy", default="qm", type=policy_name,
+                    help=f"precision policy ({'/'.join(policies.names())})")
+    ap.add_argument("--container", default="bit_exact", type=container_name,
+                    help=f"stash codec ({'/'.join(codecs.names())})")
+    ap.add_argument("--steps", type=int, default=200)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--gamma", type=float, default=0.05,
+                    help="QM footprint-penalty strength (eq. 7)")
+    ap.add_argument("--qm-init-bits", type=float, default=7.0)
+    ap.add_argument("--qm-lr", type=float, default=0.05)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--metrics", default=None,
+                    help="per-step metrics JSONL")
+    ap.add_argument("--profile-steps", type=int, default=None, metavar="N",
+                    help=f"bracket torch.profiler around N steps from step "
+                         f"{PROFILE_START} and print device time by kernel")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default cuda; 'cpu' runs the plain "
+                    "path on the CPU)")
+    return ap
+
+
+def main(argv=None) -> dict:
+    args = build_parser().parse_args(argv)
+    cfg, model, tc, batch, seq = build(args)
+    state = step_mod.init_state(model, args.seed, tc)
+    n_params = sum(p.numel() for p in adamw.leaves(state.params))
+    print(f"arch={cfg.name} params~{n_params / 1e6:.1f}M "
+          f"policy={model.policy.name} container={args.container} "
+          f"device={model.device}")
+    dcfg = synthetic.SyntheticConfig(vocab=cfg.vocab, seq_len=seq,
+                                     global_batch=batch, seed=args.seed)
+
+    def batches(start):
+        for b in synthetic.batches(dcfg, start):
+            yield {k: torch.from_numpy(v).long().to(model.device)
+                   for k, v in b.items()}
+
+    lc = loop_mod.LoopConfig(
+        total_steps=args.steps, log_every=max(1, args.steps // 50),
+        metrics_file=args.metrics,
+        profile_steps=(None if args.profile_steps is None
+                       else (PROFILE_START, args.profile_steps)))
+    res = loop_mod.run(step_mod.make_train_step(model, tc), state, batches,
+                       lc, device=model.device)
+    if res.profile is not None:
+        print("profile " + json.dumps(res.profile))
+    last = res.history[-1]
+    report = {k: last[k] for k in ("step", "loss", "xent", "qm_act_mean",
+                                   "qm_w_mean", "step_time_s") if k in last}
+    print(json.dumps(report, indent=2))
+    fp = policies.modeled_footprint(model.policy, res.state.pstate,
+                                    model.dims)
+    print("footprint " + json.dumps({k: round(v, 4) for k, v in fp.items()}))
+    return {"history": res.history, "footprint": fp, "state": res.state,
+            "profile": res.profile}
+
+
+if __name__ == "__main__":
+    main()

@@ -1,4 +1,5 @@
-"""Shared model pieces: seeded init, norms, RoPE, embeddings, dense MLP.
+"""Shared model pieces: seeded init, norms, RoPE, embeddings, dense MLP,
+cross-entropy.
 
 Parameters are plain nested dicts of tensors on an explicit device, laid
 out as in the JAX package (``x @ w`` with w of shape (in, out)).
@@ -98,3 +99,13 @@ def mlp(params, x: torch.Tensor, act: str, glu: bool) -> torch.Tensor:
     if glu:
         a = a * (x @ params["w_gate"])
     return a @ params["w_out"]
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy in f32 over all positions. The JAX package picks
+    the label logit with an iota-compare sum (shardable over the vocab);
+    a gather picks the same value."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return torch.mean(lse - picked)

@@ -2,38 +2,70 @@
 
 Parameters are a plain dict: ``embed``, ``final_norm`` and ``layers``, one
 dict per layer in order (the JAX package stacks each period's layers and
-scans over them; ``repro_torch.convert`` unstacks that tree). Serving runs
+scans over them; ``repro_torch.convert`` unstacks that tree). Training
+runs ``loss`` / ``forward``: the periods go through ``core.stash.sfp_scan``
+with the policy's container as the cross-pass activation stash, and the
+policy fake-quantizes the weights at their use sites. Serving runs
 ``prefill`` over the prompt and ``decode_step`` per token over a KV cache
 that is updated in place — raw bf16, or packed by a registry codec
 (``kv_container``) and read through the fused decode kernel.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch import resolve_device
+from repro_torch import codecs, policies, resolve_device
 from repro_torch.configs.base import ArchConfig, GLOBAL, LOCAL
+from repro_torch.core import stash
 from repro_torch.models import attention, common
 from repro_torch.serve import kvcache
 
 
+class RunState(NamedTuple):
+    """Per-step inputs of a training forward: the generator every draw of
+    the step comes from, and the policy's forward view (opaque here)."""
+
+    gen: Optional[torch.Generator]
+    pol: Any
+
+
+def scope_dims(cfg: ArchConfig) -> policies.ScopeDims:
+    return policies.ScopeDims.for_dtype(cfg.compute_dtype,
+                                        n_periods=cfg.n_periods,
+                                        n_rem=len(cfg.remainder))
+
+
+def _quantized(leaf: torch.Tensor) -> bool:
+    """The weight leaves a policy fake-quantizes: every >= 2-D float."""
+    return leaf.dim() >= 2 and leaf.is_floating_point()
+
+
 class DecoderModel:
-    def __init__(self, cfg: ArchConfig, kv_container: Optional[str] = None,
+    def __init__(self, cfg: ArchConfig, policy=None,
+                 kv_container: Optional[str] = None,
                  device: Optional[Union[str, torch.device]] = None):
-        """``device`` defaults to CUDA and raises without a GPU; pass
-        ``device="cpu"`` for the plain path on the CPU."""
+        """``policy``: a ``policies.Policy``, a registry name or None (full
+        precision). ``device`` defaults to CUDA and raises without a GPU;
+        pass ``device="cpu"`` for the plain path on the CPU."""
         bad = set(cfg.period) - {GLOBAL, LOCAL}
         if bad or cfg.is_moe or not cfg.tie_embeddings or cfg.qk_norm:
             raise NotImplementedError(
                 f"{cfg.name}: only dense GLOBAL/LOCAL attention models with "
                 f"tied embeddings are ported (got period {cfg.period})")
         self.cfg = cfg
+        self.policy = policies.coerce(policy)
+        if self.policy.enabled and cfg.remainder:
+            raise NotImplementedError(
+                f"{cfg.name}: {cfg.n_layers} layers leave a remainder after "
+                f"the period; its straight-through stash decision is not "
+                f"ported yet")
         self.kv_container = kv_container
         self.device = resolve_device(device)
         self.kinds = cfg.layer_kinds()
+        self.dims = scope_dims(cfg)
 
     # -- parameters ----------------------------------------------------------
 
@@ -59,10 +91,132 @@ class DecoderModel:
             })
         return params
 
-    # -- serving -------------------------------------------------------------
-
     def _emb_scale(self):
         return (self.cfg.d_model ** 0.5) if self.cfg.emb_scale else None
+
+    # -- training ------------------------------------------------------------
+
+    def _quantize_weights(self, slot_params, pslice, draws):
+        """Fake-quantize every >= 2-D float leaf of one layer, leaf j with
+        the j-th drawn bitlength (one draw per leaf, as the JAX package
+        draws one key per leaf)."""
+        it = iter(range(draws.shape[0]))
+
+        def quant(tree):
+            if isinstance(tree, dict):
+                return {k: quant(v) for k, v in tree.items()}
+            if _quantized(tree):
+                return self.policy.quantize_weight(tree, pslice,
+                                                   draws[next(it)], self.dims)
+            return tree
+
+        return quant(slot_params)
+
+    def _apply_slot(self, slot_params, h, kind, *, positions):
+        cfg = self.cfg
+        hn = common.rmsnorm(slot_params["pre_norm"], h)
+        h = h + attention.attention_train(slot_params["attn"], hn, cfg,
+                                          kind=kind, positions=positions)
+        hm = common.rmsnorm(slot_params["mlp_norm"], h)
+        return h + common.mlp(slot_params["mlp"], hm, cfg.act, cfg.glu)
+
+    def _codec_fns(self):
+        """Stash compress/decompress/stash_grad closures for the policy's
+        container; the raw activation when the policy is off."""
+        pol, dims = self.policy, self.dims
+        if not pol.enabled:
+            return stash.identity_compress, stash.identity_decompress, None
+        codec = codecs.get(pol.container)
+
+        def compress(h, x):
+            # Fused quantize+pack: the drawn mantissa bitlength rides into
+            # the pack kernel, one read of the activation.
+            return codec.pack(h, bits=x["draws"]["act"])
+
+        def decompress(c, x):
+            del x
+            return codec.unpack(c)
+
+        stash_grad = None
+        if pol.has_stash_grad:
+            def stash_grad(dh, h_q, x):  # noqa: F811
+                return {"pol": pol.stash_grad(dh, h_q, x["pol"], dims)}
+        return compress, decompress, stash_grad
+
+    def _period_inputs(self, params, run: RunState):
+        """One ``sfp_scan`` input per period: its layers, its policy slice
+        and every bitlength it draws (act first, then each layer's
+        weights), drawn here so the backward's recompute replays them.
+        Layer i belongs to period i // len(period)."""
+        cfg, pol, dims = self.cfg, self.policy, self.dims
+        n_slot = len(cfg.period)
+        slices = pol.scan_slices(run.pol, dims) if pol.enabled else None
+        xs = []
+        for p in range(cfg.n_periods):
+            layers = params["layers"][p * n_slot:(p + 1) * n_slot]
+            x = {"params": layers}
+            if pol.enabled:
+                ps = {k: v[p] for k, v in slices.items()}
+                act = pol.act_decision(ps, run.gen, dims).man_bits
+                w = None
+                if pol.enabled:
+                    w = [pol.weight_draws(
+                        ps, run.gen, sum(1 for _, t in stash.float_leaves(lp)
+                                         if _quantized(t)), dims)
+                         for lp in layers]
+                x["pol"] = ps
+                x["draws"] = {"act": act, "w": w}
+            xs.append(x)
+        return xs
+
+    def forward(self, params, tokens: torch.Tensor, run: RunState
+                ) -> torch.Tensor:
+        """Full-sequence training forward: logits (B, S, V) f32. (The JAX
+        model also returns MoE metrics; this dense family has none.)"""
+        cfg, pol = self.cfg, self.policy
+        S = tokens.shape[1]
+        h = common.embed(params["embed"], tokens, self._emb_scale())
+        positions = torch.arange(S, device=tokens.device)
+        compress, decompress, stash_grad = self._codec_fns()
+
+        def period_fn(h, x):
+            draws = x.get("draws")
+            for i, kind in enumerate(cfg.period):
+                sp = x["params"][i]
+                if pol.enabled:
+                    sp = self._quantize_weights(sp, x["pol"],
+                                                draws["w"][i])
+                h = self._apply_slot(sp, h, kind, positions=positions)
+            return h
+
+        h = stash.sfp_scan(period_fn, compress, decompress, h,
+                           self._period_inputs(params, run), stash_grad)
+        n_rem = len(cfg.remainder)
+        for lp, kind in zip(params["layers"][len(self.kinds) - n_rem:],
+                            cfg.remainder):
+            h = self._apply_slot(lp, h, kind, positions=positions)
+        h = common.rmsnorm(params["final_norm"], h)
+        return common.unembed(params, h, softcap=cfg.final_softcap,
+                              valid_vocab=cfg.vocab)
+
+    def loss(self, params, batch: Dict[str, torch.Tensor], run: RunState
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """(mean cross-entropy, metrics); the loss is the cross-entropy,
+        there being no MoE auxiliary loss in this family."""
+        xent = common.softmax_xent(self.forward(params, batch["tokens"], run),
+                                   batch["labels"])
+        return xent, {"xent": xent}
+
+    def layer_param_count(self) -> int:
+        """Parameters of one layer (every GLOBAL/LOCAL layer has the same:
+        two norms, the four attention projections and the MLP)."""
+        cfg = self.cfg
+        d, hd = cfg.d_model, cfg.head_dim_
+        attn = 2 * d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd
+        mlp = (3 if cfg.glu else 2) * d * cfg.d_ff
+        return 2 * d + attn + mlp
+
+    # -- serving -------------------------------------------------------------
 
     def _cache_len(self, kind: str, max_len: int) -> int:
         if self.kv_container is not None:

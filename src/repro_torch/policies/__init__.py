@@ -1,0 +1,22 @@
+"""Precision policies of the port (see base.py for the contract).
+
+    policy = policies.get("qm", container="sfp8", gamma=0.05)
+    state  = policy.init_state(dims, device)   # PolicyState(learn, ctrl)
+
+Registered: ``none`` (full precision) and ``qm`` (Quantum Mantissa).
+"""
+from repro_torch.policies.base import (NotYetPorted, Policy, PolicyState,
+                                       PrecisionDecision, ScopeDims, coerce,
+                                       full_decision, get, modeled_footprint,
+                                       names, register, validate_name)
+from repro_torch.policies.quantum import QMPolicy
+from repro_torch.policies.static import NonePolicy
+
+register(NonePolicy)
+register(QMPolicy)
+
+__all__ = [
+    "NotYetPorted", "Policy", "PolicyState", "PrecisionDecision",
+    "ScopeDims", "coerce", "full_decision", "get", "modeled_footprint",
+    "names", "register", "validate_name", "NonePolicy", "QMPolicy",
+]

@@ -1,0 +1,237 @@
+"""Precision-policy registry (the port of ``repro.policies.base``).
+
+A ``Policy`` is one strategy for adapting floating-point containers: it
+owns a ``PolicyState(learn, ctrl)`` (``learn``: f32 leaf tensors with
+``requires_grad``, updated by the policy's own SGD step; ``ctrl``:
+controller registers), decides a per-scope ``PrecisionDecision`` for the
+activation stash, fake-quantizes weights differentiably, and estimates
+bitlength gradients from the realized stash. Policies register under a
+name and every consumer resolves them through ``get()``.
+
+Random draws come from an explicit ``torch.Generator`` and are taken
+before a period runs (``act_decision``, ``weight_draws``), so the stash's
+recompute in the backward pass replays them, as the JAX package replays
+its keys. Ported: ``none`` and ``qm``; the other names of the JAX
+registry and '+'-compositions raise a "not yet ported" error.
+"""
+from __future__ import annotations
+
+import dataclasses
+import difflib
+from typing import Any, Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch import NotYetPorted
+from repro_torch.core import containers
+
+# Registered in the JAX package, still to be ported here.
+NOT_YET_PORTED = ("static", "qe", "afloat", "bitchop", "bitwave")
+
+
+class PrecisionDecision(NamedTuple):
+    """Integer bitlengths for one tensor scope this step."""
+
+    man_bits: torch.Tensor  # () int32, mantissa bits to keep
+    exp_bits: torch.Tensor  # () int32, exponent bits to keep
+
+
+class PolicyState(NamedTuple):
+    """``learn``: dict of f32 leaf tensors (bitlength parameters);
+    ``ctrl``: controller registers. Either may be empty."""
+
+    learn: Any
+    ctrl: Any
+
+
+@dataclasses.dataclass(frozen=True)
+class ScopeDims:
+    """Scope geometry and container limits a policy sizes itself to."""
+
+    n_periods: int
+    n_rem: int
+    man_bits: int  # source container mantissa bits (7 bf16, 23 fp32)
+    exp_bits: int  # source container exponent bits (8 bf16/fp32)
+
+    @classmethod
+    def for_dtype(cls, dtype, n_periods: int = 0, n_rem: int = 0
+                  ) -> "ScopeDims":
+        spec = containers.spec_for(dtype)
+        return cls(n_periods=n_periods, n_rem=n_rem,
+                   man_bits=spec.man_bits, exp_bits=spec.exp_bits)
+
+
+def full_decision(dims: ScopeDims) -> PrecisionDecision:
+    return PrecisionDecision(
+        man_bits=torch.tensor(dims.man_bits, dtype=torch.int32),
+        exp_bits=torch.tensor(dims.exp_bits, dtype=torch.int32))
+
+
+def jclip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``jnp.clip``: maximum then minimum, so a value on a bound gets half
+    the gradient, as in JAX (``torch.clamp`` would pass all of it)."""
+    lo_t = torch.tensor(lo, dtype=x.dtype, device=x.device)
+    hi_t = torch.tensor(hi, dtype=x.dtype, device=x.device)
+    return torch.minimum(hi_t, torch.maximum(lo_t, x))
+
+
+@dataclasses.dataclass(frozen=True)
+class Policy:
+    """One precision-adaptation strategy; hyper-parameters ride on the
+    frozen instance."""
+
+    container: str = "sfp8"   # realized stash container (codec name)
+
+    # Class attributes, not dataclass fields.
+    name = "?"
+    enabled = True            # False -> the model skips all hooks
+    has_stash_grad = False    # stash-side bitlength estimator
+
+    # -- state ----------------------------------------------------------
+
+    def init_state(self, dims: ScopeDims, device=None) -> PolicyState:
+        return PolicyState(learn={}, ctrl={})
+
+    # -- views handed to the model --------------------------------------
+
+    def control_view(self, ctrl: Any, dims: ScopeDims) -> Any:
+        return {}
+
+    def forward_view(self, learn: Any, cview: Any, dims: ScopeDims) -> Any:
+        """The per-forward view the model threads (``RunState.pol``)."""
+        return {}
+
+    def scan_slices(self, view: Any, dims: ScopeDims) -> Any:
+        """Per-period views: a dict of tensors with leading n_periods."""
+        return {}
+
+    # -- draws and quantizers --------------------------------------------
+
+    def act_decision(self, pslice: Any, generator: torch.Generator,
+                     dims: ScopeDims) -> PrecisionDecision:
+        """The stash decision of one scope (may draw once)."""
+        return full_decision(dims)
+
+    def weight_draws(self, pslice: Any, generator: torch.Generator,
+                     count: int, dims: ScopeDims) -> Optional[torch.Tensor]:
+        """Integer bitlengths of ``count`` weight tensors of one scope."""
+        return None
+
+    def quantize_weight(self, w: torch.Tensor, pslice: Any,
+                        n_int: Optional[torch.Tensor],
+                        dims: ScopeDims) -> torch.Tensor:
+        """Differentiable weight fake-quant at the use site."""
+        return w
+
+    def stash_grad(self, dh: torch.Tensor, h_q: torch.Tensor, pslice: Any,
+                   dims: ScopeDims) -> Any:
+        """Bitlength cotangents estimated from the realized stash (a dict
+        matching ``pslice``). Only called when ``has_stash_grad``."""
+        return {k: torch.zeros((), dtype=torch.float32, device=dh.device)
+                for k in pslice}
+
+    # -- loss and per-step updates ---------------------------------------
+
+    def penalty(self, learn: Any, lam: Dict[str, torch.Tensor],
+                dims: ScopeDims) -> torch.Tensor:
+        """Footprint-regularizer term added to the loss (eq. 7)."""
+        return torch.zeros((), dtype=torch.float32)
+
+    def update_learn(self, learn: Any, grads: Any, dims: ScopeDims) -> Any:
+        return learn
+
+    def observe(self, ctrl: Any, loss: torch.Tensor, lr_changed: bool,
+                dims: ScopeDims) -> Any:
+        return ctrl
+
+    # -- reporting --------------------------------------------------------
+
+    def metrics(self, state: PolicyState, dims: ScopeDims
+                ) -> Dict[str, torch.Tensor]:
+        return {}
+
+    def decision_summary(self, state: PolicyState, dims: ScopeDims
+                         ) -> Dict[str, float]:
+        """Mean (man_bits, exp_bits) the policy currently decides, rounded
+        up for learned fractional bitlengths (deployment, §IV-A4)."""
+        return {"man_bits": float(dims.man_bits),
+                "exp_bits": float(dims.exp_bits)}
+
+
+def modeled_footprint(policy: Policy, state: PolicyState, dims: ScopeDims
+                      ) -> Dict[str, float]:
+    """Modeled stash bits/value under the policy's current decisions:
+    sign + mantissa + exponent (group metadata is negligible)."""
+    d = policy.decision_summary(state, dims)
+    bits = 1.0 + d["man_bits"] + d["exp_bits"]
+    return {"man_bits": d["man_bits"], "exp_bits": d["exp_bits"],
+            "bits_per_value": bits, "vs_bf16": bits / 16.0,
+            "vs_fp32": bits / 32.0}
+
+
+# ----------------------------------------------------------------------
+# Registry
+# ----------------------------------------------------------------------
+
+_REGISTRY: Dict[str, type] = {}
+
+
+def register(cls: type) -> type:
+    _REGISTRY[cls.name] = cls
+    return cls
+
+
+def names() -> Tuple[str, ...]:
+    return tuple(sorted(_REGISTRY))
+
+
+def validate_name(name: str) -> Tuple[str, ...]:
+    """Parse a policy name without constructing it; raise ValueError with
+    a did-you-mean hint, or a "not yet ported" message for the JAX
+    package's other policies and for '+'-compositions."""
+    parts = tuple(p.strip() for p in name.split("+") if p.strip())
+    if not parts:
+        raise ValueError(f"empty precision-policy name {name!r}")
+    for p in parts:
+        if p in NOT_YET_PORTED:
+            raise ValueError(f"precision policy {p!r} is not yet ported to "
+                             f"repro_torch; ported: {list(names())}")
+        if p not in _REGISTRY:
+            hint = difflib.get_close_matches(p, names(), n=1, cutoff=0.5)
+            msg = f"unknown precision policy {p!r}"
+            if hint:
+                msg += f"; did you mean {hint[0]!r}?"
+            raise ValueError(msg + f" (registered: {list(names())})")
+    if len(parts) > 1:
+        raise ValueError(f"composite policy {name!r} is not yet ported to "
+                         f"repro_torch")
+    return parts
+
+
+def get(name: str, **kwargs) -> Policy:
+    """Resolve a policy by name. Keyword overrides must be fields of the
+    policy (``container`` reaches all of them)."""
+    try:
+        (part,) = validate_name(name)
+    except ValueError as e:
+        if "not yet ported" in str(e):
+            raise NotYetPorted(str(e)) from e
+        raise KeyError(str(e)) from e
+    cls = _REGISTRY[part]
+    fields = {f.name for f in dataclasses.fields(cls)}
+    extra = set(kwargs) - fields
+    if extra:
+        raise TypeError(f"policy {name!r} accepts no option(s) "
+                        f"{sorted(extra)}")
+    return cls(**kwargs)
+
+
+def coerce(policy) -> Policy:
+    """Accept a Policy, a registry name, or None (full precision)."""
+    if policy is None:
+        return get("none")
+    if isinstance(policy, Policy):
+        return policy
+    if isinstance(policy, str):
+        return get(policy)
+    raise TypeError(f"cannot interpret {policy!r} as a precision policy")

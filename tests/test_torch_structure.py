@@ -12,16 +12,20 @@ import torch
 
 from repro import configs as jconfigs
 from repro.configs.base import reduced as jreduced
+from repro import codecs as jcodecs
 from repro_torch import codecs as tcodecs
 from repro_torch import configs as tconfigs
 from repro_torch import convert
+from repro_torch import policies as tpolicies
 from repro_torch.configs.base import reduced as treduced
 from repro_torch.kernels import _lib
 from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import mantissa_quant as tmq
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import packed_flash_decode as tpfd
 from repro_torch.kernels import sfp_pack as tsp
 from repro_torch.launch import serve as tserve
+from repro_torch.launch import train as ttrain
 from repro_torch.models.model import DecoderModel
 from repro_torch.serve import engine
 
@@ -77,7 +81,12 @@ def test_entry_points_raise_without_gpu(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         DecoderModel(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
+        DecoderModel(cfg, "qm")
+    with pytest.raises(RuntimeError, match="CUDA"):
         tserve.main(["--arch", "gemma2-2b", "--preset", "tiny"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ttrain.main(["--arch", "gemma2-2b", "--preset", "tiny", "--steps",
+                     "1"])
     model = DecoderModel(cfg, device="cpu")
     params = model.init(0)
     model.device = torch.device("cuda")  # a model placed on the card
@@ -100,20 +109,35 @@ def _meta(shape, dtype):
     return torch.empty(shape, dtype=dtype, device="meta")
 
 
+N_DIRECT = 7  # the first entries call a kernel wrapper directly
+
+
 def _wrapper_calls(fields):
     q = _meta((2, 1, 4, 192), torch.bfloat16)
     pay = _meta((2, 16, 384), torch.uint8)
     bas = _meta((2, 16, 3), torch.uint8)
     pos = _meta((2,), torch.int32)
     x = _meta((2, 16, 2, 192), torch.bfloat16)
+    lse = _meta((4, 16), torch.float32)
+    rows = _meta((8, 128), torch.bfloat16)
+    n = _meta((), torch.int32)
     return [
-        ("sfp_pack", lambda: tsp.sfp_pack(_meta((8, 128), torch.bfloat16),
-                                          fields)),
+        ("sfp_pack", lambda: tsp.sfp_pack(rows, fields)),
+        ("sfp_quantize_pack", lambda: tsp.sfp_quantize_pack(rows, n, fields)),
+        ("sfp_unpack", lambda: tsp.sfp_unpack(
+            _meta((8, 128), torch.uint8), _meta((8, 1), torch.uint8),
+            torch.bfloat16, fields)),
+        ("mantissa_quantize", lambda: tmq.mantissa_quantize(rows, n)),
         ("flash_attention", lambda: tfa.flash_attention(x, x, x, q_rep=1)),
+        ("flash_attention_bwd", lambda: tfa.flash_attention_bwd(
+            x, x, x, x, x, lse, q_rep=1)),
         ("packed_flash_decode", lambda: tpfd.packed_flash_decode(
             q, pay, bas, pay, bas, pos, fields)),
         ("ops.sfp_compress_nd", lambda: tops.sfp_compress_nd(
-            _meta((2, 16, 384), torch.bfloat16), fields)),
+            _meta((2, 16, 384), torch.bfloat16), fields, n=3)),
+        ("ops.sfp_decompress_nd", lambda: tops.sfp_decompress_nd(
+            tops.Packed(pay, bas), torch.bfloat16, fields)),
+        ("ops.mantissa_quantize", lambda: tops.mantissa_quantize(rows, 3)),
         ("ops.attention", lambda: tops.attention(
             _meta((2, 16, 4, 192), torch.bfloat16), x, x, softcap=50.0)),
         ("ops.packed_flash_decode", lambda: tops.packed_flash_decode(
@@ -122,7 +146,7 @@ def _wrapper_calls(fields):
     ]
 
 
-@pytest.mark.parametrize("i", range(6))
+@pytest.mark.parametrize("i", range(12))
 def test_wrappers_raise_when_library_cannot_load(monkeypatch, i):
     """A tensor off the CPU goes to the kernel or raises: never to the
     plain version, even when the kernel library is unavailable."""
@@ -137,17 +161,26 @@ def test_wrappers_raise_when_library_cannot_load(monkeypatch, i):
 def test_wrappers_check_device_before_launch(monkeypatch):
     monkeypatch.setattr(_lib, "load", lambda: object())
     for name, call in _wrapper_calls(
-            tcodecs.fields_for("sfp8", torch.bfloat16))[:3]:
+            tcodecs.fields_for("sfp8", torch.bfloat16))[:N_DIRECT]:
         with pytest.raises(ValueError):
             call()
 
 
 def test_unpack_has_no_kernel_yet(monkeypatch):
-    packed = tops.Packed(_meta((2, 128), torch.uint8),
-                         _meta((2, 1), torch.uint8))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tops.sfp_decompress_nd(packed, torch.bfloat16,
-                               tcodecs.fields_for("sfp8", torch.bfloat16))
+    """The sfp_unpack kernel exists now: its wrapper checks device, word
+    dtype and output dtype before it launches, and never falls back."""
+    monkeypatch.setattr(_lib, "load", lambda: object())
+    f = tcodecs.fields_for("sfp8", torch.bfloat16)
+    bases = _meta((2, 1), torch.uint8)
+    with pytest.raises(ValueError, match="CUDA"):
+        tops.sfp_decompress_nd(tops.Packed(_meta((2, 128), torch.uint8),
+                                           bases), torch.bfloat16, f)
+    with pytest.raises(ValueError, match="uint8"):
+        tsp.sfp_unpack(_meta((2, 128), torch.int16), bases, torch.bfloat16,
+                       f)
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        tsp.sfp_unpack(_meta((2, 128), torch.uint8), bases, torch.float16,
+                       f)
 
 
 def test_plain_backend_hook_is_test_only():
@@ -162,7 +195,7 @@ def test_plain_backend_hook_is_test_only():
         tops.force_backend("interpret")
 
 
-@pytest.mark.parametrize("name", ["bit_exact", "gecko8", "sfp-m2e4",
+@pytest.mark.parametrize("name", ["sfp-m1e2", "gecko8", "sfp-m2e4",
                                   "sfp8-m2e5"])
 def test_unported_containers_say_so(name):
     with pytest.raises(tcodecs.NotYetPorted, match="not yet ported"):
@@ -172,12 +205,34 @@ def test_unported_containers_say_so(name):
 
 
 def test_codec_names_and_validation():
-    assert tcodecs.names() == ["sfp16", "sfp8"]
+    assert tcodecs.names() == ["bit_exact", "sfp16", "sfp8"]
     with pytest.raises(ValueError, match="did you mean 'sfp8'"):
         tcodecs.validate_name("spf8")
-    with pytest.raises(tcodecs.NotYetPorted):
-        tcodecs.get("sfp8").pack(torch.zeros(128, dtype=torch.bfloat16),
-                                 bits=3)
+    x = torch.linspace(-3, 3, 256).to(torch.bfloat16)
+    for name in ("sfp8", "bit_exact"):
+        got = tcodecs.get(name).pack(x, bits=3)
+        want = jcodecs.get(name).pack(jnp.asarray(x.float().numpy()).astype(
+            jnp.bfloat16), bits=3)
+        np.testing.assert_array_equal(
+            got.data["payload"].view(torch.int16 if name == "bit_exact"
+                                     else torch.uint8).numpy(),
+            np.asarray(want.data["payload"]).view(
+                np.int16 if name == "bit_exact" else np.uint8))
+
+
+def test_policy_names_and_validation():
+    assert tpolicies.names() == ("none", "qm")
+    assert tpolicies.coerce(None).name == "none"
+    assert tpolicies.get("qm", container="sfp8", gamma=0.2).gamma == 0.2
+    with pytest.raises(ValueError, match="did you mean 'qm'"):
+        tpolicies.validate_name("qn")
+    for name in ("qe", "qm+qe", "bitchop"):
+        with pytest.raises(ValueError, match="not yet ported"):
+            tpolicies.validate_name(name)
+        with pytest.raises(tpolicies.NotYetPorted):
+            tpolicies.get(name)
+    with pytest.raises(TypeError):
+        tpolicies.get("none", gamma=0.1)
 
 
 def test_convert_keeps_bits_and_unstacks_periods():
