@@ -4,23 +4,27 @@
     packed = codec.pack(x)
     x_q = codec.unpack(packed)
 
-Ported: sfp8, sfp16 and bit_exact. ``gecko8`` and the parametric
-``sfp-m{K}e{E}`` / ``sfp{8|16}-m{K}e{E}`` families raise a "not yet
-ported" error.
+Ported: sfp8, sfp16, bit_exact, and through the factory the dense
+``sfp-m{K}e{E}`` and fixed-lane ``sfp{8|16}-m{K}e{E}`` families.
+``gecko8`` raises a "not yet ported" error.
 """
 from repro_torch.codecs.base import (Codec, NotYetPorted, PackedTensor, get,
-                                     names, register, validate_name)
+                                     names, register, register_factory,
+                                     validate_name)
 from repro_torch.codecs.bit_exact import BIT_EXACT, BitExactCodec
-from repro_torch.codecs.sfp import SFP8, SFP16, SFPCodec, fields_for
+from repro_torch.codecs.sfp import (SFP8, SFP16, SFPCodec, dense_fields,
+                                    dense_name, fields_for, maybe_codec)
 
 DEFAULT_CONTAINER = SFP8
 
 register(SFPCodec(SFP8))
 register(SFPCodec(SFP16))
 register(BitExactCodec())
+register_factory(maybe_codec)
 
 __all__ = [
     "Codec", "NotYetPorted", "PackedTensor", "get", "names", "register",
-    "validate_name", "fields_for", "DEFAULT_CONTAINER", "SFP8", "SFP16",
+    "register_factory", "validate_name", "dense_fields", "dense_name",
+    "fields_for", "maybe_codec", "DEFAULT_CONTAINER", "SFP8", "SFP16",
     "SFPCodec", "BIT_EXACT", "BitExactCodec",
 ]

@@ -3,25 +3,23 @@
 A ``Codec`` packs a float tensor into a ``PackedTensor`` (named payload
 tensors plus the shape and dtype to rebuild it) and unpacks it back. The
 serving KV cache and the training stash resolve their container through
-``get()``. Containers of the JAX package that this port does not carry yet
-resolve to a clear "not yet ported" error instead of an unknown-name
-error.
+``get()``; parametric families (the ``sfp*-m{K}e{E}`` geometries) resolve
+through factories registered with ``register_factory``. Containers of the
+JAX package that this port does not carry yet resolve to a clear "not yet
+ported" error instead of an unknown-name error.
 """
 from __future__ import annotations
 
 import abc
 import difflib
-import re
-from typing import Dict, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch import NotYetPorted
 
-# Registered in the JAX package, still to be ported here, and the
-# pattern of its parametric names (dense and fixed-lane SFP families).
+# Registered in the JAX package, still to be ported here.
 NOT_YET_PORTED = ("gecko8",)
-PARAMETRIC = re.compile(r"sfp(8|16)?-m(\d+)e(\d+)$")
 
 
 class PackedTensor:
@@ -67,6 +65,8 @@ class Codec(abc.ABC):
 
 
 _REGISTRY: Dict[str, Codec] = {}
+_FACTORIES: List[Callable[[str], Optional[Codec]]] = []
+_BUILT: Dict[str, Codec] = {}  # what the factories built, by name
 
 
 def register(codec: Codec) -> Codec:
@@ -74,10 +74,24 @@ def register(codec: Codec) -> Codec:
     return codec
 
 
+def register_factory(factory: Callable[[str], Optional[Codec]]) -> None:
+    """Register a name -> Codec-or-None resolver for a parametric family;
+    ``get`` consults it for unknown names and caches what it builds apart
+    from the registry, so ``names()`` lists only registered codecs."""
+    _FACTORIES.append(factory)
+
+
 def get(name: str) -> Codec:
     if name in _REGISTRY:
         return _REGISTRY[name]
-    if name in NOT_YET_PORTED or PARAMETRIC.match(name):
+    if name in _BUILT:
+        return _BUILT[name]
+    for factory in _FACTORIES:
+        codec = factory(name)
+        if codec is not None:
+            _BUILT[name] = codec
+            return codec
+    if name in NOT_YET_PORTED:
         raise NotYetPorted(f"container {name!r} is not yet ported to "
                            f"repro_torch; ported: {names()}")
     raise KeyError(f"unknown container codec {name!r}; registered: {names()}")

@@ -59,19 +59,22 @@ def from_jax(params: Dict[str, Any], cfg, device="cpu") -> Dict[str, Any]:
 def state_from_jax(state, cfg, device="cpu", seed: int = 0) -> TrainState:
     """A JAX ``TrainState`` (its leaves as numpy arrays) -> the port's:
     parameters (requiring grad), AdamW m/v/count, the learned bitlengths
-    and the step. The JAX key has no torch counterpart; the port's
-    generator is seeded with ``seed``. Controller state is not carried
-    (no ported policy has one)."""
+    (nested per sub-policy for a composite such as "qm+qe") and the step.
+    The JAX key has no torch counterpart; the port's generator is seeded
+    with ``seed``. Controller state keeps its nesting (no ported policy
+    has controller registers)."""
     params = from_jax(state.params, cfg, device)
     for p in adamw.leaves(params):
         p.requires_grad_(True)
     opt = adamw.AdamWState(m=from_jax(state.opt.m, cfg, device),
                            v=from_jax(state.opt.v, cfg, device),
                            count=int(np.asarray(state.opt.count)))
-    learn = {k: to_tensor(np.asarray(v, np.float32), device).requires_grad_()
-             for k, v in state.pstate.learn.items()}
+    learn = _tree(state.pstate.learn, lambda v: to_tensor(
+        np.asarray(v, np.float32), device).requires_grad_())
+    ctrl = _tree(state.pstate.ctrl, lambda v: to_tensor(np.asarray(v),
+                                                        device))
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     return TrainState(params=params, opt=opt,
-                      pstate=PolicyState(learn=learn, ctrl={}),
+                      pstate=PolicyState(learn=learn, ctrl=ctrl),
                       step=int(np.asarray(state.step)), gen=gen)

@@ -4,7 +4,8 @@ Bit math runs in int32 (int64 where a 32-bit word is rebuilt): CPU torch
 has no shifts on uint16/uint32. Splitting and combining are exact
 reinterpretations, so every payload the port packs is bit-for-bit the
 JAX package's. Mantissa truncation masks the signed integer view of the
-float with the same bits.
+float with the same bits; exponent truncation (Quantum Exponent) flushes
+and saturates the exponent field.
 """
 from __future__ import annotations
 
@@ -113,21 +114,64 @@ def truncate_mantissa(x: torch.Tensor, n) -> torch.Tensor:
 
 
 def stochastic_bitlength(n_float: torch.Tensor, generator: torch.Generator,
-                         max_bits: int, shape: Optional[Sequence[int]] = None
+                         max_bits: int, min_bits: int = 0,
+                         shape: Optional[Sequence[int]] = None
                          ) -> torch.Tensor:
-    """Eq. (6): floor(n) + Bernoulli(frac(n)), clipped to [0, max_bits],
-    as int32 on ``n_float``'s device.
+    """Eq. (6): floor(n) + Bernoulli(frac(n)), clipped to [min_bits,
+    max_bits], as int32 on ``n_float``'s device.
 
     The Bernoulli draw is ``u < frac(n)`` with ``u`` uniform from
     ``generator`` (the JAX package draws ``jax.random.bernoulli``; the two
-    streams differ, the distribution is the same). ``shape`` draws that
-    many independent bitlengths from the one parameter (default: one, the
-    shape of ``n_float``)."""
-    nf = torch.clamp(n_float.detach().to(torch.float32), 0.0,
+    streams differ, the distribution is the same). ``min_bits`` is 0 for
+    mantissas; Quantum Exponent clamps to ``MIN_EXP_BITS``. ``shape`` draws
+    that many independent bitlengths from the one parameter (default: one,
+    the shape of ``n_float``)."""
+    nf = torch.clamp(n_float.detach().to(torch.float32), float(min_bits),
                      float(max_bits))
     floor_n = torch.floor(nf)
     frac = nf - floor_n
     shape = tuple(nf.shape) if shape is None else tuple(shape)
     u = torch.rand(shape, generator=generator, device=nf.device)
     bump = (u < frac).to(torch.int32)
-    return torch.clamp(floor_n.to(torch.int32) + bump, 0, max_bits)
+    return torch.clamp(floor_n.to(torch.int32) + bump, min_bits, max_bits)
+
+
+MIN_EXP_BITS = 2  # a 1-bit IEEE-style exponent field has no normal codes
+
+
+def exponent_range(e, spec: FloatSpec, device=None):
+    """Unbiased normal-exponent range [lo, hi] (int32) of an ``e``-bit
+    container: biased codes 1..2^e-2 with bias 2^(e-1)-1, so
+    [2 - 2^(e-1), 2^(e-1) - 1]. ``e`` (int or integer tensor) is clipped to
+    [MIN_EXP_BITS, spec.exp_bits]."""
+    e = torch.as_tensor(e, device=device).to(torch.int32)
+    e = torch.clamp(e, MIN_EXP_BITS, spec.exp_bits)
+    one = torch.ones_like(e)
+    bias_e = torch.bitwise_left_shift(one, e - 1) - 1
+    lo = 1 - bias_e
+    hi = (torch.bitwise_left_shift(one, e) - 2) - bias_e
+    return lo, hi
+
+
+def truncate_exponent(x: torch.Tensor, e) -> torch.Tensor:
+    """Clamp ``x`` to the exponent range of an ``e``-bit container.
+
+    Values below the e-bit normal range flush to signed zero (as do the
+    source's own zeros and subnormals), values above it saturate to the
+    largest in-range binade (exponent clamped, mantissa kept), inf/nan
+    pass through. ``e`` is an int or an integer tensor (a 0-d tensor keeps
+    a draw on the device), clipped to [MIN_EXP_BITS, spec.exp_bits]; at
+    e == exp_bits only source subnormals flush. Not differentiable: see
+    ``core.quantum_exponent.qe_quantize``. (The JAX package's
+    ``bias_offset`` belongs to AdaptivFloat, which is not ported.)"""
+    spec = spec_for(x)
+    sign, exp, man = split_fields(x)
+    lo, hi = exponent_range(e, spec, x.device)
+    unb = exp - spec.bias
+    special = exp == spec.exp_mask          # inf / nan: keep verbatim
+    underflow = (~special) & (unb < lo)     # incl. exp == 0
+    overflow = (~special) & (unb > hi)
+    exp_new = torch.where(overflow, (hi + spec.bias).to(torch.int32), exp)
+    exp_new = torch.where(underflow, torch.zeros_like(exp), exp_new)
+    man_new = torch.where(underflow, torch.zeros_like(man), man)
+    return combine_fields(sign, exp_new, man_new, spec)

@@ -16,8 +16,8 @@ and the backward pass decodes it on the way back in (paper §V):
 The JAX package writes this as a ``jax.custom_vjp`` around ``lax.scan``;
 here each period is one ``torch.autograd.Function`` and the periods chain
 through autograd. The gradient is straight-through at the stash boundary
-(dL/dh = dL/dh_q); ``stash_grad`` adds the Quantum Mantissa bitlength
-estimate from the realized stash to the policy slice's cotangent. The
+(dL/dh = dL/dh_q); ``stash_grad`` adds the learned-bitlength (Quantum
+Mantissa / Exponent) estimates from the realized stash to the policy slice's cotangent. The
 JAX package also threads a small ``extras`` carry (MoE aux losses); the
 port's dense family has no MoE, so it has none. Every random draw a
 period makes is taken before it runs and stored in ``x``, so the
@@ -46,11 +46,13 @@ def float_leaves(tree, path: Path = ()) -> List[Tuple[Path, torch.Tensor]]:
     return []
 
 
-def _substitute(tree, subs: Dict[Path, torch.Tensor], path: Path = ()):
+def substitute(tree, subs: Dict[Path, torch.Tensor], path: Path = ()):
+    """``tree`` with the leaves at the paths of ``subs`` (as given by
+    ``float_leaves``) replaced."""
     if isinstance(tree, dict):
-        return {k: _substitute(v, subs, path + (k,)) for k, v in tree.items()}
+        return {k: substitute(v, subs, path + (k,)) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [_substitute(v, subs, path + (i,)) for i, v in enumerate(tree)]
+        return [substitute(v, subs, path + (i,)) for i, v in enumerate(tree)]
     return subs.get(path, tree)
 
 
@@ -84,7 +86,7 @@ class _StashedPeriod(torch.autograd.Function):
             hq = h_q.detach().requires_grad_(True)
             subs = {p: t.detach().requires_grad_(n)
                     for (p, t), n in zip(float_leaves(period.x), need)}
-            out = period.layer_fn(hq, _substitute(period.x, subs))
+            out = period.layer_fn(hq, substitute(period.x, subs))
             wrt = [hq] + [subs[p] for p, n in zip(period.paths, need) if n]
             grads = list(torch.autograd.grad(out, wrt, dh,
                                              allow_unused=True))
@@ -118,7 +120,7 @@ def sfp_scan(layer_fn: Callable[[torch.Tensor, Any], torch.Tensor],
                   slice, integer draws); its float tensors are the
                   period's differentiable inputs.
       stash_grad: optional (dh, h_q, x) -> nest of cotangents, keyed like
-                  ``x``, added to those of the recompute (QM bitlength
+                  ``x``, added to those of the recompute (QM / QE bitlength
                   gradients). ``dh`` is the period output's cotangent.
     """
     h = h0

@@ -1,10 +1,12 @@
 // Fused decompress-attend decode over a contiguous SFP-packed KV cache.
 //
 // Replaces the TPU kernel src/repro/kernels/packed_flash_decode.py:
-// packed_flash_decode (_decode_kernel), fixed-lane word branch. One query
-// token per batch row attends an L-slot cache stored as payload words
-// (B, L, KH*hd) uint8/uint16 plus one uint8 base per 128-lane group
-// (B, L, KH*hd/128). Groups run along the flattened KH*hd axis and may
+// packed_flash_decode (_decode_kernel), its fixed-lane word branch and its
+// dense bit-plane branch. One query token per batch row attends an L-slot
+// cache stored as payload words (B, L, KH*hd) uint8/uint16, or as dense
+// bit planes (B, L, G*P*16) uint8 ordered (group, plane, 16 bytes) per
+// slot, plus one uint8 base per 128-lane group (B, L, G = KH*hd/128).
+// Groups run along the flattened KH*hd axis and may
 // straddle heads (hd = 288: 9 groups over 4 heads), so a feature's base is
 // found by (flat feature index / 128). Per-row decode positions; a
 // window > 0 means an L-slot ring buffer (floor mod, as the JAX mask).
@@ -21,6 +23,17 @@
 // online softmax (one warp per query head) and accumulates p.v (one thread
 // per feature). Tiles that no slot of the row may see are skipped, an exact
 // no-op of the JAX recurrence. Only B*KH CTAs run: split-KV is later work.
+//
+// Dense planes: a 32-feature chunk c of the flattened axis is uint32 k = c%4
+// of each plane of group c/4, so head h needs chunks h*hd/32 ..
+// (h*hd+hd-1)/32 (at hd = 288: 9 chunks over 3 groups; groups 2, 4 and 6
+// are shared by two heads). Staging gives one warp per (slot, chunk): lanes
+// 0..P-1 load plane p's uint32 (one 4-byte read each, so the bf16 cache is
+// never read or written), and lane t rebuilds the word of feature 32c+t
+// from bit t of the P plane words, taken by warp shuffles. The words land
+// in the same shared tile as the fixed-lane branch (1 byte for P <= 8,
+// else 2), so the scores and p.v loops are shared and the tile is as large
+// for any P; each feature's word is then decoded by sfp_decode_word.
 #include "sfp_common.cuh"
 
 namespace {
@@ -40,17 +53,53 @@ __device__ __forceinline__ bool slot_valid(int slot, int pos, int L,
   return kpos >= 0 && kpos <= pos && kpos > pos - window;
 }
 
+constexpr int kMaxPlanes = 16;
+
+// Dense branch of the staging: the words of head h's features in slots
+// s0..s0+BL-1, rebuilt from the bit planes of the cache.
 template <typename W>
+__device__ __forceinline__ void stage_dense_words(
+    const uint8_t* __restrict__ kp, const uint8_t* __restrict__ vp, W* kt,
+    W* vt, int b, int h, int s0, int L, int hd, int cols, int BL, int P,
+    int lane, int warp) {
+  const int c0 = (h * hd) >> 5, c1 = (h * hd + hd - 1) >> 5;
+  const int nch = c1 - c0 + 1;
+  for (int task = warp; task < BL * nch; task += kWarps) {
+    const int l = task / nch, c = c0 + task % nch;
+    const size_t off = ((size_t)b * L + s0 + l) * cols
+                       + (size_t)(c >> 2) * P * 16 + (c & 3) * 4;
+    uint32_t ku = 0u, vu = 0u;
+    if (lane < P) {
+      ku = *reinterpret_cast<const uint32_t*>(kp + off + lane * 16);
+      vu = *reinterpret_cast<const uint32_t*>(vp + off + lane * 16);
+    }
+    uint32_t kw = 0u, vw = 0u;
+#pragma unroll
+    for (int p = 0; p < kMaxPlanes; ++p) {
+      if (p >= P) break;
+      kw |= ((__shfl_sync(0xffffffffu, ku, p) >> lane) & 1u) << p;
+      vw |= ((__shfl_sync(0xffffffffu, vu, p) >> lane) & 1u) << p;
+    }
+    const int d = c * 32 + lane - h * hd;
+    if (d >= 0 && d < hd) {
+      kt[l * hd + d] = (W)kw;
+      vt[l * hd + d] = (W)vw;
+    }
+  }
+}
+
+template <typename W, bool DENSE>
 __global__ void __launch_bounds__(kThreads)
 packed_flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
-                           const W* __restrict__ kp,
+                           const void* __restrict__ kp_raw,
                            const uint8_t* __restrict__ kb,
-                           const W* __restrict__ vp,
+                           const void* __restrict__ vp_raw,
                            const uint8_t* __restrict__ vb,
                            const int* __restrict__ pos_arr,
                            __nv_bfloat16* __restrict__ out, int L, int H,
-                           int KH, int hd, int G, int BL, int window,
-                           SfpFields f, float softcap, float scale) {
+                           int KH, int hd, int G, int cols, int BL,
+                           int window, SfpFields f, float softcap,
+                           float scale) {
   const int b = blockIdx.x, h = blockIdx.y;
   const int rep = H / KH;
   const int D = G * SFP_GROUP;
@@ -85,13 +134,21 @@ packed_flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
     for (int l = tid; l < BL; l += kThreads) any |= slot_valid(s0 + l, pos, L, window);
     if (!__syncthreads_or(any)) continue;  // barrier: last tile's readers done
 
-    for (int idx = tid; idx < BL * row_words; idx += kThreads) {
-      const int l = idx / row_words, c = idx % row_words;
-      const size_t off = ((size_t)b * L + s0 + l) * D + (size_t)h * hd;
-      reinterpret_cast<uint32_t*>(kt + l * hd)[c] =
-          reinterpret_cast<const uint32_t*>(kp + off)[c];
-      reinterpret_cast<uint32_t*>(vt + l * hd)[c] =
-          reinterpret_cast<const uint32_t*>(vp + off)[c];
+    if constexpr (DENSE) {
+      stage_dense_words<W>(static_cast<const uint8_t*>(kp_raw),
+                           static_cast<const uint8_t*>(vp_raw), kt, vt, b, h,
+                           s0, L, hd, cols, BL, f.payload_bits, lane, warp);
+    } else {
+      const W* kp = static_cast<const W*>(kp_raw);
+      const W* vp = static_cast<const W*>(vp_raw);
+      for (int idx = tid; idx < BL * row_words; idx += kThreads) {
+        const int l = idx / row_words, c = idx % row_words;
+        const size_t off = ((size_t)b * L + s0 + l) * D + (size_t)h * hd;
+        reinterpret_cast<uint32_t*>(kt + l * hd)[c] =
+            reinterpret_cast<const uint32_t*>(kp + off)[c];
+        reinterpret_cast<uint32_t*>(vt + l * hd)[c] =
+            reinterpret_cast<const uint32_t*>(vp + off)[c];
+      }
     }
     for (int idx = tid; idx < BL * G; idx += kThreads) {
       const size_t off = ((size_t)b * L + s0) * G + idx;
@@ -190,25 +247,24 @@ packed_flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <typename W>
+template <typename W, bool DENSE>
 int launch(const void* q, const void* kp, const void* kb, const void* vp,
            const void* vb, const void* pos, void* out, int B, int L, int H,
-           int KH, int hd, int G, int BL, int window, SfpFields f,
+           int KH, int hd, int G, int cols, int BL, int window, SfpFields f,
            float softcap, float scale, cudaStream_t stream) {
   const int rep = H / KH;
   const size_t smem = (size_t)(rep * hd + rep * BL + 3 * kMaxRep) * 4
                       + 2 * (size_t)BL * hd * sizeof(W) + 2 * (size_t)BL * G;
   cudaError_t err = cudaFuncSetAttribute(
-      packed_flash_decode_kernel<W>,
+      packed_flash_decode_kernel<W, DENSE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(B, KH);
-  packed_flash_decode_kernel<W><<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const W*>(kp),
-      static_cast<const uint8_t*>(kb), static_cast<const W*>(vp),
-      static_cast<const uint8_t*>(vb), static_cast<const int*>(pos),
-      static_cast<__nv_bfloat16*>(out), L, H, KH, hd, G, BL, window, f,
-      softcap, scale);
+  packed_flash_decode_kernel<W, DENSE><<<grid, kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), kp,
+      static_cast<const uint8_t*>(kb), vp, static_cast<const uint8_t*>(vb),
+      static_cast<const int*>(pos), static_cast<__nv_bfloat16*>(out), L, H,
+      KH, hd, G, cols, BL, window, f, softcap, scale);
   return (int)cudaGetLastError();
 }
 
@@ -218,18 +274,34 @@ extern "C" int packed_flash_decode_launch(
     const void* q, const void* kp, const void* kb, const void* vp,
     const void* vb, const void* pos, void* out, int B, int L, int H, int KH,
     int hd, int G, int block_l, int window, int man_keep, int dexp_bits,
-    int payload_bits, float softcap, float scale, void* stream) {
+    int payload_bits, int dense, float softcap, float scale, void* stream) {
   if (B == 0 || KH == 0) return 0;
   if (H % KH != 0 || H / KH > kMaxRep || hd > kThreads * kMaxDPerThread
       || hd % 4 != 0 || L % block_l != 0)
     return (int)cudaErrorInvalidValue;
   const SfpFields f{man_keep, dexp_bits, payload_bits};
   auto s = static_cast<cudaStream_t>(stream);
+  const int D = G * SFP_GROUP;
+  if (dense) {
+    if (payload_bits < 3 || payload_bits > kMaxPlanes
+        || 1 + dexp_bits + man_keep != payload_bits)
+      return (int)cudaErrorInvalidValue;
+    const int cols = G * payload_bits * 16;
+    if (payload_bits <= 8)
+      return launch<uint8_t, true>(q, kp, kb, vp, vb, pos, out, B, L, H, KH,
+                                   hd, G, cols, block_l, window, f, softcap,
+                                   scale, s);
+    return launch<uint16_t, true>(q, kp, kb, vp, vb, pos, out, B, L, H, KH,
+                                  hd, G, cols, block_l, window, f, softcap,
+                                  scale, s);
+  }
   if (payload_bits == 8)
-    return launch<uint8_t>(q, kp, kb, vp, vb, pos, out, B, L, H, KH, hd, G,
-                           block_l, window, f, softcap, scale, s);
+    return launch<uint8_t, false>(q, kp, kb, vp, vb, pos, out, B, L, H, KH,
+                                  hd, G, D, block_l, window, f, softcap,
+                                  scale, s);
   if (payload_bits == 16)
-    return launch<uint16_t>(q, kp, kb, vp, vb, pos, out, B, L, H, KH, hd, G,
-                            block_l, window, f, softcap, scale, s);
+    return launch<uint16_t, false>(q, kp, kb, vp, vb, pos, out, B, L, H, KH,
+                                   hd, G, D, block_l, window, f, softcap,
+                                   scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -35,13 +35,17 @@ SIGNATURES = {
     "sfp_pack_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "sfp_quantize_pack_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "sfp_unpack_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "bitplane_pack_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "bitplane_quantize_pack_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                      _P],
+    "bitplane_unpack_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "mantissa_quantize_launch": [_P, _P, _P, _L, _I, _P],
     "flash_attention_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _I, _I, _F, _F, _P],
     "flash_attention_bwd_launch": [_P] * 10 + [_I] * 8 + [_F, _F, _P],
     "packed_flash_decode_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                   _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
-                                   _P],
+                                   _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                                   _F, _P],
 }
 
 _lock = threading.Lock()

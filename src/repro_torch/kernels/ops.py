@@ -4,9 +4,14 @@ Every model, training and serving call goes through here. A CUDA tensor goes to 
 kernel (or the kernel's wrapper raises); a CPU tensor goes to the plain
 version. ``force_backend("plain")`` is a test hook that sends CUDA tensors
 to the plain versions too, so a run on the card can be compared with the
-same program without kernels.
+same program without kernels; ``force_backend("plain attention")`` does so
+for ``attention`` alone (forward and backward), so such a comparison can
+tell the attention kernels' share of a gap from the other kernels'.
 
-The packed representation is a plain (payload, bases) pair.
+The packed representation is a plain (payload, bases) pair. Every SFP
+entry point dispatches on ``fields.dense``: fixed-lane geometries go to
+the word kernels (``sfp_pack``), dense ones to the bit-plane kernels
+(``bitplane_pack``); callers never branch.
 """
 from __future__ import annotations
 
@@ -14,6 +19,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.kernels import bitplane_pack as _bp
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import mantissa_quant as _mq
 from repro_torch.kernels import packed_flash_decode as _pfd
@@ -24,20 +30,23 @@ PackFields = _ref.PackFields
 decode_kv_mask = _ref.decode_kv_mask
 DECODE_BLOCK_L = _pfd.DEFAULT_BLOCK_L
 
-_FORCED: Optional[str] = None  # None | 'plain'
+_BACKENDS = (None, "plain", "plain attention")
+_FORCED: Optional[str] = None
 
 
 def force_backend(name: Optional[str]) -> None:
-    """Test hook: 'plain' runs the plain versions on every device; None
-    restores dispatch by device."""
+    """Test hook: 'plain' runs the plain versions on every device, 'plain
+    attention' only attention's; None restores dispatch by device."""
     global _FORCED
-    if name not in (None, "plain"):
-        raise ValueError(f"unknown backend {name!r}; use 'plain' or None")
+    if name not in _BACKENDS:
+        raise ValueError(f"unknown backend {name!r}; use one of {_BACKENDS}")
     _FORCED = name
 
 
-def _kernel(t: torch.Tensor) -> bool:
-    return _FORCED is None and t.device.type != "cpu"
+def _kernel(t: torch.Tensor, attention: bool = False) -> bool:
+    if _FORCED == "plain" or (attention and _FORCED == "plain attention"):
+        return False
+    return t.device.type != "cpu"
 
 
 class Packed(NamedTuple):
@@ -61,23 +70,44 @@ def mantissa_quantize(x: torch.Tensor, n) -> torch.Tensor:
 
 
 def _pack_rows(rows: torch.Tensor, fields: PackFields, n):
+    if fields.dense:
+        if n is None:
+            return _bp.bitplane_pack(rows, fields)
+        return _bp.bitplane_quantize_pack(rows, n, fields)
     if n is None:
         return _sp.sfp_pack(rows, fields)
     return _sp.sfp_quantize_pack(rows, n, fields)
 
 
+def _plain_rows(rows: torch.Tensor, fields: PackFields, n):
+    if fields.dense:
+        return _ref.bitplane_pack_rows(rows, fields, n)
+    return _ref.sfp_pack_rows(rows, fields, n)
+
+
+def _unpack_rows(payload: torch.Tensor, bases: torch.Tensor, dtype,
+                 fields: PackFields) -> torch.Tensor:
+    if fields.dense:
+        return _bp.bitplane_unpack(payload, bases, dtype, fields)
+    return _sp.sfp_unpack(payload, bases, dtype, fields)
+
+
 def sfp_compress_nd(x: torch.Tensor, fields: PackFields, n=None) -> Packed:
-    """Rank-preserving pack (last dim % 128 == 0): payload has x's shape,
-    bases (*x.shape[:-1], D // 128). ``n`` fuses Q(M, n) into the pack
-    (one read of x instead of mantissa_quantize then pack)."""
+    """Rank-preserving pack (last dim % 128 == 0): payload
+    (*x.shape[:-1], nd_payload_cols(D)) (words, or each position's bit
+    planes ordered (group, plane, 16)), bases (*x.shape[:-1], D // 128).
+    ``n`` fuses Q(M, n) into the pack (one read of x instead of
+    mantissa_quantize then pack)."""
     if not _kernel(x):
-        return Packed(*_ref.sfp_pack_nd(x, fields, n=n))
+        pack_nd = _ref.bitplane_pack_nd if fields.dense else _ref.sfp_pack_nd
+        return Packed(*pack_nd(x, fields, n=n))
     D = x.shape[-1]
     if D % _ref.GROUP:
         raise ValueError(f"last dim {D} is not a multiple of {_ref.GROUP}")
     payload, bases = _pack_rows(x.contiguous().reshape(-1, _ref.GROUP),
                                 fields, n)
-    return Packed(payload=payload.reshape(x.shape),
+    return Packed(payload=payload.reshape(*x.shape[:-1],
+                                          fields.nd_payload_cols(D)),
                   bases=bases.reshape(*x.shape[:-1], D // _ref.GROUP))
 
 
@@ -90,29 +120,35 @@ def sfp_quantize_compress(x: torch.Tensor, n, fields: PackFields) -> Packed:
     """Fused Q(M, n) + flat pack (``n`` None: the plain pack)."""
     rows = _ref.to_rows(x.contiguous())
     if not _kernel(x):
-        return Packed(*_ref.sfp_pack_rows(rows, fields, n))
+        return Packed(*_plain_rows(rows, fields, n))
     return Packed(*_pack_rows(rows, fields, n))
 
 
 def sfp_decompress_nd(packed: Packed, dtype, fields: PackFields
                       ) -> torch.Tensor:
-    """Inverse of ``sfp_compress_nd``: floats of the payload's shape."""
+    """Inverse of ``sfp_compress_nd``: floats of shape
+    (*bases.shape[:-1], G * 128)."""
     if not _kernel(packed.payload):
-        return _ref.sfp_unpack_nd(packed.payload, packed.bases, dtype, fields)
-    out = _sp.sfp_unpack(packed.payload.contiguous().reshape(-1, _ref.GROUP),
-                         packed.bases.contiguous().reshape(-1, 1), dtype,
-                         fields)
-    return out.reshape(packed.payload.shape)
+        unpack_nd = (_ref.bitplane_unpack_nd if fields.dense
+                     else _ref.sfp_unpack_nd)
+        return unpack_nd(packed.payload, packed.bases, dtype, fields)
+    G = packed.bases.shape[-1]
+    cols = fields.group_payload_bytes if fields.dense else _ref.GROUP
+    out = _unpack_rows(packed.payload.contiguous().reshape(-1, cols),
+                       packed.bases.contiguous().reshape(-1, 1), dtype,
+                       fields)
+    return out.reshape(*packed.bases.shape[:-1], G * _ref.GROUP)
 
 
 def sfp_decompress(packed: Packed, shape: tuple, dtype,
                    fields: PackFields) -> torch.Tensor:
     """Inverse of ``sfp_compress``: the first prod(shape) values."""
     if not _kernel(packed.payload):
-        return _ref.sfp_unpack(packed.payload, packed.bases, tuple(shape),
-                               dtype, fields)
-    out = _sp.sfp_unpack(packed.payload.contiguous(),
-                         packed.bases.contiguous(), dtype, fields)
+        unpack = _ref.bitplane_unpack if fields.dense else _ref.sfp_unpack
+        return unpack(packed.payload, packed.bases, tuple(shape), dtype,
+                      fields)
+    out = _unpack_rows(packed.payload.contiguous(),
+                       packed.bases.contiguous(), dtype, fields)
     n = 1
     for s in shape:
         n *= s
@@ -131,7 +167,7 @@ def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
     On the kernel route the query head group is folded into the rows
     (row r of the folded axis is position r // rep, group member r % rep),
     so the KH-headed K/V are read once per group and never repeated."""
-    if not _kernel(q):
+    if not _kernel(q, attention=True):
         return _ref.attention(q, k, v, causal=causal, window=window,
                               softcap=softcap)
     B, Sq, H, D = q.shape
@@ -153,14 +189,17 @@ def packed_flash_decode(q, k_packed: Packed, v_packed: Packed, pos, *,
                         fields: PackFields, window: Optional[int] = None,
                         softcap: Optional[float] = None) -> torch.Tensor:
     """One-token decode attention straight over an SFP-packed KV cache:
-    q (B, 1, H, hd); payload (B, L, KH*hd), bases (B, L, KH*hd // 128);
-    ``pos`` (B,) per-row decode positions."""
+    q (B, 1, H, hd); payload (B, L, nd_payload_cols(KH*hd)) words or bit
+    planes, bases (B, L, KH*hd // 128); ``pos`` (B,) per-row decode
+    positions."""
     if not _kernel(q):
         return _ref.packed_flash_decode(
             q, k_packed.payload, k_packed.bases, v_packed.payload,
             v_packed.bases, pos, fields, window=window, softcap=softcap,
             block_l=DECODE_BLOCK_L)
-    return _pfd.packed_flash_decode(
+    decode = (_pfd.packed_flash_decode_dense if fields.dense
+              else _pfd.packed_flash_decode)
+    return decode(
         q.contiguous(), k_packed.payload, k_packed.bases, v_packed.payload,
         v_packed.bases, pos.to(torch.int32).contiguous(), fields,
         window=window, softcap=softcap)

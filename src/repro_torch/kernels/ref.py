@@ -1,9 +1,10 @@
 """Plain PyTorch versions of the port's kernels.
 
 They repeat the arithmetic of the JAX package's oracles
-(``repro.kernels.ref``): mantissa truncation, the fixed-lane SFP word
-machine (with the fused Q(M, n)), the ring-slot validity mask, the packed
-decode's block recurrence and dense attention.
+(``repro.kernels.ref``): mantissa truncation, the SFP word machine (with
+the fused Q(M, n)) stored as fixed-lane words or as dense bit planes, the
+ring-slot validity mask, the packed decode's block recurrence and dense
+attention.
 The CPU path runs them, the tests hold them against the JAX package, and
 ``chip_smoke.py`` holds each CUDA kernel against them on the card.
 """
@@ -16,22 +17,48 @@ import torch
 from repro_torch.core import containers
 
 GROUP = 128
+PLANE_BYTES = GROUP // 8  # one byte-aligned bit plane of a 128-lane group
 NEG_INF = -1e30
 
 
 class PackFields(NamedTuple):
-    """Payload geometry of an SFP container. Only fixed-lane words (one
-    8/16-bit word per value) are ported; ``dense`` (bit planes) is kept so
-    the tuple matches the JAX package's, and is always False here."""
+    """Payload geometry of an SFP container.
+
+    ``dense=False`` is the fixed-lane layout: one 8/16-bit payload word per
+    value. ``dense=True`` is the bit-plane layout: the payload word is
+    ``1 + dexp_bits + man_keep`` bits wide (3..16) and each of its bits is
+    stored as a byte-aligned plane of 16 bytes over the 128-lane group, so
+    a value occupies ``payload_bits`` bits."""
 
     man_keep: int       # mantissa bits kept in the payload
     dexp_bits: int      # delta-exponent field width
-    payload_bits: int   # total payload word width (8 or 16)
-    dense: bool = False
+    payload_bits: int   # total payload word width (3..16)
+    dense: bool = False  # True -> byte-aligned bit-plane storage
 
     @property
     def word_dtype(self) -> torch.dtype:
+        """Narrowest uint holding one payload word."""
         return torch.uint8 if self.payload_bits <= 8 else torch.uint16
+
+    @property
+    def payload_dtype(self) -> torch.dtype:
+        """Element dtype of the stored payload (planes are bytes)."""
+        return torch.uint8 if self.dense else self.word_dtype
+
+    @property
+    def group_payload_bytes(self) -> int:
+        """Payload bytes of one 128-lane group (without its base)."""
+        if self.dense:
+            return self.payload_bits * PLANE_BYTES
+        return GROUP * (1 if self.payload_bits <= 8 else 2)
+
+    def nd_payload_cols(self, D: int) -> int:
+        """Last-dim width of the rank-preserving payload for a feature dim
+        ``D`` (% 128 == 0): D words, or (D // 128) groups of
+        ``payload_bits`` 16-byte planes."""
+        if self.dense:
+            return (D // GROUP) * self.group_payload_bytes
+        return D
 
     @property
     def sign_shift(self) -> int:
@@ -162,14 +189,124 @@ def sfp_unpack_nd(payload: torch.Tensor, bases: torch.Tensor,
 def unpack_tile(payload: torch.Tensor, bases: torch.Tensor,
                 fields: PackFields, spec: containers.FloatSpec, *, rows: int,
                 KH: int, hd: int) -> torch.Tensor:
-    """Fixed-lane tile decompressor of the packed decode: payload
-    (rows, KH*hd) words and bases (rows, G) -> (rows, KH, hd) float32.
-    Groups span the flattened KH*hd axis, so a group may straddle heads."""
+    """Tile decompressor of the packed decode: payload (rows,
+    nd_payload_cols(KH*hd)) words or bit planes and bases (rows, G) ->
+    (rows, KH, hd) float32. Groups span the flattened KH*hd axis, so a
+    group may straddle heads."""
     G = (KH * hd) // GROUP
-    p = payload.to(torch.int32).reshape(rows, G, GROUP)
-    x = _unpack_words(p, bases.to(torch.int32).reshape(rows, G, 1), fields,
-                      spec)
+    b = bases.to(torch.int32).reshape(rows, G, 1)
+    if fields.dense:
+        x = unpack_planes(payload.reshape(rows, G, fields.group_payload_bytes),
+                          b, fields, spec)
+    else:
+        p = payload.to(torch.int32).reshape(rows, G, GROUP)
+        x = _unpack_words(p, b, fields, spec)
     return x.reshape(rows, KH, hd).to(torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# Dense bit-plane containers: P = 1 + E + K payload bits per value stored as
+# P byte-aligned planes per 128-lane group. Plane p of a group is 16 bytes;
+# byte i holds bit p of the words of lanes 8i..8i+7 (bit j <-> lane 8i+j);
+# planes are stored LSB-plane first. A plain int32 bit loop: the JAX
+# package's SWAR transpose and uint8 fast path are speed devices with the
+# same bits.
+# ---------------------------------------------------------------------------
+
+
+def _lane_bits(device) -> torch.Tensor:
+    return torch.arange(8, dtype=torch.int32, device=device)
+
+
+def plane_pack_words(words: torch.Tensor, payload_bits: int) -> torch.Tensor:
+    """Payload words (..., 128) -> bit planes (..., P*16) uint8."""
+    lead = words.shape[:-1]
+    w = words.to(torch.int32).reshape(*lead, PLANE_BYTES, 8)
+    j = _lane_bits(words.device)
+    planes = [torch.sum(((w >> p) & 1) << j, dim=-1, dtype=torch.int32)
+              for p in range(payload_bits)]
+    return torch.stack(planes, dim=-2).to(torch.uint8).reshape(
+        *lead, payload_bits * PLANE_BYTES)
+
+
+def plane_unpack_words(planes: torch.Tensor, payload_bits: int
+                       ) -> torch.Tensor:
+    """Inverse of ``plane_pack_words``: (..., P*16) uint8 -> (..., 128)
+    int32 words."""
+    lead = planes.shape[:-1]
+    b = planes.to(torch.int32).reshape(*lead, payload_bits, PLANE_BYTES, 1)
+    j = _lane_bits(planes.device)
+    w = torch.zeros((*lead, PLANE_BYTES, 8), dtype=torch.int32,
+                    device=planes.device)
+    for p in range(payload_bits):
+        w |= ((b[..., p, :, :] >> j) & 1) << p
+    return w.reshape(*lead, GROUP)
+
+
+def unpack_planes(planes: torch.Tensor, bases: torch.Tensor,
+                  fields: PackFields, spec: containers.FloatSpec
+                  ) -> torch.Tensor:
+    """Dense plane decode: (..., P*16) planes + broadcastable bases ->
+    (..., 128) floats of ``spec``."""
+    words = plane_unpack_words(planes, fields.payload_bits)
+    return _unpack_words(words, bases.to(torch.int32), fields, spec)
+
+
+def bitplane_pack_rows(x: torch.Tensor, fields: PackFields, n=None):
+    """(R, 128) floats -> (planes (R, P*16) uint8, bases (R, 1) uint8):
+    the function of the ``bitplane_pack`` kernel, and with ``n`` of the
+    fused ``bitplane_quantize_pack`` kernel."""
+    word, base = _pack_words(x, fields, containers.spec_for(x), n)
+    return (plane_pack_words(word, fields.payload_bits),
+            base.to(torch.uint8))
+
+
+def bitplane_unpack_rows(planes: torch.Tensor, bases: torch.Tensor,
+                         dtype: torch.dtype, fields: PackFields
+                         ) -> torch.Tensor:
+    """(R, P*16) planes + (R, 1) bases -> (R, 128) floats: the function of
+    the ``bitplane_unpack`` kernel."""
+    return unpack_planes(planes, bases, fields, containers.spec_for(dtype))
+
+
+def bitplane_pack(x: torch.Tensor, fields: PackFields, n=None):
+    """Flat dense pack over the zero-padded 128-lane rows of x."""
+    return bitplane_pack_rows(to_rows(x), fields, n)
+
+
+def bitplane_unpack(planes: torch.Tensor, bases: torch.Tensor, shape: tuple,
+                    dtype: torch.dtype, fields: PackFields) -> torch.Tensor:
+    out = bitplane_unpack_rows(planes, bases, dtype, fields)
+    n = 1
+    for s in shape:
+        n *= s
+    return out.reshape(-1)[:n].reshape(shape)
+
+
+def bitplane_pack_nd(x: torch.Tensor, fields: PackFields, n=None):
+    """Rank-preserving dense pack (last dim % 128 == 0): payload
+    (*x.shape[:-1], (D // 128) * P * 16) uint8, each position's bytes
+    ordered (group, plane, 16); bases (*x.shape[:-1], D // 128)."""
+    D = x.shape[-1]
+    if D % GROUP:
+        raise ValueError(f"last dim {D} is not a multiple of {GROUP}")
+    lead = x.shape[:-1]
+    xg = x.reshape(*lead, D // GROUP, GROUP)
+    words, base = _pack_words(xg, fields, containers.spec_for(x), n)
+    planes = plane_pack_words(words, fields.payload_bits)
+    return (planes.reshape(*lead, fields.nd_payload_cols(D)),
+            base[..., 0].to(torch.uint8))
+
+
+def bitplane_unpack_nd(planes: torch.Tensor, bases: torch.Tensor,
+                       dtype: torch.dtype, fields: PackFields
+                       ) -> torch.Tensor:
+    G = bases.shape[-1]
+    lead = planes.shape[:-1]
+    p = planes.reshape(*lead, G, fields.group_payload_bytes)
+    out = unpack_planes(p, bases[..., None], fields,
+                        containers.spec_for(dtype))
+    return out.reshape(*lead, G * GROUP)
 
 
 # ---------------------------------------------------------------------------
@@ -202,7 +339,8 @@ def packed_flash_decode(q: torch.Tensor, k_payload: torch.Tensor,
                         block_l: Optional[int] = None) -> torch.Tensor:
     """Unpack-then-attend decode over a packed contiguous cache.
 
-    q (B, 1, H, hd); payload (B, L, KH*hd) words; bases (B, L, KH*hd//128);
+    q (B, 1, H, hd); payload (B, L, nd_payload_cols(KH*hd)) words or bit
+    planes; bases (B, L, KH*hd//128);
     ``pos`` scalar or (B,). Same online-softmax block recurrence over
     ``block_l``-slot blocks as the kernel (the block shrinks to a divisor
     of L); batch rows are independent, so they run side by side."""
@@ -219,7 +357,7 @@ def packed_flash_decode(q: torch.Tensor, k_payload: torch.Tensor,
         bl -= 1
 
     def unp(payload, bases):
-        x = unpack_tile(payload.reshape(B * L, D), bases.reshape(B * L, G),
+        x = unpack_tile(payload.reshape(B * L, -1), bases.reshape(B * L, G),
                         fields, spec, rows=B * L, KH=KH, hd=hd)
         return x.reshape(B, L, KH, hd)
 

@@ -22,8 +22,14 @@ plain_unpack = ref.sfp_unpack_rows
 _FLOAT_BITS = {torch.bfloat16: 16, torch.float32: 32}
 
 
-def _check_fields(name: str, fields: PackFields) -> None:
-    if fields.dense or fields.payload_bits not in (8, 16):
+def _check_fields(name: str, fields: PackFields, dense: bool = False
+                  ) -> None:
+    """The word kernels take fixed-lane 8/16-bit words, the bit-plane
+    kernels (``dense``) dense geometries of 3..16 bits."""
+    if dense and (not fields.dense or not 3 <= fields.payload_bits <= 16):
+        raise ValueError(f"{name} handles dense bit-plane geometries, got "
+                         f"{fields}")
+    if not dense and (fields.dense or fields.payload_bits not in (8, 16)):
         raise ValueError(f"{name} handles fixed-lane 8/16-bit words, got "
                          f"{fields}")
 
@@ -50,26 +56,63 @@ def device_bits(n, device: torch.device) -> torch.Tensor:
     return torch.tensor(int(n), dtype=torch.int32, device=device)
 
 
-def _pack(name: str, x: torch.Tensor, fields: PackFields, n=None):
+def _pack(name: str, x: torch.Tensor, fields: PackFields, n=None,
+          dense: bool = False):
+    """Launch the word pack (or, ``dense``, the bit-plane pack of
+    ``csrc/bitplane_pack.cu``) on (R, 128) rows; ``n`` selects the fused
+    Q(M, n) launcher. Returns (payload (R, 128) words or (R, P*16) plane
+    bytes, bases (R, 1))."""
     lib = _lib.load()
     _check_rows(name, x)
-    _check_fields(name, fields)
+    _check_fields(name, fields, dense)
     R = x.shape[0]
-    payload = torch.empty((R, GROUP), dtype=fields.word_dtype,
-                          device=x.device)
+    payload = torch.empty((R, fields.group_payload_bytes), dtype=torch.uint8,
+                          device=x.device).view(fields.payload_dtype)
     bases = torch.empty((R, 1), dtype=torch.uint8, device=x.device)
     geometry = (R, _FLOAT_BITS[x.dtype], fields.man_keep, fields.dexp_bits,
                 fields.payload_bits, _lib.stream_ptr(x))
+    prefix = "bitplane" if dense else "sfp"
     if n is None:
-        err = lib.sfp_pack_launch(x.data_ptr(), payload.data_ptr(),
-                                  bases.data_ptr(), *geometry)
+        err = getattr(lib, f"{prefix}_pack_launch")(
+            x.data_ptr(), payload.data_ptr(), bases.data_ptr(), *geometry)
     else:
         nd = device_bits(n, x.device)
-        err = lib.sfp_quantize_pack_launch(x.data_ptr(), nd.data_ptr(),
-                                           payload.data_ptr(),
-                                           bases.data_ptr(), *geometry)
+        err = getattr(lib, f"{prefix}_quantize_pack_launch")(
+            x.data_ptr(), nd.data_ptr(), payload.data_ptr(), bases.data_ptr(),
+            *geometry)
     _lib.check(err, name)
     return payload, bases
+
+
+def _unpack(name: str, payload: torch.Tensor, bases: torch.Tensor, dtype,
+            fields: PackFields, dense: bool = False) -> torch.Tensor:
+    """Launch the word unpack (or, ``dense``, the bit-plane unpack) of
+    (R, 128) words or (R, P*16) plane bytes and (R, 1) bases into (R, 128)
+    floats of ``dtype``."""
+    lib = _lib.load()
+    _check_fields(name, fields, dense)
+    if dtype not in _FLOAT_BITS:
+        raise ValueError(f"{name} writes bf16 or f32, got {dtype}")
+    for part, t, want in (("payload", payload, fields.payload_dtype),
+                          ("bases", bases, torch.uint8)):
+        if not t.is_cuda or t.dtype != want or not t.is_contiguous():
+            raise ValueError(f"{name}: {part} must be a contiguous {want} "
+                             f"CUDA tensor, got {t.dtype} on {t.device}")
+    R = payload.shape[0]
+    cols = fields.group_payload_bytes // payload.element_size()
+    if payload.shape != (R, cols) or bases.shape != (R, 1):
+        raise ValueError(f"{name} takes (R, {cols}) payload and (R, 1) "
+                         f"bases, got {tuple(payload.shape)} "
+                         f"{tuple(bases.shape)}")
+    if payload.data_ptr() % 4:
+        raise ValueError(f"{name} needs a 4-byte aligned payload")
+    out = torch.empty((R, GROUP), dtype=dtype, device=payload.device)
+    launch = getattr(lib, ("bitplane" if dense else "sfp") + "_unpack_launch")
+    err = launch(payload.data_ptr(), bases.data_ptr(), out.data_ptr(), R,
+                 _FLOAT_BITS[dtype], fields.man_keep, fields.dexp_bits,
+                 fields.payload_bits, _lib.stream_ptr(payload))
+    _lib.check(err, name)
+    return out
 
 
 def sfp_pack(x: torch.Tensor, fields: PackFields):
@@ -100,27 +143,7 @@ def sfp_unpack(payload: torch.Tensor, bases: torch.Tensor, dtype,
     ``dtype`` (bf16 or f32)."""
     if payload.device.type == "cpu":
         return plain_unpack(payload, bases, dtype, fields)
-    lib = _lib.load()
-    _check_fields("sfp_unpack", fields)
-    if dtype not in _FLOAT_BITS:
-        raise ValueError(f"sfp_unpack writes bf16 or f32, got {dtype}")
-    for name, t, want in (("payload", payload, fields.word_dtype),
-                          ("bases", bases, torch.uint8)):
-        if not t.is_cuda or t.dtype != want or not t.is_contiguous():
-            raise ValueError(f"sfp_unpack: {name} must be a contiguous "
-                             f"{want} CUDA tensor, got {t.dtype} on "
-                             f"{t.device}")
-    R = payload.shape[0]
-    if payload.shape != (R, GROUP) or bases.shape != (R, 1):
-        raise ValueError(f"sfp_unpack takes (R, {GROUP}) words and (R, 1) "
-                         f"bases, got {tuple(payload.shape)} "
-                         f"{tuple(bases.shape)}")
-    out = torch.empty((R, GROUP), dtype=dtype, device=payload.device)
-    err = lib.sfp_unpack_launch(
-        payload.data_ptr(), bases.data_ptr(), out.data_ptr(), R,
-        _FLOAT_BITS[dtype], fields.man_keep, fields.dexp_bits,
-        fields.payload_bits, _lib.stream_ptr(payload))
-    _lib.check(err, "sfp_unpack")
+    out = _unpack("sfp_unpack", payload, bases, dtype, fields)
     sfp_unpack.launches += 1
     return out
 

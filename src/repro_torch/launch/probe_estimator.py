@@ -52,19 +52,19 @@ class _RecordingQM(quantum.QMPolicy):
 @contextlib.contextmanager
 def _route(name):
     """Swap in the plain versions the route asks for, and restore them."""
-    bwd, attn = fa.flash_attention_bwd, fa.flash_attention
+    bwd = fa.flash_attention_bwd
     if name == "plain":
         ops.force_backend("plain")
     elif name == "attention backward plain":
         fa.flash_attention_bwd = (
             lambda q, k, v, o, do, lse, **kw: fa.plain_bwd(q, k, v, do, **kw))
     elif name == "attention plain":
-        fa.flash_attention = fa.plain
+        ops.force_backend("plain attention")
     try:
         yield
     finally:
         ops.force_backend(None)
-        fa.flash_attention_bwd, fa.flash_attention = bwd, attn
+        fa.flash_attention_bwd = bwd
 
 
 ROUTES = ("kernels", "plain", "attention backward plain", "attention plain")

@@ -3,6 +3,9 @@
   python -m repro_torch.launch.serve --arch gemma2-2b --preset full \
       --batch 4 --prompt-len 1024 --max-new 64 --kv-container sfp8
 
+``--kv-container`` takes any registry codec with a fixed-width payload:
+sfp8, sfp16, or a dense bit-plane geometry such as sfp-m2e4.
+
 Runs on CUDA; ``--device cpu`` runs the plain PyTorch path on the CPU.
 Weights are random, drawn from ``--seed``. The trace (continuous
 batching) mode of the JAX launcher is not ported yet.
@@ -94,7 +97,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--kv-container", default=None, type=container_name,
                     help="registry codec for the packed KV cache (sfp8, "
-                    "sfp16); None = raw bf16 cache")
+                    "sfp16, or a dense geometry such as sfp-m2e4); None = "
+                    "raw bf16 cache")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--max-new", type=int, default=16)

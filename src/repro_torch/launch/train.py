@@ -3,8 +3,11 @@
   python -m repro_torch.launch.train --arch gemma2-2b --preset full \
       --policy qm --container sfp8 --batch 4 --seq 1024 --steps 4
 
-``--policy`` takes a registered precision policy (none, qm); ``--container``
-the stash codec (sfp8, sfp16, bit_exact). Runs on CUDA; ``--device cpu``
+``--policy`` takes a registered precision policy (none, qm, qe) or a
+'+'-composition such as ``qm+qe`` (learn mantissa and exponent bitlengths
+in one run; the ``--qm-*`` flags reach qm, the ``--qe-*`` flags qe);
+``--container`` the stash codec (sfp8, sfp16, bit_exact, or a dense
+geometry such as sfp-m2e4). Runs on CUDA; ``--device cpu``
 runs the plain PyTorch path on the CPU. Weights are random, drawn from
 ``--seed``; batches come from the seeded synthetic Markov corpus. The
 tiny and small presets shrink the config and fix batch 8 and sequence 64
@@ -34,9 +37,20 @@ PROFILE_START = 1  # profile after the first (warm-up) step
 
 
 def build_policy(args) -> policies.Policy:
-    kw = (dict(gamma=args.gamma, lr=args.qm_lr, init_bits=args.qm_init_bits)
-          if args.policy == "qm" else {})
-    return policies.get(args.policy, container=args.container, **kw)
+    """Resolve --policy, each '+'-part with its own flags (QE has its own
+    knobs: the exponent field is smaller, and flushing a binade is harsher
+    than dropping a mantissa bit), composed once. The composite carries
+    ``--container`` too: the model stashes in ``policy.container``."""
+    per_sub = {
+        "qm": dict(gamma=args.gamma, lr=args.qm_lr,
+                   init_bits=args.qm_init_bits),
+        "qe": dict(gamma=args.qe_gamma, lr=args.qe_lr),
+    }
+    parts = policies.validate_name(args.policy)
+    subs = [policies.get(part, container=args.container,
+                         **per_sub.get(part, {})) for part in parts]
+    return (subs[0] if len(subs) == 1 else policies.CompositePolicy(
+        policies=tuple(subs), container=args.container))
 
 
 def build(args):
@@ -65,10 +79,13 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--arch", required=True)
     ap.add_argument("--preset", default="tiny",
                     choices=["tiny", "small", "full"])
-    ap.add_argument("--policy", default="qm", type=policy_name,
-                    help=f"precision policy ({'/'.join(policies.names())})")
+    ap.add_argument("--policy", default="qm", metavar="NAME[+NAME...]",
+                    type=policy_name,
+                    help=f"precision policy ({'/'.join(policies.names())}), "
+                         f"composable with '+', e.g. qm+qe")
     ap.add_argument("--container", default="bit_exact", type=container_name,
-                    help=f"stash codec ({'/'.join(codecs.names())})")
+                    help=f"stash codec ({'/'.join(codecs.names())}) or a "
+                         f"dense geometry like sfp-m2e4")
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
@@ -77,6 +94,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="QM footprint-penalty strength (eq. 7)")
     ap.add_argument("--qm-init-bits", type=float, default=7.0)
     ap.add_argument("--qm-lr", type=float, default=0.05)
+    ap.add_argument("--qe-gamma", type=float, default=0.05,
+                    help="QE footprint-penalty strength")
+    ap.add_argument("--qe-lr", type=float, default=0.05)
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--metrics", default=None,
                     help="per-step metrics JSONL")
@@ -117,7 +137,8 @@ def main(argv=None) -> dict:
         print("profile " + json.dumps(res.profile))
     last = res.history[-1]
     report = {k: last[k] for k in ("step", "loss", "xent", "qm_act_mean",
-                                   "qm_w_mean", "step_time_s") if k in last}
+                                   "qm_w_mean", "qe_act_mean", "qe_w_mean",
+                                   "step_time_s") if k in last}
     print(json.dumps(report, indent=2))
     fp = policies.modeled_footprint(model.policy, res.state.pstate,
                                     model.dims)

@@ -12,6 +12,7 @@ that is updated in place — raw bf16, or packed by a registry codec
 """
 from __future__ import annotations
 
+import itertools
 from typing import Any, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
@@ -19,7 +20,7 @@ import torch.nn.functional as F
 
 from repro_torch import codecs, policies, resolve_device
 from repro_torch.configs.base import ArchConfig, GLOBAL, LOCAL
-from repro_torch.core import stash
+from repro_torch.core import containers, stash
 from repro_torch.models import attention, common
 from repro_torch.serve import kvcache
 
@@ -38,9 +39,25 @@ def scope_dims(cfg: ArchConfig) -> policies.ScopeDims:
                                         n_rem=len(cfg.remainder))
 
 
+def _index(tree, i: int):
+    """Entry ``i`` of every tensor in a nest of dicts (a policy's per-period
+    scan slices)."""
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
 def _quantized(leaf: torch.Tensor) -> bool:
     """The weight leaves a policy fake-quantizes: every >= 2-D float."""
     return leaf.dim() >= 2 and leaf.is_floating_point()
+
+
+def _count_truncation(count, h, t):
+    """Add to ``count`` the values of ``h`` that the exponent truncation
+    ``t`` flushed to zero and those it saturated."""
+    for key, n in (("flushed", ((t == 0) & (h != 0)).sum()),
+                   ("saturated", ((t != h) & (t != 0)).sum())):
+        count[key] = count.get(key, 0) + n
 
 
 class DecoderModel:
@@ -66,6 +83,11 @@ class DecoderModel:
         self.device = resolve_device(device)
         self.kinds = cfg.layer_kinds()
         self.dims = scope_dims(cfg)
+        # Debug counter of the stash's exponent truncation, off when None:
+        # a dict to which every stash compress adds (as device tensors, so
+        # without a host sync) the values it flushed to zero ("flushed")
+        # and the values it saturated ("saturated").
+        self.truncation_count: Optional[Dict[str, torch.Tensor]] = None
 
     # -- parameters ----------------------------------------------------------
 
@@ -99,15 +121,21 @@ class DecoderModel:
     def _quantize_weights(self, slot_params, pslice, draws):
         """Fake-quantize every >= 2-D float leaf of one layer, leaf j with
         the j-th drawn bitlength (one draw per leaf, as the JAX package
-        draws one key per leaf)."""
-        it = iter(range(draws.shape[0]))
+        draws one key per leaf). A composite policy's ``draws`` is a dict
+        of such vectors, one per sub-policy."""
+        it = itertools.count()
+
+        def pick(j):
+            if isinstance(draws, dict):
+                return {k: v[j] for k, v in draws.items()}
+            return draws[j]
 
         def quant(tree):
             if isinstance(tree, dict):
                 return {k: quant(v) for k, v in tree.items()}
             if _quantized(tree):
                 return self.policy.quantize_weight(tree, pslice,
-                                                   draws[next(it)], self.dims)
+                                                   pick(next(it)), self.dims)
             return tree
 
         return quant(slot_params)
@@ -130,8 +158,17 @@ class DecoderModel:
 
         def compress(h, x):
             # Fused quantize+pack: the drawn mantissa bitlength rides into
-            # the pack kernel, one read of the activation.
-            return codec.pack(h, bits=x["draws"]["act"])
+            # the pack kernel, one read of the activation. Exponent
+            # truncation (QE) comes first, as plain elementwise work (the
+            # JAX package has no kernel for it either): the container
+            # stores the already-clamped exponents.
+            act = x["draws"]["act"]
+            if pol.adapts_exponent:
+                t = containers.truncate_exponent(h, act["exp"])
+                if self.truncation_count is not None:
+                    _count_truncation(self.truncation_count, h, t)
+                h = t
+            return codec.pack(h, bits=act["man"])
 
         def decompress(c, x):
             del x
@@ -145,8 +182,10 @@ class DecoderModel:
 
     def _period_inputs(self, params, run: RunState):
         """One ``sfp_scan`` input per period: its layers, its policy slice
-        and every bitlength it draws (act first, then each layer's
-        weights), drawn here so the backward's recompute replays them.
+        and every bitlength it draws, drawn here so the backward's
+        recompute replays them. The order of the draws from ``run.gen``:
+        per period, the act decision (for "qm+qe", qm's draw then qe's),
+        then per layer its weight draws (qm's for every leaf, then qe's).
         Layer i belongs to period i // len(period)."""
         cfg, pol, dims = self.cfg, self.policy, self.dims
         n_slot = len(cfg.period)
@@ -156,16 +195,15 @@ class DecoderModel:
             layers = params["layers"][p * n_slot:(p + 1) * n_slot]
             x = {"params": layers}
             if pol.enabled:
-                ps = {k: v[p] for k, v in slices.items()}
-                act = pol.act_decision(ps, run.gen, dims).man_bits
-                w = None
-                if pol.enabled:
-                    w = [pol.weight_draws(
-                        ps, run.gen, sum(1 for _, t in stash.float_leaves(lp)
-                                         if _quantized(t)), dims)
-                         for lp in layers]
+                ps = _index(slices, p)
+                d = pol.act_decision(ps, run.gen, dims)
+                w = [pol.weight_draws(
+                    ps, run.gen, sum(1 for _, t in stash.float_leaves(lp)
+                                     if _quantized(t)), dims)
+                     for lp in layers]
                 x["pol"] = ps
-                x["draws"] = {"act": act, "w": w}
+                x["draws"] = {"act": {"man": d.man_bits, "exp": d.exp_bits},
+                              "w": w}
             xs.append(x)
         return xs
 

@@ -11,8 +11,9 @@ name and every consumer resolves them through ``get()``.
 Random draws come from an explicit ``torch.Generator`` and are taken
 before a period runs (``act_decision``, ``weight_draws``), so the stash's
 recompute in the backward pass replays them, as the JAX package replays
-its keys. Ported: ``none`` and ``qm``; the other names of the JAX
-registry and '+'-compositions raise a "not yet ported" error.
+its keys. Ported: ``none``, ``qm``, ``qe`` and '+'-compositions of them
+(``"qm+qe"``: ``policies/composite.py``); the other names of the JAX
+registry raise a "not yet ported" error.
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ from repro_torch import NotYetPorted
 from repro_torch.core import containers
 
 # Registered in the JAX package, still to be ported here.
-NOT_YET_PORTED = ("static", "qe", "afloat", "bitchop", "bitwave")
+NOT_YET_PORTED = ("static", "afloat", "bitchop", "bitwave")
 
 
 class PrecisionDecision(NamedTuple):
@@ -85,6 +86,7 @@ class Policy:
     # Class attributes, not dataclass fields.
     name = "?"
     enabled = True            # False -> the model skips all hooks
+    adapts_exponent = False   # True -> the stash truncates exponents first
     has_stash_grad = False    # stash-side bitlength estimator
 
     # -- state ----------------------------------------------------------
@@ -157,6 +159,13 @@ class Policy:
         return {"man_bits": float(dims.man_bits),
                 "exp_bits": float(dims.exp_bits)}
 
+    def layer_decisions(self, state: PolicyState, dims: ScopeDims):
+        """Per-period deployment decisions ``[(man_bits, exp_bits), ...]``
+        (length ``dims.n_periods``); policies with per-scope parameters
+        override, the others repeat their summary."""
+        d = self.decision_summary(state, dims)
+        return [(d["man_bits"], d["exp_bits"])] * dims.n_periods
+
 
 def modeled_footprint(policy: Policy, state: PolicyState, dims: ScopeDims
                       ) -> Dict[str, float]:
@@ -186,9 +195,10 @@ def names() -> Tuple[str, ...]:
 
 
 def validate_name(name: str) -> Tuple[str, ...]:
-    """Parse a policy name without constructing it; raise ValueError with
-    a did-you-mean hint, or a "not yet ported" message for the JAX
-    package's other policies and for '+'-compositions."""
+    """Parse a policy name or '+'-composition without constructing it;
+    raise ValueError with a did-you-mean hint, on a duplicate part, or
+    with a "not yet ported" message for the JAX package's other
+    policies."""
     parts = tuple(p.strip() for p in name.split("+") if p.strip())
     if not parts:
         raise ValueError(f"empty precision-policy name {name!r}")
@@ -201,29 +211,39 @@ def validate_name(name: str) -> Tuple[str, ...]:
             msg = f"unknown precision policy {p!r}"
             if hint:
                 msg += f"; did you mean {hint[0]!r}?"
-            raise ValueError(msg + f" (registered: {list(names())})")
-    if len(parts) > 1:
-        raise ValueError(f"composite policy {name!r} is not yet ported to "
-                         f"repro_torch")
+            raise ValueError(msg + f" (registered: {list(names())}, "
+                             f"composable with '+', e.g. qm+qe)")
+    if len(set(parts)) != len(parts):
+        raise ValueError(f"duplicate sub-policy in {name!r}")
     return parts
 
 
 def get(name: str, **kwargs) -> Policy:
-    """Resolve a policy by name. Keyword overrides must be fields of the
-    policy (``container`` reaches all of them)."""
+    """Resolve a policy by name; ``"a+b"`` composes. Keyword overrides are
+    routed to the sub-policies that declare the field (``container``
+    reaches all of them, and the composite stashes in it too); an override
+    no policy takes raises."""
     try:
-        (part,) = validate_name(name)
+        parts = validate_name(name)
     except ValueError as e:
         if "not yet ported" in str(e):
             raise NotYetPorted(str(e)) from e
         raise KeyError(str(e)) from e
-    cls = _REGISTRY[part]
-    fields = {f.name for f in dataclasses.fields(cls)}
-    extra = set(kwargs) - fields
+    built, consumed = [], set()
+    for part in parts:
+        cls = _REGISTRY[part]
+        fields = {f.name for f in dataclasses.fields(cls)}
+        built.append(cls(**{k: v for k, v in kwargs.items() if k in fields}))
+        consumed |= fields
+    extra = set(kwargs) - consumed
     if extra:
         raise TypeError(f"policy {name!r} accepts no option(s) "
                         f"{sorted(extra)}")
-    return cls(**kwargs)
+    if len(built) == 1:
+        return built[0]
+    from repro_torch.policies.composite import CompositePolicy
+    return CompositePolicy(policies=tuple(built),
+                           container=built[0].container)
 
 
 def coerce(policy) -> Policy:

@@ -1,12 +1,14 @@
-"""Learned-bitlength policy: Quantum Mantissa (the port of
-``repro.policies.quantum``; Quantum Exponent comes later).
+"""Learned-bitlength policies: Quantum Mantissa and Quantum Exponent
+(the port of ``repro.policies.quantum``).
 
-One real-valued bitlength per tensor scope (per period x {act, w}, plus
-remainder layers) is learned jointly with the model: the data gradient
-flows through ``core.quantum_mantissa.qm_quantize`` at the weights and
-through the stash estimator (``stash_grad``) at the activations, a
-footprint-weighted penalty (eq. 7) pushes bits down, and the policy takes
-a plain SGD step clipped to the container's range.
+Both learn one real-valued bitlength per tensor scope (per period x
+{act, w}, plus remainder layers) jointly with the model: the data gradient
+flows through ``core.quantum_mantissa.qm_quantize`` /
+``core.quantum_exponent.qe_quantize`` at the weights and through the stash
+estimator (``stash_grad``) at the activations, a footprint-weighted
+penalty (eq. 7) pushes bits down, and the policy takes a plain SGD step
+clipped to [a lower bound (0 for QM, 2 for QE), the container's field].
+``policies.get("qm+qe")`` composes them (``policies/composite.py``).
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core import containers
+from repro_torch.core import quantum_exponent as qe
 from repro_torch.core import quantum_mantissa as qm
 from repro_torch.policies import base
 from repro_torch.policies.base import jclip
@@ -31,6 +34,10 @@ class _LearnedBitsPolicy(base.Policy):
 
     def _max_bits(self, dims: base.ScopeDims) -> int:
         raise NotImplementedError
+
+    def _min_bits(self, dims: base.ScopeDims) -> float:
+        """Lower bound of the learned bitlengths (the penalty keeps 0)."""
+        return 0.0
 
     def _truncate(self, x, n_int):
         raise NotImplementedError
@@ -63,7 +70,8 @@ class _LearnedBitsPolicy(base.Policy):
         one-bit-tighter budget would lose) and scale by 1/frac, the
         inverse probability that the extra bit was drawn. ``dh`` is the
         period output's cotangent, as in the JAX package."""
-        nf = jclip(pslice["act"].detach(), 0.0, float(self._max_bits(dims)))
+        nf = jclip(pslice["act"].detach(), self._min_bits(dims),
+                   float(self._max_bits(dims)))
         floor_n = torch.floor(nf).to(torch.int32)
         frac = nf - floor_n.to(torch.float32)
         diff = (h_q - self._truncate(h_q, floor_n)).to(torch.float32)
@@ -83,8 +91,9 @@ class _LearnedBitsPolicy(base.Policy):
 
     def update_learn(self, learn, grads, dims):
         top = float(self._max_bits(dims))
+        lo = self._min_bits(dims)
         with torch.no_grad():
-            return {k: torch.clamp(learn[k] - self.lr * grads[k], 0.0, top)
+            return {k: torch.clamp(learn[k] - self.lr * grads[k], lo, top)
                     .requires_grad_() for k in learn}
 
     # reporting ----------------------------------------------------------
@@ -101,7 +110,16 @@ class _LearnedBitsPolicy(base.Policy):
         with torch.no_grad():
             cat = torch.cat([state.learn[k].reshape(-1)
                              for k in ("act", "act_rem")])
-            return float(torch.mean(torch.ceil(torch.clamp(cat, 0.0, top))))
+            return float(torch.mean(torch.ceil(
+                torch.clamp(cat, self._min_bits(dims), top))))
+
+    def _deployed_per_period(self, state, dims):
+        """Per-period deployed act bitlengths (rounded up, host floats)."""
+        top = float(self._max_bits(dims))
+        with torch.no_grad():
+            v = torch.ceil(torch.clamp(state.learn["act"],
+                                       self._min_bits(dims), top))
+            return [float(b) for b in v]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,7 +140,8 @@ class QMPolicy(_LearnedBitsPolicy):
                                             dims.man_bits)
         return base.PrecisionDecision(
             man_bits=n, exp_bits=torch.tensor(dims.exp_bits,
-                                              dtype=torch.int32))
+                                              dtype=torch.int32,
+                                              device=n.device))
 
     def weight_draws(self, pslice, generator, count, dims):
         return containers.stochastic_bitlength(
@@ -138,3 +157,60 @@ class QMPolicy(_LearnedBitsPolicy):
     def decision_summary(self, state, dims):
         return {"man_bits": self._deployed_mean(state, dims),
                 "exp_bits": float(dims.exp_bits)}
+
+    def layer_decisions(self, state, dims):
+        return [(b, float(dims.exp_bits))
+                for b in self._deployed_per_period(state, dims)]
+
+
+@dataclasses.dataclass(frozen=True)
+class QEPolicy(_LearnedBitsPolicy):
+    """Quantum Exponent (§IV): learned per-scope exponent bitlengths in
+    [MIN_EXP_BITS, exp_bits], backed by ``containers.truncate_exponent``
+    (underflow flushes, overflow saturates). Gentler defaults than QM: the
+    field is smaller, and flushing a needed binade hurts more than a
+    dropped mantissa bit."""
+
+    gamma: float = 0.05
+
+    name = "qe"
+    adapts_exponent = True
+    has_stash_grad = True
+
+    def _max_bits(self, dims):
+        return dims.exp_bits
+
+    def _min_bits(self, dims):
+        return float(containers.MIN_EXP_BITS)
+
+    def _truncate(self, x, e_int):
+        return containers.truncate_exponent(x, e_int)
+
+    def act_decision(self, pslice, generator, dims):
+        e = containers.stochastic_bitlength(
+            pslice["act"], generator, dims.exp_bits,
+            min_bits=containers.MIN_EXP_BITS)
+        return base.PrecisionDecision(
+            man_bits=torch.tensor(dims.man_bits, dtype=torch.int32,
+                                  device=e.device),
+            exp_bits=e)
+
+    def weight_draws(self, pslice, generator, count, dims):
+        return containers.stochastic_bitlength(
+            pslice["w"], generator, dims.exp_bits,
+            min_bits=containers.MIN_EXP_BITS, shape=(count,))
+
+    def quantize_weight(self, w, pslice, e_int, dims):
+        return qe.qe_quantize(w, pslice["w"], e_int)
+
+    def metrics(self, state, dims):
+        act, w = self._means(state, dims)
+        return {"qe_act_mean": act, "qe_w_mean": w}
+
+    def decision_summary(self, state, dims):
+        return {"man_bits": float(dims.man_bits),
+                "exp_bits": self._deployed_mean(state, dims)}
+
+    def layer_decisions(self, state, dims):
+        return [(float(dims.man_bits), b)
+                for b in self._deployed_per_period(state, dims)]

@@ -43,7 +43,9 @@ def _codec(container: Optional[str]) -> codecs.Codec:
 def packed_cache_init(cfg: ArchConfig, kind: str, batch: int, max_len: int,
                       container: Optional[str] = None, *,
                       device) -> PackedKV:
-    """An all-zero packed cache (built directly, no pack launched)."""
+    """An all-zero packed cache (built directly, no pack launched):
+    payload (B, L, nd_payload_cols(D)) words or bit-plane bytes, bases
+    (B, L, D // 128)."""
     codec = _codec(container)
     D = cfg.n_kv_heads * cfg.head_dim_
     if D % GROUP:
@@ -54,8 +56,8 @@ def packed_cache_init(cfg: ArchConfig, kind: str, batch: int, max_len: int,
     def part():
         return codecs.PackedTensor(codec.name, (batch, L, D),
                                    cfg.compute_dtype, {
-            "payload": torch.zeros((batch, L, D), dtype=fields.word_dtype,
-                                   device=device),
+            "payload": torch.zeros((batch, L, fields.nd_payload_cols(D)),
+                                   dtype=fields.payload_dtype, device=device),
             "bases": torch.zeros((batch, L, D // GROUP), dtype=torch.uint8,
                                  device=device)})
     return PackedKV(k=part(), v=part())

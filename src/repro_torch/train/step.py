@@ -19,6 +19,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.core.stash import float_leaves, substitute
 from repro_torch.models.model import DecoderModel, RunState
 from repro_torch.optim import adamw
 from repro_torch.optim.schedule import Schedule
@@ -87,8 +88,10 @@ def make_train_step(model: DecoderModel, tc: TrainConfig):
         learn = state.pstate.learn
         cview = policy.control_view(state.pstate.ctrl, dims)
         p_leaves = adamw.leaves(state.params)
-        names = list(learn)
-        wrt = p_leaves + [learn[k] for k in names]
+        # A composite's learn is nested ({"qm": {...}, "qe": {...}}): its
+        # leaves are differentiated flat and the gradients renested.
+        paths = [path for path, _ in float_leaves(learn)]
+        wrt = p_leaves + [t for _, t in float_leaves(learn)]
         acc = [None] * len(wrt)
         zero = torch.zeros((), dtype=torch.float32, device=model.device)
         loss_acc = xent_acc = pen_acc = zero
@@ -114,8 +117,8 @@ def make_train_step(model: DecoderModel, tc: TrainConfig):
         n_p = len(p_leaves)
         new_params, new_opt, gnorm = adamw.update(
             acc[:n_p], state.opt, state.params, tc.opt, lr)
-        new_learn = policy.update_learn(learn, dict(zip(names, acc[n_p:])),
-                                        dims)
+        new_learn = policy.update_learn(
+            learn, substitute(learn, dict(zip(paths, acc[n_p:]))), dims)
         new_ctrl = policy.observe(state.pstate.ctrl, xent_acc,
                                   tc.schedule.lr_changed(state.step), dims)
         new_pstate = PolicyState(learn=new_learn, ctrl=new_ctrl)

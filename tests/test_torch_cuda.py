@@ -8,13 +8,15 @@ GPU. On a machine with one:
 Tolerance as in ``chip_smoke.py``: both sides accumulate in f32 and round
 to bf16 once, so they differ by at most one bf16 ulp: |d| <= 2^-7 |plain|
 + 1e-3; the attention backward is held per tensor to 2^-6 of its largest
-element (``chip_smoke.GRAD_TOL`` says why). The packs, the unpack and the
-mantissa truncation are integer arithmetic and must be bit-equal.
+element (``chip_smoke.GRAD_TOL`` says why). The packs (fixed-lane and
+bit-plane), the unpacks and the mantissa truncation are integer
+arithmetic and must be bit-equal.
 """
 import pytest
 import torch
 
 from repro_torch.codecs import fields_for
+from repro_torch.kernels import bitplane_pack as bp
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import mantissa_quant as mq
 from repro_torch.kernels import ops
@@ -148,3 +150,44 @@ def test_flash_attention_backward_kernel(dev, hd, S, rep, window):
     for a, b in zip(got, want):
         err = (a.float() - b.float()).abs().max().item()
         assert err <= 2 ** -6 * b.float().abs().max().item(), err
+
+
+@pytest.mark.parametrize("container,dtype", [
+    ("sfp-m1e2", torch.bfloat16), ("sfp-m2e4", torch.bfloat16),
+    ("sfp-m3e5", torch.bfloat16), ("sfp-m7e7", torch.bfloat16),
+    ("sfp-m9e5", torch.float32), ("sfp-m2e4", torch.float32)])
+def test_bitplane_pack_and_unpack_kernel_bits(dev, container, dtype):
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = _wide(dev, g, (333, 128), dtype)
+    f = fields_for(container, dtype)
+    assert f.dense
+    kp, kb = bp.bitplane_pack(x, f)
+    pp, pb = bp.plain(x, f)
+    assert torch.equal(kp, pp) and torch.equal(kb, pb)
+    for n in (0, 1, f.man_keep, 7 if dtype == torch.bfloat16 else 23):
+        nd = torch.tensor(n, dtype=torch.int32, device=dev)
+        kp, kb = bp.bitplane_quantize_pack(x, nd, f)
+        pp, pb = bp.plain(x, f, n)
+        assert torch.equal(kp, pp) and torch.equal(kb, pb), n
+        ku = bp.bitplane_unpack(kp, kb, dtype, f)
+        pu = bp.plain_unpack(kp, kb, dtype, f)
+        assert torch.equal(ku.view(torch.uint8), pu.view(torch.uint8)), n
+
+
+@pytest.mark.parametrize("container", ["sfp-m2e4", "sfp-m7e7", "sfp-m1e2"])
+@pytest.mark.parametrize("L,window,pos", [(48, None, [47, 10]),
+                                          (128, 64, [300, 77])])
+def test_packed_flash_decode_dense_kernel(dev, container, L, window, pos):
+    g = torch.Generator(device=dev).manual_seed(7)
+    B, H, KH, hd = 2, 4, 2, 192
+    f = fields_for(container, torch.bfloat16)
+    kc = torch.randn((B, L, KH * hd), generator=g, device=dev)
+    vc = torch.randn((B, L, KH * hd), generator=g, device=dev)
+    kp = ops.sfp_compress_nd(kc.to(torch.bfloat16), f)
+    vp = ops.sfp_compress_nd(vc.to(torch.bfloat16), f)
+    q = (torch.randn((B, 1, H, hd), generator=g, device=dev) * 3
+         ).to(torch.bfloat16)
+    p = torch.tensor(pos, dtype=torch.int32, device=dev)
+    args = (q, kp.payload, kp.bases, vp.payload, vp.bases, p, f)
+    kw = dict(window=window, softcap=50.0)
+    _close(pfd.packed_flash_decode_dense(*args, **kw), pfd.plain(*args, **kw))

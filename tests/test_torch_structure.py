@@ -19,6 +19,7 @@ from repro_torch import convert
 from repro_torch import policies as tpolicies
 from repro_torch.configs.base import reduced as treduced
 from repro_torch.kernels import _lib
+from repro_torch.kernels import bitplane_pack as tbp
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import mantissa_quant as tmq
 from repro_torch.kernels import ops as tops
@@ -109,61 +110,92 @@ def _meta(shape, dtype):
     return torch.empty(shape, dtype=dtype, device="meta")
 
 
-N_DIRECT = 7  # the first entries call a kernel wrapper directly
+N_DIRECT = 11  # the first entries call a kernel wrapper directly
 
 
-def _wrapper_calls(fields):
+def _wrapper_calls(fields, dense):
     q = _meta((2, 1, 4, 192), torch.bfloat16)
     pay = _meta((2, 16, 384), torch.uint8)
+    dpay = _meta((2, 16, 3 * dense.group_payload_bytes), torch.uint8)
     bas = _meta((2, 16, 3), torch.uint8)
     pos = _meta((2,), torch.int32)
     x = _meta((2, 16, 2, 192), torch.bfloat16)
     lse = _meta((4, 16), torch.float32)
     rows = _meta((8, 128), torch.bfloat16)
     n = _meta((), torch.int32)
+    planes = _meta((8, dense.group_payload_bytes), torch.uint8)
     return [
         ("sfp_pack", lambda: tsp.sfp_pack(rows, fields)),
         ("sfp_quantize_pack", lambda: tsp.sfp_quantize_pack(rows, n, fields)),
         ("sfp_unpack", lambda: tsp.sfp_unpack(
             _meta((8, 128), torch.uint8), _meta((8, 1), torch.uint8),
             torch.bfloat16, fields)),
+        ("bitplane_pack", lambda: tbp.bitplane_pack(rows, dense)),
+        ("bitplane_quantize_pack", lambda: tbp.bitplane_quantize_pack(
+            rows, n, dense)),
+        ("bitplane_unpack", lambda: tbp.bitplane_unpack(
+            planes, _meta((8, 1), torch.uint8), torch.bfloat16, dense)),
         ("mantissa_quantize", lambda: tmq.mantissa_quantize(rows, n)),
         ("flash_attention", lambda: tfa.flash_attention(x, x, x, q_rep=1)),
         ("flash_attention_bwd", lambda: tfa.flash_attention_bwd(
             x, x, x, x, x, lse, q_rep=1)),
         ("packed_flash_decode", lambda: tpfd.packed_flash_decode(
             q, pay, bas, pay, bas, pos, fields)),
+        ("packed_flash_decode_dense", lambda: tpfd.packed_flash_decode_dense(
+            q, dpay, bas, dpay, bas, pos, dense)),
         ("ops.sfp_compress_nd", lambda: tops.sfp_compress_nd(
             _meta((2, 16, 384), torch.bfloat16), fields, n=3)),
+        ("ops.sfp_compress_nd dense", lambda: tops.sfp_compress_nd(
+            _meta((2, 16, 384), torch.bfloat16), dense, n=3)),
         ("ops.sfp_decompress_nd", lambda: tops.sfp_decompress_nd(
             tops.Packed(pay, bas), torch.bfloat16, fields)),
+        ("ops.sfp_decompress_nd dense", lambda: tops.sfp_decompress_nd(
+            tops.Packed(dpay, bas), torch.bfloat16, dense)),
+        ("ops.sfp_decompress dense", lambda: tops.sfp_decompress(
+            tops.Packed(planes, _meta((8, 1), torch.uint8)), (1000,),
+            torch.bfloat16, dense)),
         ("ops.mantissa_quantize", lambda: tops.mantissa_quantize(rows, 3)),
         ("ops.attention", lambda: tops.attention(
             _meta((2, 16, 4, 192), torch.bfloat16), x, x, softcap=50.0)),
         ("ops.packed_flash_decode", lambda: tops.packed_flash_decode(
             q, tops.Packed(pay, bas), tops.Packed(pay, bas), pos,
             fields=fields)),
+        ("ops.packed_flash_decode dense", lambda: tops.packed_flash_decode(
+            q, tops.Packed(dpay, bas), tops.Packed(dpay, bas), pos,
+            fields=dense)),
     ]
 
 
-@pytest.mark.parametrize("i", range(12))
+def _fields():
+    return (tcodecs.fields_for("sfp8", torch.bfloat16),
+            tcodecs.fields_for("sfp-m2e4", torch.bfloat16))
+
+
+@pytest.mark.parametrize("i", range(20))
 def test_wrappers_raise_when_library_cannot_load(monkeypatch, i):
     """A tensor off the CPU goes to the kernel or raises: never to the
     plain version, even when the kernel library is unavailable."""
     def fail():
         raise _lib.KernelUnavailable("mocked: no kernel library")
     monkeypatch.setattr(_lib, "load", fail)
-    name, call = _wrapper_calls(tcodecs.fields_for("sfp8", torch.bfloat16))[i]
+    calls = _wrapper_calls(*_fields())
+    assert len(calls) == 20
+    name, call = calls[i]
     with pytest.raises(_lib.KernelUnavailable, match="mocked"):
         call()
 
 
 def test_wrappers_check_device_before_launch(monkeypatch):
     monkeypatch.setattr(_lib, "load", lambda: object())
-    for name, call in _wrapper_calls(
-            tcodecs.fields_for("sfp8", torch.bfloat16))[:N_DIRECT]:
+    for name, call in _wrapper_calls(*_fields())[:N_DIRECT]:
         with pytest.raises(ValueError):
             call()
+    # Each wrapper refuses the other layout's geometry.
+    sfp8, dense = _fields()
+    with pytest.raises(ValueError, match="dense bit-plane"):
+        tsp._check_fields("bitplane_pack", sfp8, dense=True)
+    with pytest.raises(ValueError, match="fixed-lane"):
+        tsp._check_fields("sfp_pack", dense)
 
 
 def test_unpack_has_no_kernel_yet(monkeypatch):
@@ -183,12 +215,28 @@ def test_unpack_has_no_kernel_yet(monkeypatch):
                        f)
 
 
-def test_plain_backend_hook_is_test_only():
+def test_plain_backend_hook_is_test_only(monkeypatch):
     tops.force_backend("plain")
     try:
         x = torch.randn(4, 256).to(torch.bfloat16)
         p = tops.sfp_compress_nd(x, tcodecs.fields_for("sfp8", x.dtype))
         assert p.payload.shape == (4, 256) and p.bases.shape == (4, 2)
+    finally:
+        tops.force_backend(None)
+    # 'plain attention' leaves every other entry point on its kernel: a
+    # tensor off the CPU reaches the packing kernel's wrapper (here, a
+    # library that cannot load), while attention takes its plain version.
+    def fail():
+        raise _lib.KernelUnavailable("mocked: no kernel library")
+    monkeypatch.setattr(_lib, "load", fail)
+    tops.force_backend("plain attention")
+    try:
+        with pytest.raises(_lib.KernelUnavailable, match="mocked"):
+            tops.sfp_compress_nd(_meta((4, 256), torch.bfloat16),
+                                 tcodecs.fields_for("sfp8", torch.bfloat16))
+        q = torch.randn(1, 4, 2, 16)
+        assert tops.attention(q.to("meta"), q[:, :, :1].to("meta"),
+                              q[:, :, :1].to("meta")).shape == (1, 4, 2, 16)
     finally:
         tops.force_backend(None)
     with pytest.raises(ValueError):
@@ -198,16 +246,32 @@ def test_plain_backend_hook_is_test_only():
 @pytest.mark.parametrize("name", ["sfp-m1e2", "gecko8", "sfp-m2e4",
                                   "sfp8-m2e5"])
 def test_unported_containers_say_so(name):
-    with pytest.raises(tcodecs.NotYetPorted, match="not yet ported"):
-        tcodecs.get(name)
-    with pytest.raises(ValueError, match="not yet ported"):
-        tcodecs.validate_name(name)
+    """Of these four names only gecko8 still waits for its slice; the
+    parametric SFP names resolve through the codec factory and pack
+    byte-equal to the JAX package."""
+    if name == "gecko8":
+        with pytest.raises(tcodecs.NotYetPorted, match="not yet ported"):
+            tcodecs.get(name)
+        with pytest.raises(ValueError, match="not yet ported"):
+            tcodecs.validate_name(name)
+        return
+    assert tcodecs.validate_name(name).name == name
+    x = torch.linspace(-3, 3, 384).to(torch.bfloat16).reshape(3, 128)
+    got = tcodecs.get(name).pack(x, bits=1)
+    want = jcodecs.get(name).pack(
+        jnp.asarray(x.float().numpy()).astype(jnp.bfloat16), bits=1)
+    for k in ("payload", "bases"):
+        np.testing.assert_array_equal(got.data[k].numpy(),
+                                      np.asarray(want.data[k]))
 
 
 def test_codec_names_and_validation():
+    tcodecs.get("sfp-m2e4")  # built by the factory, not registered
     assert tcodecs.names() == ["bit_exact", "sfp16", "sfp8"]
     with pytest.raises(ValueError, match="did you mean 'sfp8'"):
         tcodecs.validate_name("spf8")
+    with pytest.raises(ValueError, match="unknown container"):
+        tcodecs.validate_name("sfp-m2")
     x = torch.linspace(-3, 3, 256).to(torch.bfloat16)
     for name in ("sfp8", "bit_exact"):
         got = tcodecs.get(name).pack(x, bits=3)
@@ -221,16 +285,23 @@ def test_codec_names_and_validation():
 
 
 def test_policy_names_and_validation():
-    assert tpolicies.names() == ("none", "qm")
+    assert tpolicies.names() == ("none", "qe", "qm")
     assert tpolicies.coerce(None).name == "none"
     assert tpolicies.get("qm", container="sfp8", gamma=0.2).gamma == 0.2
     with pytest.raises(ValueError, match="did you mean 'qm'"):
         tpolicies.validate_name("qn")
-    for name in ("qe", "qm+qe", "bitchop"):
+    comp = tpolicies.get("qm+qe", container="sfp-m2e4", gamma=0.2)
+    assert isinstance(comp, tpolicies.CompositePolicy)
+    assert comp.name == "qm+qe" and comp.container == "sfp-m2e4"
+    assert [p.gamma for p in comp.policies] == [0.2, 0.2]
+    assert tpolicies.validate_name("qm+qe") == ("qm", "qe")
+    for name in ("bitchop", "qm+bitchop"):
         with pytest.raises(ValueError, match="not yet ported"):
             tpolicies.validate_name(name)
         with pytest.raises(tpolicies.NotYetPorted):
             tpolicies.get(name)
+    with pytest.raises(ValueError, match="duplicate"):
+        tpolicies.validate_name("qm+qm")
     with pytest.raises(TypeError):
         tpolicies.get("none", gamma=0.1)
 
