@@ -23,7 +23,17 @@
    dense bit-plane stash), which also runs the 4 steps with only attention
    on its plain version, to tell the attention kernels' share of the gap
    from the bit-plane kernels'. Then 2 steps with ``--container
-   bit_exact`` at 4 layers, which run the mantissa_quantize kernel.
+   bit_exact`` at 4 layers, which run the mantissa_quantize kernel, and
+   prints the stash's footprint in the paper's variable-length accounting.
+5. Gecko: holds gecko_pack and gecko_unpack byte for byte against their
+   plain versions on four families of exponent groups and times them at
+   the stash shape; trains 4 steps with ``--policy qm+qe --container
+   gecko8`` on the kernel path, the plain path and a witness with only
+   attention plain, then one step from low bits, printing the realized
+   gecko8 stash footprint and the Gecko exponent ratio of each run's
+   stash; serves from a gecko8 cache (the unpack fallback), kernel path
+   against plain path and against a raw bf16 cache, whose K/V the
+   unpacked gecko8 cache must equal bit for bit after every decode step.
 
 Any failure exits non-zero. The last line is the device JSON.
 """
@@ -123,6 +133,12 @@ QM_INIT_BITS, SFP8_KEPT_BITS, LOW_BITS, LOW_BITS_STEPS = 7.0, 3, 2.5, 1
 # estimator moved the act bits by 1-2 f32 ulps (H100, PR 13), too little
 # to compare two paths by.
 DENSE_LOW_BITS = {"qm": 1.5, "qe": 3.5}
+# Gecko: the realized exponent stream (lossless on bf16: sign and 7
+# mantissa bits in a byte, the exponents delta-coded in 8x8 groups). Its
+# kernels are held to their plain versions on four families of (G, 64)
+# exponent groups; the ragged G (not a multiple of 128, nor of the
+# kernels' 32-group tile) is the stash's groups cut short.
+GECKO, GECKO_RAGGED_G, GECKO_UNIFORM_G = "gecko8", 147_399, 4099
 
 
 def fail(msg: str) -> None:
@@ -585,15 +601,158 @@ def dense_kernels(torch, cfg, gen, flush, results):
     results["packed_flash_decode_dense"]["bound_by"] = "bytes"
 
 
+def gecko_kernels(torch, cfg, gen, flush, results):
+    """gecko_pack and gecko_unpack against their plain versions, byte for
+    byte, on four families of (G, 64) exponent groups: uniform bytes
+    (deltas over the full -255..255, with 0 and 255 in one column), the
+    bf16 exponents of a stash-shaped (B, S, d) normal tensor (G =
+    147,456), the same after truncate_exponent at e = 3 and e = 4, and G
+    not a multiple of 128 (the uniform family's 4099 groups and the stash
+    cut to 147,399). Both are timed at the stash shape."""
+    from repro_torch.core import containers
+    from repro_torch.kernels import gecko_pack as gp
+    dev = torch.device("cuda")
+    x = torch.randn((B, TRAIN_SEQ, cfg.d_model), generator=gen,
+                    device=dev).to(torch.bfloat16)
+
+    def groups(t):
+        return containers.exponent_field(t).reshape(-1, 64)
+
+    uniform = torch.randint(0, 256, (GECKO_UNIFORM_G, 64), generator=gen,
+                            device=dev, dtype=torch.int32).to(torch.uint8)
+    uniform[0, 0], uniform[0, 8], uniform[0, 16] = 0, 255, 0
+    stash = groups(x)
+    families = {
+        "uniform": uniform, "stash bf16": stash,
+        "stash e=3": groups(containers.truncate_exponent(x, 3)),
+        "stash e=4": groups(containers.truncate_exponent(x, 4)),
+        "stash ragged": stash[:GECKO_RAGGED_G]}
+    widths = {}
+    for name, e in families.items():
+        got = gp.gecko_pack(e)
+        want = gp.plain(e)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            fail(f"gecko_pack {name} (G={e.shape[0]}): kernel bytes differ "
+                 f"from the plain version")
+        out = gp.gecko_unpack(got[0], got[2])
+        torch.cuda.synchronize()
+        if not (torch.equal(out, gp.plain_unpack(got[0], got[2]))
+                and torch.equal(out, e)):
+            fail(f"gecko_unpack {name} (G={e.shape[0]}): kernel bytes differ "
+                 f"from the plain version or the input")
+        w = got[1].float()
+        widths[name] = {"G": e.shape[0], "width_max": int(w.max()),
+                        "width_mean": w.mean().item()}
+    if widths["uniform"]["width_max"] != 8:
+        fail("the uniform family never reached 8-bit deltas")
+    print("  gecko_pack / gecko_unpack byte-equal to their plain versions: "
+          + json.dumps(widths))
+
+    G = stash.shape[0]
+    kb, _, kp = gp.gecko_pack(stash)
+    note = "no single PyTorch call computes the Gecko plane encode/decode"
+    results["gecko_pack"] = dict(
+        path="train gecko8", replaces="src/repro/kernels/gecko_pack.py:71",
+        source="src/repro_torch/csrc/gecko_pack.cu", max_abs_err=0.0,
+        ms=time_ms(torch, lambda: gp.gecko_pack(stash), reps=20, flush=flush),
+        plain_ms=time_ms(torch, lambda: gp.plain(stash), reps=5, flush=flush),
+        library_ms=None, note=note)
+    results["gecko_unpack"] = dict(
+        path="train gecko8", replaces="src/repro/kernels/gecko_pack.py:109",
+        source="src/repro_torch/csrc/gecko_pack.cu", max_abs_err=0.0,
+        ms=time_ms(torch, lambda: gp.gecko_unpack(kb, kp), reps=20,
+                   flush=flush),
+        plain_ms=time_ms(torch, lambda: gp.plain_unpack(kb, kp), reps=5,
+                         flush=flush),
+        library_ms=None, note=note)
+    # Each group: 64 exponent bytes one way; 8 bases + 7 widths + 63 plane
+    # bytes (pack) or 8 bases + 63 plane bytes (unpack) the other.
+    results["gecko_pack"]["bound_ms"], results["gecko_pack"]["bound_by"] = \
+        bound(0, G * (64 + 8 + 7 + 63))
+    results["gecko_unpack"]["bound_ms"], \
+        results["gecko_unpack"]["bound_by"] = bound(0, G * (8 + 63 + 64))
+
+
+def stream_agreement(torch, toks, ref, what):
+    """Each row's greedy stream ``toks`` must equal ``ref``'s (a
+    GenerationResult) up to its first difference, and that difference may
+    only come where ``ref``'s top-2 margin is below twice the logit
+    tolerance (a near tie). Returns (tokens equal before the first
+    difference per row, share of equal tokens)."""
+    margins = ref.margins.cpu()
+    diff = (toks != ref.tokens).cpu()
+    agree = []
+    for b in range(B):
+        idx = torch.nonzero(diff[b]).flatten()
+        t = int(idx[0]) if len(idx) else MAX_NEW
+        if t < MAX_NEW and margins[b, t] >= 2 * E2E_MAX:
+            fail(f"row {b}: token {t} differs from the {what} run with "
+                 f"margin {margins[b, t].item():.3f}")
+        agree.append(t)
+    return agree, (toks.cpu() == ref.tokens.cpu()).float().mean().item()
+
+
+def raw_cache_check(torch, cfg, model, params, prompt, toks):
+    """A gecko8 cache against a raw bf16 one: after every decode step
+    (both fed the raw model's greedy tokens) the unpacked K and V of every
+    layer equal the raw cache bit for bit on the valid slots 0..pos (no
+    slot wraps: the prompt and the new tokens fit every ring). The raw
+    cache gets the packed cache's allocation (1152 slots, a decode-block
+    multiple, not 1088): decode_attend then reduces over the same length
+    on both sides, so the new tokens' K/V, and the logits, can be equal
+    bit for bit. The gecko8 run's greedy stream ``toks`` must agree with
+    the raw-cache run's up to a near tie."""
+    from repro_torch import codecs
+    from repro_torch.configs.base import GLOBAL
+    from repro_torch.models.model import DecoderModel
+    from repro_torch.serve import engine, kvcache
+    codec = codecs.get(model.kv_container)
+    raw = DecoderModel(cfg, device=model.device)
+    max_len = PROMPT + MAX_NEW
+    raw_len = kvcache.cache_len(cfg, GLOBAL, max_len)
+    logit_diff, checked = 0.0, 0
+    with torch.inference_mode():
+        _, cache = model.prefill(params, prompt, max_len)
+        rlogits, rcache = raw.prefill(params, prompt, raw_len)
+        for i in range(MAX_NEW - 1):
+            pos = PROMPT + i
+            tok = rlogits[:, -1].argmax(-1, keepdim=True)
+            logits, cache = model.decode_step(params, cache, tok, pos)
+            rlogits, rcache = raw.decode_step(params, rcache, tok, pos)
+            logit_diff = max(logit_diff,
+                             (logits - rlogits).abs().max().item())
+            for li in range(cfg.n_layers):
+                for part in ("k", "v"):
+                    want = getattr(rcache["layers"][li], part)
+                    want = want.reshape(B, want.shape[1], -1)[:, :pos + 1]
+                    got = codec.unpack(kvcache._flat(getattr(
+                        cache["layers"][li], part)))[:, :pos + 1]
+                    if not torch.equal(got.view(torch.int16),
+                                       want.view(torch.int16)):
+                        fail(f"{codec.name} cache step {i} layer {li} "
+                             f"{part}: unpacked values differ from the raw "
+                             f"bf16 cache")
+                    checked += 1
+        rres = engine.generate(raw, params, prompt, MAX_NEW, raw_len)
+    agree, same = stream_agreement(torch, toks, rres, "raw-cache")
+    return {"raw_cache_checks_bit_equal": checked,
+            "decode_logit_max_diff_vs_raw_cache": logit_diff,
+            "tokens_equal_before_first_difference_vs_raw_cache": agree,
+            "token_agreement_vs_raw_cache": same}
+
+
 def serve_run(torch, cfg, gen, counters, container):
     """gemma2-2b full width through engine.generate from a ``container``
-    KV cache; returns the e2e record and the serving kernels' launches."""
-    from repro_torch.codecs import fields_for
+    KV cache; returns the e2e record and the serving kernels' launches.
+    A codec without a fixed-width payload (gecko8) takes the unpack
+    fallback and is also held to a raw bf16 cache (``raw_cache_check``)."""
+    from repro_torch import codecs
     from repro_torch.kernels import ops
     from repro_torch.models.model import DecoderModel
     from repro_torch.serve import engine
     dev = torch.device("cuda")
-    dense = fields_for(container, cfg.compute_dtype).dense
+    fields = codecs.get(container).pack_fields(cfg.compute_dtype)
     model = DecoderModel(cfg, kv_container=container, device=dev)
     params = model.init(SEED)
     prompt = torch.randint(0, cfg.vocab, (B, PROMPT), generator=gen,
@@ -609,11 +768,15 @@ def serve_run(torch, cfg, gen, counters, container):
     launches = {c.__name__: c.launches for c in counters}
     n_layers, steps = cfg.n_layers, MAX_NEW - 1
     expect = {c.__name__: 0 for c in counters}
-    expect.update({"flash_attention": n_layers,
-                   ("packed_flash_decode_dense" if dense
-                    else "packed_flash_decode"): n_layers * steps,
-                   ("bitplane_pack" if dense
-                    else "sfp_pack"): 2 * n_layers * (1 + steps)})
+    expect["flash_attention"] = n_layers
+    if fields is None:     # every step unpacks the whole K and V cache
+        expect.update(gecko_pack=2 * n_layers * (1 + steps),
+                      gecko_unpack=2 * n_layers * steps)
+    else:
+        expect.update({("packed_flash_decode_dense" if fields.dense
+                        else "packed_flash_decode"): n_layers * steps,
+                       ("bitplane_pack" if fields.dense
+                        else "sfp_pack"): 2 * n_layers * (1 + steps)})
     if launches != expect:
         fail(f"serving launch counts {launches} != expected {expect}")
     toks = res.tokens
@@ -650,20 +813,7 @@ def serve_run(torch, cfg, gen, counters, container):
     if d.max().item() > E2E_MAX or d.mean().item() > E2E_MEAN:
         fail(f"prefill logits: max {d.max().item():.4f} mean "
              f"{d.mean().item():.4f} over {E2E_MAX}/{E2E_MEAN}")
-    # Each row's stream must equal the plain run's up to its first
-    # difference, and that difference may only come where the plain run's
-    # top-2 margin is below twice the logit tolerance (a near tie).
-    margins = plain_res.margins.cpu()
-    diff = (toks != plain_res.tokens).cpu()
-    agree = []
-    for b in range(B):
-        idx = torch.nonzero(diff[b]).flatten()
-        t = int(idx[0]) if len(idx) else MAX_NEW
-        if t < MAX_NEW and margins[b, t] >= 2 * E2E_MAX:
-            fail(f"row {b}: token {t} differs from the plain run with "
-                 f"margin {margins[b, t].item():.3f}")
-        agree.append(t)
-    same = (toks.cpu() == plain_res.tokens.cpu()).float().mean().item()
+    agree, same = stream_agreement(torch, toks, plain_res, "plain")
     e2e = {"arch": cfg.name, "batch": B, "prompt": PROMPT,
            "max_new": MAX_NEW, "kv": container,
            "total_s": total_s, "prefill_ms": prefill_ms,
@@ -674,6 +824,8 @@ def serve_run(torch, cfg, gen, counters, container):
            "tokens_equal_before_first_difference": agree,
            "token_agreement": same, "launches": launches,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if fields is None:
+        e2e.update(raw_cache_check(torch, cfg, model, params, prompt, toks))
     return e2e, launches
 
 
@@ -728,23 +880,74 @@ def timed_step(torch, step_fn, state, b, counters, i, expect=None):
 
 
 def train_steps(torch, argv, counters, expect_per_step=None, n_layers=None,
-                policy_fn=None, count_truncation=False):
+                policy_fn=None, count_truncation=False, record_stash=False):
     """Run the launcher's steps for ``argv`` one by one through
     train.step, checking the launch counts of every step. Returns
     (per-step records, final state, the stash exponent truncation's
-    {"flushed", "saturated"} counts when ``count_truncation``)."""
+    {"flushed", "saturated"} counts when ``count_truncation``, and with
+    ``record_stash`` the (bits, packed tensor) pairs the last step
+    stashed, else None). Recording keeps references to what the stash
+    codec's ``pack`` returns, no copy and no sync."""
+    from repro_torch import codecs
     model, step_fn, state, batches = train_setup(torch, argv, n_layers,
                                                  policy_fn)
     if count_truncation:
         model.truncation_count = {}
+    stash = [] if record_stash else None
+    codec = codecs.get(model.policy.container)
+    if record_stash:
+        pack = type(codec).pack
+
+        def recording_pack(x, bits=None):
+            packed = pack(codec, x, bits)
+            stash.append((bits, packed))
+            return packed
+        codec.pack = recording_pack
     records = []
-    for i, b in enumerate(batches):
-        state, rec = timed_step(torch, step_fn, state, b, counters, i,
-                                expect_per_step)
-        records.append(rec)
+    try:
+        for i, b in enumerate(batches):
+            if record_stash:
+                stash.clear()
+            state, rec = timed_step(torch, step_fn, state, b, counters, i,
+                                    expect_per_step)
+            records.append(rec)
+    finally:
+        if record_stash:
+            del codec.pack
     counts = ({k: int(v) for k, v in model.truncation_count.items()}
               if count_truncation else None)
-    return records, state, counts
+    return records, state, counts, stash
+
+
+def stash_footprint(torch, container, stash):
+    """The realized footprint of one step's stash (``stash``: the (bits,
+    packed tensor) pairs it stashed), measured after the step: the codec's
+    ``packed_bits`` of each stashed tensor against its bf16 bytes; for
+    gecko8 also the bytes its dense device form holds and the Gecko
+    exponent ratio (``core.gecko.compression_ratio``, metadata and deltas
+    over 8 bits a value) of the stashed exponents."""
+    from repro_torch import codecs
+    from repro_torch.core import containers, gecko
+    codec = codecs.get(container)
+    n, bits, comp, device_bytes, ratios = 0, 0.0, 0.0, 0, []
+    for nbits, p in stash:
+        x = codec.unpack(p)                    # the values as stashed
+        n += x.numel()
+        bits += codec.packed_bits(x, nbits)
+        if container == GECKO:
+            e = containers.exponent_field(x)
+            comp += float(gecko.compressed_bits(e))
+            ratios.append(float(gecko.compression_ratio(e)))
+            device_bytes += sum(t.numel() * t.element_size()
+                                for t in p.data.values())
+    out = {"stashed_tensors": len(stash), "stash_packed_bytes": bits / 8,
+           "stash_bf16_bytes": 2 * n, "stash_packed_vs_bf16": bits / (16 * n)}
+    if container == GECKO:
+        out.update(stash_device_bytes=device_bytes,
+                   stash_device_vs_bf16=device_bytes / (2 * n),
+                   gecko_exponent_ratio=comp / (8 * n),
+                   gecko_exponent_ratio_per_period=ratios)
+    return out
 
 
 def total_launches(records):
@@ -778,9 +981,13 @@ def compare_runs(run, ref, subs, init):
     for s in subs:
         act, ref_act = acts[s], ref_acts[s]
         # The penalty-only value: the one most periods share on the
-        # reference run.
+        # reference run. Where no two periods share one, every period's
+        # estimator acted (gecko8 keeps all 7 bf16 mantissa bits, so
+        # Q(h, 6) != Q(h, 7) from the first move below 7): moves are then
+        # taken from the initial value, and no period is penalty-only.
         vals, cnt = ref_act.unique(return_counts=True)
-        v0 = vals[cnt.argmax()]
+        v0 = (vals[cnt.argmax()] if cnt.max() >= 2
+              else vals.new_tensor(float(init[s])))
         still, ref_still = act == v0, ref_act == v0
         move, ref_move = act - v0, ref_act - v0
         act_d = (move - ref_move).abs().max().item()
@@ -795,8 +1002,7 @@ def compare_runs(run, ref, subs, init):
                   "act_estimator_move_limit": act_lim,
                   "w_bits_mean_max_diff": w_d, "w_bits_limit": w_lim,
                   "act_bits": act.tolist(), "ref_act_bits": ref_act.tolist()}
-        bits_ok = bits_ok and not (cnt.max() < 2
-                                   or bool((still != ref_still).any())
+        bits_ok = bits_ok and not (bool((still != ref_still).any())
                                    or act_d > act_lim or w_d > w_lim)
     return out, loss_ok, bits_ok
 
@@ -817,11 +1023,19 @@ def train_run(torch, cfg, counters, *, policy, container, steps, bits,
     the attention kernels', is printed."""
     import dataclasses
     from repro_torch import codecs
-    from repro_torch.codecs import fields_for
     from repro_torch.kernels import ops
     subs = policy.split("+")
     composite = len(subs) > 1
-    f = fields_for(container, cfg.compute_dtype)
+    fields = codecs.get(container).pack_fields(cfg.compute_dtype)
+    if fields is None:    # gecko8: sign and 7 mantissa bits in a byte
+        pack, unpack, kept = "gecko_pack", "gecko_unpack", 7
+    elif fields.dense:
+        pack, unpack = "bitplane_quantize_pack", "bitplane_unpack"
+        kept = fields.man_keep
+    else:
+        pack, unpack = "sfp_quantize_pack", "sfp_unpack"
+        kept = fields.man_keep
+    gecko = container == GECKO
     argv = ["--arch", cfg.name, "--preset", "full", "--policy", policy,
             "--container", container, "--batch", str(B), "--seq",
             str(TRAIN_SEQ), "--steps", str(steps), "--seed", str(SEED),
@@ -835,34 +1049,37 @@ def train_run(torch, cfg, counters, *, policy, container, steps, bits,
                 if p.name == "qe" else p for p in pol.policies))
     n_periods, n_layers = cfg.n_periods, cfg.n_layers
     expect = {c.__name__: 0 for c in counters}
-    expect.update({("bitplane_quantize_pack" if f.dense
-                    else "sfp_quantize_pack"): n_periods,
-                   ("bitplane_unpack" if f.dense
-                    else "sfp_unpack"): 2 * n_periods,
+    expect.update({pack: n_periods, unpack: 2 * n_periods,
                    "flash_attention": 2 * n_layers,
                    "flash_attention_bwd": n_layers})
     # The estimators act where the stash keeps more than floor(bits):
     # qm where its draw can exceed floor(n) within the kept mantissa bits,
     # qe where it starts below the full exponent field.
-    low = {"qm": init["qm"] < f.man_keep, "qe": init["qe"] < 8.0}
+    low = {"qm": init["qm"] < kept, "qe": init["qe"] < 8.0}
     counting = "qe" in subs and low["qe"]
 
-    def run(backend, expect_per_step=None):
+    def run(backend, expect_per_step=None, measure=False):
         ops.force_backend(backend)
         try:
-            records, state, counts = train_steps(
+            records, state, counts, stash = train_steps(
                 torch, argv, counters, expect_per_step, policy_fn=policy_fn,
-                count_truncation=counting)
+                count_truncation=counting, record_stash=measure)
         finally:
             ops.force_backend(None)
         acts = {s: _act_bits(state, s, composite) for s in subs}
         del state
+        footprint = (stash_footprint(torch, container, stash) if measure
+                     else None)
+        del stash
         torch.cuda.empty_cache()
-        return records, acts, counts
+        return records, acts, counts, footprint
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    records, acts, kcounts = run(None, expect)
+    # gecko8's footprint depends on the data: measured on the last step's
+    # stash, which the recorder keeps until that step ends (at most 13
+    # packed stashes, 0.27 GB, on top of the step's own memory).
+    records, acts, kcounts, footprint = run(None, expect, measure=gecko)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     launches = total_launches(records)
     for s in subs:
@@ -874,13 +1091,21 @@ def train_run(torch, cfg, counters, *, policy, container, steps, bits,
         if low[s] and acts[s].unique().numel() < 2:
             fail(f"the {s} stash estimator did not move the act "
                  f"bitlengths: {acts[s].tolist()}")
-    h = torch.empty((B, TRAIN_SEQ, cfg.d_model), dtype=torch.bfloat16,
-                    device="meta")
-    stash_bytes = codecs.get(container).packed_bits(h) / 8 * n_periods
+    if gecko:
+        if footprint["stashed_tensors"] != n_periods:
+            fail(f"recorded {footprint['stashed_tensors']} stashed tensors, "
+                 f"not {n_periods}")
+        stash_bytes = footprint["stash_packed_bytes"]
+        print(f"stash footprint ({policy}, {container}, init bits {init}, "
+              f"last step): " + json.dumps(footprint))
+    else:
+        h = torch.empty((B, TRAIN_SEQ, cfg.d_model), dtype=torch.bfloat16,
+                        device="meta")
+        stash_bytes = codecs.get(container).packed_bits(h) / 8 * n_periods
 
     for c in counters:
         c.launches = 0
-    plain_records, plain_acts, pcounts = run("plain")
+    plain_records, plain_acts, pcounts, _ = run("plain")
     if any(c.launches for c in counters):
         fail("the plain training run launched a kernel")
     compare, loss_ok, bits_ok = compare_runs(
@@ -896,7 +1121,7 @@ def train_run(torch, cfg, counters, *, policy, container, steps, bits,
     e2e_witness = {}
     if witness:
         expect_w = dict(expect, flash_attention=0, flash_attention_bwd=0)
-        w_records, w_acts, _ = run("plain attention", expect_w)
+        w_records, w_acts, _, _ = run("plain attention", expect_w)
         w_compare, w_loss_ok, w_bits_ok = compare_runs(
             (w_records, w_acts), (plain_records, plain_acts), subs, init)
         kw_compare, _, _ = compare_runs((records, acts), (w_records, w_acts),
@@ -946,12 +1171,17 @@ def train_run(torch, cfg, counters, *, policy, container, steps, bits,
            "step_s": [r["step_s"] for r in records],
            "plain_step_s": [r["step_s"] for r in plain_records],
            "launches_per_step": expect}
+    if footprint is not None:
+        e2e["stash_footprint_last_step"] = footprint
     return e2e, launches
 
 
 def bit_exact_run(torch, cfg, counters):
     """--container bit_exact at full width and 4 layers, 2 steps: the
-    stash goes through mantissa_quantize (one launch per period)."""
+    stash goes through mantissa_quantize (one launch per period). Its
+    ``packed_bits`` is the paper's variable-length footprint (sign, kept
+    mantissa bits, Gecko-compressed exponents), measured on the last
+    step's stash."""
     n_periods = BIT_EXACT_LAYERS // len(cfg.period)
     argv = ["--arch", cfg.name, "--preset", "full", "--policy", "qm",
             "--container", "bit_exact", "--batch", str(B), "--seq",
@@ -961,11 +1191,18 @@ def bit_exact_run(torch, cfg, counters):
     expect.update({"mantissa_quantize": n_periods,
                    "flash_attention": 2 * BIT_EXACT_LAYERS,
                    "flash_attention_bwd": BIT_EXACT_LAYERS})
-    records, state, _ = train_steps(torch, argv, counters, expect,
-                                    n_layers=BIT_EXACT_LAYERS)
+    records, state, _, stash = train_steps(torch, argv, counters, expect,
+                                           n_layers=BIT_EXACT_LAYERS,
+                                           record_stash=True)
     del state
+    footprint = stash_footprint(torch, "bit_exact", stash)
+    if footprint["stashed_tensors"] != n_periods:
+        fail(f"bit_exact: recorded {footprint['stashed_tensors']} stashed "
+             f"tensors, not {n_periods}")
+    del stash
     torch.cuda.empty_cache()
     return ({"layers": BIT_EXACT_LAYERS, "loss": [r["loss"] for r in records],
+             "stash_footprint_last_step": footprint,
              "launches_per_step": expect}, total_launches(records))
 
 
@@ -981,6 +1218,7 @@ def main() -> int:
     from repro_torch.kernels import _lib
     from repro_torch.kernels import bitplane_pack as bp
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gecko_pack as gp
     from repro_torch.kernels import mantissa_quant as mq
     from repro_torch.kernels import packed_flash_decode as pfd
     from repro_torch.kernels import sfp_pack as sp
@@ -1006,18 +1244,21 @@ def main() -> int:
                 bp.bitplane_pack, bp.bitplane_quantize_pack,
                 bp.bitplane_unpack, mq.mantissa_quantize,
                 fa.flash_attention, fa.flash_attention_bwd,
-                pfd.packed_flash_decode, pfd.packed_flash_decode_dense)
+                pfd.packed_flash_decode, pfd.packed_flash_decode_dense,
+                gp.gecko_pack, gp.gecko_unpack)
     results = {}
     t0 = time.perf_counter()
     serving_kernels(torch, cfg, gen, flush, results)
     training_kernels(torch, cfg, gen, flush, results)
     dense_kernels(torch, cfg, gen, flush, results)
+    gecko_kernels(torch, cfg, gen, flush, results)
     del flush
     torch.cuda.empty_cache()
     print(f"kernel checks: {time.perf_counter() - t0:.1f} s")
 
     path_launches = {}
-    for path, container in (("serve", CONTAINER), ("serve dense", DENSE)):
+    for path, container in (("serve", CONTAINER), ("serve dense", DENSE),
+                            ("serve gecko8", GECKO)):
         t0 = time.perf_counter()
         e2e, path_launches[path] = serve_run(torch, cfg, gen, counters,
                                              container)
@@ -1026,7 +1267,8 @@ def main() -> int:
         print(f"serving {container}: {time.perf_counter() - t0:.1f} s")
     for path, policy, container, witness in (
             ("train", "qm", CONTAINER, False),
-            ("train dense", "qm+qe", DENSE, True)):
+            ("train dense", "qm+qe", DENSE, True),
+            ("train gecko8", "qm+qe", GECKO, True)):
         t0 = time.perf_counter()
         e2e, path_launches[path] = train_run(
             torch, cfg, counters, policy=policy, container=container,
@@ -1036,14 +1278,16 @@ def main() -> int:
         print(f"{path}: {time.perf_counter() - t0:.1f} s")
     for policy, container, bits in (
             ("qm", CONTAINER, {"qm": LOW_BITS}),
-            ("qm+qe", DENSE, DENSE_LOW_BITS)):
+            ("qm+qe", DENSE, DENSE_LOW_BITS),
+            ("qm+qe", GECKO, DENSE_LOW_BITS)):
         t0 = time.perf_counter()
         e2e, _ = train_run(torch, cfg, counters, policy=policy,
                            container=container, steps=LOW_BITS_STEPS,
                            bits=bits)
         e2e["card"] = card
         print(f"train low bits ({policy}, {container}): " + json.dumps(e2e))
-        print(f"low-bits training {policy}: {time.perf_counter() - t0:.1f} s")
+        print(f"low-bits training {policy} {container}: "
+              f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     be_e2e, path_launches["train bit_exact"] = bit_exact_run(torch, cfg,
                                                              counters)
@@ -1058,6 +1302,9 @@ def main() -> int:
         if name == "flash_attention":
             r["note"] += (f"; {path_launches['serve'][name]} launches per "
                           f"generate on the serving path")
+        if name in ("gecko_pack", "gecko_unpack"):
+            r["note"] += (f"; {path_launches['serve gecko8'][name]} launches "
+                          f"per generate from a gecko8 KV cache")
         kernels.append(dict(name=name, route="cuda", source=r["source"],
                             replaces=r["replaces"],
                             launches=path_launches[path][name], path=path,

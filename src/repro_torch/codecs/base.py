@@ -4,9 +4,7 @@ A ``Codec`` packs a float tensor into a ``PackedTensor`` (named payload
 tensors plus the shape and dtype to rebuild it) and unpacks it back. The
 serving KV cache and the training stash resolve their container through
 ``get()``; parametric families (the ``sfp*-m{K}e{E}`` geometries) resolve
-through factories registered with ``register_factory``. Containers of the
-JAX package that this port does not carry yet resolve to a clear "not yet
-ported" error instead of an unknown-name error.
+through factories registered with ``register_factory``.
 """
 from __future__ import annotations
 
@@ -15,11 +13,6 @@ import difflib
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
-
-from repro_torch import NotYetPorted
-
-# Registered in the JAX package, still to be ported here.
-NOT_YET_PORTED = ("gecko8",)
 
 
 class PackedTensor:
@@ -91,9 +84,6 @@ def get(name: str) -> Codec:
         if codec is not None:
             _BUILT[name] = codec
             return codec
-    if name in NOT_YET_PORTED:
-        raise NotYetPorted(f"container {name!r} is not yet ported to "
-                           f"repro_torch; ported: {names()}")
     raise KeyError(f"unknown container codec {name!r}; registered: {names()}")
 
 
@@ -105,8 +95,6 @@ def validate_name(name: str, *, what: str = "container codec") -> Codec:
     """Resolve ``name``, raising ValueError with a did-you-mean hint."""
     try:
         return get(name)
-    except NotYetPorted as e:
-        raise ValueError(str(e)) from e
     except KeyError:
         pass
     best = difflib.get_close_matches(name, names(), n=1, cutoff=0.55)

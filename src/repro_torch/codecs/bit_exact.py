@@ -3,14 +3,16 @@
 The payload is the (mantissa-truncated) tensor in its own dtype; no
 repacking happens on the device. The quantizer runs for real (the
 ``mantissa_quantize`` kernel on the card), so accuracy effects are
-faithful. Its footprint in the JAX package is the paper's variable-length
-model with Gecko-compressed exponents, which waits for the Gecko slice.
+faithful. Its footprint is what the paper's variable-length encoding
+would write: sign + kept mantissa + Gecko-compressed exponents
+(``core/footprint.py``).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.codecs import base
+from repro_torch.core import containers, footprint
 from repro_torch.kernels import ops
 
 BIT_EXACT = "bit_exact"
@@ -27,5 +29,7 @@ class BitExactCodec(base.Codec):
         return packed.data["payload"]
 
     def packed_bits(self, x: torch.Tensor, bits=None) -> float:
-        raise base.NotYetPorted("the bit_exact footprint needs Gecko "
-                                "exponent compression, not yet ported")
+        """The paper's variable-length footprint: sign, the kept mantissa
+        bits and the Gecko-compressed exponents."""
+        n = containers.spec_for(x).man_bits if bits is None else bits
+        return float(footprint.sfp_footprint(x, n).total_bits)

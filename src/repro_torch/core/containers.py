@@ -175,3 +175,9 @@ def truncate_exponent(x: torch.Tensor, e) -> torch.Tensor:
     exp_new = torch.where(underflow, torch.zeros_like(exp), exp_new)
     man_new = torch.where(underflow, torch.zeros_like(man), man)
     return combine_fields(sign, exp_new, man_new, spec)
+
+
+def exponent_field(x: torch.Tensor) -> torch.Tensor:
+    """The biased exponent field as uint8 (Gecko's input)."""
+    _, exp, _ = split_fields(x)
+    return exp.to(torch.uint8)

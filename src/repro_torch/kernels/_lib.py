@@ -40,6 +40,8 @@ SIGNATURES = {
                                       _P],
     "bitplane_unpack_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "mantissa_quantize_launch": [_P, _P, _P, _L, _I, _P],
+    "gecko_pack_launch": [_P, _P, _P, _P, _L, _P],
+    "gecko_unpack_launch": [_P, _P, _P, _L, _P],
     "flash_attention_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _I, _I, _F, _F, _P],
     "flash_attention_bwd_launch": [_P] * 10 + [_I] * 8 + [_F, _F, _P],

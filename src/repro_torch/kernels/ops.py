@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.kernels import bitplane_pack as _bp
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import gecko_pack as _gp
 from repro_torch.kernels import mantissa_quant as _mq
 from repro_torch.kernels import packed_flash_decode as _pfd
 from repro_torch.kernels import ref as _ref
@@ -153,6 +154,24 @@ def sfp_decompress(packed: Packed, shape: tuple, dtype,
     for s in shape:
         n *= s
     return out.reshape(-1)[:n].reshape(shape)
+
+
+# -- Gecko exponent compression ----------------------------------------------
+
+
+def gecko_encode(groups: torch.Tensor):
+    """(G, 64) uint8 exponent groups -> (bases (G, 8), widths (G, 7),
+    planes (G, 63)) uint8."""
+    if not _kernel(groups):
+        return _ref.gecko_plane_encode(groups)
+    return _gp.gecko_pack(groups.contiguous())
+
+
+def gecko_decode(bases: torch.Tensor, planes: torch.Tensor) -> torch.Tensor:
+    """(bases (G, 8), planes (G, 63)) -> (G, 64) uint8 exponents."""
+    if not _kernel(bases):
+        return _ref.gecko_plane_decode(bases, planes)
+    return _gp.gecko_unpack(bases.contiguous(), planes.contiguous())
 
 
 # -- attention ---------------------------------------------------------------

@@ -2,9 +2,9 @@
 
 They repeat the arithmetic of the JAX package's oracles
 (``repro.kernels.ref``): mantissa truncation, the SFP word machine (with
-the fused Q(M, n)) stored as fixed-lane words or as dense bit planes, the
-ring-slot validity mask, the packed decode's block recurrence and dense
-attention.
+the fused Q(M, n)) stored as fixed-lane words or as dense bit planes,
+Gecko's exponent plane encode and decode, the ring-slot validity mask,
+the packed decode's block recurrence and dense attention.
 The CPU path runs them, the tests hold them against the JAX package, and
 ``chip_smoke.py`` holds each CUDA kernel against them on the card.
 """
@@ -307,6 +307,75 @@ def bitplane_unpack_nd(planes: torch.Tensor, bases: torch.Tensor,
     out = unpack_planes(p, bases[..., None], fields,
                         containers.spec_for(dtype))
     return out.reshape(*lead, G * GROUP)
+
+
+# ---------------------------------------------------------------------------
+# Gecko delta-mode exponent compression (the function of gecko_pack and
+# gecko_unpack). Each 64-exponent group is an 8x8 matrix: row 0 holds the 8
+# column bases, rows 1..7 sign+magnitude deltas against them, stored as bit
+# planes: byte [row, p] holds bit p of all 8 columns (bit c <-> column c);
+# p = 0 is the sign plane, p = 1..8 the magnitude planes, so a row whose
+# largest |delta| needs w bits has w + 1 meaningful bytes and zeros above.
+# ---------------------------------------------------------------------------
+
+GECKO_GROUP = 64   # exponents per group (8 rows x 8 columns)
+GECKO_ROWS = 7     # delta rows (row 0 is the bases)
+GECKO_PLANES = 9   # sign plane + 8 magnitude bit planes
+GECKO_PLANE_BYTES = GECKO_ROWS * GECKO_PLANES  # 63 dense bytes per group
+
+
+def gecko_encode_block(g: torch.Tensor):
+    """(G, 64) int32 groups -> int32 (bases (G, 8), widths (G, 7), planes
+    (G, 63)). Deltas span -255..255; a row's width is the bit length of
+    its largest magnitude (0..8); a zero delta has no sign bit."""
+    g = g.reshape(-1, 8, 8)
+    bases = g[:, 0, :]
+    d = g[:, 1:, :] - bases[:, None, :]           # (G, 7, 8)
+    sign = (d < 0).to(torch.int32)
+    mag = torch.abs(d)
+    row_max = torch.amax(mag, dim=2)
+    width = torch.zeros_like(row_max)
+    for b in range(8, -1, -1):                    # 255 needs 8 bits
+        width = torch.where((row_max >> b) > 0,
+                            torch.clamp(width, min=b + 1), width)
+    col = torch.arange(8, dtype=torch.int32, device=g.device)
+    planes = [torch.sum(sign << col, dim=2, dtype=torch.int32)]
+    for b in range(8):
+        planes.append(torch.sum(((mag >> b) & 1) << col, dim=2,
+                                dtype=torch.int32))
+    return bases, width, torch.stack(planes, dim=2).reshape(
+        -1, GECKO_PLANE_BYTES)
+
+
+def gecko_decode_block(bases: torch.Tensor, planes: torch.Tensor
+                       ) -> torch.Tensor:
+    """Inverse of ``gecko_encode_block`` (int32 in and out): every plane
+    of every row is read, whatever the row's width."""
+    pl = planes.reshape(-1, GECKO_ROWS, GECKO_PLANES)
+    col = torch.arange(8, dtype=torch.int32, device=planes.device)
+    sign = (pl[:, :, 0:1] >> col) & 1                          # (G, 7, 8)
+    mag = torch.zeros_like(sign)
+    for b in range(8):
+        mag = mag | (((pl[:, :, b + 1:b + 2] >> col) & 1) << b)
+    d = torch.where(sign == 1, -mag, mag)
+    b0 = bases[:, None, :]
+    return torch.cat([b0, b0 + d], dim=1).reshape(-1, GECKO_GROUP)
+
+
+def gecko_plane_encode(groups: torch.Tensor):
+    """(G, 64) uint8 exponent groups -> uint8 (bases (G, 8), widths
+    (G, 7), planes (G, 63)): the function of the ``gecko_pack`` kernel."""
+    bases, width, planes = gecko_encode_block(groups.to(torch.int32))
+    return (bases.to(torch.uint8), width.to(torch.uint8),
+            planes.to(torch.uint8))
+
+
+def gecko_plane_decode(bases: torch.Tensor, planes: torch.Tensor
+                       ) -> torch.Tensor:
+    """(bases (G, 8), planes (G, 63)) uint8 -> (G, 64) uint8 exponents
+    (``base + delta`` wraps to a byte): the function of ``gecko_unpack``."""
+    return gecko_decode_block(bases.to(torch.int32),
+                              planes.to(torch.int32)).to(torch.uint8)
 
 
 # ---------------------------------------------------------------------------

@@ -3,8 +3,9 @@
   python -m repro_torch.launch.serve --arch gemma2-2b --preset full \
       --batch 4 --prompt-len 1024 --max-new 64 --kv-container sfp8
 
-``--kv-container`` takes any registry codec with a fixed-width payload:
-sfp8, sfp16, or a dense bit-plane geometry such as sfp-m2e4.
+``--kv-container`` takes any registry codec: sfp8, sfp16 or a dense
+bit-plane geometry such as sfp-m2e4 (read by the fused decode kernel),
+or gecko8 and bit_exact (the cache is unpacked whole every step).
 
 Runs on CUDA; ``--device cpu`` runs the plain PyTorch path on the CPU.
 Weights are random, drawn from ``--seed``. The trace (continuous
@@ -52,9 +53,14 @@ def profile(model, params, prompt, max_new: int, top: int) -> dict:
         engine.generate(model, params, prompt, max_new=max_new)
         _sync(model.device)
     wall = time.perf_counter() - t0
-    # Self device time is the kernels' own time (one stream: no overlap).
+    # Self device time of the device-side entries is the kernels' own time
+    # (one stream: no overlap); the CPU ops that launched them report the
+    # same time again, so they are left out.
+    from torch.autograd import DeviceType
     rows = [(e.key, e.self_device_time_total, e.count)
-            for e in prof.key_averages() if e.self_device_time_total > 0]
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
     busy = sum(r[1] for r in rows)
     rows.sort(key=lambda r: -r[1])
     return {"wall_ms": wall * 1e3, "device_busy_ms": busy / 1e3,
@@ -97,8 +103,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--kv-container", default=None, type=container_name,
                     help="registry codec for the packed KV cache (sfp8, "
-                    "sfp16, or a dense geometry such as sfp-m2e4); None = "
-                    "raw bf16 cache")
+                    "sfp16, a dense geometry such as sfp-m2e4, gecko8 or "
+                    "bit_exact); None = raw bf16 cache")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--max-new", type=int, default=16)

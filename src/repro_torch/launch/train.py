@@ -6,8 +6,8 @@
 ``--policy`` takes a registered precision policy (none, qm, qe) or a
 '+'-composition such as ``qm+qe`` (learn mantissa and exponent bitlengths
 in one run; the ``--qm-*`` flags reach qm, the ``--qe-*`` flags qe);
-``--container`` the stash codec (sfp8, sfp16, bit_exact, or a dense
-geometry such as sfp-m2e4). Runs on CUDA; ``--device cpu``
+``--container`` the stash codec (sfp8, sfp16, bit_exact, gecko8, or a
+dense geometry such as sfp-m2e4). Runs on CUDA; ``--device cpu``
 runs the plain PyTorch path on the CPU. Weights are random, drawn from
 ``--seed``; batches come from the seeded synthetic Markov corpus. The
 tiny and small presets shrink the config and fix batch 8 and sequence 64

@@ -8,7 +8,8 @@ with the policy's container as the cross-pass activation stash, and the
 policy fake-quantizes the weights at their use sites. Serving runs
 ``prefill`` over the prompt and ``decode_step`` per token over a KV cache
 that is updated in place — raw bf16, or packed by a registry codec
-(``kv_container``) and read through the fused decode kernel.
+(``kv_container``): read through the fused decode kernel for the SFP
+containers, unpacked whole for ``bit_exact`` and ``gecko8``.
 """
 from __future__ import annotations
 

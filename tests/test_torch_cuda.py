@@ -9,15 +9,17 @@ Tolerance as in ``chip_smoke.py``: both sides accumulate in f32 and round
 to bf16 once, so they differ by at most one bf16 ulp: |d| <= 2^-7 |plain|
 + 1e-3; the attention backward is held per tensor to 2^-6 of its largest
 element (``chip_smoke.GRAD_TOL`` says why). The packs (fixed-lane and
-bit-plane), the unpacks and the mantissa truncation are integer
-arithmetic and must be bit-equal.
+bit-plane), the unpacks, the mantissa truncation and the Gecko exponent
+pack and unpack are integer arithmetic and must be bit-equal.
 """
 import pytest
 import torch
 
 from repro_torch.codecs import fields_for
+from repro_torch.core import containers
 from repro_torch.kernels import bitplane_pack as bp
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import gecko_pack as gp
 from repro_torch.kernels import mantissa_quant as mq
 from repro_torch.kernels import ops
 from repro_torch.kernels import packed_flash_decode as pfd
@@ -191,3 +193,32 @@ def test_packed_flash_decode_dense_kernel(dev, container, L, window, pos):
     args = (q, kp.payload, kp.bases, vp.payload, vp.bases, p, f)
     kw = dict(window=window, softcap=50.0)
     _close(pfd.packed_flash_decode_dense(*args, **kw), pfd.plain(*args, **kw))
+
+
+def _gecko_groups(dev, g, G, family):
+    """(G, 64) uint8 exponents: uniform bytes (deltas over -255..255, with
+    0 and 255 in one column), or the bf16 exponents of normal values,
+    plain or after an exponent truncation to 3 or 4 bits."""
+    if family == "uniform":
+        e = torch.randint(0, 256, (G, 64), generator=g, device=dev,
+                          dtype=torch.int32).to(torch.uint8)
+        e[0, 0], e[0, 8], e[0, 16] = 0, 255, 0
+        return e
+    x = torch.randn((G, 64), generator=g, device=dev).to(torch.bfloat16)
+    if family != "normal":
+        x = containers.truncate_exponent(x, int(family[1:]))
+    return containers.exponent_field(x)
+
+
+@pytest.mark.parametrize("family", ["uniform", "normal", "e3", "e4"])
+@pytest.mark.parametrize("G", [1, 31, 32, 127, 128, 129, 4099])
+def test_gecko_pack_and_unpack_kernel_bytes(dev, G, family):
+    g = torch.Generator(device=dev).manual_seed(8)
+    e = _gecko_groups(dev, g, G, family)
+    got = gp.gecko_pack(e)
+    want = gp.plain(e)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and torch.equal(a, b)
+    out = gp.gecko_unpack(got[0], got[2])
+    assert torch.equal(out, gp.plain_unpack(got[0], got[2]))
+    assert torch.equal(out, e)

@@ -21,6 +21,7 @@ from repro_torch.configs.base import reduced as treduced
 from repro_torch.kernels import _lib
 from repro_torch.kernels import bitplane_pack as tbp
 from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import gecko_pack as tgp
 from repro_torch.kernels import mantissa_quant as tmq
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import packed_flash_decode as tpfd
@@ -110,7 +111,7 @@ def _meta(shape, dtype):
     return torch.empty(shape, dtype=dtype, device="meta")
 
 
-N_DIRECT = 11  # the first entries call a kernel wrapper directly
+N_DIRECT = 13  # the first entries call a kernel wrapper directly
 
 
 def _wrapper_calls(fields, dense):
@@ -124,6 +125,8 @@ def _wrapper_calls(fields, dense):
     rows = _meta((8, 128), torch.bfloat16)
     n = _meta((), torch.int32)
     planes = _meta((8, dense.group_payload_bytes), torch.uint8)
+    groups = _meta((8, 64), torch.uint8)
+    gbases, gplanes = _meta((8, 8), torch.uint8), _meta((8, 63), torch.uint8)
     return [
         ("sfp_pack", lambda: tsp.sfp_pack(rows, fields)),
         ("sfp_quantize_pack", lambda: tsp.sfp_quantize_pack(rows, n, fields)),
@@ -143,6 +146,8 @@ def _wrapper_calls(fields, dense):
             q, pay, bas, pay, bas, pos, fields)),
         ("packed_flash_decode_dense", lambda: tpfd.packed_flash_decode_dense(
             q, dpay, bas, dpay, bas, pos, dense)),
+        ("gecko_pack", lambda: tgp.gecko_pack(groups)),
+        ("gecko_unpack", lambda: tgp.gecko_unpack(gbases, gplanes)),
         ("ops.sfp_compress_nd", lambda: tops.sfp_compress_nd(
             _meta((2, 16, 384), torch.bfloat16), fields, n=3)),
         ("ops.sfp_compress_nd dense", lambda: tops.sfp_compress_nd(
@@ -163,6 +168,8 @@ def _wrapper_calls(fields, dense):
         ("ops.packed_flash_decode dense", lambda: tops.packed_flash_decode(
             q, tops.Packed(dpay, bas), tops.Packed(dpay, bas), pos,
             fields=dense)),
+        ("ops.gecko_encode", lambda: tops.gecko_encode(groups)),
+        ("ops.gecko_decode", lambda: tops.gecko_decode(gbases, gplanes)),
     ]
 
 
@@ -171,7 +178,7 @@ def _fields():
             tcodecs.fields_for("sfp-m2e4", torch.bfloat16))
 
 
-@pytest.mark.parametrize("i", range(20))
+@pytest.mark.parametrize("i", range(24))
 def test_wrappers_raise_when_library_cannot_load(monkeypatch, i):
     """A tensor off the CPU goes to the kernel or raises: never to the
     plain version, even when the kernel library is unavailable."""
@@ -179,7 +186,7 @@ def test_wrappers_raise_when_library_cannot_load(monkeypatch, i):
         raise _lib.KernelUnavailable("mocked: no kernel library")
     monkeypatch.setattr(_lib, "load", fail)
     calls = _wrapper_calls(*_fields())
-    assert len(calls) == 20
+    assert len(calls) == 24
     name, call = calls[i]
     with pytest.raises(_lib.KernelUnavailable, match="mocked"):
         call()
@@ -246,28 +253,22 @@ def test_plain_backend_hook_is_test_only(monkeypatch):
 @pytest.mark.parametrize("name", ["sfp-m1e2", "gecko8", "sfp-m2e4",
                                   "sfp8-m2e5"])
 def test_unported_containers_say_so(name):
-    """Of these four names only gecko8 still waits for its slice; the
-    parametric SFP names resolve through the codec factory and pack
-    byte-equal to the JAX package."""
-    if name == "gecko8":
-        with pytest.raises(tcodecs.NotYetPorted, match="not yet ported"):
-            tcodecs.get(name)
-        with pytest.raises(ValueError, match="not yet ported"):
-            tcodecs.validate_name(name)
-        return
+    """None of these four names waits for a slice any more: gecko8 is
+    registered, the parametric SFP names resolve through the codec
+    factory, and each packs byte-equal to the JAX package."""
     assert tcodecs.validate_name(name).name == name
     x = torch.linspace(-3, 3, 384).to(torch.bfloat16).reshape(3, 128)
     got = tcodecs.get(name).pack(x, bits=1)
     want = jcodecs.get(name).pack(
         jnp.asarray(x.float().numpy()).astype(jnp.bfloat16), bits=1)
-    for k in ("payload", "bases"):
-        np.testing.assert_array_equal(got.data[k].numpy(),
-                                      np.asarray(want.data[k]))
+    assert set(got.data) == set(want.data)
+    for k, v in want.data.items():
+        np.testing.assert_array_equal(got.data[k].numpy(), np.asarray(v))
 
 
 def test_codec_names_and_validation():
     tcodecs.get("sfp-m2e4")  # built by the factory, not registered
-    assert tcodecs.names() == ["bit_exact", "sfp16", "sfp8"]
+    assert tcodecs.names() == ["bit_exact", "gecko8", "sfp16", "sfp8"]
     with pytest.raises(ValueError, match="did you mean 'sfp8'"):
         tcodecs.validate_name("spf8")
     with pytest.raises(ValueError, match="unknown container"):
