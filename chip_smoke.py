@@ -34,6 +34,22 @@
    stash; serves from a gecko8 cache (the unpack fallback), kernel path
    against plain path and against a raw bf16 cache, whose K/V the
    unpacked gecko8 cache must equal bit for bit after every decode step.
+6. Paged serving (continuous batching): holds the paged decode kernel
+   (sfp8 words, sfp-m2e4 planes) bit for bit against the contiguous
+   kernel over the gathered cache and within one bf16 ulp of its plain
+   version, and the prefix_planes draft read of both decode kernels
+   against the plain draft read (P' = P bit-equal to the full read), on a
+   pool of 8 rows x 1280 slots with trash-block rows; then serves a
+   seeded 12-request trace (prompts 256-1024, 16-48 new tokens, staggered
+   arrivals) through ``launch.serve``'s ``make_trace``, ``Scheduler`` and
+   ``PagedEngine`` on a pool of 23 blocks (of 80 for full residency), so
+   admission waits for blocks and running requests are preempted: sfp8
+   with --burst 1 and with --speculate 4 (token-identical), and sfp-m2e4
+   with --speculate 4 (the dense draft read). Every finished stream must
+   equal contiguous ``generate`` of its prompt up to a near tie, the pool
+   must pass its invariants, and each run's launches must be 13 paged and
+   13 ring decodes per model step. Prints decode ms per scheduler step,
+   tok/s, the acceptance rate and the speculative round ms.
 
 Any failure exits non-zero. The last line is the device JSON.
 """
@@ -139,6 +155,38 @@ DENSE_LOW_BITS = {"qm": 1.5, "qe": 3.5}
 # exponent groups; the ragged G (not a multiple of 128, nor of the
 # kernels' 32-group tile) is the stash's groups cut short.
 GECKO, GECKO_RAGGED_G, GECKO_UNIFORM_G = "gecko8", 147_399, 4099
+# Paged serving. Pool rows of 1280 slots (10 blocks of 128); the kernel
+# checks put 8 rows at positions spread over 0-1279 (the last row idle on
+# the trash block). The trace: 12 requests from launch.serve's make_trace
+# at seed 0, 4 arrivals per virtual second, on a 23-block pool (full
+# residency is 80), which the seeded trace outgrows: admission waits and
+# running requests are preempted (checked on the host scheduler before
+# any chip run; the phase fails without a preemption).
+PAGED_SLOTS, PAGED_MAX_LEN, PAGED_BLOCKS, SPEC_K = 8, 1280, 23, 4
+PAGED_POS = (1279, 1100, 777, 640, 300, 127, 5, 0)
+PAGED_TRACE = ["--requests", "12", "--prompt-len-min", "256",
+               "--prompt-len-max", "1024", "--max-new-min", "16",
+               "--max-new-max", "48", "--arrival-rate", "4",
+               "--max-slots", str(PAGED_SLOTS), "--max-len",
+               str(PAGED_MAX_LEN), "--num-blocks", str(PAGED_BLOCKS),
+               "--seed", str(SEED)]
+
+
+class DraftCount:
+    """The draft-mode launch count of a decode wrapper, read and reset
+    like a wrapper's own ``launches``."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.__name__ = fn.__name__ + "_draft"
+
+    @property
+    def launches(self):
+        return self.fn.draft_launches
+
+    @launches.setter
+    def launches(self, value):
+        self.fn.draft_launches = value
 
 
 def fail(msg: str) -> None:
@@ -829,6 +877,288 @@ def serve_run(torch, cfg, gen, counters, container):
     return e2e, launches
 
 
+def paged_kernels(torch, cfg, gen, flush, results):
+    """The paged decode (words, planes) and the draft read of both decode
+    kernels against their plain versions at the trace's pool shape."""
+    from repro_torch.codecs import fields_for
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import packed_flash_decode as pfd
+    dev = torch.device("cuda")
+    H, KH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    D, bl = KH * hd, ops.DECODE_BLOCK_L
+    G, nb, S = D // ref.GROUP, PAGED_MAX_LEN // bl, PAGED_SLOTS
+    n_phys = S * nb
+    host = torch.Generator().manual_seed(SEED)
+    perm = torch.randperm(n_phys, generator=host) + 1
+    tables = torch.zeros((S, nb), dtype=torch.int32)
+    k = 0
+    for r, p in enumerate(PAGED_POS[:-1]):      # the last row is idle
+        n = p // bl + 1
+        tables[r, :n] = perm[k:k + n].to(torch.int32)
+        k += n
+    tables = tables.to(dev)
+    pos = torch.tensor(PAGED_POS, dtype=torch.int32, device=dev)
+    live = sum(p + 1 for p in PAGED_POS)
+    q = (torch.randn((S, 1, H, hd), generator=gen, device=dev) * 4).to(
+        torch.bfloat16)
+    sc = cfg.attn_softcap
+    for container, suffix, path in ((CONTAINER, "", "serve paged"),
+                                    (DENSE, "_dense",
+                                     "serve paged dense spec")):
+        f = fields_for(container, torch.bfloat16)
+        draft = max(f.payload_bits - 1, f.dexp_bits + 2)
+        kp, vp = (ops.sfp_compress_nd(torch.randn(
+            (n_phys + 1, bl, D), generator=gen, device=dev).to(
+                torch.bfloat16), f) for _ in range(2))
+        pool = (kp.payload, kp.bases, vp.payload, vp.bases)
+        gathered = [ref.paged_gather(t, tables).contiguous() for t in pool]
+        contiguous = getattr(pfd, "packed_flash_decode" + suffix)
+        paged = getattr(pfd, "paged_flash_decode" + suffix)
+        errs = {}
+        for pp in (None, draft, f.payload_bits):
+            kw = dict(softcap=sc, prefix_planes=pp)
+            got = paged(q, *pool, tables, pos, f, **kw)
+            over = contiguous(q, *gathered, pos, f, block_l=bl, **kw)
+            torch.cuda.synchronize()
+            if not torch.equal(got, over):
+                fail(f"paged_flash_decode{suffix} prefix_planes={pp}: not "
+                     f"bit-equal to the contiguous kernel over the "
+                     f"gathered cache")
+            e = check_close(torch, f"paged_flash_decode{suffix} "
+                            f"prefix_planes={pp}", got,
+                            pfd.plain_paged(q, *pool, tables, pos, f, **kw))
+            ring = contiguous(q, *gathered, pos, f, window=cfg.window, **kw)
+            e_ring = check_close(
+                torch, f"packed_flash_decode{suffix} ring prefix_planes={pp}",
+                ring, pfd.plain(q, *gathered, pos, f, window=cfg.window,
+                                **kw))
+            errs[pp] = (e, e_ring)
+            if pp == f.payload_bits:
+                full = (paged(q, *pool, tables, pos, f, softcap=sc),
+                        contiguous(q, *gathered, pos, f, window=cfg.window,
+                                   softcap=sc))
+                if not (torch.equal(got, full[0])
+                        and torch.equal(ring, full[1])):
+                    fail(f"{container}: prefix_planes = P is not bit-equal "
+                         f"to the full-width read")
+        # Least bytes: each live slot's K and V rows (words are read whole
+        # even by the draft; a dense draft reads P' of the P planes) and
+        # its group bases, q in and the output out.
+        def bound_for(bits):
+            return bound(2 * 2 * H * hd * live,
+                         live * 2 * (D * bits // 8 + G) + 2 * q.numel() * 2)
+        read_bits = {None: f.payload_bits,
+                     draft: draft if f.dense else f.payload_bits}
+        ring_kw = dict(window=cfg.window, softcap=sc)
+        for name, fn, plain_fn, pp, err in (
+                ("paged_flash_decode" + suffix,
+                 lambda pp: paged(q, *pool, tables, pos, f, softcap=sc,
+                                  prefix_planes=pp),
+                 lambda pp: pfd.plain_paged(q, *pool, tables, pos, f,
+                                            softcap=sc, prefix_planes=pp),
+                 None, errs[None][0]),
+                ("paged_flash_decode" + suffix + "_draft",
+                 lambda pp: paged(q, *pool, tables, pos, f, softcap=sc,
+                                  prefix_planes=pp),
+                 lambda pp: pfd.plain_paged(q, *pool, tables, pos, f,
+                                            softcap=sc, prefix_planes=pp),
+                 draft, errs[draft][0]),
+                ("packed_flash_decode" + suffix + "_draft",
+                 lambda pp: contiguous(q, *gathered, pos, f,
+                                       prefix_planes=pp, **ring_kw),
+                 lambda pp: pfd.plain(q, *gathered, pos, f,
+                                      prefix_planes=pp, **ring_kw),
+                 draft, errs[draft][1])):
+            draft_path = path if suffix else "serve paged spec"
+            results[name] = dict(
+                path=path if pp is None else draft_path,
+                replaces=("src/repro/kernels/packed_flash_decode.py:353"
+                          if name.startswith("paged") else
+                          "src/repro/kernels/packed_flash_decode.py:196"),
+                source="src/repro_torch/csrc/packed_flash_decode.cu",
+                max_abs_err=err,
+                ms=time_ms(torch, lambda: fn(pp), reps=50, flush=flush),
+                plain_ms=time_ms(torch, lambda: plain_fn(pp), reps=5,
+                                 flush=flush),
+                library_ms=None,
+                note=(f"{S} rows x {PAGED_MAX_LEN} slots, {live} live, "
+                      f"prefix_planes={pp}" + ("" if name.startswith("paged")
+                                               else ", ring (local layers)")))
+            results[name]["bound_ms"], results[name]["bound_by"] = \
+                bound_for(read_bits[pp])
+        del kp, vp, pool, gathered
+    print("  paged decode bit-equal to the contiguous kernel over the "
+          "gathered cache (sfp8, sfp-m2e4; full width, draft, P' = P); "
+          "paged, ring and draft reads within one bf16 ulp of plain")
+
+
+def trace_stream_check(torch, model, params, reqs, out, max_len):
+    """Every finished stream against contiguous ``generate`` of its
+    prompt at the engine's budget: equal up to a first difference, which
+    may only fall where generate's top-2 margin is below twice the logit
+    tolerance (a near tie). Returns (requests equal in full, tokens equal
+    before the first difference per request)."""
+    from repro_torch.serve import engine
+    whole, agree = 0, {}
+    for r in reqs:
+        if r.uid not in out:
+            continue
+        got = torch.as_tensor(out[r.uid])
+        prompt = torch.as_tensor(r.prompt, dtype=torch.long,
+                                 device=model.device)[None]
+        ref = engine.generate(model, params, prompt, r.max_new, max_len)
+        diff = torch.nonzero(got != ref.tokens[0].cpu()).flatten()
+        t = int(diff[0]) if len(diff) else r.max_new
+        if t < r.max_new and ref.margins[0, t] >= 2 * E2E_MAX:
+            fail(f"request {r.uid}: token {t} differs from contiguous "
+                 f"generate with margin {ref.margins[0, t].item():.3f}")
+        whole += t == r.max_new
+        agree[r.uid] = t
+    return whole, agree
+
+
+def trace_run(torch, cfg, counters, model, params, container, speculate,
+              against_generate=True):
+    """The seeded trace through Scheduler over PagedEngine: returns the
+    record, the launches of the run and its streams (held to contiguous
+    ``generate`` unless ``against_generate`` is False)."""
+    from repro_torch.launch import serve as tserve
+    from repro_torch.serve import engine
+    from repro_torch.serve.scheduler import Scheduler
+    argv = ["--arch", cfg.name, "--preset", "full", "--trace",
+            "--kv-container", container, *PAGED_TRACE]
+    if speculate:
+        argv += ["--speculate", str(speculate)]
+    args = tserve.build_parser().parse_args(argv)
+    eng = engine.PagedEngine(model, params, max_slots=args.max_slots,
+                             max_len=args.max_len,
+                             num_blocks=args.num_blocks)
+    reqs = tserve.make_trace(args, cfg.vocab)
+    sched = Scheduler(eng)
+    clock = {"t": 0.0}
+
+    def now():
+        clock["t"] += args.step_dt
+        return clock["t"]
+
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = sched.run(reqs, now_fn=now, speculate=speculate)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    s = sched.stats
+    if s.finished != len(reqs) or any(len(out[r.uid]) != r.max_new
+                                      for r in reqs):
+        fail(f"trace {container}: {s.as_dict()}")
+    eng.pool.verify_invariants()
+    if eng.pool.used_blocks:
+        fail(f"trace {container}: {eng.pool.used_blocks} blocks still held")
+    steps = eng.decode_steps
+    draft = steps // 2 if speculate else 0
+    full = steps - draft
+    from repro_torch import codecs
+    from repro_torch.configs.base import GLOBAL
+    dense = codecs.get(container).pack_fields(cfg.compute_dtype).dense
+    sfx = "_dense" if dense else ""
+    n_global = sum(k == GLOBAL for k in model.kinds)
+    n_local = cfg.n_layers - n_global
+    n_fa = launches["flash_attention"]
+    expect = {c.__name__: 0 for c in counters}
+    expect.update({
+        "paged_flash_decode" + sfx: n_global * full,
+        "packed_flash_decode" + sfx: n_local * full,
+        "paged_flash_decode" + sfx + "_draft": n_global * draft,
+        "packed_flash_decode" + sfx + "_draft": n_local * draft,
+        "bitplane_pack" if dense else "sfp_pack":
+            2 * cfg.n_layers * (steps + n_fa // cfg.n_layers),
+        "flash_attention": n_fa})
+    if launches != expect or n_fa % cfg.n_layers or n_fa == 0:
+        fail(f"trace {container} speculate={speculate}: launches "
+             f"{launches} != expected {expect}")
+    snap = sched.obs.registry.snapshot()
+
+    def mean_ms(name):
+        ser = snap.get(name, {"series": []})["series"]
+        return (ser[0]["sum"] / ser[0]["count"] * 1e3
+                if ser and ser[0]["count"] else None)
+
+    rec = {"kv": container, "speculate": speculate, "wall_s": wall,
+           "requests": len(reqs), "emitted_tokens": s.emitted_tokens,
+           "tok_per_s": s.emitted_tokens / wall,
+           "scheduler_steps": snap["serve_step_seconds"]["series"][0][
+               "count"],
+           "model_steps": steps, "preemptions": s.preemptions,
+           "recompute_tokens": s.recompute_tokens,
+           "prefills": n_fa // cfg.n_layers,
+           "pool_blocks": eng.pool.num_blocks,
+           "pool_peak_used": eng.pool.stats().peak_used,
+           "decode_ms_per_scheduler_step": mean_ms("serve_decode_seconds"),
+           "spec_round_ms": mean_ms("serve_spec_seconds"),
+           "scheduler_step_ms": mean_ms("serve_step_seconds"),
+           "prefill_ms": mean_ms("serve_prefill_seconds"),
+           "verify_ms": mean_ms("serve_verify_seconds"),
+           "paged_launches_per_model_step":
+               (launches["paged_flash_decode" + sfx]
+                + launches["paged_flash_decode" + sfx + "_draft"]) / steps,
+           "ring_launches_per_model_step":
+               (launches["packed_flash_decode" + sfx]
+                + launches["packed_flash_decode" + sfx + "_draft"]) / steps,
+           "launches": {k: v for k, v in launches.items() if v}}
+    if speculate:
+        rec.update(spec_rounds=s.spec_rounds, drafted=s.drafted,
+                   draft_accepted=s.draft_accepted,
+                   acceptance_rate=s.draft_accepted / max(1, s.drafted),
+                   draft_planes=eng.default_draft_planes())
+    if against_generate:
+        whole, agree = trace_stream_check(torch, model, params, reqs, out,
+                                          eng.max_len)
+        rec.update(streams_equal_to_generate=whole,
+                   tokens_equal_before_first_difference_vs_generate=agree)
+    del eng
+    torch.cuda.empty_cache()
+    return rec, launches, out
+
+
+def paged_serving(torch, cfg, counters, card, path_launches):
+    """sfp8 burst 1, sfp8 speculate 4 (streams token-identical, so only the
+    burst-1 streams are held to ``generate``), sfp-m2e4 speculate 4;
+    records the launches of each path in ``path_launches``."""
+    from repro_torch.models.model import DecoderModel
+    dev = torch.device("cuda")
+    streams = {}
+    for container, speculate, path in (
+            (CONTAINER, None, "serve paged"),
+            (CONTAINER, SPEC_K, "serve paged spec"),
+            (DENSE, SPEC_K, "serve paged dense spec")):
+        if container not in streams:
+            model = DecoderModel(cfg, kv_container=container, device=dev)
+            params = model.init(SEED)
+        t0 = time.perf_counter()
+        rec, path_launches[path], out = trace_run(
+            torch, cfg, counters, model, params, container, speculate,
+            against_generate=path != "serve paged spec")
+        if path == "serve paged" and rec["preemptions"] == 0:
+            fail("the sfp8 trace preempted no request: the pool does not "
+                 "gate it")
+        if path == "serve paged spec":
+            base = streams[CONTAINER]
+            if sorted(base) != sorted(out) or any(
+                    list(base[u]) != list(out[u]) for u in base):
+                fail("sfp8 trace: --speculate 4 streams differ from "
+                     "--burst 1")
+            rec["streams_identical_to_burst_1"] = True
+        streams.setdefault(container, out)
+        rec["card"] = card
+        print(f"trace {path}: " + json.dumps(rec))
+        print(f"trace {path}: {time.perf_counter() - t0:.1f} s")
+        if path != "serve paged":
+            del model, params
+            torch.cuda.empty_cache()
+
+
 def train_setup(torch, argv, n_layers=None, policy_fn=None):
     """The launcher's model, train step, initial state and batches for
     ``argv`` (cut to ``n_layers`` when given; the policy replaced by
@@ -1245,13 +1575,19 @@ def main() -> int:
                 bp.bitplane_unpack, mq.mantissa_quantize,
                 fa.flash_attention, fa.flash_attention_bwd,
                 pfd.packed_flash_decode, pfd.packed_flash_decode_dense,
-                gp.gecko_pack, gp.gecko_unpack)
+                gp.gecko_pack, gp.gecko_unpack,
+                pfd.paged_flash_decode, pfd.paged_flash_decode_dense,
+                DraftCount(pfd.packed_flash_decode),
+                DraftCount(pfd.packed_flash_decode_dense),
+                DraftCount(pfd.paged_flash_decode),
+                DraftCount(pfd.paged_flash_decode_dense))
     results = {}
     t0 = time.perf_counter()
     serving_kernels(torch, cfg, gen, flush, results)
     training_kernels(torch, cfg, gen, flush, results)
     dense_kernels(torch, cfg, gen, flush, results)
     gecko_kernels(torch, cfg, gen, flush, results)
+    paged_kernels(torch, cfg, gen, flush, results)
     del flush
     torch.cuda.empty_cache()
     print(f"kernel checks: {time.perf_counter() - t0:.1f} s")
@@ -1288,6 +1624,7 @@ def main() -> int:
         print(f"train low bits ({policy}, {container}): " + json.dumps(e2e))
         print(f"low-bits training {policy} {container}: "
               f"{time.perf_counter() - t0:.1f} s")
+    paged_serving(torch, cfg, counters, card, path_launches)
     t0 = time.perf_counter()
     be_e2e, path_launches["train bit_exact"] = bit_exact_run(torch, cfg,
                                                              counters)

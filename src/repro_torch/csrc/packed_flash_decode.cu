@@ -1,8 +1,10 @@
-// Fused decompress-attend decode over a contiguous SFP-packed KV cache.
+// Fused decompress-attend decode over an SFP-packed KV cache, contiguous
+// or paged.
 //
-// Replaces the TPU kernel src/repro/kernels/packed_flash_decode.py:
-// packed_flash_decode (_decode_kernel), its fixed-lane word branch and its
-// dense bit-plane branch. One query token per batch row attends an L-slot
+// Replaces the TPU kernels src/repro/kernels/packed_flash_decode.py:
+// packed_flash_decode (_decode_kernel) and paged_flash_decode
+// (_paged_kernel), each with its fixed-lane word branch, its dense
+// bit-plane branch and its prefix_planes draft read mode. One query token per batch row attends an L-slot
 // cache stored as payload words (B, L, KH*hd) uint8/uint16, or as dense
 // bit planes (B, L, G*P*16) uint8 ordered (group, plane, 16 bytes) per
 // slot, plus one uint8 base per 128-lane group (B, L, G = KH*hd/128).
@@ -34,6 +36,25 @@
 // in the same shared tile as the fixed-lane branch (1 byte for P <= 8,
 // else 2), so the scores and p.v loops are shared and the tile is as large
 // for any P; each feature's word is then decoded by sfp_decode_word.
+//
+// Draft read (prefix_planes P' < P): only the leading P' bits of each
+// word are decoded, as the narrow geometry (man_keep - (P - P') mantissa
+// bits; ref.prefix_fields). Fixed-lane words are staged as stored and
+// shifted right by P - P' in a register before the decode (same bytes
+// read). Dense planes are stored LSB-plane first, so the staging loads
+// only planes P-P' .. P-1 of each group and rebuilds P'-bit words: the
+// read shrinks with P', and the word tile is 1 byte when P' <= 8. A wide
+// flush word shifts to the narrow flush word, and a word whose leading
+// mantissa bits are all 0 at dexp_max decodes to 0 in the narrow
+// geometry, as the JAX decoder does.
+//
+// Paged (tables != nullptr): the cache is a pool of physical blocks of
+// block_l slots shared by every row; tile t of row b reads physical block
+// tables[b * nb + t] and masks on logical slots (global attention, no
+// window). The body is the contiguous kernel's with block_l = the pool
+// block, so it is bit-equal to the contiguous kernel over the gathered
+// cache. Trailing logical blocks point at the trash block 0; their slots
+// lie past pos, so they are skipped like any tile no slot may see.
 #include "sfp_common.cuh"
 
 namespace {
@@ -55,19 +76,21 @@ __device__ __forceinline__ bool slot_valid(int slot, int pos, int L,
 
 constexpr int kMaxPlanes = 16;
 
-// Dense branch of the staging: the words of head h's features in slots
-// s0..s0+BL-1, rebuilt from the bit planes of the cache.
+// Dense branch of the staging: the words of head h's features in the BL
+// slots from cache row row0 on, rebuilt from the leading P of the P_store
+// bit planes of each group (planes P_store-P .. P_store-1).
 template <typename W>
 __device__ __forceinline__ void stage_dense_words(
     const uint8_t* __restrict__ kp, const uint8_t* __restrict__ vp, W* kt,
-    W* vt, int b, int h, int s0, int L, int hd, int cols, int BL, int P,
+    W* vt, size_t row0, int h, int hd, int cols, int BL, int P, int P_store,
     int lane, int warp) {
   const int c0 = (h * hd) >> 5, c1 = (h * hd + hd - 1) >> 5;
   const int nch = c1 - c0 + 1;
   for (int task = warp; task < BL * nch; task += kWarps) {
     const int l = task / nch, c = c0 + task % nch;
-    const size_t off = ((size_t)b * L + s0 + l) * cols
-                       + (size_t)(c >> 2) * P * 16 + (c & 3) * 4;
+    const size_t off = (row0 + l) * cols
+                       + (size_t)((c >> 2) * P_store + P_store - P) * 16
+                       + (c & 3) * 4;
     uint32_t ku = 0u, vu = 0u;
     if (lane < P) {
       ku = *reinterpret_cast<const uint32_t*>(kp + off + lane * 16);
@@ -96,10 +119,11 @@ packed_flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
                            const void* __restrict__ vp_raw,
                            const uint8_t* __restrict__ vb,
                            const int* __restrict__ pos_arr,
+                           const int* __restrict__ tables,
                            __nv_bfloat16* __restrict__ out, int L, int H,
                            int KH, int hd, int G, int cols, int BL,
-                           int window, SfpFields f, float softcap,
-                           float scale) {
+                           int window, SfpFields f, int drop, int P_store,
+                           float softcap, float scale) {
   const int b = blockIdx.x, h = blockIdx.y;
   const int rep = H / KH;
   const int D = G * SFP_GROUP;
@@ -130,20 +154,26 @@ packed_flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
   const int row_words = hd * (int)sizeof(W) / 4;  // uint32 per head row
   for (int t = 0; t * BL < L; ++t) {
     const int s0 = t * BL;
+    // First cache row of this tile: contiguous rows of batch row b, or
+    // the physical pool block the row's table names.
+    const size_t row0 = tables != nullptr
+        ? (size_t)tables[(size_t)b * (L / BL) + t] * BL
+        : (size_t)b * L + s0;
     int any = 0;
     for (int l = tid; l < BL; l += kThreads) any |= slot_valid(s0 + l, pos, L, window);
     if (!__syncthreads_or(any)) continue;  // barrier: last tile's readers done
 
     if constexpr (DENSE) {
       stage_dense_words<W>(static_cast<const uint8_t*>(kp_raw),
-                           static_cast<const uint8_t*>(vp_raw), kt, vt, b, h,
-                           s0, L, hd, cols, BL, f.payload_bits, lane, warp);
+                           static_cast<const uint8_t*>(vp_raw), kt, vt, row0,
+                           h, hd, cols, BL, f.payload_bits, P_store, lane,
+                           warp);
     } else {
       const W* kp = static_cast<const W*>(kp_raw);
       const W* vp = static_cast<const W*>(vp_raw);
       for (int idx = tid; idx < BL * row_words; idx += kThreads) {
         const int l = idx / row_words, c = idx % row_words;
-        const size_t off = ((size_t)b * L + s0 + l) * D + (size_t)h * hd;
+        const size_t off = (row0 + l) * D + (size_t)h * hd;
         reinterpret_cast<uint32_t*>(kt + l * hd)[c] =
             reinterpret_cast<const uint32_t*>(kp + off)[c];
         reinterpret_cast<uint32_t*>(vt + l * hd)[c] =
@@ -151,7 +181,7 @@ packed_flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
       }
     }
     for (int idx = tid; idx < BL * G; idx += kThreads) {
-      const size_t off = ((size_t)b * L + s0) * G + idx;
+      const size_t off = row0 * G + idx;
       kbt[idx] = kb[off];
       vbt[idx] = vb[off];
     }
@@ -166,7 +196,8 @@ packed_flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
         const int base = kbt[l * G + ((h * hd + d4) >> 7)];
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const float kv = sfp_decode_word((uint32_t)kt[l * hd + d4 + e], base, f);
+          const float kv = sfp_decode_word(
+              (uint32_t)kt[l * hd + d4 + e] >> drop, base, f);
 #pragma unroll
           for (int g = 0; g < kMaxRep; ++g)
             if (g < rep) part[g] = fmaf(qs[g * hd + d4 + e], kv, part[g]);
@@ -225,7 +256,8 @@ packed_flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
       for (int g = 0; g < kMaxRep; ++g)
         if (g < rep) acc[g][j] *= als[g];
       for (int l = 0; l < BL; ++l) {
-        const float vv = sfp_decode_word((uint32_t)vt[l * hd + d], vbt[l * G + gi], f);
+        const float vv = sfp_decode_word((uint32_t)vt[l * hd + d] >> drop,
+                                         vbt[l * G + gi], f);
 #pragma unroll
         for (int g = 0; g < kMaxRep; ++g)
           if (g < rep) acc[g][j] = fmaf(st[g * BL + l], vv, acc[g][j]);
@@ -249,9 +281,10 @@ packed_flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
 
 template <typename W, bool DENSE>
 int launch(const void* q, const void* kp, const void* kb, const void* vp,
-           const void* vb, const void* pos, void* out, int B, int L, int H,
-           int KH, int hd, int G, int cols, int BL, int window, SfpFields f,
-           float softcap, float scale, cudaStream_t stream) {
+           const void* vb, const void* pos, const void* tables, void* out,
+           int B, int L, int H, int KH, int hd, int G, int cols, int BL,
+           int window, SfpFields f, int drop, int P_store, float softcap,
+           float scale, cudaStream_t stream) {
   const int rep = H / KH;
   const size_t smem = (size_t)(rep * hd + rep * BL + 3 * kMaxRep) * 4
                       + 2 * (size_t)BL * hd * sizeof(W) + 2 * (size_t)BL * G;
@@ -263,45 +296,56 @@ int launch(const void* q, const void* kp, const void* kb, const void* vp,
   packed_flash_decode_kernel<W, DENSE><<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), kp,
       static_cast<const uint8_t*>(kb), vp, static_cast<const uint8_t*>(vb),
-      static_cast<const int*>(pos), static_cast<__nv_bfloat16*>(out), L, H,
-      KH, hd, G, cols, BL, window, f, softcap, scale);
+      static_cast<const int*>(pos), static_cast<const int*>(tables),
+      static_cast<__nv_bfloat16*>(out), L, H, KH, hd, G, cols, BL, window, f,
+      drop, P_store, softcap, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// Contiguous cache: tables == nullptr, L slots per row, payload (B, L,
+// cols). Paged pool: tables (B, nb) int32, L = nb * block_l logical slots,
+// payload (P_blocks, block_l, cols), window -1. prefix_planes -1 (or the
+// payload width) reads full width.
 extern "C" int packed_flash_decode_launch(
     const void* q, const void* kp, const void* kb, const void* vp,
-    const void* vb, const void* pos, void* out, int B, int L, int H, int KH,
-    int hd, int G, int block_l, int window, int man_keep, int dexp_bits,
-    int payload_bits, int dense, float softcap, float scale, void* stream) {
+    const void* vb, const void* pos, const void* tables, void* out, int B,
+    int L, int H, int KH, int hd, int G, int block_l, int window,
+    int man_keep, int dexp_bits, int payload_bits, int dense,
+    int prefix_planes, float softcap, float scale, void* stream) {
   if (B == 0 || KH == 0) return 0;
   if (H % KH != 0 || H / KH > kMaxRep || hd > kThreads * kMaxDPerThread
-      || hd % 4 != 0 || L % block_l != 0)
+      || hd % 4 != 0 || block_l <= 0 || L % block_l != 0
+      || (tables != nullptr && window > 0))
     return (int)cudaErrorInvalidValue;
-  const SfpFields f{man_keep, dexp_bits, payload_bits};
+  const int P = payload_bits;
+  const int Pr = prefix_planes < 0 ? P : prefix_planes;
+  if (Pr < dexp_bits + 2 || Pr > P || man_keep - (P - Pr) < 0)
+    return (int)cudaErrorInvalidValue;
+  // The geometry the kernel decodes: the leading Pr bits of each word.
+  const SfpFields f{man_keep - (P - Pr), dexp_bits, Pr};
   auto s = static_cast<cudaStream_t>(stream);
   const int D = G * SFP_GROUP;
   if (dense) {
-    if (payload_bits < 3 || payload_bits > kMaxPlanes
-        || 1 + dexp_bits + man_keep != payload_bits)
+    if (P < 3 || P > kMaxPlanes || 1 + dexp_bits + man_keep != P)
       return (int)cudaErrorInvalidValue;
-    const int cols = G * payload_bits * 16;
-    if (payload_bits <= 8)
-      return launch<uint8_t, true>(q, kp, kb, vp, vb, pos, out, B, L, H, KH,
-                                   hd, G, cols, block_l, window, f, softcap,
-                                   scale, s);
-    return launch<uint16_t, true>(q, kp, kb, vp, vb, pos, out, B, L, H, KH,
-                                  hd, G, cols, block_l, window, f, softcap,
-                                  scale, s);
+    const int cols = G * P * 16;
+    if (Pr <= 8)
+      return launch<uint8_t, true>(q, kp, kb, vp, vb, pos, tables, out, B, L,
+                                   H, KH, hd, G, cols, block_l, window, f, 0,
+                                   P, softcap, scale, s);
+    return launch<uint16_t, true>(q, kp, kb, vp, vb, pos, tables, out, B, L,
+                                  H, KH, hd, G, cols, block_l, window, f, 0,
+                                  P, softcap, scale, s);
   }
-  if (payload_bits == 8)
-    return launch<uint8_t, false>(q, kp, kb, vp, vb, pos, out, B, L, H, KH,
-                                  hd, G, D, block_l, window, f, softcap,
-                                  scale, s);
-  if (payload_bits == 16)
-    return launch<uint16_t, false>(q, kp, kb, vp, vb, pos, out, B, L, H, KH,
-                                   hd, G, D, block_l, window, f, softcap,
-                                   scale, s);
+  if (P == 8)
+    return launch<uint8_t, false>(q, kp, kb, vp, vb, pos, tables, out, B, L,
+                                  H, KH, hd, G, D, block_l, window, f, P - Pr,
+                                  P, softcap, scale, s);
+  if (P == 16)
+    return launch<uint16_t, false>(q, kp, kb, vp, vb, pos, tables, out, B, L,
+                                   H, KH, hd, G, D, block_l, window, f,
+                                   P - Pr, P, softcap, scale, s);
   return (int)cudaErrorInvalidValue;
 }

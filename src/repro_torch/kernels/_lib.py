@@ -45,9 +45,7 @@ SIGNATURES = {
     "flash_attention_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _I, _I, _F, _F, _P],
     "flash_attention_bwd_launch": [_P] * 10 + [_I] * 8 + [_F, _F, _P],
-    "packed_flash_decode_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                   _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
-                                   _F, _P],
+    "packed_flash_decode_launch": [_P] * 8 + [_I] * 13 + [_F, _F, _P],
 }
 
 _lock = threading.Lock()

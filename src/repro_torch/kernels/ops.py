@@ -29,6 +29,7 @@ from repro_torch.kernels import sfp_pack as _sp
 
 PackFields = _ref.PackFields
 decode_kv_mask = _ref.decode_kv_mask
+prefix_fields = _ref.prefix_fields  # truncated geometry of a draft read
 DECODE_BLOCK_L = _pfd.DEFAULT_BLOCK_L
 
 _BACKENDS = (None, "plain", "plain attention")
@@ -206,19 +207,46 @@ def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
 
 def packed_flash_decode(q, k_packed: Packed, v_packed: Packed, pos, *,
                         fields: PackFields, window: Optional[int] = None,
-                        softcap: Optional[float] = None) -> torch.Tensor:
+                        softcap: Optional[float] = None,
+                        prefix_planes: Optional[int] = None) -> torch.Tensor:
     """One-token decode attention straight over an SFP-packed KV cache:
     q (B, 1, H, hd); payload (B, L, nd_payload_cols(KH*hd)) words or bit
     planes, bases (B, L, KH*hd // 128); ``pos`` (B,) per-row decode
-    positions."""
+    positions. ``prefix_planes`` is the speculative draft read: only the
+    leading P' payload bits of the same cache are decoded
+    (``prefix_fields``)."""
     if not _kernel(q):
         return _ref.packed_flash_decode(
             q, k_packed.payload, k_packed.bases, v_packed.payload,
             v_packed.bases, pos, fields, window=window, softcap=softcap,
-            block_l=DECODE_BLOCK_L)
+            block_l=DECODE_BLOCK_L, prefix_planes=prefix_planes)
     decode = (_pfd.packed_flash_decode_dense if fields.dense
               else _pfd.packed_flash_decode)
     return decode(
         q.contiguous(), k_packed.payload, k_packed.bases, v_packed.payload,
         v_packed.bases, pos.to(torch.int32).contiguous(), fields,
-        window=window, softcap=softcap)
+        window=window, softcap=softcap, prefix_planes=prefix_planes)
+
+
+def paged_flash_decode(q, k_packed: Packed, v_packed: Packed, tables, pos, *,
+                       fields: PackFields, softcap: Optional[float] = None,
+                       prefix_planes: Optional[int] = None) -> torch.Tensor:
+    """One-token global decode attention over a paged packed block pool:
+    payload (P_blocks, block_l, nd_payload_cols(KH*hd)), bases
+    (P_blocks, block_l, KH*hd // 128) shared by every row; ``tables``
+    (B, nb) maps each row's logical blocks to physical ones, ``pos`` (B,)
+    per-row positions. The kernel reads the table itself; the plain
+    version gathers, then runs the contiguous recurrence with block_l =
+    the pool block. ``prefix_planes`` as in ``packed_flash_decode``."""
+    if not _kernel(q):
+        return _ref.paged_flash_decode(
+            q, k_packed.payload, k_packed.bases, v_packed.payload,
+            v_packed.bases, tables, pos, fields, softcap=softcap,
+            prefix_planes=prefix_planes)
+    decode = (_pfd.paged_flash_decode_dense if fields.dense
+              else _pfd.paged_flash_decode)
+    return decode(
+        q.contiguous(), k_packed.payload, k_packed.bases, v_packed.payload,
+        v_packed.bases, tables.to(torch.int32).contiguous(),
+        pos.to(torch.int32).contiguous(), fields, softcap=softcap,
+        prefix_planes=prefix_planes)

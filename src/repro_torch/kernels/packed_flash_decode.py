@@ -1,13 +1,20 @@
-"""Fused decompress-attend decode: CUDA kernel wrapper and plain version.
+"""Fused decompress-attend decode: CUDA kernel wrappers and plain versions.
 
-Replaces the TPU kernel ``src/repro/kernels/packed_flash_decode.py:
-packed_flash_decode`` over a contiguous cache, for fixed-lane words
-(``packed_flash_decode``) and dense bit planes
-(``packed_flash_decode_dense``); the ``prefix_planes`` draft mode is not
-ported yet. The kernel is ``csrc/packed_flash_decode.cu``: one CTA per
-(batch row, KV head), packed tiles expanded to words in shared memory and
-decoded in registers inside the online softmax; it is bound by memory on
-the H100, (D * P / 8 + D / 128) bytes per live slot for K and again for V.
+Replaces the TPU kernels ``src/repro/kernels/packed_flash_decode.py:
+packed_flash_decode`` (a contiguous cache) and ``paged_flash_decode`` (a
+paged block pool read through per-row block tables), each for fixed-lane
+words (``packed_flash_decode``, ``paged_flash_decode``) and dense bit
+planes (the ``_dense`` variants), at full width or in the
+``prefix_planes`` draft read mode of self-speculation. One kernel,
+``csrc/packed_flash_decode.cu``, serves all of them: one CTA per (batch
+row, KV head), packed tiles expanded to words in shared memory and decoded
+in registers inside the online softmax; it is bound by memory on the
+H100, (D * P' / 8 + D / 128) bytes per live slot for K and again for V
+(P' = the bits read: the payload width, or the draft's prefix for dense
+planes).
+
+Each wrapper counts its launches: ``.launches`` at full width,
+``.draft_launches`` in the draft mode.
 """
 from __future__ import annotations
 
@@ -34,20 +41,58 @@ def block_len(L: int, block_l: int = DEFAULT_BLOCK_L) -> int:
 def plain(q, k_payload, k_bases, v_payload, v_bases, pos,
           fields: PackFields, *, window: Optional[int] = None,
           softcap: Optional[float] = None,
-          block_l: int = DEFAULT_BLOCK_L) -> torch.Tensor:
+          block_l: int = DEFAULT_BLOCK_L,
+          prefix_planes: Optional[int] = None) -> torch.Tensor:
     return ref.packed_flash_decode(q, k_payload, k_bases, v_payload, v_bases,
                                    pos, fields, window=window,
-                                   softcap=softcap, block_l=block_l)
+                                   softcap=softcap, block_l=block_l,
+                                   prefix_planes=prefix_planes)
+
+
+def plain_paged(q, k_payload, k_bases, v_payload, v_bases, tables, pos,
+                fields: PackFields, *, softcap: Optional[float] = None,
+                prefix_planes: Optional[int] = None) -> torch.Tensor:
+    return ref.paged_flash_decode(q, k_payload, k_bases, v_payload, v_bases,
+                                  tables, pos, fields, softcap=softcap,
+                                  prefix_planes=prefix_planes)
+
+
+def draft_planes(fields: PackFields, prefix_planes: Optional[int]
+                 ) -> Optional[int]:
+    """``prefix_planes`` checked against ``fields`` (ValueError outside
+    ``ref.prefix_fields``' range); None for a full-width read."""
+    if prefix_planes is None:
+        return None
+    ref.prefix_fields(fields, prefix_planes)
+    return None if prefix_planes == fields.payload_bits else int(prefix_planes)
+
+
+def _check_kind(name: str, fields: PackFields, dense: bool) -> None:
+    if dense and (not fields.dense or not 3 <= fields.payload_bits <= 16):
+        raise ValueError(f"{name}: dense bit planes only, got {fields}")
+    if not dense and (fields.dense or fields.payload_bits not in (8, 16)):
+        raise ValueError(f"{name}: fixed-lane words only, got {fields}")
+
+
+def _check(name: str, part: str, t: torch.Tensor, dt, shape, device):
+    if (t.device != device or t.dtype != dt or tuple(t.shape) != shape
+            or not t.is_contiguous()):
+        raise ValueError(f"{name}: {part} must be a contiguous {dt} "
+                         f"{shape} tensor on {device}, got {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}")
 
 
 def _launch(name: str, q: torch.Tensor, k_payload: torch.Tensor,
             k_bases: torch.Tensor, v_payload: torch.Tensor,
             v_bases: torch.Tensor, pos: torch.Tensor, fields: PackFields,
-            window: Optional[int], softcap: Optional[float],
-            block_l: int) -> torch.Tensor:
+            window: Optional[int], softcap: Optional[float], block_l: int,
+            prefix: Optional[int],
+            tables: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch over a contiguous cache (payload (B, L, cols)) or, with
+    ``tables`` (B, nb), over a pool (payload (P_blocks, block_l, cols))."""
     lib = _lib.load()
     B, one, H, hd = q.shape
-    L, G = k_bases.shape[1], k_bases.shape[2]
+    G = k_bases.shape[2]
     D = G * GROUP
     KH = D // hd
     if one != 1 or KH * hd != D or H % KH:
@@ -56,18 +101,23 @@ def _launch(name: str, q: torch.Tensor, k_payload: torch.Tensor,
     if not q.is_cuda or q.dtype != torch.bfloat16 or not q.is_contiguous():
         raise ValueError(f"{name}: q must be contiguous bf16 on a CUDA "
                          f"device")
+    if tables is None:
+        lead = (B, k_bases.shape[1])
+        L, bl = lead[1], block_len(lead[1], block_l)
+    else:
+        lead = tuple(k_bases.shape[:2])
+        bl = lead[1]
+        _check(name, "tables", tables, torch.int32, (B, tables.shape[1]),
+               q.device)
+        L = tables.shape[1] * bl
     cols = fields.nd_payload_cols(D)
     for part, t, dt, shape in (
-            ("k_payload", k_payload, fields.payload_dtype, (B, L, cols)),
-            ("v_payload", v_payload, fields.payload_dtype, (B, L, cols)),
-            ("k_bases", k_bases, torch.uint8, (B, L, G)),
-            ("v_bases", v_bases, torch.uint8, (B, L, G)),
+            ("k_payload", k_payload, fields.payload_dtype, (*lead, cols)),
+            ("v_payload", v_payload, fields.payload_dtype, (*lead, cols)),
+            ("k_bases", k_bases, torch.uint8, (*lead, G)),
+            ("v_bases", v_bases, torch.uint8, (*lead, G)),
             ("pos", pos, torch.int32, (B,))):
-        if (t.device != q.device or t.dtype != dt or tuple(t.shape) != shape
-                or not t.is_contiguous()):
-            raise ValueError(f"{name}: {part} must be a contiguous {dt} "
-                             f"{shape} tensor on {q.device}, got {t.dtype} "
-                             f"{tuple(t.shape)} on {t.device}")
+        _check(name, part, t, dt, shape, q.device)
     if hd % 4 or hd > 512 or H // KH > 8:
         raise ValueError(f"{name}: hd={hd}, rep={H // KH} not supported "
                          f"(hd % 4 == 0, hd <= 512, rep <= 8)")
@@ -75,12 +125,49 @@ def _launch(name: str, q: torch.Tensor, k_payload: torch.Tensor,
     err = lib.packed_flash_decode_launch(
         q.data_ptr(), k_payload.data_ptr(), k_bases.data_ptr(),
         v_payload.data_ptr(), v_bases.data_ptr(), pos.data_ptr(),
-        out.data_ptr(), B, L, H, KH, hd, G, block_len(L, block_l),
-        -1 if window is None else int(window), fields.man_keep,
-        fields.dexp_bits, fields.payload_bits, int(fields.dense),
+        None if tables is None else tables.data_ptr(), out.data_ptr(),
+        B, L, H, KH, hd, G, bl, -1 if window is None else int(window),
+        fields.man_keep, fields.dexp_bits, fields.payload_bits,
+        int(fields.dense), -1 if prefix is None else prefix,
         0.0 if softcap is None else float(softcap), 1.0 / (hd ** 0.5),
         _lib.stream_ptr(q))
     _lib.check(err, name)
+    return out
+
+
+def _count(fn, prefix: Optional[int]) -> None:
+    if prefix is None:
+        fn.launches += 1
+    else:
+        fn.draft_launches += 1
+
+
+def _contiguous(fn, dense: bool, q, k_payload, k_bases, v_payload, v_bases,
+                pos, fields, window, softcap, block_l, prefix_planes):
+    if q.device.type == "cpu":
+        return plain(q, k_payload, k_bases, v_payload, v_bases, pos, fields,
+                     window=window, softcap=softcap, block_l=block_l,
+                     prefix_planes=prefix_planes)
+    _check_kind(fn.__name__, fields, dense)
+    prefix = draft_planes(fields, prefix_planes)
+    out = _launch(fn.__name__, q, k_payload, k_bases, v_payload, v_bases,
+                  pos, fields, window, softcap, block_l, prefix)
+    _count(fn, prefix)
+    return out
+
+
+def _paged(fn, dense: bool, q, k_payload, k_bases, v_payload, v_bases,
+           tables, pos, fields, softcap, prefix_planes):
+    if q.device.type == "cpu":
+        return plain_paged(q, k_payload, k_bases, v_payload, v_bases, tables,
+                           pos, fields, softcap=softcap,
+                           prefix_planes=prefix_planes)
+    _check_kind(fn.__name__, fields, dense)
+    prefix = draft_planes(fields, prefix_planes)
+    out = _launch(fn.__name__, q, k_payload, k_bases, v_payload, v_bases,
+                  pos, fields, None, softcap, k_payload.shape[1], prefix,
+                  tables=tables)
+    _count(fn, prefix)
     return out
 
 
@@ -90,22 +177,18 @@ def packed_flash_decode(q: torch.Tensor, k_payload: torch.Tensor,
                         fields: PackFields, *,
                         window: Optional[int] = None,
                         softcap: Optional[float] = None,
-                        block_l: int = DEFAULT_BLOCK_L) -> torch.Tensor:
+                        block_l: int = DEFAULT_BLOCK_L,
+                        prefix_planes: Optional[int] = None
+                        ) -> torch.Tensor:
     """One-token attention over fixed-lane words: q (B, 1, H, hd), payload
     (B, L, KH*hd) words, bases (B, L, KH*hd // 128) uint8, ``pos`` (B,)
     int32 decode positions; ``window`` not None means an L-slot ring
-    buffer. Returns (B, 1, H, hd). A CPU tensor takes the plain version;
-    any other tensor launches the kernel or raises."""
-    if q.device.type == "cpu":
-        return plain(q, k_payload, k_bases, v_payload, v_bases, pos, fields,
-                     window=window, softcap=softcap, block_l=block_l)
-    if fields.dense or fields.payload_bits not in (8, 16):
-        raise ValueError(f"packed_flash_decode: fixed-lane words only, got "
-                         f"{fields}")
-    out = _launch("packed_flash_decode", q, k_payload, k_bases, v_payload,
-                  v_bases, pos, fields, window, softcap, block_l)
-    packed_flash_decode.launches += 1
-    return out
+    buffer; ``prefix_planes`` reads only the leading bits of each word.
+    Returns (B, 1, H, hd). A CPU tensor takes the plain version; any other
+    tensor launches the kernel or raises."""
+    return _contiguous(packed_flash_decode, False, q, k_payload, k_bases,
+                       v_payload, v_bases, pos, fields, window, softcap,
+                       block_l, prefix_planes)
 
 
 def packed_flash_decode_dense(q: torch.Tensor, k_payload: torch.Tensor,
@@ -114,22 +197,48 @@ def packed_flash_decode_dense(q: torch.Tensor, k_payload: torch.Tensor,
                               fields: PackFields, *,
                               window: Optional[int] = None,
                               softcap: Optional[float] = None,
-                              block_l: int = DEFAULT_BLOCK_L
+                              block_l: int = DEFAULT_BLOCK_L,
+                              prefix_planes: Optional[int] = None
                               ) -> torch.Tensor:
     """As ``packed_flash_decode``, over a dense bit-plane cache: payload
     (B, L, G * P * 16) uint8, each slot's bytes ordered (group, plane,
     16)."""
-    if q.device.type == "cpu":
-        return plain(q, k_payload, k_bases, v_payload, v_bases, pos, fields,
-                     window=window, softcap=softcap, block_l=block_l)
-    if not fields.dense or not 3 <= fields.payload_bits <= 16:
-        raise ValueError(f"packed_flash_decode_dense: dense bit planes "
-                         f"only, got {fields}")
-    out = _launch("packed_flash_decode_dense", q, k_payload, k_bases,
-                  v_payload, v_bases, pos, fields, window, softcap, block_l)
-    packed_flash_decode_dense.launches += 1
-    return out
+    return _contiguous(packed_flash_decode_dense, True, q, k_payload,
+                       k_bases, v_payload, v_bases, pos, fields, window,
+                       softcap, block_l, prefix_planes)
 
 
-packed_flash_decode.launches = 0
-packed_flash_decode_dense.launches = 0
+def paged_flash_decode(q: torch.Tensor, k_payload: torch.Tensor,
+                       k_bases: torch.Tensor, v_payload: torch.Tensor,
+                       v_bases: torch.Tensor, tables: torch.Tensor,
+                       pos: torch.Tensor, fields: PackFields, *,
+                       softcap: Optional[float] = None,
+                       prefix_planes: Optional[int] = None) -> torch.Tensor:
+    """One-token global attention over a paged pool of fixed-lane words:
+    payload (P_blocks, block_l, KH*hd), bases (P_blocks, block_l, G),
+    ``tables`` (B, nb) int32 physical block per logical block (unused
+    entries name the trash block 0), ``pos`` (B,) int32. The block table is
+    read inside the kernel; no per-row cache is gathered."""
+    return _paged(paged_flash_decode, False, q, k_payload, k_bases,
+                  v_payload, v_bases, tables, pos, fields, softcap,
+                  prefix_planes)
+
+
+def paged_flash_decode_dense(q: torch.Tensor, k_payload: torch.Tensor,
+                             k_bases: torch.Tensor, v_payload: torch.Tensor,
+                             v_bases: torch.Tensor, tables: torch.Tensor,
+                             pos: torch.Tensor, fields: PackFields, *,
+                             softcap: Optional[float] = None,
+                             prefix_planes: Optional[int] = None
+                             ) -> torch.Tensor:
+    """As ``paged_flash_decode``, over a pool of dense bit planes."""
+    return _paged(paged_flash_decode_dense, True, q, k_payload, k_bases,
+                  v_payload, v_bases, tables, pos, fields, softcap,
+                  prefix_planes)
+
+
+for _fn in (packed_flash_decode, packed_flash_decode_dense,
+            paged_flash_decode, paged_flash_decode_dense):
+    _fn.launches = 0
+    _fn.draft_launches = 0
+del _fn

@@ -4,7 +4,8 @@ They repeat the arithmetic of the JAX package's oracles
 (``repro.kernels.ref``): mantissa truncation, the SFP word machine (with
 the fused Q(M, n)) stored as fixed-lane words or as dense bit planes,
 Gecko's exponent plane encode and decode, the ring-slot validity mask,
-the packed decode's block recurrence and dense attention.
+the packed decode's block recurrence (contiguous and paged, full width
+or the draft's leading-bit prefix) and dense attention.
 The CPU path runs them, the tests hold them against the JAX package, and
 ``chip_smoke.py`` holds each CUDA kernel against them on the card.
 """
@@ -186,21 +187,61 @@ def sfp_unpack_nd(payload: torch.Tensor, bases: torch.Tensor,
     return out.reshape(payload.shape)
 
 
+def prefix_fields(fields: PackFields, prefix_planes: int) -> PackFields:
+    """Geometry of the leading ``prefix_planes`` bits of a payload word
+    (the speculative draft read). The word is most-significant-first
+    (sign, delta exponent, mantissa top), so ``word >> (P - P')`` is the
+    narrow pack of the same values with ``man_keep - (P - P')`` mantissa
+    bits; a wide flush word truncates to the narrow flush word. Dense
+    planes are stored LSB-plane first, so the prefix is the last P'
+    planes of each group. P' must keep one mantissa bit:
+    ``dexp_bits + 2 <= prefix_planes <= payload_bits``."""
+    P = int(prefix_planes)
+    if not fields.dexp_bits + 2 <= P <= fields.payload_bits:
+        raise ValueError(
+            f"prefix_planes={P} outside [{fields.dexp_bits + 2}, "
+            f"{fields.payload_bits}] for {fields}")
+    drop = fields.payload_bits - P
+    return PackFields(man_keep=fields.man_keep - drop,
+                      dexp_bits=fields.dexp_bits, payload_bits=P,
+                      dense=fields.dense)
+
+
+def prefix_plane_view(payload: torch.Tensor, fields: PackFields,
+                      prefix_planes: int) -> torch.Tensor:
+    """A dense group payload (..., P*16) cut to its leading-bit prefix
+    (..., P'*16): the last P' planes in storage order."""
+    P, Pp = fields.payload_bits, int(prefix_planes)
+    lead = payload.shape[:-1]
+    pl = payload.reshape(*lead, P, PLANE_BYTES)
+    return pl[..., P - Pp:, :].reshape(*lead, Pp * PLANE_BYTES)
+
+
 def unpack_tile(payload: torch.Tensor, bases: torch.Tensor,
                 fields: PackFields, spec: containers.FloatSpec, *, rows: int,
-                KH: int, hd: int) -> torch.Tensor:
+                KH: int, hd: int, prefix_planes: Optional[int] = None
+                ) -> torch.Tensor:
     """Tile decompressor of the packed decode: payload (rows,
     nd_payload_cols(KH*hd)) words or bit planes and bases (rows, G) ->
     (rows, KH, hd) float32. Groups span the flattened KH*hd axis, so a
-    group may straddle heads."""
+    group may straddle heads. ``prefix_planes`` P' < P is the draft read:
+    only the leading P' bits of each word are decoded, as the geometry
+    ``prefix_fields`` gives (dense: the last P' planes; words: shifted
+    right by P - P')."""
     G = (KH * hd) // GROUP
     b = bases.to(torch.int32).reshape(rows, G, 1)
+    f = fields
+    if prefix_planes is not None and prefix_planes != fields.payload_bits:
+        f = prefix_fields(fields, prefix_planes)
     if fields.dense:
-        x = unpack_planes(payload.reshape(rows, G, fields.group_payload_bytes),
-                          b, fields, spec)
+        planes = payload.reshape(rows, G, fields.group_payload_bytes)
+        if f is not fields:
+            planes = prefix_plane_view(planes, fields, f.payload_bits)
+        x = unpack_planes(planes, b, f, spec)
     else:
         p = payload.to(torch.int32).reshape(rows, G, GROUP)
-        x = _unpack_words(p, b, fields, spec)
+        p = p >> (fields.payload_bits - f.payload_bits)
+        x = _unpack_words(p, b, f, spec)
     return x.reshape(rows, KH, hd).to(torch.float32)
 
 
@@ -405,14 +446,16 @@ def packed_flash_decode(q: torch.Tensor, k_payload: torch.Tensor,
                         v_bases: torch.Tensor, pos, fields: PackFields, *,
                         window: Optional[int] = None,
                         softcap: Optional[float] = None,
-                        block_l: Optional[int] = None) -> torch.Tensor:
+                        block_l: Optional[int] = None,
+                        prefix_planes: Optional[int] = None) -> torch.Tensor:
     """Unpack-then-attend decode over a packed contiguous cache.
 
     q (B, 1, H, hd); payload (B, L, nd_payload_cols(KH*hd)) words or bit
     planes; bases (B, L, KH*hd//128);
     ``pos`` scalar or (B,). Same online-softmax block recurrence over
     ``block_l``-slot blocks as the kernel (the block shrinks to a divisor
-    of L); batch rows are independent, so they run side by side."""
+    of L); batch rows are independent, so they run side by side.
+    ``prefix_planes`` is the draft read mode (see ``unpack_tile``)."""
     B, _, H, hd = q.shape
     L, G = k_bases.shape[1], k_bases.shape[2]
     D = G * GROUP
@@ -427,7 +470,8 @@ def packed_flash_decode(q: torch.Tensor, k_payload: torch.Tensor,
 
     def unp(payload, bases):
         x = unpack_tile(payload.reshape(B * L, -1), bases.reshape(B * L, G),
-                        fields, spec, rows=B * L, KH=KH, hd=hd)
+                        fields, spec, rows=B * L, KH=KH, hd=hd,
+                        prefix_planes=prefix_planes)
         return x.reshape(B, L, KH, hd)
 
     k = unp(k_payload, k_bases)
@@ -456,6 +500,33 @@ def packed_flash_decode(q: torch.Tensor, k_payload: torch.Tensor,
         m = m_new
     o = acc / torch.clamp(l, min=1e-30)
     return o.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def paged_gather(part: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
+    """Pool blocks gathered into per-row contiguous sequences: ``part``
+    (P_blocks, block_l, ...), ``tables`` (B, nb) physical block ids per
+    logical block -> (B, nb * block_l, ...)."""
+    g = part[tables.long()]
+    return g.reshape(g.shape[0], -1, *g.shape[3:])
+
+
+def paged_flash_decode(q: torch.Tensor, k_payload: torch.Tensor,
+                       k_bases: torch.Tensor, v_payload: torch.Tensor,
+                       v_bases: torch.Tensor, tables: torch.Tensor, pos,
+                       fields: PackFields, *,
+                       softcap: Optional[float] = None,
+                       prefix_planes: Optional[int] = None) -> torch.Tensor:
+    """Gather-unpack-attend decode over a paged pool: pool parts
+    (P_blocks, block_l, cols) / (P_blocks, block_l, G), ``tables`` (B, nb),
+    ``pos`` (B,) or scalar. The block recurrence of ``packed_flash_decode``
+    with block_l = the pool block, global attention only (logical slots
+    past ``pos`` are masked, so trash-block entries are no-ops)."""
+    block_l = k_payload.shape[1]
+    return packed_flash_decode(
+        q, paged_gather(k_payload, tables), paged_gather(k_bases, tables),
+        paged_gather(v_payload, tables), paged_gather(v_bases, tables),
+        pos, fields, window=None, softcap=softcap, block_l=block_l,
+        prefix_planes=prefix_planes)
 
 
 # ---------------------------------------------------------------------------

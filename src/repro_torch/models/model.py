@@ -9,7 +9,9 @@ policy fake-quantizes the weights at their use sites. Serving runs
 ``prefill`` over the prompt and ``decode_step`` per token over a KV cache
 that is updated in place — raw bf16, or packed by a registry codec
 (``kv_container``): read through the fused decode kernel for the SFP
-containers, unpacked whole for ``bit_exact`` and ``gecko8``.
+containers, unpacked whole for ``bit_exact`` and ``gecko8`` — or, for the
+continuous-batching engine, ``decode_step_paged`` over a paged pool for
+the GLOBAL layers and per-slot rings for the LOCAL ones.
 """
 from __future__ import annotations
 
@@ -309,10 +311,25 @@ class DecoderModel:
         return logits, {"layers": caches}
 
     def decode_step(self, params, cache: Dict[str, Any], token: torch.Tensor,
-                    pos) -> Tuple[torch.Tensor, Dict[str, Any]]:
+                    pos, tables: Optional[torch.Tensor] = None,
+                    prefix_planes: Optional[int] = None
+                    ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """One decode step, updating ``cache`` in place. token (B, 1);
         ``pos`` an int or (B,) absolute positions. Returns (logits
-        (B, 1, V) f32, cache)."""
+        (B, 1, V) f32, cache).
+
+        With ``tables`` (B, nb) this is the continuous-batching paged
+        step: GLOBAL layers of ``cache`` hold ``kvcache.PagedKV`` pool
+        slices addressed through the tables, LOCAL layers per-slot packed
+        rings read at per-row positions (idle slots carry pos 0 and a
+        trash-block table row; their logits are garbage the engine
+        discards). ``prefix_planes`` makes every packed-attention read
+        decode only the leading P' payload bits (the speculative draft);
+        K/V writes stay full width. Both need ``kv_container``."""
+        if (tables is not None or prefix_planes is not None) and \
+                self.kv_container is None:
+            raise ValueError("paged decode and prefix_planes (draft reads) "
+                             "need a packed kv_container")
         cfg = self.cfg
         B = token.shape[0]
         pos = torch.as_tensor(pos, dtype=torch.int64, device=token.device)
@@ -320,10 +337,16 @@ class DecoderModel:
         h = common.embed(params["embed"], token, self._emb_scale())
         for i, (lp, kind) in enumerate(zip(params["layers"], self.kinds)):
             hn = common.rmsnorm(lp["pre_norm"], h)
-            if self.kv_container is not None:
+            if tables is not None and kind == GLOBAL:
+                out, _ = kvcache.attention_decode_paged(
+                    lp["attn"], hn, cache["layers"][i], tables, pos, cfg,
+                    container=self.kv_container,
+                    prefix_planes=prefix_planes)
+            elif self.kv_container is not None:
                 out, _ = kvcache.attention_decode_packed(
                     lp["attn"], hn, cache["layers"][i], pos, cfg, kind=kind,
-                    container=self.kv_container)
+                    container=self.kv_container,
+                    prefix_planes=prefix_planes)
             else:
                 out, _ = attention.attention_decode(
                     lp["attn"], hn, cache["layers"][i], pos, cfg, kind=kind)
@@ -334,3 +357,12 @@ class DecoderModel:
         logits = common.unembed(params, h, softcap=cfg.final_softcap,
                                 valid_vocab=cfg.vocab)
         return logits, cache
+
+    def decode_step_paged(self, params, cache: Dict[str, Any],
+                          token: torch.Tensor, pos: torch.Tensor,
+                          tables: torch.Tensor,
+                          prefix_planes: Optional[int] = None
+                          ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """Paged decode step (``decode_step`` with ``tables``)."""
+        return self.decode_step(params, cache, token, pos, tables=tables,
+                                prefix_planes=prefix_planes)

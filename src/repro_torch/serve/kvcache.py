@@ -7,8 +7,11 @@ new token's K/V row. For the SFP containers attention reads the packed
 bf16 cache never exists in device memory. Codecs without a fixed-width
 payload geometry (``bit_exact``, ``gecko8``) take the fallback of the JAX
 package: unpack the whole cache, then attend over it with
-``attention.decode_attend``. The paged pool of the JAX package is not
-ported yet.
+``attention.decode_attend``. The paged pool of the continuous-batching
+engine (``PagedKV``) keeps the packed rows of every request's global
+layers in shared physical blocks, read through per-row block tables by
+``ops.paged_flash_decode``; only the SFP containers page (``gecko8`` and
+``bit_exact`` have no fixed-width geometry and raise).
 
 Every part is stored with the batch on axis 0 and the sequence on axis 1,
 so one splice along axis 1 writes a token row of any codec. gecko8's
@@ -114,10 +117,13 @@ def _splice(cache_pt: codecs.PackedTensor, new_pt: codecs.PackedTensor,
 
 def attention_decode_packed(params, h_tok: torch.Tensor, cache: PackedKV,
                             pos: torch.Tensor, cfg: ArchConfig, *, kind: str,
-                            container: Optional[str] = None
+                            container: Optional[str] = None,
+                            prefix_planes: Optional[int] = None
                             ) -> Tuple[torch.Tensor, PackedKV]:
     """One-token decode over the compressed cache, spliced in place.
-    h_tok (B, 1, d); pos (B,) int64 decode positions."""
+    h_tok (B, 1, d); pos (B,) int64 decode positions. ``prefix_planes``
+    (a speculative draft step) reads only the leading P' payload bits;
+    the write stays full width."""
     codec = _codec(container)
     B = h_tok.shape[0]
     hd, H, KH = cfg.head_dim_, cfg.n_heads, cfg.n_kv_heads
@@ -130,6 +136,9 @@ def attention_decode_packed(params, h_tok: torch.Tensor, cache: PackedKV,
     _splice(cache.k, codec.pack(k_new.reshape(B, 1, D).to(dtype)), slot)
     _splice(cache.v, codec.pack(v_new.reshape(B, 1, D).to(dtype)), slot)
     fields = codec.pack_fields(dtype)
+    if prefix_planes is not None and fields is None:
+        raise ValueError(f"prefix_planes needs a fixed-width payload "
+                         f"geometry; codec {codec.name!r} has none")
     if fields is None:
         # No fused kernel for this codec: unpack the whole cache, attend.
         k_c = codec.unpack(_flat(cache.k)).reshape(B, L, KH, hd)
@@ -141,7 +150,8 @@ def attention_decode_packed(params, h_tok: torch.Tensor, cache: PackedKV,
             q.to(dtype),
             ops.Packed(cache.k.data["payload"], cache.k.data["bases"]),
             ops.Packed(cache.v.data["payload"], cache.v.data["bases"]),
-            pos, fields=fields, window=window, softcap=cfg.attn_softcap)
+            pos, fields=fields, window=window, softcap=cfg.attn_softcap,
+            prefix_planes=prefix_planes)
     out = o.reshape(B, 1, H * hd) @ params["wo"]
     return out, cache
 
@@ -154,3 +164,149 @@ def pack_prefill_cache(cache_kv: attention.KVCache,
     return PackedKV(
         k=_seq_major(codec.pack(cache_kv.k.reshape(B, L, KH * hd))),
         v=_seq_major(codec.pack(cache_kv.v.reshape(B, L, KH * hd))))
+
+
+# ---------------------------------------------------------------------------
+# Paged pool (continuous-batching serving engine)
+# ---------------------------------------------------------------------------
+
+
+class PagedKV(NamedTuple):
+    """One global-attention layer's slice of the packed block pool:
+    payload (P_blocks, block_l, fields.nd_payload_cols(D)) words or bit
+    planes and bases (P_blocks, block_l, D // 128) uint8, shared by every
+    request. Which blocks belong to which request lives in the engine's
+    block tables."""
+
+    k_payload: torch.Tensor
+    k_bases: torch.Tensor
+    v_payload: torch.Tensor
+    v_bases: torch.Tensor
+
+
+def _paged_fields(cfg: ArchConfig, container: Optional[str]):
+    codec = _codec(container)
+    fields = codec.pack_fields(cfg.compute_dtype)
+    if fields is None:
+        raise ValueError(
+            f"paged KV pools need a fixed-width payload geometry; codec "
+            f"{codec.name!r} has none (pack_fields() is None)")
+    return fields
+
+
+def paged_block_bytes(cfg: ArchConfig, block_l: int,
+                      container: Optional[str] = None) -> int:
+    """Packed bytes of one physical block of one layer: K and V payload
+    plus the group bases (the unit of the pool's admission accounting)."""
+    fields = _paged_fields(cfg, container)
+    D = cfg.n_kv_heads * cfg.head_dim_
+    itemsize = torch.empty((), dtype=fields.payload_dtype).element_size()
+    return 2 * block_l * (fields.nd_payload_cols(D) * itemsize + D // GROUP)
+
+
+def paged_block_spec(cfg: ArchConfig, num_blocks: int, block_l: int,
+                     container: Optional[str] = None) -> PagedKV:
+    """(shape, dtype) of each part of one layer's pool slice."""
+    D = cfg.n_kv_heads * cfg.head_dim_
+    if D % GROUP:
+        raise ValueError(f"KV feature dim {D} must align to {GROUP} lanes")
+    fields = _paged_fields(cfg, container)
+    payload = ((num_blocks, block_l, fields.nd_payload_cols(D)),
+               fields.payload_dtype)
+    bases = ((num_blocks, block_l, D // GROUP), torch.uint8)
+    return PagedKV(k_payload=payload, k_bases=bases, v_payload=payload,
+                   v_bases=bases)
+
+
+def paged_block_init(cfg: ArchConfig, num_blocks: int, block_l: int,
+                     container: Optional[str] = None, *, device) -> PagedKV:
+    return PagedKV(*(torch.zeros(shape, dtype=dt, device=device)
+                     for shape, dt in paged_block_spec(cfg, num_blocks,
+                                                       block_l, container)))
+
+
+_U32 = 0xFFFFFFFF
+_KNUTH = 2654435761
+_GOLDEN = 0x9E3779B9
+
+
+def _weighted_sums(a: torch.Tensor, s: int, start: int) -> torch.Tensor:
+    """(P, n) integers -> (P,) int64 sums of a[:, j] * w(start + j) mod
+    2^32, w(j) = (j * 2654435761 + s) | 1 mod 2^32. Every product is
+    reduced mod 2^32 before the sum, so int64 never overflows (n < 2^31)."""
+    n = a.shape[1]
+    j = torch.arange(start, start + n, dtype=torch.int64, device=a.device)
+    w = ((j * _KNUTH + (s & _U32)) & _U32) | 1
+    return ((a.to(torch.int64) * w) & _U32).sum(dim=1)
+
+
+def paged_block_checksums(paged, salt: int = 0,
+                          ids: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """Per-physical-block integrity checksum over the packed parts: (P,)
+    int64 holding the uint32 value. A position-weighted sum mod 2^32 with
+    odd weights, so a single bit flip always changes its block's sum;
+    ``salt`` decorrelates the four parts and the layer groups the engine
+    sums. ``paged`` is one ``PagedKV`` (parts (P, block_l, cols), or with
+    a leading layer axis), or a sequence of them, one per layer: the layers
+    then count as one flat sequence per block, as the JAX package's
+    stacked periods do. ``ids`` selects physical blocks (all when None).
+    Bit-equal to the JAX package's uint32 sums (torch has no full uint32
+    arithmetic: int64, masked)."""
+    if isinstance(paged, PagedKV):
+        layers = ([paged] if paged.k_payload.dim() == 3 else
+                  [PagedKV(*(a[k] for a in paged))
+                   for k in range(paged.k_payload.shape[0])])
+    else:
+        layers = list(paged)
+    total = None
+    for i in range(len(PagedKV._fields)):
+        s = salt + _GOLDEN * (i + 1)
+        for k, kv in enumerate(layers):
+            a = kv[i] if ids is None else kv[i].index_select(0, ids)
+            part = _weighted_sums(a.reshape(a.shape[0], -1), s,
+                                  k * a[0].numel())
+            total = part if total is None else total + part
+    return total & _U32
+
+
+def attention_decode_paged(params, h_tok: torch.Tensor, paged: PagedKV,
+                           tables: torch.Tensor, pos: torch.Tensor,
+                           cfg: ArchConfig, *,
+                           container: Optional[str] = None,
+                           prefix_planes: Optional[int] = None
+                           ) -> Tuple[torch.Tensor, PagedKV]:
+    """One continuous-batching decode step over the paged pool, written in
+    place. ``tables`` (B, nb) int32 maps each row's logical blocks to
+    physical ones; ``pos`` (B,) is each row's position. The new token's
+    K/V row is packed and written into the row's current block (idle rows
+    point at the trash block 0, where several may land on one row: garbage
+    that no valid position reads), then attention reads the pool through
+    the tables. Global attention only. ``prefix_planes`` (draft steps)
+    narrows the read; the write stays full width."""
+    codec = _codec(container)
+    B = h_tok.shape[0]
+    hd, H, KH = cfg.head_dim_, cfg.n_heads, cfg.n_kv_heads
+    D = KH * hd
+    block_l = paged.k_payload.shape[1]
+    dtype = h_tok.dtype
+    fields = _paged_fields(cfg, container)
+    q, k_new, v_new = attention._project_qkv(params, h_tok, cfg,
+                                             pos[:, None])
+    k_pt = codec.pack(k_new.reshape(B, 1, D).to(dtype))
+    v_pt = codec.pack(v_new.reshape(B, 1, D).to(dtype))
+    rows = torch.arange(B, device=pos.device)
+    phys = tables[rows, pos // block_l].long()
+    off = pos % block_l
+    for part, pt, key in ((paged.k_payload, k_pt, "payload"),
+                          (paged.k_bases, k_pt, "bases"),
+                          (paged.v_payload, v_pt, "payload"),
+                          (paged.v_bases, v_pt, "bases")):
+        part[phys, off] = pt.data[key][:, 0]
+    o = ops.paged_flash_decode(
+        q.to(dtype), ops.Packed(paged.k_payload, paged.k_bases),
+        ops.Packed(paged.v_payload, paged.v_bases), tables, pos,
+        fields=fields, softcap=cfg.attn_softcap,
+        prefix_planes=prefix_planes)
+    out = o.reshape(B, 1, H * hd) @ params["wo"]
+    return out, paged

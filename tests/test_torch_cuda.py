@@ -23,6 +23,7 @@ from repro_torch.kernels import gecko_pack as gp
 from repro_torch.kernels import mantissa_quant as mq
 from repro_torch.kernels import ops
 from repro_torch.kernels import packed_flash_decode as pfd
+from repro_torch.kernels import ref
 from repro_torch.kernels import sfp_pack as sp
 
 pytestmark = pytest.mark.cuda
@@ -193,6 +194,74 @@ def test_packed_flash_decode_dense_kernel(dev, container, L, window, pos):
     args = (q, kp.payload, kp.bases, vp.payload, vp.bases, p, f)
     kw = dict(window=window, softcap=50.0)
     _close(pfd.packed_flash_decode_dense(*args, **kw), pfd.plain(*args, **kw))
+
+
+def _decode_inputs(dev, g, container, B, L, H, KH, hd):
+    """Packed K/V (B, L, KH*hd) with flush words (zeros, subnormals and
+    values far below their group's base) and a bf16 query."""
+    f = fields_for(container, torch.bfloat16)
+    kp = ops.sfp_compress_nd(_wide(dev, g, (B, L, KH * hd), torch.bfloat16), f)
+    vp = ops.sfp_compress_nd(_wide(dev, g, (B, L, KH * hd), torch.bfloat16), f)
+    q = (torch.randn((B, 1, H, hd), generator=g, device=dev) * 3
+         ).to(torch.bfloat16)
+    return f, q, kp, vp
+
+
+def _decoders(f):
+    return ((pfd.packed_flash_decode_dense, pfd.paged_flash_decode_dense)
+            if f.dense else (pfd.packed_flash_decode, pfd.paged_flash_decode))
+
+
+# (container, draft depth P'): the engine's default max(P - 1, dexp + 2),
+# the shallowest prefix, and for sfp-m5e4 (P = 10) P' = 8, whose word
+# tile is one byte though the stored word is not.
+DRAFTS = [("sfp8", 7), ("sfp8", 6), ("sfp16", 15), ("sfp-m2e4", 6),
+          ("sfp-m5e4", 8), ("sfp-m5e4", 6)]
+
+
+@pytest.mark.parametrize("container,draft", DRAFTS)
+@pytest.mark.parametrize("window,pos", [(None, [255, 130]), (64, [300, 77])])
+def test_draft_decode_kernel(dev, container, draft, window, pos):
+    """The prefix_planes read against the plain draft read; P' = P
+    bit-equal to the full-width read."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    f, q, kp, vp = _decode_inputs(dev, g, container, 2, 256, 4, 2, 192)
+    decode, _ = _decoders(f)
+    p = torch.tensor(pos, dtype=torch.int32, device=dev)
+    args = (q, kp.payload, kp.bases, vp.payload, vp.bases, p, f)
+    kw = dict(window=window, softcap=50.0)
+    _close(decode(*args, prefix_planes=draft, **kw),
+           pfd.plain(*args, prefix_planes=draft, **kw))
+    assert torch.equal(decode(*args, prefix_planes=f.payload_bits, **kw),
+                       decode(*args, **kw))
+
+
+@pytest.mark.parametrize("container,draft", [("sfp8", None), ("sfp8", 7),
+                                             ("sfp-m2e4", None),
+                                             ("sfp-m2e4", 6),
+                                             ("sfp-m5e4", 8)])
+def test_paged_kernel_vs_contiguous_and_plain(dev, container, draft):
+    """The paged kernel over a pool is bit-equal to the contiguous kernel
+    over the gathered cache (block_l = the pool block), and within one
+    bf16 ulp of the plain version. Rows hold trash-block entries past
+    their position, one row is idle at position 0 on the trash block."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    n_phys, bl, nb = 9, 128, 4
+    f, q, kp, vp = _decode_inputs(dev, g, container, n_phys, bl, 8, 4, 288)
+    q = q[:4].contiguous()
+    tables = torch.tensor([[3, 7, 1, 5], [8, 2, 0, 0], [4, 0, 0, 0],
+                           [0, 0, 0, 0]], dtype=torch.int32, device=dev)
+    pos = torch.tensor([nb * bl - 1, 140, 5, 0], dtype=torch.int32,
+                       device=dev)
+    contiguous, paged = _decoders(f)
+    pool = (kp.payload, kp.bases, vp.payload, vp.bases)
+    got = paged(q, *pool, tables, pos, f, softcap=50.0, prefix_planes=draft)
+    gathered = [ref.paged_gather(t, tables).contiguous() for t in pool]
+    want = contiguous(q, *gathered, pos, f, softcap=50.0, block_l=bl,
+                      prefix_planes=draft)
+    assert torch.equal(got, want)
+    _close(got, pfd.plain_paged(q, *pool, tables, pos, f, softcap=50.0,
+                                prefix_planes=draft))
 
 
 def _gecko_groups(dev, g, G, family):
