@@ -8,6 +8,10 @@
    shapes the serving and training paths give it, and times both: the
    fixed-lane kernels at sfp8/sfp16, the dense bit-plane kernels at
    sfp-m1e2, sfp-m2e4, sfp-m3e5, sfp-m7e7 (bf16) and sfp-m9e5 (f32).
+   Every read of the split-KV decode (words and planes, full width and
+   draft, contiguous, ring and paged) must also be bit-equal over two
+   launches and, row by row, launched alone against inside the batch;
+   each decode entry's note gives its split grid and the GB/s achieved.
 3. Serves gemma2-2b at full width (random weights from a seed, batch 4,
    1024-token prompts, 64 new tokens) through ``serve.engine.generate``,
    from an sfp8 KV cache and from a dense sfp-m2e4 one; checks by the
@@ -245,6 +249,40 @@ def bound(ops: float, nbytes: float):
             "operations" if t_ops > t_bytes else "bytes")
 
 
+def decode_properties(torch, name, call, rows):
+    """The split-KV decode's two properties: two launches on the same
+    inputs are bit-equal (the splits merge in order, with no floating-point
+    atomics), and each row launched alone is bit-equal to that row inside
+    the batch (a split is a function of the slot and the tile, not of B).
+    ``call(r)`` launches row r alone, ``call(None)`` the batch."""
+    full, again = call(None), call(None)
+    torch.cuda.synchronize()
+    if not torch.equal(full, again):
+        fail(f"{name}: two launches on the same inputs are not bit-equal")
+    for r in range(rows):
+        if not torch.equal(call(r), full[r:r + 1]):
+            fail(f"{name}: row {r} launched alone is not bit-equal to the "
+                 f"same row inside the batch")
+
+
+def rows_of(args, pos, r):
+    """Contiguous decode inputs (q, payloads, bases) and positions of batch
+    row r alone, or of every row for None."""
+    if r is None:
+        return (*args, pos)
+    return (*(t[r:r + 1].contiguous() for t in args),
+            pos[r:r + 1].contiguous())
+
+
+def decode_note(plan, rows, kv_heads, bound_ms, ms):
+    """The split grid and the rate achieved: the bytes of ``bound`` (the
+    least the function must move) over the kernel's time."""
+    gbps = bound_ms / ms * HBM_BYTES_PER_S / 1e9
+    return (f"grid {plan.ctas} CTAs ({rows} rows x {kv_heads} KV heads x "
+            f"{plan.splits} splits of {plan.split_l} slots, "
+            f"{plan.threads} threads); {gbps:.1f} GB/s")
+
+
 def wide_range(torch, gen, shape, dev, dtype):
     """Normal values over 2^+-40 with 5% zeros and 3% subnormals."""
     x = torch.randn(shape, generator=gen, device=dev)
@@ -349,6 +387,9 @@ def serving_kernels(torch, cfg, gen, flush, results):
         torch.cuda.synchronize()
         pd_err = max(pd_err, check_close(
             torch, f"packed_flash_decode window={window}", got, want))
+        decode_properties(torch, f"packed_flash_decode window={window}",
+                          lambda r: pfd.packed_flash_decode(
+                              *rows_of(args, pos, r), fields, **kw), B)
     kw = dict(window=None, softcap=cfg.attn_softcap)
     live = sum(min(int(p) + 1, L) for p in pos_global.tolist())
     results["packed_flash_decode"] = dict(
@@ -363,6 +404,9 @@ def serving_kernels(torch, cfg, gen, flush, results):
     results["packed_flash_decode"]["bound_ms"], _ = bound(
         2 * 2 * H * hd * live, live * 2 * (D + G) + 2 * qd.numel() * 2)
     results["packed_flash_decode"]["bound_by"] = "bytes"
+    r = results["packed_flash_decode"]
+    r["note"] = decode_note(pfd.split_plan(B, KH, hd, L), B, KH,
+                            r["bound_ms"], r["ms"])
 
 
 def training_kernels(torch, cfg, gen, flush, results):
@@ -630,6 +674,9 @@ def dense_kernels(torch, cfg, gen, flush, results):
         torch.cuda.synchronize()
         err = max(err, check_close(
             torch, f"packed_flash_decode_dense window={window}", got, want))
+        decode_properties(torch, f"packed_flash_decode_dense window={window}",
+                          lambda r: pfd.packed_flash_decode_dense(
+                              *rows_of(args, pos, r), f, **kw), B)
     kw = dict(window=None, softcap=cfg.attn_softcap)
     live = sum(min(int(p) + 1, L) for p in pos_global.tolist())
     results["packed_flash_decode_dense"] = dict(
@@ -647,6 +694,9 @@ def dense_kernels(torch, cfg, gen, flush, results):
         2 * 2 * H * hd * live,
         live * 2 * G * (f.group_payload_bytes + 1) + 2 * qd.numel() * 2)
     results["packed_flash_decode_dense"]["bound_by"] = "bytes"
+    r = results["packed_flash_decode_dense"]
+    r["note"] = decode_note(pfd.split_plan(B, KH, hd, L), B, KH,
+                            r["bound_ms"], r["ms"])
 
 
 def gecko_kernels(torch, cfg, gen, flush, results):
@@ -933,6 +983,20 @@ def paged_kernels(torch, cfg, gen, flush, results):
                 ring, pfd.plain(q, *gathered, pos, f, window=cfg.window,
                                 **kw))
             errs[pp] = (e, e_ring)
+            if pp != f.payload_bits:
+                def paged_rows(r, kw=kw):
+                    qr, tr, pr = ((q, tables, pos) if r is None else
+                                  (t[r:r + 1].contiguous()
+                                   for t in (q, tables, pos)))
+                    return paged(qr, *pool, tr, pr, f, **kw)
+                decode_properties(
+                    torch, f"paged_flash_decode{suffix} prefix_planes={pp}",
+                    paged_rows, S)
+                decode_properties(
+                    torch, f"packed_flash_decode{suffix} ring "
+                    f"prefix_planes={pp}",
+                    lambda r: contiguous(*rows_of((q, *gathered), pos, r), f,
+                                         window=cfg.window, **kw), S)
             if pp == f.payload_bits:
                 full = (paged(q, *pool, tables, pos, f, softcap=sc),
                         contiguous(q, *gathered, pos, f, window=cfg.window,
@@ -986,10 +1050,15 @@ def paged_kernels(torch, cfg, gen, flush, results):
                                                else ", ring (local layers)")))
             results[name]["bound_ms"], results[name]["bound_by"] = \
                 bound_for(read_bits[pp])
+            results[name]["note"] += "; " + decode_note(
+                pfd.split_plan(S, KH, hd, PAGED_MAX_LEN, bl, paged=True), S,
+                KH, results[name]["bound_ms"], results[name]["ms"])
         del kp, vp, pool, gathered
     print("  paged decode bit-equal to the contiguous kernel over the "
           "gathered cache (sfp8, sfp-m2e4; full width, draft, P' = P); "
-          "paged, ring and draft reads within one bf16 ulp of plain")
+          "paged, ring and draft reads within one bf16 ulp of plain; every "
+          "decode read bit-equal over two launches and row by row against "
+          "the batch")
 
 
 def trace_stream_check(torch, model, params, reqs, out, max_len):

@@ -4,65 +4,81 @@
 // Replaces the TPU kernels src/repro/kernels/packed_flash_decode.py:
 // packed_flash_decode (_decode_kernel) and paged_flash_decode
 // (_paged_kernel), each with its fixed-lane word branch, its dense
-// bit-plane branch and its prefix_planes draft read mode. One query token per batch row attends an L-slot
-// cache stored as payload words (B, L, KH*hd) uint8/uint16, or as dense
-// bit planes (B, L, G*P*16) uint8 ordered (group, plane, 16 bytes) per
-// slot, plus one uint8 base per 128-lane group (B, L, G = KH*hd/128).
-// Groups run along the flattened KH*hd axis and may
-// straddle heads (hd = 288: 9 groups over 4 heads), so a feature's base is
-// found by (flat feature index / 128). Per-row decode positions; a
-// window > 0 means an L-slot ring buffer (floor mod, as the JAX mask).
-// The recurrence is the JAX kernel's: per block_l-slot tile, scores in
-// f32, softcap, -1e30 on masked slots, online softmax, acc += p . v.
+// bit-plane branch and its prefix_planes draft read mode. One query token
+// per batch row attends an L-slot cache stored as payload words (B, L,
+// KH*hd) uint8/uint16, or as dense bit planes (B, L, G*P*16) uint8 ordered
+// (group, plane, 16 bytes) per slot, plus one uint8 base per 128-lane
+// group (B, L, G = KH*hd/128). Groups run along the flattened KH*hd axis
+// and may straddle heads (hd = 288: 9 groups over 4 heads). Per-row decode
+// positions; a window > 0 means an L-slot ring buffer (floor mod, as the
+// JAX mask). The function is the JAX kernel's: per block_l-slot tile,
+// scores in f32, softcap, -1e30 on masked slots, softmax, p . v.
 //
-// Bound on this card: memory. Each live slot costs (D + D/128) bytes for K
-// and again for V with 8-bit words. Design, simple first: one CTA of 256
-// threads per (batch row, KV head). Per tile the CTA stages the head's
-// packed K and V rows and their group bases into shared memory with 4-byte
-// loads, expands words to f32 in registers with the word bit machine (the
-// bf16 cache never exists in device memory), takes q.k for the rep query
-// heads of that KV head (one warp per slot, shuffle reduction), runs the
-// online softmax (one warp per query head) and accumulates p.v (one thread
-// per feature). Tiles that no slot of the row may see are skipped, an exact
-// no-op of the JAX recurrence. Only B*KH CTAs run: split-KV is later work.
+// Bound on this card: memory, (D * P' / 8 + D / 128) bytes per live slot
+// for K and again for V (P' = the bits read). Design:
 //
-// Dense planes: a 32-feature chunk c of the flattened axis is uint32 k = c%4
-// of each plane of group c/4, so head h needs chunks h*hd/32 ..
-// (h*hd+hd-1)/32 (at hd = 288: 9 chunks over 3 groups; groups 2, 4 and 6
-// are shared by two heads). Staging gives one warp per (slot, chunk): lanes
-// 0..P-1 load plane p's uint32 (one 4-byte read each, so the bf16 cache is
-// never read or written), and lane t rebuilds the word of feature 32c+t
-// from bit t of the P plane words, taken by warp shuffles. The words land
-// in the same shared tile as the fixed-lane branch (1 byte for P <= 8,
-// else 2), so the scores and p.v loops are shared and the tile is as large
-// for any P; each feature's word is then decoded by sfp_decode_word.
+// 1. Split-KV. The grid is (split, KV head, batch row); split s is slots
+//    [s * split_l, (s + 1) * split_l), split_l a divisor of the tile (64
+//    of 128, kernels/packed_flash_decode.split_plan): a function of the
+//    slot index and the tile alone (never of B, the other rows or the
+//    card), so a row's output is bit-equal alone or inside any batch. Each
+//    CTA runs its split's softmax from scratch and writes (m, l,
+//    acc[rep][hd]) in f32 to scratch the wrapper allocates; the last CTA
+//    of a (row, KV head) to take an integer ticket merges the splits in
+//    split order (no floating-point atomics: deterministic). A split with
+//    no visible slot writes m = -1e30, l = 0 and gets weight exactly 0; a
+//    visible split skips its 32-slot sub-tiles that no slot may see,
+//    whose p would be exactly 0. Paged: split s of row b reads its tile's
+//    physical block tables[b, s * split_l / block_l], so paged is
+//    bit-equal to the contiguous kernel over the gathered cache.
+// 2. Asynchronous staging. The CTA walks its visible sub-tiles twice (K
+//    for the scores, then V for p . v) through a ring of kStages shared
+//    buffers filled by 16-byte cp.async copies of the head's K or V rows,
+//    kStages - 1 sub-tiles in flight while one is computed. The split's
+//    group bases come in with the first sub-tile. Rows are padded in
+//    shared memory to an odd count of 16-byte units (no bank conflicts on
+//    16-byte reads); the wrapper raises on rows that are not 16-byte
+//    aligned.
+// 3. Dense planes by a register SWAR transpose (the JAX package's
+//    _reg_transpose8, Hacker's Delight delta-swaps): a 32-feature chunk of
+//    one slot is uint32 c % 4 of each plane row of group c / 4; one thread
+//    turns its P' (<= 8) plane words into 32 payload bytes with 12 masked
+//    swaps, and P' > 8 takes a second transpose for the high bytes. A
+//    draft loads only planes P - P' .. P - 1 as rows 0 .. P' - 1, which
+//    are the P'-bit words of the narrow geometry: fewer bytes read.
+// 4. Balanced math: hd threads (hd % 32 == 0), warp c owning 32-feature
+//    chunk c of the head. Scores: lane l decodes slot l's 32 words of its
+//    chunk against q read as a warp broadcast; partial sums over chunks
+//    are added in chunk order. p . v: thread d owns feature d and walks
+//    the sub-tile's slots. Every K and V element is decoded once per CTA,
+//    by one multiply where the group's base allows it (fast_decode, exact)
+//    and by sfp_decode_word elsewhere. Register arrays are sized by rep
+//    rounded up to a power of two (a template parameter).
 //
-// Draft read (prefix_planes P' < P): only the leading P' bits of each
-// word are decoded, as the narrow geometry (man_keep - (P - P') mantissa
-// bits; ref.prefix_fields). Fixed-lane words are staged as stored and
-// shifted right by P - P' in a register before the decode (same bytes
-// read). Dense planes are stored LSB-plane first, so the staging loads
-// only planes P-P' .. P-1 of each group and rebuilds P'-bit words: the
-// read shrinks with P', and the word tile is 1 byte when P' <= 8. A wide
-// flush word shifts to the narrow flush word, and a word whose leading
-// mantissa bits are all 0 at dexp_max decodes to 0 in the narrow
-// geometry, as the JAX decoder does.
+// What bounds it in practice (H100, PERF.md): the decode arithmetic and
+// the per-CTA latency chain, not bytes: ~35-45 us at the smoke shapes
+// against byte bounds of 2.2-3.0 us.
 //
-// Paged (tables != nullptr): the cache is a pool of physical blocks of
-// block_l slots shared by every row; tile t of row b reads physical block
-// tables[b * nb + t] and masks on logical slots (global attention, no
-// window). The body is the contiguous kernel's with block_l = the pool
-// block, so it is bit-equal to the contiguous kernel over the gathered
-// cache. Trailing logical blocks point at the trash block 0; their slots
-// lie past pos, so they are skipped like any tile no slot may see.
+// Draft read (prefix_planes P' < P): only the leading P' bits of each word
+// are decoded, as the narrow geometry (man_keep - (P - P') mantissa bits;
+// ref.prefix_fields). Fixed-lane words are staged as stored and shifted
+// right by P - P' before the decode (same bytes read). A wide flush word
+// shifts to the narrow flush word, and a word whose leading mantissa bits
+// are all 0 at dexp_max decodes to 0 in the narrow geometry, as the JAX
+// decoder does.
+#include <type_traits>
+
 #include "sfp_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+constexpr int kSub = 32;       // slots per sub-tile: one per lane
+constexpr int kStages = 4;     // shared ring depth: 3 sub-tiles in flight
 constexpr int kMaxRep = 8;
-constexpr int kMaxDPerThread = 2;  // hd <= 512
+constexpr int kMaxHd = 512;    // hd threads a CTA
+constexpr int kMaxSub = 32;    // sub-tiles a split (block_l <= 1024)
+constexpr int kMaxPlanes = 16;
+constexpr int kMaxDevices = 64;
 
 __device__ __forceinline__ bool slot_valid(int slot, int pos, int L,
                                            int window) {
@@ -74,278 +90,706 @@ __device__ __forceinline__ bool slot_valid(int slot, int pos, int L,
   return kpos >= 0 && kpos <= pos && kpos > pos - window;
 }
 
-constexpr int kMaxPlanes = 16;
+// 16-byte asynchronous copy; bytes past src_bytes are filled with zeros.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
 
-// Dense branch of the staging: the words of head h's features in the BL
-// slots from cache row row0 on, rebuilt from the leading P of the P_store
-// bit planes of each group (planes P_store-P .. P_store-1).
-template <typename W>
-__device__ __forceinline__ void stage_dense_words(
-    const uint8_t* __restrict__ kp, const uint8_t* __restrict__ vp, W* kt,
-    W* vt, size_t row0, int h, int hd, int cols, int BL, int P, int P_store,
-    int lane, int warp) {
-  const int c0 = (h * hd) >> 5, c1 = (h * hd + hd - 1) >> 5;
-  const int nch = c1 - c0 + 1;
-  for (int task = warp; task < BL * nch; task += kWarps) {
-    const int l = task / nch, c = c0 + task % nch;
-    const size_t off = (row0 + l) * cols
-                       + (size_t)((c >> 2) * P_store + P_store - P) * 16
-                       + (c & 3) * 4;
-    uint32_t ku = 0u, vu = 0u;
-    if (lane < P) {
-      ku = *reinterpret_cast<const uint32_t*>(kp + off + lane * 16);
-      vu = *reinterpret_cast<const uint32_t*>(vp + off + lane * 16);
-    }
-    uint32_t kw = 0u, vw = 0u;
+// Index of the k-th set bit of m (k counts from 0).
+__device__ __forceinline__ int nth_set(unsigned m, int k) {
+  for (; k > 0; --k) m &= m - 1u;
+  return __ffs(m) - 1;
+}
+
+// SWAR 8x8 bit-matrix transpose of 4 byte-matrices side by side: on entry
+// byte i of x[p] is row p of matrix i, on exit byte i of x[j] is its
+// column j (ref._reg_transpose8 of the JAX package).
+__device__ __forceinline__ void delta_swap(uint32_t& a, uint32_t& b, int sh,
+                                           uint32_t mask) {
+  const uint32_t t = (a ^ (b << sh)) & mask;
+  a ^= t;
+  b ^= t >> sh;
+}
+__device__ __forceinline__ void transpose8(uint32_t x[8]) {
+  delta_swap(x[0], x[1], 1, 0xAAAAAAAAu);
+  delta_swap(x[2], x[3], 1, 0xAAAAAAAAu);
+  delta_swap(x[4], x[5], 1, 0xAAAAAAAAu);
+  delta_swap(x[6], x[7], 1, 0xAAAAAAAAu);
+  delta_swap(x[0], x[2], 2, 0xCCCCCCCCu);
+  delta_swap(x[1], x[3], 2, 0xCCCCCCCCu);
+  delta_swap(x[4], x[6], 2, 0xCCCCCCCCu);
+  delta_swap(x[5], x[7], 2, 0xCCCCCCCCu);
+  delta_swap(x[0], x[4], 4, 0xF0F0F0F0u);
+  delta_swap(x[1], x[5], 4, 0xF0F0F0F0u);
+  delta_swap(x[2], x[6], 4, 0xF0F0F0F0u);
+  delta_swap(x[3], x[7], 4, 0xF0F0F0F0u);
+}
+
+// After transpose8, byte i of y[j] is the payload byte of lane 8i + j.
+// Interleave into lane order: out[2i] holds lanes 8i..8i+3, out[2i + 1]
+// lanes 8i+4..8i+7.
+__device__ __forceinline__ void lane_order(const uint32_t y[8],
+                                           uint32_t out[8]) {
 #pragma unroll
-    for (int p = 0; p < kMaxPlanes; ++p) {
-      if (p >= P) break;
-      kw |= ((__shfl_sync(0xffffffffu, ku, p) >> lane) & 1u) << p;
-      vw |= ((__shfl_sync(0xffffffffu, vu, p) >> lane) & 1u) << p;
-    }
-    const int d = c * 32 + lane - h * hd;
-    if (d >= 0 && d < hd) {
-      kt[l * hd + d] = (W)kw;
-      vt[l * hd + d] = (W)vw;
-    }
+  for (int half = 0; half < 2; ++half) {
+    const uint32_t* z = y + 4 * half;
+    const uint32_t a01 = __byte_perm(z[0], z[1], 0x5140);  // bytes 0,1
+    const uint32_t b01 = __byte_perm(z[0], z[1], 0x7362);  // bytes 2,3
+    const uint32_t a23 = __byte_perm(z[2], z[3], 0x5140);
+    const uint32_t b23 = __byte_perm(z[2], z[3], 0x7362);
+    out[0 + half] = __byte_perm(a01, a23, 0x5410);
+    out[2 + half] = __byte_perm(a01, a23, 0x7632);
+    out[4 + half] = __byte_perm(b01, b23, 0x5410);
+    out[6 + half] = __byte_perm(b01, b23, 0x7632);
   }
 }
 
-template <typename W, bool DENSE>
-__global__ void __launch_bounds__(kThreads)
-packed_flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
-                           const void* __restrict__ kp_raw,
-                           const uint8_t* __restrict__ kb,
-                           const void* __restrict__ vp_raw,
-                           const uint8_t* __restrict__ vb,
-                           const int* __restrict__ pos_arr,
-                           const int* __restrict__ tables,
-                           __nv_bfloat16* __restrict__ out, int L, int H,
-                           int KH, int hd, int G, int cols, int BL,
-                           int window, SfpFields f, int drop, int P_store,
-                           float softcap, float scale) {
-  const int b = blockIdx.x, h = blockIdx.y;
-  const int rep = H / KH;
-  const int D = G * SFP_GROUP;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int pos = pos_arr[b];
+// The exact decode as one multiply. A word (sign, dexp, man) of a group
+// whose base satisfies dmax < base <= 254 is never clamped, and its value
+// +-1.man * 2^(base - dexp - 127) is F * scale with F = +-1.man *
+// 2^(dmax - dexp) (built from the word's bits, dexp complemented by an
+// xor) and scale = 2^(base - dmax - 127), both normal, so the product is
+// exact. inv == 0 is the flush code (dexp = dmax, man = 0), which
+// decodes to +0. The mask keeps the (dexp, man) fields and clears the
+// bits below the mantissa (sfp16 over bf16 has 3) and those a draft
+// drops, so a fixed-lane word is read in the narrow geometry unshifted.
+struct FastDecode {
+  uint32_t flip;  // dmax at the dexp field: complements dexp
+  uint32_t mask;  // the (dexp, man) bits read
+  int sh;         // moves dexp to bit 23
+  int sgn;        // moves the sign to bit 31
+  int dmax;
+};
 
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* qs = reinterpret_cast<float*>(smem);          // [rep][hd]
-  float* st = qs + rep * hd;                           // [rep][BL]
-  float* ms = st + rep * BL;                           // [kMaxRep]
-  float* ls = ms + kMaxRep;
-  float* als = ls + kMaxRep;
-  W* kt = reinterpret_cast<W*>(als + kMaxRep);         // [BL][hd]
-  W* vt = kt + BL * hd;                                // [BL][hd]
-  uint8_t* kbt = reinterpret_cast<uint8_t*>(vt + BL * hd);  // [BL][G]
-  uint8_t* vbt = kbt + BL * G;
+// f is the geometry decoded; the stored word is drop bits wider.
+__device__ __forceinline__ FastDecode fast_fields(SfpFields f, int drop) {
+  const int dpos = f.dexp_shift() + drop;  // dexp field of the stored word
+  const int low = f.man_shift() + drop;    // lowest mantissa bit read
+  FastDecode d;
+  d.dmax = f.dexp_max();
+  d.flip = (uint32_t)d.dmax << dpos;
+  d.mask = ((1u << (f.dexp_bits + dpos)) - 1u) & ~((1u << low) - 1u);
+  d.sh = 23 - dpos;
+  d.sgn = 32 - (f.payload_bits + drop);
+  return d;
+}
 
-  for (int i = tid; i < rep * hd; i += kThreads)
-    qs[i] = __bfloat162float(q[((size_t)b * H + h * rep) * hd + i]);
-  if (tid < kMaxRep) { ms[tid] = SFP_NEG_INF; ls[tid] = 0.f; als[tid] = 1.f; }
+// scale = 2^(base - dmax - 127), or 0 where the fast decode does not hold.
+__device__ __forceinline__ float fast_scale(int base, int dmax) {
+  return base > dmax && base <= 254
+      ? __uint_as_float((uint32_t)(base - dmax) << 23) : 0.f;
+}
 
-  float acc[kMaxRep][kMaxDPerThread];
-#pragma unroll
-  for (int g = 0; g < kMaxRep; ++g)
-#pragma unroll
-    for (int j = 0; j < kMaxDPerThread; ++j) acc[g][j] = 0.f;
+__device__ __forceinline__ float fast_decode(uint32_t w, float scale,
+                                             const FastDecode& d) {
+  const uint32_t inv = (w ^ d.flip) & d.mask;
+  const float F = __uint_as_float(((inv << d.sh) + (127u << 23))
+                                  | ((w << d.sgn) & 0x80000000u));
+  return inv == 0u ? 0.f : F * scale;
+}
 
-  const int row_words = hd * (int)sizeof(W) / 4;  // uint32 per head row
-  for (int t = 0; t * BL < L; ++t) {
-    const int s0 = t * BL;
-    // First cache row of this tile: contiguous rows of batch row b, or
-    // the physical pool block the row's table names.
-    const size_t row0 = tables != nullptr
-        ? (size_t)tables[(size_t)b * (L / BL) + t] * BL
-        : (size_t)b * L + s0;
-    int any = 0;
-    for (int l = tid; l < BL; l += kThreads) any |= slot_valid(s0 + l, pos, L, window);
-    if (!__syncthreads_or(any)) continue;  // barrier: last tile's readers done
+// One word: the fast decode, or the exact one (any base).
+template <bool FAST>
+__device__ __forceinline__ float decode_word(uint32_t w, float scale, int base,
+                                             const FastDecode& fd,
+                                             const SfpFields& f, int drop) {
+  if constexpr (FAST) return fast_decode(w, scale, fd);
+  else return sfp_decode_word(w >> drop, base, f);
+}
 
-    if constexpr (DENSE) {
-      stage_dense_words<W>(static_cast<const uint8_t*>(kp_raw),
-                           static_cast<const uint8_t*>(vp_raw), kt, vt, row0,
-                           h, hd, cols, BL, f.payload_bits, P_store, lane,
-                           warp);
-    } else {
-      const W* kp = static_cast<const W*>(kp_raw);
-      const W* vp = static_cast<const W*>(vp_raw);
-      for (int idx = tid; idx < BL * row_words; idx += kThreads) {
-        const int l = idx / row_words, c = idx % row_words;
-        const size_t off = (row0 + l) * D + (size_t)h * hd;
-        reinterpret_cast<uint32_t*>(kt + l * hd)[c] =
-            reinterpret_cast<const uint32_t*>(kp + off)[c];
-        reinterpret_cast<uint32_t*>(vt + l * hd)[c] =
-            reinterpret_cast<const uint32_t*>(vp + off)[c];
-      }
-    }
-    for (int idx = tid; idx < BL * G; idx += kThreads) {
-      const size_t off = row0 * G + idx;
-      kbt[idx] = kb[off];
-      vbt[idx] = vb[off];
-    }
-    __syncthreads();
+struct DecodeArgs {
+  const __nv_bfloat16* q;
+  const uint8_t* kp;  // payload bytes
+  const uint8_t* kb;
+  const uint8_t* vp;
+  const uint8_t* vb;
+  const int* pos;
+  const int* tables;  // nullptr: contiguous cache
+  float* part;        // scratch: m, l [B*KH*nsplit*rep], acc [..][hd]
+  int* tickets;       // [B*KH], zero between launches
+  __nv_bfloat16* out;
+  int B, L, H, KH, hd, G, BL, window;
+  int SL, nsplit;     // slots a split (divides BL), splits a row
+  int row_bytes;      // payload bytes per cache row
+  SfpFields f;        // the geometry decoded (the leading Pr bits)
+  int drop;           // words: P - Pr, shifted out before the decode
+  int P_store, Pr;    // dense: stored planes, planes read
+  float softcap, scale;
+};
 
-    // Scores: one warp per slot, lanes over 4-feature chunks of the head.
-    for (int l = warp; l < BL; l += kWarps) {
-      float part[kMaxRep];
-#pragma unroll
-      for (int g = 0; g < kMaxRep; ++g) part[g] = 0.f;
-      for (int d4 = lane * 4; d4 < hd; d4 += 128) {
-        const int base = kbt[l * G + ((h * hd + d4) >> 7)];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float kv = sfp_decode_word(
-              (uint32_t)kt[l * hd + d4 + e] >> drop, base, f);
-#pragma unroll
-          for (int g = 0; g < kMaxRep; ++g)
-            if (g < rep) part[g] = fmaf(qs[g * hd + d4 + e], kv, part[g]);
-        }
-      }
-#pragma unroll
-      for (int g = 0; g < kMaxRep; ++g) {
-        if (g >= rep) break;
-        float x = part[g];
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-        if (lane == 0) st[g * BL + l] = x;
-      }
-    }
-    __syncthreads();
+// Shared memory layout, one function for the launcher and the kernel.
+struct Layout {
+  int stage_stride;   // bytes per slot row of a stage
+  int word_stride;    // bytes per slot row of the dense word tile
+  int stage, words, qs, st, red, ml, flags, scales, merge, bases, total;
+};
 
-    // Online softmax: one warp per query head of the group.
-    if (warp < rep) {
-      const int g = warp;
-      float mcur = SFP_NEG_INF;
-      for (int l = lane; l < BL; l += 32) {
-        float x = st[g * BL + l] * scale;
-        if (softcap > 0.f) x = softcap * tanhf(x / softcap);
-        x = slot_valid(s0 + l, pos, L, window) ? x : SFP_NEG_INF;
-        st[g * BL + l] = x;
-        mcur = fmaxf(mcur, x);
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        mcur = fmaxf(mcur, __shfl_xor_sync(0xffffffffu, mcur, o));
-      const float m_new = fmaxf(ms[g], mcur);
-      float sum = 0.f;
-      for (int l = lane; l < BL; l += 32) {
-        const float p = expf(st[g * BL + l] - m_new);
-        st[g * BL + l] = p;
-        sum += p;
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      if (lane == 0) {
-        const float alpha = expf(ms[g] - m_new);
-        ls[g] = alpha * ls[g] + sum;
-        ms[g] = m_new;
-        als[g] = alpha;
-      }
-    }
-    __syncthreads();
+__host__ __device__ inline int odd_units(int bytes) {
+  int u = (bytes + 15) / 16;
+  return 16 * (u | 1);
+}
 
-    // acc = acc * alpha + p . v, one thread per feature of the head.
-#pragma unroll
-    for (int j = 0; j < kMaxDPerThread; ++j) {
-      const int d = tid + j * kThreads;
-      if (d >= hd) break;
-      const int gi = (h * hd + d) >> 7;
-#pragma unroll
-      for (int g = 0; g < kMaxRep; ++g)
-        if (g < rep) acc[g][j] *= als[g];
-      for (int l = 0; l < BL; ++l) {
-        const float vv = sfp_decode_word((uint32_t)vt[l * hd + d] >> drop,
-                                         vbt[l * G + gi], f);
-#pragma unroll
-        for (int g = 0; g < kMaxRep; ++g)
-          if (g < rep) acc[g][j] = fmaf(st[g * BL + l], vv, acc[g][j]);
-      }
-    }
+__host__ __device__ inline Layout make_layout(const DecodeArgs& a,
+                                              bool dense, int wbytes) {
+  Layout y;
+  const int rep = a.H / a.KH;
+  int ngr = 1;  // groups a head touches, at most
+  for (int h = 0; h < a.KH; ++h)
+    ngr = max(ngr, ((h * a.hd + a.hd - 1) >> 7) - ((h * a.hd) >> 7) + 1);
+  y.word_stride = odd_units(a.hd * wbytes);
+  y.stage_stride = dense ? odd_units(ngr * a.Pr * 16) : y.word_stride;
+  int off = 0;
+  y.stage = off; off += kStages * kSub * y.stage_stride;
+  y.words = off; off += dense ? kSub * y.word_stride : 0;
+  y.qs = off;    off += 4 * rep * a.hd;
+  y.st = off;    off += 4 * ((rep * a.SL + 3) / 4 * 4);
+  y.red = off;   off += 4 * (a.hd / 32) * rep * kSub;
+  y.ml = off;    off += 4 * 2 * kMaxRep;
+  y.flags = off; off += 4 * (kMaxSub + 4);
+  y.scales = off; off += 4 * 2 * ((a.SL * a.G + 3) / 4 * 4);
+  y.merge = off; off += 4 * ((3 * rep * a.nsplit + kMaxRep + 3) / 4 * 4);
+  y.bases = off; off += 2 * (((a.SL * a.G + 31) / 16) * 16);
+  y.total = off;
+  return y;
+}
+
+// After a CTA has written its partials: the last CTA of its (row, KV
+// head) to take a ticket merges the row's splits in split order, out =
+// sum_s w_s acc_s / sum_s w_s l_s with w_s = exp(m_s - max m); a split
+// with l = 0 saw no slot and weighs 0 (its acc was never written). No
+// floating-point atomics: the result does not depend on which CTA is last.
+__device__ void ticket_merge(const DecodeArgs& a, int b, int h,
+                             float* buf, int* last) {
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarps = nthr >> 5;
+  const int rep = a.H / a.KH, ns = a.nsplit, hd = a.hd;
+  int* ticket = a.tickets + (size_t)b * a.KH + h;
+  __threadfence();  // this CTA's partials before its ticket
+  __syncthreads();
+  if (tid == 0) *last = atomicAdd(ticket, 1) == ns - 1;
+  __syncthreads();
+  if (!*last) return;
+  __threadfence();
+  if (tid == 0) *ticket = 0;  // ready for the next launch
+
+  const size_t B_KH_S = (size_t)a.B * a.KH * ns;
+  const size_t p0 = ((size_t)b * a.KH + h) * ns;
+  const float* part_m = a.part;
+  const float* part_l = a.part + B_KH_S * rep;
+  const float* part_acc = a.part + 2 * B_KH_S * rep;
+  float* mm = buf;                // [rep][ns]
+  float* ll = mm + rep * ns;
+  float* ww = ll + rep * ns;
+  float* MM = ww + rep * ns;      // [rep]
+  for (int t = tid; t < rep * ns; t += nthr) {
+    const int sp = t / rep, g = t - sp * rep;
+    mm[g * ns + sp] = __ldcg(part_m + (p0 + sp) * rep + g);
+    ll[g * ns + sp] = __ldcg(part_l + (p0 + sp) * rep + g);
   }
   __syncthreads();
-
+  for (int g = warp; g < rep; g += nwarps) {
+    float mx = SFP_NEG_INF;
+    for (int sp = lane; sp < ns; sp += 32)
+      if (ll[g * ns + sp] > 0.f) mx = fmaxf(mx, mm[g * ns + sp]);
 #pragma unroll
-  for (int j = 0; j < kMaxDPerThread; ++j) {
-    const int d = tid + j * kThreads;
-    if (d >= hd) break;
+    for (int o = 16; o > 0; o >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    if (lane == 0) MM[g] = mx;
+  }
+  __syncthreads();
+  for (int t = tid; t < rep * ns; t += nthr)
+    ww[t] = ll[t] > 0.f ? expf(mm[t] - MM[t / ns]) : 0.f;
+  __syncthreads();
+  // The partials in batches of loads with no predicate between them, so
+  // each batch is one round trip: 16 at a time, then 4 at a time with the
+  // addresses past the last split clamped and their terms dropped (a
+  // wider batch spills under the register cap). Summed in split order.
+  const size_t stride = (size_t)rep * hd;
+  for (int g = 0; g < rep; ++g) {
+    const float* pa = part_acc + (p0 * rep + g) * hd + tid;
+    const float* wg = ww + g * ns;
+    const float* lg = ll + g * ns;
+    float l = 0.f, acc = 0.f;
+    auto add = [&](int sp, float x) {  // w == 0 adds nothing
+      const float w = wg[sp];
+      l += w != 0.f ? w * lg[sp] : 0.f;
+      acc += w != 0.f ? w * x : 0.f;
+    };
+    int s0 = 0;
+    for (; s0 + 16 <= ns; s0 += 16) {
+      float x[16];
 #pragma unroll
-    for (int g = 0; g < kMaxRep; ++g) {
-      if (g >= rep) break;
-      out[((size_t)b * H + h * rep + g) * hd + d] =
-          __float2bfloat16(acc[g][j] / fmaxf(ls[g], 1e-30f));
+      for (int j = 0; j < 16; ++j) x[j] = __ldcg(pa + (s0 + j) * stride);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) add(s0 + j, x[j]);
     }
+    for (; s0 < ns; s0 += 4) {
+      float x[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)  // an unwritten acc is in bounds
+        x[j] = __ldcg(pa + min(s0 + j, ns - 1) * stride);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (s0 + j < ns) add(s0 + j, x[j]);
+    }
+    a.out[((size_t)b * a.H + h * rep + g) * hd + tid] =
+        __float2bfloat16(acc / fmaxf(l, 1e-30f));
   }
 }
 
-template <typename W, bool DENSE>
-int launch(const void* q, const void* kp, const void* kb, const void* vp,
-           const void* vb, const void* pos, const void* tables, void* out,
-           int B, int L, int H, int KH, int hd, int G, int cols, int BL,
-           int window, SfpFields f, int drop, int P_store, float softcap,
-           float scale, cudaStream_t stream) {
-  const int rep = H / KH;
-  const size_t smem = (size_t)(rep * hd + rep * BL + 3 * kMaxRep) * 4
-                      + 2 * (size_t)BL * hd * sizeof(W) + 2 * (size_t)BL * G;
-  cudaError_t err = cudaFuncSetAttribute(
-      packed_flash_decode_kernel<W, DENSE>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(B, KH);
-  packed_flash_decode_kernel<W, DENSE><<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), kp,
-      static_cast<const uint8_t*>(kb), vp, static_cast<const uint8_t*>(vb),
-      static_cast<const int*>(pos), static_cast<const int*>(tables),
-      static_cast<__nv_bfloat16*>(out), L, H, KH, hd, G, cols, BL, window, f,
-      drop, P_store, softcap, scale);
+template <typename W, bool DENSE, int REP>
+__global__ void decode_split_kernel(const DecodeArgs a) {
+  const int s = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, c = tid >> 5;
+  const int hd = a.hd, nthr = hd, nch = hd >> 5;
+  const int rep = a.H / a.KH, SL = a.SL, G = a.G;  // rep <= REP
+  const int nsub = (SL + kSub - 1) / kSub;
+  const int pos = a.pos[b];
+  const int s0 = s * SL;
+  const Layout lay = make_layout(a, DENSE, (int)sizeof(W));
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem + lay.qs);    // [rep][hd]
+  float* st = reinterpret_cast<float*>(smem + lay.st);    // [rep][SL]
+  float* red = reinterpret_cast<float*>(smem + lay.red);  // [nch][rep][32]
+  float* ms = reinterpret_cast<float*>(smem + lay.ml);
+  float* ls = ms + kMaxRep;
+  int* flags = reinterpret_cast<int*>(smem + lay.flags);
+  float* ksc = reinterpret_cast<float*>(smem + lay.scales);  // [SL][G]
+  float* vsc = ksc + (SL * G + 3) / 4 * 4;
+  float* mbuf = reinterpret_cast<float*>(smem + lay.merge);
+  int* last = flags + kMaxSub;
+
+  // Which 32-slot sub-tiles may any slot see: one warp a sub-tile.
+  for (int j = c; j < nsub; j += nch) {
+    const int l = j * kSub + lane;
+    const bool v = l < SL && slot_valid(s0 + l, pos, a.L, a.window);
+    const unsigned any = __ballot_sync(0xffffffffu, v);
+    if (lane == 0) flags[j] = any != 0u;
+  }
+  __syncthreads();
+  unsigned vis = 0u;
+  for (int j = 0; j < nsub; ++j) vis |= (unsigned)(flags[j] != 0) << j;
+
+  const size_t B_KH_S = (size_t)a.B * a.KH * a.nsplit;
+  float* part_m = a.part;
+  float* part_l = a.part + B_KH_S * rep;
+  float* part_acc = a.part + 2 * B_KH_S * rep;
+  const size_t pidx = ((size_t)b * a.KH + h) * a.nsplit + s;
+  if (vis == 0u) {  // no slot of this split is visible: weight 0
+    if (tid < rep) {
+      part_m[pidx * rep + tid] = SFP_NEG_INF;
+      part_l[pidx * rep + tid] = 0.f;
+    }
+    ticket_merge(a, b, h, mbuf, last);
+    return;
+  }
+  const int nv = __popc(vis);
+  const int nchunks = 2 * nv;  // K sub-tiles, then V sub-tiles
+
+  // First cache row of this split: the row's own slots, or its place in
+  // the physical pool block the row's table names for its tile.
+  const int BL = a.BL;
+  const size_t row0 = a.tables != nullptr
+      ? (size_t)a.tables[(size_t)b * (a.L / BL) + s0 / BL] * BL + s0 % BL
+      : (size_t)b * a.L + s0;
+  const int g0 = (h * hd) >> 7;  // first group of the head
+
+  // The split's bases (SL * G contiguous bytes) in 16-byte copies from
+  // the aligned byte at or below the first one.
+  const size_t bfirst = row0 * G, bend = bfirst + (size_t)SL * G;
+  const size_t balign = bfirst & ~(size_t)15;
+  const int boff = (int)(bfirst - balign);
+  const int bunits = (int)((bend - balign + 15) / 16);
+  const int bstride = ((SL * G + 31) / 16) * 16;
+  uint8_t* kbt = smem + lay.bases;
+  uint8_t* vbt = kbt + bstride;
+  for (int u = tid; u < 2 * bunits; u += nthr) {
+    const int uu = u < bunits ? u : u - bunits;
+    const size_t src = balign + 16 * (size_t)uu;
+    const int n = bend - src < 16 ? (int)(bend - src) : 16;
+    cp_async16((u < bunits ? kbt : vbt) + 16 * uu,
+               (u < bunits ? a.kb : a.vb) + src, n);
+  }
+  const uint8_t* kbase = kbt + boff;  // [SL][G]
+  const uint8_t* vbase = vbt + boff;
+
+  auto stage_chunk = [&](int i) {
+    const bool is_v = i >= nv;
+    const int l0 = nth_set(vis, is_v ? i - nv : i) * kSub;
+    const int n = min(kSub, SL - l0);
+    const uint8_t* src = (is_v ? a.vp : a.kp)
+                         + (row0 + l0) * (size_t)a.row_bytes;
+    unsigned char* dst = smem + lay.stage + (i % kStages) * kSub
+                         * lay.stage_stride;
+    if constexpr (DENSE) {
+      // Per slot: the head's ngr groups x Pr plane rows (the last Pr).
+      const int ngr = ((h * hd + hd - 1) >> 7) - g0 + 1;
+      const int U = ngr * a.Pr;
+      for (int t = tid; t < n * U; t += nthr) {
+        const int l = t / U, u = t - l * U;
+        const int gi = u / a.Pr, p = u - gi * a.Pr;
+        cp_async16(dst + l * lay.stage_stride + 16 * u,
+                   src + (size_t)l * a.row_bytes
+                       + ((g0 + gi) * a.P_store + a.P_store - a.Pr + p) * 16,
+                   16);
+      }
+    } else {
+      const int U = hd * (int)sizeof(W) / 16;
+      const size_t head = (size_t)h * hd * sizeof(W);
+      for (int t = tid; t < n * U; t += nthr) {
+        const int l = t / U, u = t - l * U;
+        cp_async16(dst + l * lay.stage_stride + 16 * u,
+                   src + (size_t)l * a.row_bytes + head + 16 * u, 16);
+      }
+    }
+  };
+
+  stage_chunk(0);
+  cp_async_commit();  // group 0: the bases and sub-tile 0
+#pragma unroll
+  for (int i = 1; i < kStages - 1; ++i) {
+    if (i < nchunks) stage_chunk(i);
+    cp_async_commit();
+  }
+  for (int i = tid; i < rep * hd; i += nthr)
+    qs[i] = __bfloat162float(a.q[((size_t)b * a.H + h * rep) * hd + i]);
+
+  float acc[REP];
+#pragma unroll
+  for (int g = 0; g < REP; ++g) acc[g] = 0.f;
+  const int wstride = DENSE ? lay.word_stride : lay.stage_stride;
+  const SfpFields f = a.f;
+  const FastDecode fd = fast_fields(f, a.drop);
+
+  for (int i = 0; i < nchunks; ++i) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // sub-tile i landed; sub-tile i - 1 fully read
+    if (i + kStages - 1 < nchunks) stage_chunk(i + kStages - 1);
+    cp_async_commit();
+    if (i == 0) {  // the bases landed with sub-tile 0: their scales
+      for (int t = tid; t < 2 * SL * G; t += nthr) {
+        const bool v = t >= SL * G;
+        const int j = v ? t - SL * G : t;
+        (v ? vsc : ksc)[j] = fast_scale((v ? vbase : kbase)[j], fd.dmax);
+      }
+      __syncthreads();
+    }
+
+    const bool is_v = i >= nv;
+    const int l0 = nth_set(vis, is_v ? i - nv : i) * kSub;
+    const int n = min(kSub, SL - l0);
+    const unsigned char* stage = smem + lay.stage + (i % kStages) * kSub
+                                 * lay.stage_stride;
+    const unsigned char* wt = stage;
+    if constexpr (DENSE) {
+      // Lane l rebuilds slot l's 32 words of chunk c from its plane rows.
+      unsigned char* wtile = smem + lay.words;
+      if (lane < n) {
+        const int C = (h * hd >> 5) + c;  // flat chunk index
+        const uint32_t* rows = reinterpret_cast<const uint32_t*>(
+            stage + lane * lay.stage_stride + ((C >> 2) - g0) * a.Pr * 16)
+            + (C & 3);
+        uint32_t x[8], lo[8];
+#pragma unroll
+        for (int p = 0; p < 8; ++p) x[p] = p < a.Pr ? rows[4 * p] : 0u;
+        transpose8(x);
+        lane_order(x, lo);
+        uint4* dst = reinterpret_cast<uint4*>(wtile + lane * lay.word_stride
+                                              + c * 32 * sizeof(W));
+        if constexpr (sizeof(W) == 1) {
+          dst[0] = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+          dst[1] = make_uint4(lo[4], lo[5], lo[6], lo[7]);
+        } else {
+          uint32_t hi[8];
+#pragma unroll
+          for (int p = 0; p < 8; ++p)
+            x[p] = p + 8 < a.Pr ? rows[4 * (p + 8)] : 0u;
+          transpose8(x);
+          lane_order(x, hi);
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            dst[k] = make_uint4(__byte_perm(lo[2 * k], hi[2 * k], 0x5140),
+                                __byte_perm(lo[2 * k], hi[2 * k], 0x7362),
+                                __byte_perm(lo[2 * k + 1], hi[2 * k + 1],
+                                            0x5140),
+                                __byte_perm(lo[2 * k + 1], hi[2 * k + 1],
+                                            0x7362));
+        }
+      }
+      __syncthreads();
+      wt = wtile;
+    }
+
+    if (!is_v) {
+      // Scores: lane l takes slot l, warp c the head's chunk c.
+      if (lane < n) {
+        const uint4* src = reinterpret_cast<const uint4*>(
+            wt + lane * wstride + c * 32 * sizeof(W));
+        constexpr int NV = 2 * sizeof(W);   // uint4s per 32 words
+        constexpr int PER = 32 / NV;        // words per uint4
+        const int bi = (l0 + lane) * G + ((h * hd + c * 32) >> 7);
+        const float scale = ksc[bi];
+        const int base = kbase[bi];
+        const float* qc = qs + c * 32;
+        float part[REP];
+#pragma unroll
+        for (int g = 0; g < REP; ++g) part[g] = 0.f;
+        // One uint4 of words at a time: 16 (or 8) words in registers. The
+        // decode is chosen once for the slot's group (fast unless the base
+        // is small or 255).
+        auto scores = [&](auto fast) {
+          constexpr bool FAST = decltype(fast)::value;
+#pragma unroll 1
+          for (int k = 0; k < NV; ++k) {
+            const uint4 t = src[k];
+            const uint32_t u[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+            for (int e4 = 0; e4 < PER; e4 += 4) {
+              float kv[4];
+#pragma unroll
+              for (int e = e4; e < e4 + 4; ++e) {
+                uint32_t w;
+                if constexpr (sizeof(W) == 1)
+                  w = (u[e >> 2] >> (8 * (e & 3))) & 0xFFu;
+                else
+                  w = (u[e >> 1] >> (16 * (e & 1))) & 0xFFFFu;
+                kv[e - e4] = decode_word<FAST>(w, scale, base, fd, f, a.drop);
+              }
+#pragma unroll
+              for (int g = 0; g < REP; ++g) {
+                if (g >= rep) break;
+                // q as a warp broadcast, 4 features a load
+                const float4 qv = *reinterpret_cast<const float4*>(
+                    qc + g * hd + k * PER + e4);
+                part[g] = fmaf(qv.x, kv[0], part[g]);
+                part[g] = fmaf(qv.y, kv[1], part[g]);
+                part[g] = fmaf(qv.z, kv[2], part[g]);
+                part[g] = fmaf(qv.w, kv[3], part[g]);
+              }
+            }
+          }
+        };
+        if (scale != 0.f) scores(std::true_type{});
+        else scores(std::false_type{});
+#pragma unroll
+        for (int g = 0; g < REP; ++g)
+          if (g < rep) red[(c * rep + g) * kSub + lane] = part[g];
+      }
+      __syncthreads();
+      for (int t = tid; t < rep * kSub; t += nthr) {
+        const int g = t / kSub, l = t - g * kSub;
+        if (l >= n) continue;
+        float x = 0.f;
+        for (int cc = 0; cc < nch; ++cc) x += red[(cc * rep + g) * kSub + l];
+        x *= a.scale;
+        if (a.softcap > 0.f) x = a.softcap * tanhf(x / a.softcap);
+        st[g * SL + l0 + l] =
+            slot_valid(s0 + l0 + l, pos, a.L, a.window) ? x : SFP_NEG_INF;
+      }
+      continue;
+    }
+
+    if (i == nv) {
+      // Softmax over the split's visible sub-tiles: one warp a head.
+      for (int g = c; g < rep; g += nch) {
+        float mx = SFP_NEG_INF;
+        for (int k = 0; k < nv; ++k) {
+          const int l = nth_set(vis, k) * kSub + lane;
+          if (l < SL) mx = fmaxf(mx, st[g * SL + l]);
+        }
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+        float sum = 0.f;
+        for (int k = 0; k < nv; ++k) {
+          const int l = nth_set(vis, k) * kSub + lane;
+          if (l < SL) {
+            const float p = expf(st[g * SL + l] - mx);
+            st[g * SL + l] = p;
+            sum += p;
+          }
+        }
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+          sum += __shfl_xor_sync(0xffffffffu, sum, o);
+        if (lane == 0) { ms[g] = mx; ls[g] = sum; }
+      }
+      __syncthreads();
+    }
+
+    // acc += p . v: thread d owns feature d, walks the sub-tile's slots.
+    {
+      const int d = tid;
+      const int gi = (h * hd + d) >> 7;
+      const W* col = reinterpret_cast<const W*>(wt) + d;
+      const int ws = wstride / (int)sizeof(W);
+      const bool vec = (SL & 3) == 0;  // p rows 16-byte aligned
+      for (int l = 0; l < n; l += 4) {
+        float p[REP][4];
+#pragma unroll
+        for (int g = 0; g < REP; ++g) {
+          if (g >= rep) break;
+          const float* pg = st + g * SL + l0 + l;
+          if (vec) {
+            const float4 t = *reinterpret_cast<const float4*>(pg);
+            p[g][0] = t.x; p[g][1] = t.y; p[g][2] = t.z; p[g][3] = t.w;
+          } else {
+#pragma unroll
+            for (int k = 0; k < 4; ++k) p[g][k] = l + k < n ? pg[k] : 0.f;
+          }
+        }
+        // The decode is chosen once for the 4 slots (uniform in the warp).
+        float sc[4];
+        int bi[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          bi[k] = (l0 + l + min(k, n - 1 - l)) * G + gi;
+          sc[k] = vsc[bi[k]];
+        }
+        auto pv = [&](auto fast) {
+          constexpr bool FAST = decltype(fast)::value;
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            if (l + k >= n) break;
+            const float vv = decode_word<FAST>(
+                (uint32_t)col[(l + k) * ws], sc[k],
+                FAST ? 0 : vbase[bi[k]], fd, f, a.drop);
+#pragma unroll
+            for (int g = 0; g < REP; ++g)
+              if (g < rep) acc[g] = fmaf(p[g][k], vv, acc[g]);
+          }
+        };
+        if (sc[0] != 0.f && sc[1] != 0.f && sc[2] != 0.f && sc[3] != 0.f)
+          pv(std::true_type{});
+        else
+          pv(std::false_type{});
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int g = 0; g < REP; ++g)
+    if (g < rep) part_acc[(pidx * rep + g) * hd + tid] = acc[g];
+  if (tid < rep) {
+    part_m[pidx * rep + tid] = ms[tid];
+    part_l[pidx * rep + tid] = ls[tid];
+  }
+  ticket_merge(a, b, h, mbuf, last);
+}
+
+// The largest dynamic shared memory a block may take, granted to the
+// kernel once per device (not on every launch).
+template <typename W, bool DENSE, int REP>
+int smem_limit() {
+  static int limit[kMaxDevices];  // 0: not yet granted
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return -(int)err;
+  if (dev >= kMaxDevices) return -(int)cudaErrorInvalidDevice;
+  if (limit[dev] == 0) {
+    int optin = 0;
+    err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(decode_split_kernel<W, DENSE, REP>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 optin);
+    if (err != cudaSuccess) return -(int)err;
+    limit[dev] = optin;
+  }
+  return limit[dev];
+}
+
+template <typename W, bool DENSE, int REP>
+int launch_rep(const DecodeArgs& a, cudaStream_t stream) {
+  const Layout lay = make_layout(a, DENSE, (int)sizeof(W));
+  const int limit = smem_limit<W, DENSE, REP>();
+  if (limit < 0) return -limit;
+  if (lay.total > limit) return (int)cudaErrorInvalidValue;
+  decode_split_kernel<W, DENSE, REP><<<dim3(a.nsplit, a.KH, a.B), a.hd,
+                                       lay.total, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// Query heads a KV head, rounded up to a power of two: the register
+// arrays' length (the loops still stop at rep).
+template <typename W, bool DENSE>
+int launch(const DecodeArgs& a, cudaStream_t stream) {
+  const int rep = a.H / a.KH;
+  if (rep <= 1) return launch_rep<W, DENSE, 1>(a, stream);
+  if (rep <= 2) return launch_rep<W, DENSE, 2>(a, stream);
+  if (rep <= 4) return launch_rep<W, DENSE, 4>(a, stream);
+  return launch_rep<W, DENSE, 8>(a, stream);
 }
 
 }  // namespace
 
 // Contiguous cache: tables == nullptr, L slots per row, payload (B, L,
 // cols). Paged pool: tables (B, nb) int32, L = nb * block_l logical slots,
-// payload (P_blocks, block_l, cols), window -1. prefix_planes -1 (or the
-// payload width) reads full width.
+// payload (P_blocks, block_l, cols), window -1. A split is split_l slots
+// (a divisor of block_l). prefix_planes -1 (or the payload width) reads
+// full width. scratch: f32 of B * KH * (L / split_l) * (H / KH) * (hd + 2)
+// elements; tickets: B * KH int32 zeros, left zero by the launch.
 extern "C" int packed_flash_decode_launch(
     const void* q, const void* kp, const void* kb, const void* vp,
-    const void* vb, const void* pos, const void* tables, void* out, int B,
-    int L, int H, int KH, int hd, int G, int block_l, int window,
-    int man_keep, int dexp_bits, int payload_bits, int dense,
-    int prefix_planes, float softcap, float scale, void* stream) {
+    const void* vb, const void* pos, const void* tables, void* scratch,
+    void* tickets, void* out, int B, int L, int H, int KH, int hd, int G,
+    int block_l, int split_l, int window, int man_keep, int dexp_bits,
+    int payload_bits, int dense, int prefix_planes, float softcap,
+    float scale, void* stream) {
   if (B == 0 || KH == 0) return 0;
-  if (H % KH != 0 || H / KH > kMaxRep || hd > kThreads * kMaxDPerThread
-      || hd % 4 != 0 || block_l <= 0 || L % block_l != 0
+  if (H % KH != 0 || H / KH > kMaxRep || hd > kMaxHd || hd % 32 != 0
+      || KH * hd != G * SFP_GROUP || block_l <= 0
+      || split_l <= 0 || split_l > kSub * kMaxSub || block_l % split_l != 0
+      || L % block_l != 0
       || (tables != nullptr && window > 0))
     return (int)cudaErrorInvalidValue;
   const int P = payload_bits;
   const int Pr = prefix_planes < 0 ? P : prefix_planes;
   if (Pr < dexp_bits + 2 || Pr > P || man_keep - (P - Pr) < 0)
     return (int)cudaErrorInvalidValue;
+  DecodeArgs a;
+  a.q = static_cast<const __nv_bfloat16*>(q);
+  a.kp = static_cast<const uint8_t*>(kp);
+  a.kb = static_cast<const uint8_t*>(kb);
+  a.vp = static_cast<const uint8_t*>(vp);
+  a.vb = static_cast<const uint8_t*>(vb);
+  a.pos = static_cast<const int*>(pos);
+  a.tables = static_cast<const int*>(tables);
+  a.part = static_cast<float*>(scratch);
+  a.tickets = static_cast<int*>(tickets);
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.B = B; a.L = L; a.H = H; a.KH = KH; a.hd = hd; a.G = G;
+  a.BL = block_l; a.window = window;
+  a.SL = split_l; a.nsplit = L / split_l;
   // The geometry the kernel decodes: the leading Pr bits of each word.
-  const SfpFields f{man_keep - (P - Pr), dexp_bits, Pr};
+  a.f = SfpFields{man_keep - (P - Pr), dexp_bits, Pr};
+  a.P_store = P; a.Pr = Pr;
+  a.softcap = softcap; a.scale = scale;
   auto s = static_cast<cudaStream_t>(stream);
-  const int D = G * SFP_GROUP;
   if (dense) {
     if (P < 3 || P > kMaxPlanes || 1 + dexp_bits + man_keep != P)
       return (int)cudaErrorInvalidValue;
-    const int cols = G * P * 16;
-    if (Pr <= 8)
-      return launch<uint8_t, true>(q, kp, kb, vp, vb, pos, tables, out, B, L,
-                                   H, KH, hd, G, cols, block_l, window, f, 0,
-                                   P, softcap, scale, s);
-    return launch<uint16_t, true>(q, kp, kb, vp, vb, pos, tables, out, B, L,
-                                  H, KH, hd, G, cols, block_l, window, f, 0,
-                                  P, softcap, scale, s);
+    a.row_bytes = G * P * 16;
+    a.drop = 0;
+    return Pr <= 8 ? launch<uint8_t, true>(a, s)
+                   : launch<uint16_t, true>(a, s);
   }
-  if (P == 8)
-    return launch<uint8_t, false>(q, kp, kb, vp, vb, pos, tables, out, B, L,
-                                  H, KH, hd, G, D, block_l, window, f, P - Pr,
-                                  P, softcap, scale, s);
-  if (P == 16)
-    return launch<uint16_t, false>(q, kp, kb, vp, vb, pos, tables, out, B, L,
-                                   H, KH, hd, G, D, block_l, window, f,
-                                   P - Pr, P, softcap, scale, s);
+  a.row_bytes = G * SFP_GROUP * (P / 8);
+  a.drop = P - Pr;
+  if (P == 8) return launch<uint8_t, false>(a, s);
+  if (P == 16) return launch<uint16_t, false>(a, s);
   return (int)cudaErrorInvalidValue;
 }

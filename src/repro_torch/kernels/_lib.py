@@ -24,6 +24,9 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# Per-source flags. The decode runs hd (288) threads a CTA; at 72
+# registers three CTAs share an SM.
+FILE_FLAGS = {"packed_flash_decode.cu": ["-maxrregcount=72"]}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -45,7 +48,7 @@ SIGNATURES = {
     "flash_attention_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _I, _I, _F, _F, _P],
     "flash_attention_bwd_launch": [_P] * 10 + [_I] * 8 + [_F, _F, _P],
-    "packed_flash_decode_launch": [_P] * 8 + [_I] * 13 + [_F, _F, _P],
+    "packed_flash_decode_launch": [_P] * 10 + [_I] * 14 + [_F, _F, _P],
 }
 
 _lock = threading.Lock()
@@ -68,6 +71,7 @@ def _digest() -> str:
         h.update(p.name.encode())
         h.update(p.read_bytes())
     h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
+    h.update(repr(sorted(FILE_FLAGS.items())).encode())
     return h.hexdigest()[:16]
 
 
@@ -97,8 +101,8 @@ def build() -> Path:
             obj = Path(tmp) / (cu.stem + ".o")
             objs.append(obj)
             procs.append((cu, subprocess.Popen(
-                [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-I", str(CSRC), "-c",
-                 str(cu), "-o", str(obj)],
+                [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, *FILE_FLAGS.get(cu.name, []),
+                 "-I", str(CSRC), "-c", str(cu), "-o", str(obj)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
         logs, failed = [], []
         for cu, proc in procs:

@@ -6,27 +6,36 @@ paged block pool read through per-row block tables), each for fixed-lane
 words (``packed_flash_decode``, ``paged_flash_decode``) and dense bit
 planes (the ``_dense`` variants), at full width or in the
 ``prefix_planes`` draft read mode of self-speculation. One kernel,
-``csrc/packed_flash_decode.cu``, serves all of them: one CTA per (batch
-row, KV head), packed tiles expanded to words in shared memory and decoded
-in registers inside the online softmax; it is bound by memory on the
-H100, (D * P' / 8 + D / 128) bytes per live slot for K and again for V
-(P' = the bits read: the payload width, or the draft's prefix for dense
-planes).
+``csrc/packed_flash_decode.cu``, serves all of them: split-KV over
+(split, KV head, batch row), each split a run of slots within one KV
+tile, whose K and V sub-tiles are staged by asynchronous 16-byte copies
+and decoded in registers (dense planes by a SWAR bit transpose), then a
+merge of the splits in split order. The least time it could take on the
+H100 is set by memory, (D * P' / 8 + D / 128) bytes per live slot for K
+and again for V (P' = the bits read: the payload width, or the draft's
+prefix for dense planes).
+
+``split_plan`` is the launch's split arithmetic and ``split_decode_plain``
+its recurrence in plain PyTorch (each split from scratch, merged in split
+order); the CPU tests hold both to the plain decode.
 
 Each wrapper counts its launches: ``.launches`` at full width,
 ``.draft_launches`` in the draft mode.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.core import containers
 from repro_torch.kernels import _lib
 from repro_torch.kernels import ref
-from repro_torch.kernels.ref import GROUP, PackFields
+from repro_torch.kernels.ref import GROUP, NEG_INF, PackFields
 
 DEFAULT_BLOCK_L = 128
+SPLIT_L = 64    # slots a split at most
+SUB_TILE = 32   # slots a staged sub-tile (one per lane)
 
 
 def block_len(L: int, block_l: int = DEFAULT_BLOCK_L) -> int:
@@ -36,6 +45,98 @@ def block_len(L: int, block_l: int = DEFAULT_BLOCK_L) -> int:
     while L % bl:
         bl -= 1
     return bl
+
+
+class SplitPlan(NamedTuple):
+    block_l: int   # slots a KV tile
+    split_l: int   # slots a split, a divisor of the tile
+    splits: int    # splits a row, L / split_l
+    ctas: int      # CTAs of the split kernel, B * KH * splits
+    threads: int   # threads a CTA: hd
+
+
+def split_plan(B: int, KH: int, hd: int, L: int,
+               block_l: int = DEFAULT_BLOCK_L, *, paged: bool = False
+               ) -> SplitPlan:
+    """The split-KV grid of one launch. Split s is slots [s * split_l,
+    (s + 1) * split_l) of every row, split_l the largest divisor of the
+    tile up to ``SPLIT_L``: a function of the slot index and the tile
+    alone, so a row's result does not depend on B or the card. A paged
+    pool's tile is its block; a contiguous cache's is ``block_len``."""
+    bl = block_l if paged else block_len(L, block_l)
+    sl = min(SPLIT_L, bl)
+    while bl % sl:
+        sl -= 1
+    return SplitPlan(bl, sl, L // sl, B * KH * (L // sl), hd)
+
+
+def split_decode_plain(q, k_payload, k_bases, v_payload, v_bases, pos,
+                       fields: PackFields, *, window: Optional[int] = None,
+                       softcap: Optional[float] = None,
+                       block_l: int = DEFAULT_BLOCK_L,
+                       prefix_planes: Optional[int] = None,
+                       tables: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """The kernel's split recurrence in plain PyTorch: per split of
+    ``split_plan``, the softmax over its 32-slot sub-tiles that any slot
+    may see, from scratch (m, l, acc); then the splits merged in split
+    order with weights exp(m_s - max m), a split with no visible slot
+    (or a weight that underflows to 0) adding nothing. With ``tables``
+    the payloads are a pool, read as ``paged_flash_decode`` reads it. For
+    the tests only."""
+    if tables is not None:
+        block_l = k_payload.shape[1]
+        k_payload, k_bases, v_payload, v_bases = (
+            ref.paged_gather(t, tables)
+            for t in (k_payload, k_bases, v_payload, v_bases))
+        window = None
+    B, _, H, hd = q.shape
+    L, G = k_bases.shape[1], k_bases.shape[2]
+    KH = G * GROUP // hd
+    rep = H // KH
+    plan = split_plan(B, KH, hd, L, block_l, paged=tables is not None)
+    n, spec = plan.split_l, containers.spec_for(q.dtype)
+
+    def unp(payload, bases):
+        return ref.unpack_tile(
+            payload.reshape(B * L, -1), bases.reshape(B * L, G), fields,
+            spec, rows=B * L, KH=KH, hd=hd,
+            prefix_planes=prefix_planes).reshape(B, L, KH, hd)
+
+    k, v = unp(k_payload, k_bases), unp(v_payload, v_bases)
+    qf = q.reshape(B, KH, rep, hd).to(torch.float32)
+    pos = torch.as_tensor(pos, dtype=torch.int64).reshape(-1).expand(B)
+    slots = torch.arange(L)
+    valid = ref.decode_kv_mask(pos[:, None], L, window, slots=slots[None])
+    sub = torch.div(slots, SUB_TILE, rounding_mode="floor")
+    scale = 1.0 / (hd ** 0.5)
+    parts = []
+    for s in range(plan.splits):
+        sl = slice(s * n, (s + 1) * n)
+        vs, ss = valid[:, sl], sub[sl] - sub[s * n]
+        n_sub = int(ss[-1]) + 1
+        vis = torch.stack([vs[:, ss == j].any(1) for j in range(n_sub)], 1)
+        seen = vis[:, ss][:, None, None, :]          # (B, 1, 1, n)
+        sc = torch.einsum("bhgd,blhd->bhgl", qf, k[:, sl]) * scale
+        if softcap is not None:
+            sc = softcap * torch.tanh(sc / softcap)
+        sc = torch.where(vs[:, None, None, :], sc, NEG_INF)
+        m = torch.where(seen, sc, -torch.inf).amax(-1, keepdim=True)
+        m = torch.where(torch.isfinite(m), m, NEG_INF)
+        p = torch.where(seen, torch.exp(sc - m), 0.0)
+        parts.append((m, p.sum(-1, keepdim=True),
+                      torch.einsum("bhgl,blhd->bhgd", p, v[:, sl])))
+    M = torch.full_like(parts[0][0], NEG_INF)
+    for m, l, _ in parts:
+        M = torch.where(l > 0, torch.maximum(M, m), M)
+    l_sum = torch.zeros_like(M)
+    acc = torch.zeros_like(parts[0][2])
+    for m, l, a in parts:
+        w = torch.where(l > 0, torch.exp(m - M), 0.0)
+        l_sum = l_sum + w * l
+        acc = acc + torch.where(w != 0, w * a, 0.0)
+    o = acc / torch.clamp(l_sum, min=1e-30)
+    return o.reshape(B, 1, H, hd).to(q.dtype)
 
 
 def plain(q, k_payload, k_bases, v_payload, v_bases, pos,
@@ -82,6 +183,20 @@ def _check(name: str, part: str, t: torch.Tensor, dt, shape, device):
                          f"{tuple(t.shape)} on {t.device}")
 
 
+_TICKETS: dict = {}
+
+
+def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """int32 zeros, one per (row, KV head), on which the split kernel's
+    CTAs take their tickets; every launch leaves them zero, so one buffer
+    serves each (device, stream)."""
+    t = _TICKETS.get((device, stream))
+    if t is None or t.numel() < n:
+        t = _TICKETS[(device, stream)] = torch.zeros(
+            n, dtype=torch.int32, device=device)
+    return t
+
+
 def _launch(name: str, q: torch.Tensor, k_payload: torch.Tensor,
             k_bases: torch.Tensor, v_payload: torch.Tensor,
             v_bases: torch.Tensor, pos: torch.Tensor, fields: PackFields,
@@ -118,19 +233,32 @@ def _launch(name: str, q: torch.Tensor, k_payload: torch.Tensor,
             ("v_bases", v_bases, torch.uint8, (*lead, G)),
             ("pos", pos, torch.int32, (B,))):
         _check(name, part, t, dt, shape, q.device)
-    if hd % 4 or hd > 512 or H // KH > 8:
+    if hd % 32 or hd > 512 or H // KH > 8:
         raise ValueError(f"{name}: hd={hd}, rep={H // KH} not supported "
-                         f"(hd % 4 == 0, hd <= 512, rep <= 8)")
+                         f"(hd % 32 == 0, hd <= 512, rep <= 8)")
+    plan = split_plan(B, KH, hd, L, bl, paged=True)   # bl is the tile
+    # 16-byte copies: every payload row and head row starts 16-byte aligned
+    # (hd % 32 == 0 gives the rows), and so must each tensor.
+    for part, t in (("k_payload", k_payload), ("k_bases", k_bases),
+                    ("v_payload", v_payload), ("v_bases", v_bases)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {part} is not 16-byte aligned")
+    scratch = torch.empty(plan.splits * B * (H // KH) * KH * (hd + 2),
+                          dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
+    stream = _lib.stream_ptr(q)
+    tickets = _tickets(q.device, stream, B * KH)
     err = lib.packed_flash_decode_launch(
         q.data_ptr(), k_payload.data_ptr(), k_bases.data_ptr(),
         v_payload.data_ptr(), v_bases.data_ptr(), pos.data_ptr(),
-        None if tables is None else tables.data_ptr(), out.data_ptr(),
-        B, L, H, KH, hd, G, bl, -1 if window is None else int(window),
+        None if tables is None else tables.data_ptr(), scratch.data_ptr(),
+        tickets.data_ptr(), out.data_ptr(),
+        B, L, H, KH, hd, G, bl, plan.split_l,
+        -1 if window is None else int(window),
         fields.man_keep, fields.dexp_bits, fields.payload_bits,
         int(fields.dense), -1 if prefix is None else prefix,
         0.0 if softcap is None else float(softcap), 1.0 / (hd ** 0.5),
-        _lib.stream_ptr(q))
+        stream)
     _lib.check(err, name)
     return out
 

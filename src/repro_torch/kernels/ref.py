@@ -284,6 +284,46 @@ def plane_unpack_words(planes: torch.Tensor, payload_bits: int
     return w.reshape(*lead, GROUP)
 
 
+def _swar_transpose8(x):
+    """SWAR 8x8 bit-matrix transpose (Hacker's Delight delta-swaps) of 8
+    int64 tensors holding uint32 values, 4 byte-matrices side by side:
+    byte i of x[p] is row p of matrix i on entry, byte i of x[j] its
+    column j on exit (the JAX package's ``_reg_transpose8``)."""
+    x = list(x)
+    for sh, mask, pairs in ((1, 0xAAAAAAAA, ((0, 1), (2, 3), (4, 5), (6, 7))),
+                            (2, 0xCCCCCCCC, ((0, 2), (1, 3), (4, 6), (5, 7))),
+                            (4, 0xF0F0F0F0, ((0, 4), (1, 5), (2, 6), (3, 7)))):
+        for i, j in pairs:
+            t = (x[i] ^ (x[j] << sh)) & mask
+            x[i], x[j] = x[i] ^ t, x[j] ^ (t >> sh)
+    return x
+
+
+def plane_words_swar(planes: torch.Tensor, payload_bits: int,
+                     prefix_planes: Optional[int] = None) -> torch.Tensor:
+    """The decode kernel's plane expansion: (..., P*16) uint8 planes ->
+    (..., 128) int32 words by the register SWAR transpose, one uint32 of
+    each plane (32 lanes) at a time, 8 planes a transpose. With
+    ``prefix_planes`` P' only planes P - P' .. P - 1 are read, as rows
+    0 .. P' - 1: the P'-bit words of the draft geometry. Equal to
+    ``plane_unpack_words`` (of ``prefix_plane_view``); for the tests."""
+    P = payload_bits
+    Pr = P if prefix_planes is None else int(prefix_planes)
+    lead = planes.shape[:-1]
+    b = planes.reshape(*lead, P, 4, 4)[..., P - Pr:, :, :].to(torch.int64)
+    u = b[..., 0] | (b[..., 1] << 8) | (b[..., 2] << 16) | (b[..., 3] << 24)
+    zero = torch.zeros_like(u[..., 0, :])
+    words = torch.zeros((*lead, 4, 32), dtype=torch.int64)
+    for lo in range(0, Pr, 8):
+        y = _swar_transpose8([u[..., lo + r, :] if lo + r < Pr else zero
+                              for r in range(8)])
+        # byte i of y[j][..., k] is the byte of lane 32k + 8i + j
+        byt = torch.stack([torch.stack([(yj >> (8 * i)) & 0xFF for yj in y],
+                                       dim=-1) for i in range(4)], dim=-2)
+        words |= byt.reshape(*lead, 4, 32) << lo
+    return words.reshape(*lead, GROUP).to(torch.int32)
+
+
 def unpack_planes(planes: torch.Tensor, bases: torch.Tensor,
                   fields: PackFields, spec: containers.FloatSpec
                   ) -> torch.Tensor:

@@ -207,6 +207,16 @@ def _decode_inputs(dev, g, container, B, L, H, KH, hd):
     return f, q, kp, vp
 
 
+def _moderate(dev, g, shape):
+    """Normal values over 2^+-3 with zeros and subnormals (flush words)."""
+    x = torch.randn(shape, generator=g, device=dev)
+    x = x * torch.exp2(torch.randint(-3, 3, x.shape, generator=g,
+                                     device=dev).float())
+    x.view(-1)[::7] = 0.0
+    x.view(-1)[1::11] = 1e-39
+    return x.to(torch.bfloat16)
+
+
 def _decoders(f):
     return ((pfd.packed_flash_decode_dense, pfd.paged_flash_decode_dense)
             if f.dense else (pfd.packed_flash_decode, pfd.paged_flash_decode))
@@ -291,3 +301,101 @@ def test_gecko_pack_and_unpack_kernel_bytes(dev, G, family):
     out = gp.gecko_unpack(got[0], got[2])
     assert torch.equal(out, gp.plain_unpack(got[0], got[2]))
     assert torch.equal(out, e)
+
+
+# -- split-KV: batch invariance, determinism, split boundaries ------------
+# (container, prefix_planes): words and planes, full width and draft.
+SPLIT_READS = [("sfp8", None), ("sfp8", 7), ("sfp-m2e4", None),
+               ("sfp-m2e4", 6)]
+
+
+@pytest.mark.parametrize("container,draft", SPLIT_READS)
+@pytest.mark.parametrize("window", [None, 512])
+def test_decode_batch_invariant_and_deterministic(dev, container, draft,
+                                                  window):
+    """Each row launched alone is bit-equal to the same row inside the
+    batch, and two launches on the same inputs are bit-equal (split-KV
+    merges in split order, with no floating-point atomics). Rows at 0, 5
+    and on split boundaries (127, 128, 255, 256)."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    B, L = 7, 1152
+    f, q, kp, vp = _decode_inputs(dev, g, container, B, L, 8, 4, 288)
+    decode, _ = _decoders(f)
+    pos = torch.tensor([1151, 0, 5, 127, 128, 255, 256], dtype=torch.int32,
+                       device=dev)
+    kw = dict(window=window, softcap=50.0, prefix_planes=draft)
+    parts = (kp.payload, kp.bases, vp.payload, vp.bases)
+    got = decode(q, *parts, pos, f, **kw)
+    assert torch.equal(got, decode(q, *parts, pos, f, **kw))
+    for r in range(B):
+        one = decode(q[r:r + 1].contiguous(),
+                     *(t[r:r + 1].contiguous() for t in parts),
+                     pos[r:r + 1].contiguous(), f, **kw)
+        assert torch.equal(one, got[r:r + 1]), r
+    _close(got, pfd.plain(q, *parts, pos, f, **kw))
+
+
+@pytest.mark.parametrize("container,draft", SPLIT_READS)
+def test_paged_batch_invariant_and_deterministic(dev, container, draft):
+    """The paged read: each row alone (its own table row) bit-equal to
+    the batch, two launches bit-equal."""
+    g = torch.Generator(device=dev).manual_seed(14)
+    n_phys, bl, nb = 12, 128, 4
+    f, q, kp, vp = _decode_inputs(dev, g, container, n_phys, bl, 8, 4, 288)
+    q = q[:5].contiguous()
+    tables = torch.tensor([[3, 7, 1, 5], [8, 2, 0, 0], [4, 0, 0, 0],
+                           [9, 10, 0, 0], [0, 0, 0, 0]], dtype=torch.int32,
+                          device=dev)
+    pos = torch.tensor([nb * bl - 1, 140, 127, 128, 0], dtype=torch.int32,
+                       device=dev)
+    _, paged = _decoders(f)
+    pool = (kp.payload, kp.bases, vp.payload, vp.bases)
+    kw = dict(softcap=50.0, prefix_planes=draft)
+    got = paged(q, *pool, tables, pos, f, **kw)
+    assert torch.equal(got, paged(q, *pool, tables, pos, f, **kw))
+    for r in range(q.shape[0]):
+        one = paged(q[r:r + 1].contiguous(), *pool,
+                    tables[r:r + 1].contiguous(), pos[r:r + 1].contiguous(),
+                    f, **kw)
+        assert torch.equal(one, got[r:r + 1]), r
+    _close(got, pfd.plain_paged(q, *pool, tables, pos, f, **kw))
+
+
+@pytest.mark.parametrize("container,draft", [("sfp16", None), ("sfp16", 15),
+                                             ("sfp-m5e4", None),
+                                             ("sfp-m5e4", 9),
+                                             ("sfp-m5e4", 8)])
+@pytest.mark.parametrize("window,pos", [(None, [1151, 128, 127, 0]),
+                                        (512, [3000, 1500, 777, 256])])
+def test_decode_wide_words_hd288(dev, container, draft, window, pos):
+    """2-byte words through the 16-byte staging at hd 288: sfp16, and
+    sfp-m5e4 (P 10: two SWAR transposes, or one for a P' = 8 draft).
+    Values over 2^+-3 with flush words: over 2^+-30 (``_wide``) a 1152-slot
+    sum can cancel to 2^-20 of its terms, and then the kernel's split
+    order and the plain tile order differ by more than one bf16 ulp in f32
+    (both equal the f32 split recurrence of ``split_decode_plain``)."""
+    g = torch.Generator(device=dev).manual_seed(15)
+    f = fields_for(container, torch.bfloat16)
+    kp, vp = (ops.sfp_compress_nd(_moderate(dev, g, (4, 1152, 4 * 288)), f)
+              for _ in range(2))
+    q = (torch.randn((4, 1, 8, 288), generator=g, device=dev) * 3
+         ).to(torch.bfloat16)
+    decode, _ = _decoders(f)
+    p = torch.tensor(pos, dtype=torch.int32, device=dev)
+    args = (q, kp.payload, kp.bases, vp.payload, vp.bases, p, f)
+    kw = dict(window=window, softcap=50.0, prefix_planes=draft)
+    _close(decode(*args, **kw), pfd.plain(*args, **kw))
+
+
+def test_decode_rejects_unaligned_rows(dev):
+    """16-byte copies: a payload that does not start 16-byte aligned
+    raises; the kernel has no slow path for it."""
+    g = torch.Generator(device=dev).manual_seed(16)
+    f, q, kp, vp = _decode_inputs(dev, g, "sfp8", 2, 64, 4, 2, 192)
+    shifted = torch.empty(kp.payload.numel() + 1, dtype=torch.uint8,
+                          device=dev)[1:].view(kp.payload.shape)
+    shifted.copy_(kp.payload)
+    pos = torch.tensor([63, 10], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        pfd.packed_flash_decode(q, shifted, kp.bases, vp.payload, vp.bases,
+                                pos, f)
