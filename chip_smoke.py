@@ -9,9 +9,15 @@
    fixed-lane kernels at sfp8/sfp16, the dense bit-plane kernels at
    sfp-m1e2, sfp-m2e4, sfp-m3e5, sfp-m7e7 (bf16) and sfp-m9e5 (f32).
    Every read of the split-KV decode (words and planes, full width and
-   draft, contiguous, ring and paged) must also be bit-equal over two
+   draft, contiguous, ring and paged), and the attention forward and
+   backward at the training shape, must also be bit-equal over two
    launches and, row by row, launched alone against inside the batch;
-   each decode entry's note gives its split grid and the GB/s achieved.
+   each decode entry's note gives its split grid and the GB/s achieved,
+   each attention entry its grid, TFLOP/s, share of the bound and how
+   many outputs round away from the plain version's and from an f64
+   reference's. The forward is also timed at one trace prefill (B 1, S
+   256) and the packs at the decode shape (one token; gecko_unpack the
+   whole cache).
 3. Serves gemma2-2b at full width (random weights from a seed, batch 4,
    1024-token prompts, 64 new tokens) through ``serve.engine.generate``,
    from an sfp8 KV cache and from a dense sfp-m2e4 one; checks by the
@@ -249,20 +255,29 @@ def bound(ops: float, nbytes: float):
             "operations" if t_ops > t_bytes else "bytes")
 
 
-def decode_properties(torch, name, call, rows):
-    """The split-KV decode's two properties: two launches on the same
-    inputs are bit-equal (the splits merge in order, with no floating-point
-    atomics), and each row launched alone is bit-equal to that row inside
-    the batch (a split is a function of the slot and the tile, not of B).
-    ``call(r)`` launches row r alone, ``call(None)`` the batch."""
-    full, again = call(None), call(None)
+def bitwise_properties(torch, name, call, rows, heads=1):
+    """Two properties of the split-KV decode and of the attention kernels:
+    two launches on the same inputs are bit-equal (no floating-point
+    atomics: splits merge in order, every sum runs in a fixed order), and
+    each row launched alone is bit-equal to that row inside the batch (a
+    split or CTA reads its own row only). ``call(r)`` launches row r alone,
+    ``call(None)`` the batch; it returns a tensor or a tuple of them, batch
+    first, except that one of B * heads rows (a log-sum-exp) holds ``heads``
+    rows a batch row."""
+    def outputs(r):
+        out = call(r)
+        return out if isinstance(out, tuple) else (out,)
+
+    full, again = outputs(None), outputs(None)
     torch.cuda.synchronize()
-    if not torch.equal(full, again):
+    if not all(torch.equal(a, b) for a, b in zip(full, again)):
         fail(f"{name}: two launches on the same inputs are not bit-equal")
     for r in range(rows):
-        if not torch.equal(call(r), full[r:r + 1]):
-            fail(f"{name}: row {r} launched alone is not bit-equal to the "
-                 f"same row inside the batch")
+        for i, (a, b) in enumerate(zip(outputs(r), full)):
+            n = heads if b.shape[0] == rows * heads else 1
+            if not torch.equal(a, b[r * n:(r + 1) * n]):
+                fail(f"{name}: row {r} launched alone is not bit-equal to "
+                     f"the same row inside the batch (output {i})")
 
 
 def rows_of(args, pos, r):
@@ -281,6 +296,45 @@ def decode_note(plan, rows, kv_heads, bound_ms, ms):
     return (f"grid {plan.ctas} CTAs ({rows} rows x {kv_heads} KV heads x "
             f"{plan.splits} splits of {plan.split_l} slots, "
             f"{plan.threads} threads); {gbps:.1f} GB/s")
+
+
+def decode_shape(torch, name, r, call, plain, nbytes, what, flush):
+    """Hold a pack kernel to its plain version at the shape a decode step
+    gives it, time it there, and add both to its entry's note (its entry
+    is timed at the prefill or stash shape)."""
+    got, want = call(), plain()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        fail(f"{name} at the decode shape: kernel bytes differ from the "
+             f"plain version")
+    ms = time_ms(torch, call, reps=50, flush=flush)
+    b_ms, _ = bound(0, nbytes)
+    note = f"at the decode shape ({what}): {ms:.5f} ms, bound {b_ms:.4g} ms"
+    print(f"  {name} {note}")
+    r["note"] = f"{r['note']}; {note}" if "note" in r else note
+
+
+def attention_note(plan, heads, flops, r):
+    """The attention grid, the rate achieved on the function's operations
+    and the share of the card's bound."""
+    return (f"grid {heads * plan.q_tiles} CTAs ({heads} batch x KV heads x "
+            f"{plan.q_tiles} query tiles of {plan.bq} rows); "
+            f"{flops / r['ms'] / 1e9:.1f} TFLOP/s, "
+            f"{100 * r['bound_ms'] / r['ms']:.1f}% of the bound")
+
+
+def attention_f64(torch, q, k, v, rep, softcap):
+    """Causal attention over folded rows (B, S*rep, KH, D) in float64: the
+    exact function, to be rounded to bf16 once."""
+    from repro_torch.kernels import flash_attention as fa
+    Sq, hd = q.shape[1], q.shape[3]
+    qh, kh, vh = (t.double().permute(0, 2, 1, 3) for t in (q, k, v))
+    logits = qh @ kh.transpose(-1, -2) / hd ** 0.5
+    if softcap is not None:
+        logits = softcap * torch.tanh(logits / softcap)
+    vis = fa.visible_mask(Sq, k.shape[1], rep, True, None, q.device)
+    p = torch.softmax(torch.where(vis, logits, -1e30), -1)
+    return (p @ vh).permute(0, 2, 1, 3)
 
 
 def wide_range(torch, gen, shape, dev, dtype):
@@ -329,6 +383,14 @@ def serving_kernels(torch, cfg, gen, flush, results):
         library_ms=None)
     results["sfp_pack"]["bound_ms"], results["sfp_pack"]["bound_by"] = \
         bound(0, n * 2 + n * 1 + n // ref.GROUP)
+    # Each decode step packs one token's K and V (B 4 x 1152 = 36 rows).
+    tok = wide_range(torch, gen, (B, 1, D), dev, torch.bfloat16).reshape(
+        -1, ref.GROUP)
+    decode_shape(torch, "sfp_pack", results["sfp_pack"],
+                 lambda: sp.sfp_pack(tok, fields),
+                 lambda: sp.plain(tok, fields),
+                 3 * tok.numel() + tok.numel() // ref.GROUP,
+                 f"B {B}, one token, {tok.shape[0]} rows", flush)
 
     # -- flash_attention at the prefill shape (GQA folded) ------------------
     q = torch.randn((B, PROMPT, H, hd), generator=gen, device=dev) * 4
@@ -347,26 +409,53 @@ def serving_kernels(torch, cfg, gen, flush, results):
         fa_err = max(fa_err, check_close(torch, f"flash_attention "
                                          f"window={window}", got, want))
     kw = dict(causal=True, window=None, softcap=cfg.attn_softcap, q_rep=rep)
+    # Outputs that round to another bf16: the training gates amplify each.
+    got, want = fa.flash_attention(qf, k, v, **kw), fa.plain(qf, k, v, **kw)
+    exact = attention_f64(torch, qf, k, v, rep, cfg.attn_softcap).to(
+        torch.bfloat16)
+    flips = ((got != want).sum().item(), (got != exact).sum().item(),
+             (want != exact).sum().item())
+    del exact
+    print(f"  flash_attention window=None: {flips[0]} of {got.numel()} "
+          f"outputs round to another bf16 than the plain version's; "
+          f"against the f64 function rounded once, kernel {flips[1]}, "
+          f"plain {flips[2]}")
     pairs = PROMPT * (PROMPT + 1) // 2
     qs = q.transpose(1, 2)
     ks, vs = (t.repeat_interleave(rep, dim=2).transpose(1, 2) for t in (k, v))
     sdpa_ms = time_ms(torch, lambda: torch.nn.functional
                       .scaled_dot_product_attention(qs, ks, vs,
                                                     is_causal=True), reps=10)
+    flops = 2 * 2 * B * H * hd * pairs
+    ms = time_ms(torch, lambda: fa.flash_attention(qf, k, v, **kw), reps=10)
+    # The smallest grid the serving path gives it: one trace prefill (B 1,
+    # S 256: 4 KV heads x 4 query tiles = 16 CTAs).
+    S1 = 256
+    q1, k1, v1 = (t[:1, :S1 * r].contiguous()
+                  for t, r in ((qf, rep), (k, 1), (v, 1)))
+    ms1 = time_ms(torch, lambda: fa.flash_attention(q1, k1, v1, **kw),
+                  reps=20)
+    plan1 = fa.tile_plan(S1 * rep, S1, rep, True, None, *fa.FWD_TILE)
+    tf1 = 2 * 2 * H * hd * S1 * (S1 + 1) // 2 / ms1 / 1e9
+    print(f"  flash_attention at one trace prefill (B 1, S {S1}, "
+          f"{KH * plan1.q_tiles} CTAs): {ms1:.5f} ms, {tf1:.1f} TFLOP/s")
     # Timed here, at the prefill shape, which is also the training shape
     # (PROMPT == TRAIN_SEQ); its launches are counted on the training path.
-    results["flash_attention"] = dict(
+    r = results["flash_attention"] = dict(
         path="train", replaces="src/repro/kernels/flash_attention.py:120",
         source="src/repro_torch/csrc/flash_attention.cu", max_abs_err=fa_err,
-        ms=time_ms(torch, lambda: fa.flash_attention(qf, k, v, **kw), reps=10),
+        ms=ms,
         plain_ms=time_ms(torch, lambda: fa.plain(qf, k, v, **kw), reps=3),
-        library_ms=None,
-        note=f"scaled_dot_product_attention without softcap (a different "
-             f"function) took {sdpa_ms:.4f} ms")
-    results["flash_attention"]["bound_ms"], \
-        results["flash_attention"]["bound_by"] = bound(
-            2 * 2 * B * H * hd * pairs, 2 * (q.numel() * 2 + k.numel()
-                                             + v.numel()))
+        library_ms=None)
+    r["bound_ms"], r["bound_by"] = bound(
+        flops, 2 * (q.numel() * 2 + k.numel() + v.numel()))
+    plan = fa.tile_plan(PROMPT * rep, PROMPT, rep, True, None, *fa.FWD_TILE)
+    r["note"] = (f"{attention_note(plan, B * KH, flops, r)}; "
+                 f"scaled_dot_product_attention without softcap (a "
+                 f"different function) took {sdpa_ms:.4f} ms; at one trace "
+                 f"prefill (B 1, S {S1}) {ms1:.5f} ms; outputs off the "
+                 f"plain version's bf16 {flips[0]}, off the f64 function's "
+                 f"kernel {flips[1]} / plain {flips[2]}")
 
     # -- packed_flash_decode at the decode shape ----------------------------
     kc = torch.randn((B, L, D), generator=gen, device=dev).to(torch.bfloat16)
@@ -387,7 +476,7 @@ def serving_kernels(torch, cfg, gen, flush, results):
         torch.cuda.synchronize()
         pd_err = max(pd_err, check_close(
             torch, f"packed_flash_decode window={window}", got, want))
-        decode_properties(torch, f"packed_flash_decode window={window}",
+        bitwise_properties(torch, f"packed_flash_decode window={window}",
                           lambda r: pfd.packed_flash_decode(
                               *rows_of(args, pos, r), fields, **kw), B)
     kw = dict(window=None, softcap=cfg.attn_softcap)
@@ -529,6 +618,30 @@ def training_kernels(torch, cfg, gen, flush, results):
     kw = dict(causal=True, window=None, softcap=cfg.attn_softcap, q_rep=rep)
     o, lse = fa._forward(q, k, v, True, None, cfg.attn_softcap, rep,
                          with_lse=True)
+
+    def rows(r):
+        return (slice(None) if r is None else slice(r, r + 1))
+
+    for window in (None, 256):
+        kw_w = dict(kw, window=window)
+        bitwise_properties(
+            torch, f"flash_attention window={window}",
+            lambda r: fa._forward(*(t[rows(r)].contiguous()
+                                    for t in (q, k, v)), True, window,
+                                  cfg.attn_softcap, rep, with_lse=True),
+            B, KH)
+        o_w, lse_w = fa._forward(q, k, v, True, window, cfg.attn_softcap,
+                                 rep, with_lse=True)
+        bitwise_properties(
+            torch, f"flash_attention_bwd window={window}",
+            lambda r: fa.flash_attention_bwd(
+                *(t[rows(r)].contiguous() for t in (q, k, v, o_w, do)),
+                lse_w.reshape(B, KH, -1)[rows(r)].reshape(-1, S * rep)
+                .contiguous(), **kw_w), B, KH)
+    del o_w, lse_w
+    print("  flash_attention forward (output, log-sum-exp) and backward "
+          "(dq, dk, dv): bit-equal over two launches and row by row alone "
+          "against the batch, windows None and 256")
     pairs = S * (S + 1) // 2
     # q, k, v, o, dO and the f32 lse read once; dq, dk, dv written once.
     nbytes = 2 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel()
@@ -542,7 +655,8 @@ def training_kernels(torch, cfg, gen, flush, results):
     gs = torch.randn_like(so)
     sdpa_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
         so, (qs, ks, vs), gs, retain_graph=True), reps=10)
-    results["flash_attention_bwd"] = dict(
+    flops = 2 * 5 * B * H * hd * pairs
+    r = results["flash_attention_bwd"] = dict(
         path="train", replaces="src/repro/kernels/flash_attention.py:120",
         source="src/repro_torch/csrc/flash_attention_bwd.cu",
         max_abs_err=max(err.values()),
@@ -550,12 +664,17 @@ def training_kernels(torch, cfg, gen, flush, results):
             q, k, v, o, do, lse, **kw), reps=5),
         plain_ms=time_ms(torch, lambda: fa.plain_bwd(q, k, v, do, **kw),
                          reps=3),
-        library_ms=None,
-        note=f"the backward of scaled_dot_product_attention without softcap "
-             f"(a different function) took {sdpa_bwd_ms:.4f} ms")
-    results["flash_attention_bwd"]["bound_ms"], \
-        results["flash_attention_bwd"]["bound_by"] = bound(
-            2 * 5 * B * H * hd * pairs, nbytes)
+        library_ms=None)
+    r["bound_ms"], r["bound_by"] = bound(flops, nbytes)
+    kv_tiles = fa.tile_plan(S * rep, S, rep, True, None,
+                            *fa.DKDV_TILE).k_tiles
+    q_tiles = fa.tile_plan(S * rep, S, rep, True, None, *fa.DQ_TILE).q_tiles
+    r["note"] = (f"dK/dV grid {B * KH * kv_tiles} CTAs, dQ grid "
+                 f"{B * KH * q_tiles} CTAs; {flops / r['ms'] / 1e9:.1f} "
+                 f"TFLOP/s, "
+                 f"{100 * r['bound_ms'] / r['ms']:.1f}% of the bound; the "
+                 f"backward of scaled_dot_product_attention without softcap "
+                 f"(a different function) took {sdpa_bwd_ms:.4f} ms")
 
 
 def dense_kernels(torch, cfg, gen, flush, results):
@@ -654,6 +773,13 @@ def dense_kernels(torch, cfg, gen, flush, results):
     results["bitplane_pack"]["bound_ms"], \
         results["bitplane_pack"]["bound_by"] = bound(
             0, 2 * n + kp.numel() + kb.numel())
+    tok = wide_range(torch, gen, (B, 1, D), dev, torch.bfloat16).reshape(
+        -1, ref.GROUP)
+    tp, tb = bp.bitplane_pack(tok, f)
+    decode_shape(torch, "bitplane_pack", results["bitplane_pack"],
+                 lambda: bp.bitplane_pack(tok, f), lambda: bp.plain(tok, f),
+                 2 * tok.numel() + tp.numel() + tb.numel(),
+                 f"B {B}, one token, {tok.shape[0]} rows", flush)
     del rows, kp, kb
 
     kc = torch.randn((B, L, D), generator=gen, device=dev).to(torch.bfloat16)
@@ -674,7 +800,7 @@ def dense_kernels(torch, cfg, gen, flush, results):
         torch.cuda.synchronize()
         err = max(err, check_close(
             torch, f"packed_flash_decode_dense window={window}", got, want))
-        decode_properties(torch, f"packed_flash_decode_dense window={window}",
+        bitwise_properties(torch, f"packed_flash_decode_dense window={window}",
                           lambda r: pfd.packed_flash_decode_dense(
                               *rows_of(args, pos, r), f, **kw), B)
     kw = dict(window=None, softcap=cfg.attn_softcap)
@@ -709,6 +835,7 @@ def gecko_kernels(torch, cfg, gen, flush, results):
     cut to 147,399). Both are timed at the stash shape."""
     from repro_torch.core import containers
     from repro_torch.kernels import gecko_pack as gp
+    from repro_torch.kernels import ops
     dev = torch.device("cuda")
     x = torch.randn((B, TRAIN_SEQ, cfg.d_model), generator=gen,
                     device=dev).to(torch.bfloat16)
@@ -770,6 +897,24 @@ def gecko_kernels(torch, cfg, gen, flush, results):
         bound(0, G * (64 + 8 + 7 + 63))
     results["gecko_unpack"]["bound_ms"], \
         results["gecko_unpack"]["bound_by"] = bound(0, G * (8 + 63 + 64))
+    # Serving from a gecko8 cache, each decode step packs one token's K and
+    # V exponents and unpacks each layer's whole cache (B 4 x 1152 slots).
+    D = cfg.n_kv_heads * cfg.head_dim_
+    L = -(-(PROMPT + MAX_NEW) // ops.DECODE_BLOCK_L) * ops.DECODE_BLOCK_L
+    tok = groups(x[:, :1, :D].contiguous())
+    decode_shape(torch, "gecko_pack", results["gecko_pack"],
+                 lambda: gp.gecko_pack(tok), lambda: gp.plain(tok),
+                 tok.shape[0] * (64 + 8 + 7 + 63),
+                 f"B {B}, one token, {tok.shape[0]} groups", flush)
+    cache = groups(torch.randn((B, L, D), generator=gen, device=dev).to(
+        torch.bfloat16))
+    cb, _, cp = gp.gecko_pack(cache)
+    decode_shape(torch, "gecko_unpack", results["gecko_unpack"],
+                 lambda: (gp.gecko_unpack(cb, cp),),
+                 lambda: (gp.plain_unpack(cb, cp),),
+                 cache.shape[0] * (8 + 63 + 64),
+                 f"the whole cache, B {B} x {L} slots, {cache.shape[0]} "
+                 f"groups", flush)
 
 
 def stream_agreement(torch, toks, ref, what):
@@ -989,10 +1134,10 @@ def paged_kernels(torch, cfg, gen, flush, results):
                                   (t[r:r + 1].contiguous()
                                    for t in (q, tables, pos)))
                     return paged(qr, *pool, tr, pr, f, **kw)
-                decode_properties(
+                bitwise_properties(
                     torch, f"paged_flash_decode{suffix} prefix_planes={pp}",
                     paged_rows, S)
-                decode_properties(
+                bitwise_properties(
                     torch, f"packed_flash_decode{suffix} ring "
                     f"prefix_planes={pp}",
                     lambda r: contiguous(*rows_of((q, *gathered), pos, r), f,

@@ -1,4 +1,4 @@
-// Online-softmax (flash) attention forward for Hopper.
+// Online-softmax (flash) attention forward for Hopper, on tensor cores.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py:
 // flash_attention (_flash_kernel). Inputs q (B, Sq, H, D), k/v
@@ -13,197 +13,248 @@
 // null pointer skips it (serving).
 //
 // Bound on this card: operations (2 * 2 * rows * keys * D per head, halved
-// by the causal mask). Design, simple first: one CTA of 256 threads per
-// (batch*head, 64-row query tile), looping over 64-key tiles held in shared
-// memory (Q, K, V tiles in bf16, the probability tile in f32: 128 KB at
-// D = 288, so D is a template parameter through D / 16). Each thread owns
-// 4 query rows x 4 keys of the score tile and 4 rows x D/16 columns of the
-// output accumulator in registers; row max and row sum reduce over the 16
-// threads of a row group with warp shuffles. Key tiles that every row of
-// the CTA masks out (above the causal diagonal, before the window) are
-// skipped, which the JAX kernel's recurrence makes an exact no-op. Scalar
-// f32 FMAs, no tensor cores: wgmma and TMA are later work.
-#include "sfp_common.cuh"
+// by the causal mask), which only the tensor cores reach in bf16. Design:
+// one CTA of two warpgroups (256 threads) per (batch*head, 128-row query
+// tile); each warpgroup owns 64 rows. Key tiles of 32 (K and V) are staged
+// by 16-byte cp.async two deep in the 64-byte swizzled layout of
+// attention_tc.cuh, so tile t + 1 loads while tile t computes. Per tile:
+//   S = Q K^T   wgmma m64n32k16, Q and K K-major in shared memory, D/16
+//               steps spread over three accumulators, added in f32
+//   softmax     in the accumulator registers; row max and sum over the four
+//               threads of a row (shuffles); P split into three bf16 terms
+//   O += P V    per 32-column panel of D: wgmma m64n32k16 of each term (P
+//               from registers as A, V MN-major) into a fresh accumulator,
+//               then O = alpha O + PV by f32 FMAs while the next panel's
+//               products run (two accumulators in flight)
+// Precision is what the training gates ask for: the wgmma accumulators
+// truncate at each step, and the QM stash estimator of a low-bits qm +
+// sfp8 step (a sum of 9.4 M terms that cancels to 1/550 of their
+// magnitudes) amplifies every one-ulp flip of the attention output. A
+// first design, P as bf16 hi + lo (2^-17) accumulated straight into O over
+// all tiles, moved that estimator 0.0028 from the plain path's against a
+// limit of 0.0018 (chip_smoke.py on the H100); one bf16 term (2^-9) puts
+// outputs outside the one-ulp gate itself (plain_tiled on the CPU). Three
+// terms (24 bits), a fresh accumulator per tile and panel, and S over
+// three partial sums keep each truncation small against what it
+// truncates (chip_smoke.py counts the outputs that round away from the
+// plain version's and from the f64 function's); the three P V products
+// cost the forward 2x the operations of one. The row sum l adds the same
+// three-term P that multiplies V, so O stays a convex combination of V's
+// rows. Key tiles that every row masks (above the causal diagonal, before
+// the window) are skipped, an exact no-op of the recurrence; tiles every
+// pair of which is visible skip the mask arithmetic. Query tiles are
+// launched longest first (the last rows of a causal sequence see every
+// key). kernels/flash_attention.py:tile_plan lists the same tiles, and
+// plain_tiled runs the same recurrence on the CPU.
+// Shared memory at D = 288: Q 128 x 288 (73,728 B) + 2 stages of K and V
+// 32 x 288 (73,728 B) = 147,456 B (+1 KB to align the swizzle atoms).
+// Registers a thread: O 9 x 16 f32; then S 3 x 16 f32, or P 3 x 8 x 32-bit
+// and two panels' products 2 x 16 f32 (wider panels spilled at hd 256 and
+// 288).
+#include "attention_tc.cuh"
 
 namespace {
 
-constexpr int BQ = 64;
-constexpr int BK = 64;
-constexpr int kThreads = 256;
+using attn::bf16;
 
-template <int NJ>  // NJ = D / 16 output columns per thread
-__global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
-                       const __nv_bfloat16* __restrict__ k,
-                       const __nv_bfloat16* __restrict__ v,
-                       __nv_bfloat16* __restrict__ out,
+constexpr int BQ = 128;  // query rows a CTA (two warpgroups of 64)
+constexpr int BK = 32;   // keys a tile
+constexpr int kThreads = 256;
+constexpr int kTerms = 3;  // bf16 terms of P in P V
+
+template <int D>
+struct Smem {
+  static constexpr int kQ = attn::Tile<BQ, D>::kBytes;
+  static constexpr int kKV = attn::Tile<BK, D>::kBytes;
+  static constexpr int kBytes = kQ + 4 * kKV + 1024;
+};
+
+// Issue (and commit) the products of a tile's P, in kTerms bf16 terms
+// (smallest first), with panel c of V (32 columns) into a fresh
+// accumulator.
+__device__ __forceinline__ void panel_pv(
+    float (&acc)[16], const uint32_t (&pa)[kTerms][BK / 16][4], uint32_t sV,
+    int c) {
+  attn::wgmma_fence();
+#pragma unroll
+  for (int term = kTerms - 1; term >= 0; --term)
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      attn::wgmma_rs(acc, pa[term][kk], attn::mnmajor<BK>(sV, c, kk),
+                     term < kTerms - 1 || kk > 0);
+  attn::wgmma_commit();
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, bf16* __restrict__ out,
                        float* __restrict__ lse, int Sq, int Sk, int H,
                        int q_rep, int causal, int window, float softcap,
                        float scale) {
-  constexpr int D = NJ * 16;
-  constexpr int DS = D + 2;      // padded bf16 row stride of Q and K tiles
-  constexpr int PS = BK + 1;     // padded f32 row stride of the P tile
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Ks = Qs + BQ * DS;
-  __nv_bfloat16* Vs = Ks + BK * DS;
-  float* Ps = reinterpret_cast<float*>(Vs + BK * D);
+  constexpr int kPanels = D / 32;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (attn::smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base;
+  const uint32_t sK0 = sQ + Smem<D>::kQ;
+  const uint32_t sV0 = sK0 + 2 * Smem<D>::kKV;
 
   const int tid = threadIdx.x;
-  const int ty = tid >> 4;       // row group: rows ty*4 .. ty*4+3
-  const int tx = tid & 15;       // key / column lane within the row group
-  const int bh = blockIdx.x;     // b * H + h
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H;
-  const int r0 = blockIdx.y * BQ;
+  const int r0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest tiles first
+  const int rs = H * D;
+  const bf16* qb = q + ((size_t)b * Sq * H + h) * D;
+  const bf16* kb = k + ((size_t)b * Sk * H + h) * D;
+  const bf16* vb = v + ((size_t)b * Sk * H + h) * D;
 
-  // Q tile -> shared (bf16 pairs; rows past Sq are zeros).
-  for (int idx = tid; idx < BQ * (D / 2); idx += kThreads) {
-    const int r = idx / (D / 2), c = idx % (D / 2);
-    uint32_t val = 0u;
-    if (r0 + r < Sq)
-      val = reinterpret_cast<const uint32_t*>(
-          q + (((size_t)b * Sq + r0 + r) * H + h) * D)[c];
-    reinterpret_cast<uint32_t*>(Qs + r * DS)[c] = val;
-  }
-
-  float acc[4][NJ];
-  float m_i[4], l_i[4];
-  int qpos[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m_i[i] = SFP_NEG_INF;
-    l_i[i] = 0.f;
-    qpos[i] = (r0 + ty * 4 + i) / q_rep;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-  }
-
-  // Key range any row of this tile can see.
-  const int last_row = min(r0 + BQ, Sq) - 1;
-  const int q_lo = r0 / q_rep, q_hi = last_row / q_rep;
+  // Key tiles any row of this CTA can see.
+  const int r_last = min(r0 + BQ, Sq) - 1;
+  const int q_lo = r0 / q_rep, q_hi = r_last / q_rep;
   const int k_end = causal ? min(Sk, q_hi + 1) : Sk;
   const int k_begin = window > 0 ? max(0, q_lo - window + 1) : 0;
+  const int t_begin = k_begin / BK, t_end = (k_end + BK - 1) / BK;
 
-  for (int t = k_begin / BK; t * BK < k_end; ++t) {
-    const int k0 = t * BK;
-    __syncthreads();  // previous tile's readers are done
-    for (int idx = tid; idx < BK * (D / 2); idx += kThreads) {
-      const int r = idx / (D / 2), c = idx % (D / 2);
-      uint32_t kv = 0u, vv = 0u;
-      if (k0 + r < Sk) {
-        const size_t off = (((size_t)b * Sk + k0 + r) * H + h) * D;
-        kv = reinterpret_cast<const uint32_t*>(k + off)[c];
-        vv = reinterpret_cast<const uint32_t*>(v + off)[c];
-      }
-      reinterpret_cast<uint32_t*>(Ks + r * DS)[c] = kv;
-      reinterpret_cast<uint32_t*>(Vs + r * D)[c] = vv;
-    }
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int d2 = 0; d2 < D / 2; ++d2) {
-      float2 qf[4], kf[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qf[i] = __bfloat1622float2(
-            reinterpret_cast<const __nv_bfloat162*>(Qs + (ty * 4 + i) * DS)[d2]);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        kf[j] = __bfloat1622float2(
-            reinterpret_cast<const __nv_bfloat162*>(Ks + (tx + 16 * j) * DS)[d2]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          s[i][j] = fmaf(qf[i].x, kf[j].x, fmaf(qf[i].y, kf[j].y, s[i][j]));
-    }
-
-    float alpha[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mcur = SFP_NEG_INF;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float x = s[i][j] * scale;
-        if (softcap > 0.f) x = softcap * tanhf(x / softcap);
-        const int kp = k0 + tx + 16 * j;
-        bool ok = kp < Sk;
-        if (causal) ok = ok && (kp <= qpos[i]);
-        if (window > 0) ok = ok && (kp > qpos[i] - window);
-        s[i][j] = ok ? x : SFP_NEG_INF;
-        mcur = fmaxf(mcur, s[i][j]);
-      }
-#pragma unroll
-      for (int o = 8; o > 0; o >>= 1)
-        mcur = fmaxf(mcur, __shfl_xor_sync(0xffffffffu, mcur, o));
-      const float m_new = fmaxf(m_i[i], mcur);
-      float rsum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        Ps[(ty * 4 + i) * PS + tx + 16 * j] = p;
-        rsum += p;
-      }
-#pragma unroll
-      for (int o = 8; o > 0; o >>= 1)
-        rsum += __shfl_xor_sync(0xffffffffu, rsum, o);
-      alpha[i] = expf(m_i[i] - m_new);
-      l_i[i] = alpha[i] * l_i[i] + rsum;
-      m_i[i] = m_new;
-    }
-    __syncthreads();  // P tile complete
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] *= alpha[i];
-    for (int kk = 0; kk < BK; ++kk) {
-      float p[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = Ps[(ty * 4 + i) * PS + kk];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const float vv = __bfloat162float(Vs[kk * D + tx + 16 * j]);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(p[i], vv, acc[i][j]);
-      }
-    }
+  attn::load_tile<BQ, D, kThreads>(sQ, qb, rs, r0, Sq, tid);
+  if (t_begin < t_end) {
+    attn::load_tile<BK, D, kThreads>(sK0, kb, rs, t_begin * BK, Sk, tid);
+    attn::load_tile<BK, D, kThreads>(sV0, vb, rs, t_begin * BK, Sk, tid);
   }
+  attn::cp_async_commit();
+
+  // This thread's two rows (accumulator rows l/4 and l/4 + 8 of its warp).
+  const int row_a = r0 + wg * 64 + warp * 16 + (lane >> 2);
+  const int qpos[2] = {row_a / q_rep, (row_a + 8) / q_rep};
+  const int col0 = 2 * (lane & 3);
+  const uint32_t q_rows = wg * 64 * 64;  // this warpgroup's rows in a panel
+
+  float o[kPanels][16];  // 32 columns of D each
+#pragma unroll
+  for (int c = 0; c < kPanels; ++c)
+#pragma unroll
+    for (int i = 0; i < 16; ++i) o[c][i] = 0.f;
+  float m[2] = {SFP_NEG_INF, SFP_NEG_INF}, l[2] = {0.f, 0.f};
+
+  for (int t = t_begin; t < t_end; ++t) {
+    const int st = (t - t_begin) & 1;
+    const uint32_t sK = sK0 + st * Smem<D>::kKV, sV = sV0 + st * Smem<D>::kKV;
+    attn::cp_async_land();  // tile t is in; every thread is done with t - 1
+    if (t + 1 < t_end) {
+      const uint32_t nK = sK0 + (st ^ 1) * Smem<D>::kKV;
+      const uint32_t nV = sV0 + (st ^ 1) * Smem<D>::kKV;
+      attn::load_tile<BK, D, kThreads>(nK, kb, rs, (t + 1) * BK, Sk, tid);
+      attn::load_tile<BK, D, kThreads>(nV, vb, rs, (t + 1) * BK, Sk, tid);
+    }
+    attn::cp_async_commit();
+
+    // S over D / 16 k-steps, step kk into partial sum kk % 3, added in f32.
+    float s[BK / 2] = {}, s1[BK / 2] = {}, s2[BK / 2] = {};
+    attn::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint64_t da = attn::kmajor<BQ>(sQ, q_rows, kk);
+      const uint64_t db = attn::kmajor<BK>(sK, 0, kk);
+      if (kk % 3 == 0) attn::wgmma_ss(s, da, db, kk >= 3);
+      if (kk % 3 == 1) attn::wgmma_ss(s1, da, db, kk >= 3);
+      if (kk % 3 == 2) attn::wgmma_ss(s2, da, db, kk >= 3);
+    }
+    attn::wgmma_commit();
+    attn::wgmma_wait();
+    attn::fence_regs(s);
+    attn::fence_regs(s1);
+    attn::fence_regs(s2);
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) s[i] = (s[i] + s1[i]) + s2[i];
+
+    const int k0 = t * BK;
+    const bool open = attn::tile_open(r0, r_last, k0, k0 + BK - 1, Sk, q_rep,
+                                      causal, window);
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      const int rr = (i >> 1) & 1;
+      float x = s[i] * scale;
+      if (softcap > 0.f) x = softcap * tanhf(x / softcap);
+      if (!open) {
+        const int kp = k0 + (i >> 2) * 8 + col0 + (i & 1);
+        if (!attn::visible(qpos[rr], kp, Sk, causal, window)) x = SFP_NEG_INF;
+      }
+      s[i] = x;
+      mx[rr] = fmaxf(mx[rr], x);
+    }
+    float alpha[2];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 1));
+      mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 2));
+      alpha[rr] = expf(m[rr] - mx[rr]);
+      m[rr] = mx[rr];
+      l[rr] *= alpha[rr];  // this thread's share of the row sum
+    }
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) s[i] = expf(s[i] - m[(i >> 1) & 1]);
+    // P as three bf16 terms in the A-fragment order; the row sum adds what
+    // they hold.
+    uint32_t pa[kTerms][BK / 16][4];
+    attn::to_a_terms(s, pa, l);
+
+    // O = alpha O + P V, one 32-column panel of D at a time: the tile's
+    // product sums in a fresh accumulator, then joins O by f32 FMAs while
+    // the next panel's products run.
+    float pv[2][16] = {};
+    panel_pv(pv[0], pa, sV, 0);
+#pragma unroll
+    for (int c = 0; c < kPanels; ++c) {
+      if (c + 1 < kPanels) {
+        panel_pv(pv[(c + 1) & 1], pa, sV, c + 1);
+        attn::wgmma_wait<1>();
+      } else {
+        attn::wgmma_wait<0>();
+      }
+      attn::fence_regs(pv[c & 1]);
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+        o[c][i] = fmaf(o[c][i], alpha[(i >> 1) & 1], pv[c & 1][i]);
+    }
+    attn::fence_regs(pa);
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = r0 + ty * 4 + i;
+  for (int rr = 0; rr < 2; ++rr) {
+    l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 1);
+    l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 2);
+    const int r = row_a + 8 * rr;
     if (r >= Sq) continue;
-    const float inv = 1.f / fmaxf(l_i[i], 1e-30f);
-    if (lse != nullptr && tx == 0)
-      lse[(size_t)bh * Sq + r] = m_i[i] + logf(fmaxf(l_i[i], 1e-30f));
-    __nv_bfloat16* o = out + (((size_t)b * Sq + r) * H + h) * D;
+    const float den = fmaxf(l[rr], 1e-30f), inv = 1.f / den;
+    if (lse != nullptr && (lane & 3) == 0)
+      lse[(size_t)bh * Sq + r] = m[rr] + logf(den);
+    bf16* orow = out + (((size_t)b * Sq + r) * H + h) * D + col0;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j)
-      o[tx + 16 * j] = __float2bfloat16(acc[i][j] * inv);
+    for (int c = 0; c < kPanels; ++c)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int i = 4 * j + 2 * rr;
+        *reinterpret_cast<__nv_bfloat162*>(orow + c * 32 + 8 * j) =
+            __floats2bfloat162_rn(o[c][i] * inv, o[c][i + 1] * inv);
+      }
   }
 }
 
-template <int NJ>
-int launch(const void* q, const void* k, const void* v, void* out,
+template <int D>
+int launch(const bf16* q, const bf16* k, const bf16* v, bf16* out,
            float* lse, int B, int Sq, int Sk, int H, int q_rep, int causal,
-           int window, float softcap, float scale, cudaStream_t stream) {
-  constexpr int D = NJ * 16;
-  const size_t smem = (size_t)BQ * (D + 2) * 2 + (size_t)BK * (D + 2) * 2
-                      + (size_t)BK * D * 2 + (size_t)BQ * (BK + 1) * 4;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(B * H, (Sq + BQ - 1) / BQ);
-  flash_attention_kernel<NJ><<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      lse, Sq, Sk, H, q_rep, causal, window, softcap, scale);
+           int window, int q_tiles, float softcap, float scale,
+           cudaStream_t stream) {
+  static int granted[attn::kMaxDevices];
+  if (q_tiles != (Sq + BQ - 1) / BQ) return (int)cudaErrorInvalidValue;
+  const int err = attn::grant_smem(flash_attention_kernel<D>,
+                                   Smem<D>::kBytes, granted);
+  if (err != 0) return err;
+  flash_attention_kernel<D><<<dim3(B * H, q_tiles), kThreads,
+                              Smem<D>::kBytes, stream>>>(
+      q, k, v, out, lse, Sq, Sk, H, q_rep, causal, window, softcap, scale);
   return (int)cudaGetLastError();
 }
 
@@ -212,18 +263,26 @@ int launch(const void* q, const void* k, const void* v, void* out,
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, void* lse,
                                       int B, int Sq, int Sk, int H, int D,
-                                      int q_rep,
-                                      int causal, int window, float softcap,
-                                      float scale, void* stream) {
+                                      int q_rep, int causal, int window,
+                                      int q_tiles, float softcap, float scale,
+                                      void* stream) {
   if (B * H == 0 || Sq == 0) return 0;
+  if (!attn::aligned16(q) || !attn::aligned16(k) || !attn::aligned16(v)
+      || !attn::aligned16(out))
+    return (int)cudaErrorMisalignedAddress;
   auto s = static_cast<cudaStream_t>(stream);
   auto l = static_cast<float*>(lse);
+#define FA_FWD(DIM)                                                        \
+  launch<DIM>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),    \
+              static_cast<const bf16*>(v), static_cast<bf16*>(out), l, B,  \
+              Sq, Sk, H, q_rep, causal, window, q_tiles, softcap, scale, s)
   switch (D) {
-    case 64: return launch<4>(q, k, v, out, l, B, Sq, Sk, H, q_rep, causal, window, softcap, scale, s);
-    case 128: return launch<8>(q, k, v, out, l, B, Sq, Sk, H, q_rep, causal, window, softcap, scale, s);
-    case 192: return launch<12>(q, k, v, out, l, B, Sq, Sk, H, q_rep, causal, window, softcap, scale, s);
-    case 256: return launch<16>(q, k, v, out, l, B, Sq, Sk, H, q_rep, causal, window, softcap, scale, s);
-    case 288: return launch<18>(q, k, v, out, l, B, Sq, Sk, H, q_rep, causal, window, softcap, scale, s);
+    case 64: return FA_FWD(64);
+    case 128: return FA_FWD(128);
+    case 192: return FA_FWD(192);
+    case 256: return FA_FWD(256);
+    case 288: return FA_FWD(288);
     default: return (int)cudaErrorInvalidValue;
   }
+#undef FA_FWD
 }

@@ -1,4 +1,5 @@
-// Flash attention backward for Hopper: dQ, dK, dV of flash_attention.cu.
+// Flash attention backward for Hopper, on tensor cores: dQ, dK, dV of
+// flash_attention.cu.
 //
 // The TPU package has no backward kernel for src/repro/kernels/
 // flash_attention.py:flash_attention, and JAX cannot differentiate that
@@ -6,34 +7,73 @@
 // the gradient of that same function (causal / sliding-window masks with
 // the folded-row position r / q_rep, -1e30 masking, logit softcap
 // c * tanh(x / c)), computed FA2-style from q, k, v, the forward output o,
-// dO and the forward's per-row log-sum-exp:
-//   1. delta_r = sum_d dO[r, d] * O[r, d]                   (one warp per row)
-//   2. per (batch*head, 32-key tile): loop over the 64-row query tiles that
-//      can see the keys; recompute P = exp(s - lse), dP = dO V^T,
-//      dS = P * (dP - delta) * (1 - (s/c)^2); accumulate dV += P^T dO and
-//      dK += dS^T Q in registers. The GQA group is folded into the rows, so
-//      the loop over rows sums the rep group members of a KV head.
-//   3. per (batch*head, 64-row query tile): loop over the key tiles it can
-//      see, recompute dS the same way and accumulate dQ += dS K.
-// Scores are recomputed with the forward's exact FMA order, so P matches
-// the forward's probabilities. Accumulators are f32; dQ/dK/dV are bf16.
+// dO and the forward's per-row log-sum-exp, in three launches:
+//   1. delta_r = sum_d dO[r, d] * O[r, d]       (one warp per row, bf16 O)
+//   2. per (batch*head, 64-key tile): loop over the 32-row query tiles that
+//      can see the keys; dK and dV accumulate in registers;
+//   3. per (batch*head, 128-row query tile): loop over the 32-key tiles it
+//      can see; dQ accumulates in registers.
+// No floating-point atomics: each output element is summed by one thread
+// in a fixed order, so two launches are bit-equal and a batch row's
+// gradients do not depend on the other rows.
 //
 // Bound on this card: operations (5 products of 2 * D flops per visible
-// (row, key) pair; the dQ pass recomputes two of them). Design, simple
-// first: scalar f32 FMAs from bf16 tiles in shared memory (~125 KB at
-// D = 288, so D is a template parameter through D / 16 as in the forward),
-// tiles that the causal or window mask empties are skipped. wgmma/TMA are
-// later work.
-#include "sfp_common.cuh"
+// (row, key) pair; the dQ pass recomputes two of them). Every product runs
+// on the tensor cores (wgmma, bf16 in, f32 accumulators), from tiles
+// staged by 16-byte cp.async two deep in the 64-byte swizzled layout of
+// attention_tc.cuh:
+//   dK/dV (256 threads, two warpgroups with different products). A 64-key
+//     tile's dK and dV at D = 288 are 2 x 144 f32 a thread in one
+//     warpgroup, more than the 255 registers allowed, so warpgroup 0 owns
+//     dV and warpgroup 1 dK (144 f32 each):
+//       wg 0: S^T = K Q^T (m64n32, K and Q K-major), P^T = exp(s - lse),
+//             g = P (1 - t^2) (t the softcap's tanh) to shared memory in
+//             its fragment order (f32, 8 KB), dV += P^T dO (P^T from
+//             registers as bf16, dO MN-major);
+//       wg 1: dP^T = V dO^T (m64n32), waits for g (named barrier),
+//             dS^T = g (dP^T - delta) rounded to bf16, dK += dS^T Q.
+//     Both accumulator tiles (64 keys x 32 rows) have the same fragment
+//     layout, so thread t of warpgroup 1 reads exactly what thread t of
+//     warpgroup 0 wrote. Registers a thread: 144 + 16 + 8 and the row data.
+//     Shared memory at D = 288: K and V 64 x 288 (73,728 B) + 2 stages of
+//     Q and dO 32 x 288 and the rows' lse and delta (75,776 B) + g (8,192
+//     B) = 157,696 B.
+//   dQ (256 threads, each warpgroup 64 rows, as the forward): S = Q K^T and
+//     dP = dO V^T (m64n32), dS = P (dP - delta) (1 - t^2) rounded to bf16,
+//     dQ += dS K (dS from registers, K MN-major). Registers: dQ 144 f32,
+//     S and dP 16 each, dS 8. Shared memory at D = 288: Q and dO 128 x 288
+//     (147,456 B) + 2 stages of K and V 32 x 288 (73,728 B) = 221,184 B.
+// P and dS enter their products (dV, dK, dQ) as bf16, a 2^-9 relative
+// rounding of each term that the gradients' 2^-6 gate absorbs (the
+// forward's output, which the stash estimators amplify, takes P as three
+// bf16 terms; flash_attention.cu). Scores are recomputed on the tensor
+// cores in one accumulator (the forward spreads its k-steps over three),
+// so P matches the forward's probabilities to f32 rounding, not bit for
+// bit. Tiles the causal or window mask empties are skipped, tiles every
+// pair of which is visible skip the mask arithmetic
+// (kernels/flash_attention.py:tile_plan lists them, and plain_bwd_tiled
+// runs the same recurrence with the same roundings on the CPU). dQ/dK/dV
+// are bf16.
+#include "attention_tc.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int BQ = 64;   // query rows per tile
-constexpr int BKV = 32;  // keys per tile
-constexpr int PS = BKV + 1;  // padded f32 row stride of the P / dS tiles
+using attn::bf16;
 
-using bf16 = __nv_bfloat16;
+constexpr int kThreads = 256;
+constexpr int KV_BK = 64, KV_BQ = 32;  // dK/dV pass: keys a CTA, rows a tile
+constexpr int Q_BQ = 128, Q_BK = 32;   // dQ pass: rows a CTA, keys a tile
+
+// The N-chunks of the D output columns of dV, dK and dQ: wgmma takes N <=
+// 256, and each chunk is a whole number of 32-column panels (64 -> 64,
+// 128 -> 128, 192 -> 2 x 96, 256 -> 2 x 128, 288 -> 3 x 96).
+template <int D>
+struct Chunks {
+  static constexpr int N = D == 64 ? 64 : (D % 128 == 0 ? 128 : 96);
+  static constexpr int kCount = D / N;
+  static constexpr int kPanels = N / 32;
+  static_assert(D % N == 0, "head dim not a whole number of chunks");
+};
 
 __global__ void bwd_delta_kernel(const bf16* __restrict__ o,
                                  const bf16* __restrict__ dout,
@@ -59,318 +99,361 @@ __global__ void bwd_delta_kernel(const bf16* __restrict__ o,
   }
 }
 
-// Rows [row0, row0 + nrows) of head h of a (B, S, H, D) bf16 tensor into
-// shared memory with row stride D + 2; rows past S are zeros.
 template <int D>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int b,
-                                          int row0, int nrows, int S, int H,
-                                          int h) {
-  for (int idx = threadIdx.x; idx < nrows * (D / 2); idx += kThreads) {
-    const int r = idx / (D / 2), c = idx % (D / 2);
-    uint32_t val = 0u;
-    if (row0 + r < S)
-      val = reinterpret_cast<const uint32_t*>(
-          src + (((size_t)b * S + row0 + r) * H + h) * D)[c];
-    reinterpret_cast<uint32_t*>(dst + r * (D + 2))[c] = val;
-  }
-}
-
-// Per thread: rows ty*4+i (i < 4) x keys tx+16j (j < 2) of the tile, the
-// raw score q.k and dP = dO.v, in the forward kernel's FMA order.
-template <int D>
-__device__ __forceinline__ void tile_scores(const bf16* Qs, const bf16* dOs,
-                                            const bf16* Ks, const bf16* Vs,
-                                            int ty, int tx, float s[4][2],
-                                            float dp[4][2]) {
-  constexpr int DS = D + 2;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) { s[i][j] = 0.f; dp[i][j] = 0.f; }
-  for (int d2 = 0; d2 < D / 2; ++d2) {
-    float2 qf[4], of[4], kf[2], vf[2];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      qf[i] = __bfloat1622float2(
-          reinterpret_cast<const __nv_bfloat162*>(Qs + (ty * 4 + i) * DS)[d2]);
-      of[i] = __bfloat1622float2(
-          reinterpret_cast<const __nv_bfloat162*>(dOs + (ty * 4 + i) * DS)[d2]);
-    }
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      kf[j] = __bfloat1622float2(
-          reinterpret_cast<const __nv_bfloat162*>(Ks + (tx + 16 * j) * DS)[d2]);
-      vf[j] = __bfloat1622float2(
-          reinterpret_cast<const __nv_bfloat162*>(Vs + (tx + 16 * j) * DS)[d2]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        s[i][j] = fmaf(qf[i].x, kf[j].x, fmaf(qf[i].y, kf[j].y, s[i][j]));
-        dp[i][j] = fmaf(of[i].x, vf[j].x, fmaf(of[i].y, vf[j].y, dp[i][j]));
-      }
-  }
-}
-
-struct RowInfo {
-  int qpos[4];
-  bool ok[4];
-  float lse[4], delta[4];
+struct KVSmem {
+  static constexpr int kKey = attn::Tile<KV_BK, D>::kBytes;
+  static constexpr int kRow = attn::Tile<KV_BQ, D>::kBytes;
+  // Q, dO, then lse and delta (256 B, padded so each stage starts on a
+  // swizzle-atom boundary).
+  static constexpr int kStage = 2 * kRow + 1024;
+  static constexpr int kG = KV_BK * KV_BQ * 4;
+  static constexpr int kBytes = 2 * kKey + 2 * kStage + kG + 1024;
 };
 
-__device__ __forceinline__ RowInfo row_info(int r0, int ty, int bh, int Sq,
-                                            int q_rep, const float* lse,
-                                            const float* delta) {
-  RowInfo ri;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = r0 + ty * 4 + i;
-    ri.ok[i] = r < Sq;
-    ri.qpos[i] = r / q_rep;
-    ri.lse[i] = ri.ok[i] ? lse[(size_t)bh * Sq + r] : 0.f;
-    ri.delta[i] = ri.ok[i] ? delta[(size_t)bh * Sq + r] : 0.f;
-  }
-  return ri;
-}
-
-// P = exp(s - lse) on visible (row, key) pairs (0 elsewhere) and
-// dS = dL/d(scale * q.k) = P * (dP - delta) * (1 - (s/c)^2).
-__device__ __forceinline__ void tile_probs(const float s[4][2],
-                                           const float dp[4][2],
-                                           const RowInfo& ri, int k0, int tx,
-                                           int Sk, int causal, int window,
-                                           float softcap, float scale,
-                                           float p[4][2], float ds[4][2]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int kp = k0 + tx + 16 * j;
-      bool ok = ri.ok[i] && kp < Sk;
-      if (causal) ok = ok && (kp <= ri.qpos[i]);
-      if (window > 0) ok = ok && (kp > ri.qpos[i] - window);
-      float x = s[i][j] * scale, t = 0.f;
-      if (softcap > 0.f) {
-        t = tanhf(x / softcap);
-        x = softcap * t;
-      }
-      const float pv = ok ? expf(x - ri.lse[i]) : 0.f;
-      float d = pv * (dp[i][j] - ri.delta[i]);
-      if (softcap > 0.f) d *= 1.f - t * t;
-      p[i][j] = pv;
-      ds[i][j] = d;
-    }
-}
-
-template <int NJ>  // NJ = D / 16
-__global__ void __launch_bounds__(kThreads)
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
 bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
                 const float* __restrict__ lse, const float* __restrict__ delta,
                 bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Sk,
                 int H, int q_rep, int causal, int window, float softcap,
                 float scale) {
-  constexpr int D = NJ * 16;
-  constexpr int DS = D + 2;
-  constexpr int NC = D / 32;  // output columns per lane
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + BKV * DS;
-  bf16* Qs = Vs + BKV * DS;
-  bf16* dOs = Qs + BQ * DS;
-  float* Ps = reinterpret_cast<float*>(dOs + BQ * DS);
-  float* dSs = Ps + BQ * PS;
+  using CH = Chunks<D>;
+  using SM = KVSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (attn::smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sK = base, sV = sK + SM::kKey, sStage = sV + SM::kKey;
+  const uint32_t sG = sStage + 2 * SM::kStage;
+  // Generic pointers to the g exchange tile and the stages' row data.
+  unsigned char* gen = smem_raw + (base - attn::smem_u32(smem_raw));
+  float* g_tile = reinterpret_cast<float*>(gen + (sG - base));
 
   const int tid = threadIdx.x;
-  const int ty = tid >> 4, tx = tid & 15;   // score mapping
-  const int warp = tid >> 5, lane = tid & 31;  // accumulate mapping
+  const int wg = tid >> 7, wtid = tid & 127, warp = (tid >> 5) & 3,
+            lane = tid & 31;
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H;
-  const int k0 = blockIdx.y * BKV;
+  const int k0 = blockIdx.y * KV_BK;  // the first key tiles see the most rows
+  const int rs = H * D;
+  const bf16* qb = q + ((size_t)b * Sq * H + h) * D;
+  const bf16* ob = dout + ((size_t)b * Sq * H + h) * D;
+  const bf16* kb = k + ((size_t)b * Sk * H + h) * D;
+  const bf16* vb = v + ((size_t)b * Sk * H + h) * D;
+  const float* lse_b = lse + (size_t)bh * Sq;
+  const float* delta_b = delta + (size_t)bh * Sq;
 
-  load_rows<D>(Ks, k, b, k0, BKV, Sk, H, h);
-  load_rows<D>(Vs, v, b, k0, BKV, Sk, H, h);
-
-  float dk_acc[4][NC], dv_acc[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NC; ++j) { dk_acc[i][j] = 0.f; dv_acc[i][j] = 0.f; }
-
-  // Folded rows that can see a key of this tile.
+  // Query tiles with a row that can see a key of this tile.
   const int r_begin = causal ? k0 * q_rep : 0;
-  const int r_end = window > 0 ? min(Sq, (k0 + BKV - 1 + window) * q_rep) : Sq;
+  const int r_end =
+      window > 0 ? min(Sq, (k0 + KV_BK - 1 + window) * q_rep) : Sq;
+  const int i_begin = r_begin / KV_BQ, i_end = (r_end + KV_BQ - 1) / KV_BQ;
 
-  for (int r0 = (r_begin / BQ) * BQ; r0 < r_end; r0 += BQ) {
-    __syncthreads();  // previous tile's readers are done
-    load_rows<D>(Qs, q, b, r0, BQ, Sq, H, h);
-    load_rows<D>(dOs, dout, b, r0, BQ, Sq, H, h);
-    __syncthreads();
+  auto stage_of = [&](int st) { return sStage + st * SM::kStage; };
+  auto load_rows = [&](int st, int r0) {
+    const uint32_t s0 = stage_of(st);
+    attn::load_tile<KV_BQ, D, kThreads>(s0, qb, rs, r0, Sq, tid);
+    attn::load_tile<KV_BQ, D, kThreads>(s0 + SM::kRow, ob, rs, r0, Sq, tid);
+    attn::load_vec(s0 + 2 * SM::kRow, lse_b, r0, KV_BQ, Sq, tid);
+    attn::load_vec(s0 + 2 * SM::kRow + KV_BQ * 4, delta_b, r0, KV_BQ, Sq,
+                   tid - KV_BQ);
+  };
 
-    const RowInfo ri = row_info(r0, ty, bh, Sq, q_rep, lse, delta);
-    float s[4][2], dp[4][2], p[4][2], ds[4][2];
-    tile_scores<D>(Qs, dOs, Ks, Vs, ty, tx, s, dp);
-    tile_probs(s, dp, ri, k0, tx, Sk, causal, window, softcap, scale, p, ds);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        Ps[(ty * 4 + i) * PS + tx + 16 * j] = p[i][j];
-        dSs[(ty * 4 + i) * PS + tx + 16 * j] = ds[i][j];
-      }
-    __syncthreads();  // P and dS tiles complete
+  attn::load_tile<KV_BK, D, kThreads>(sK, kb, rs, k0, Sk, tid);
+  attn::load_tile<KV_BK, D, kThreads>(sV, vb, rs, k0, Sk, tid);
+  if (i_begin < i_end) load_rows(0, i_begin * KV_BQ);
+  attn::cp_async_commit();
 
-    for (int rr = 0; rr < BQ; ++rr) {
-      float pk[4], dsk[4];
+  // This thread's two keys (accumulator rows) and the tile columns (query
+  // rows) 8 j + col0 + {0, 1} it holds.
+  const int key_a = k0 + warp * 16 + (lane >> 2);
+  const int col0 = 2 * (lane & 3);
+
+  float acc[CH::kCount][CH::N / 2];  // dV (warpgroup 0) or dK (warpgroup 1)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pk[i] = Ps[rr * PS + warp * 4 + i];
-        dsk[i] = dSs[rr * PS + warp * 4 + i];
-      }
+  for (int c = 0; c < CH::kCount; ++c)
 #pragma unroll
-      for (int j = 0; j < NC; ++j) {
-        const float g = __bfloat162float(dOs[rr * DS + lane + 32 * j]);
-        const float x = __bfloat162float(Qs[rr * DS + lane + 32 * j]);
+    for (int i = 0; i < CH::N / 2; ++i) acc[c][i] = 0.f;
+
+  for (int it = i_begin; it < i_end; ++it) {
+    const int st = (it - i_begin) & 1;
+    const uint32_t sQ = stage_of(st), sdO = sQ + SM::kRow;
+    const float* rowdata =
+        reinterpret_cast<const float*>(gen + (sQ + 2 * SM::kRow - base));
+    attn::cp_async_land();  // tile it is in; every thread is done with it - 1
+    if (it + 1 < i_end) load_rows(st ^ 1, (it + 1) * KV_BQ);
+    attn::cp_async_commit();
+
+    const int r0 = it * KV_BQ;
+    const bool open = attn::tile_open(r0, min(r0 + KV_BQ, Sq) - 1, k0,
+                                      k0 + KV_BK - 1, Sk, q_rep, causal,
+                                      window);
+    float s[KV_BQ / 2] = {}, unused[2] = {};
+    uint32_t pa[1][KV_BQ / 16][4];
+    if (wg == 0) {
+      attn::wgmma_fence();
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          dv_acc[i][j] = fmaf(pk[i], g, dv_acc[i][j]);
-          dk_acc[i][j] = fmaf(dsk[i], x, dk_acc[i][j]);
+      for (int kk = 0; kk < D / 16; ++kk)
+        attn::wgmma_ss(s, attn::kmajor<KV_BK>(sK, 0, kk),
+                       attn::kmajor<KV_BQ>(sQ, 0, kk), kk > 0);
+      attn::wgmma_commit();
+      attn::wgmma_wait();
+      attn::fence_regs(s);
+#pragma unroll
+      for (int i = 0; i < KV_BQ / 2; ++i) {
+        const int col = (i >> 2) * 8 + col0 + (i & 1);
+        const int kp = key_a + 8 * ((i >> 1) & 1);
+        float x = s[i] * scale, t = 0.f;
+        if (softcap > 0.f) {
+          t = tanhf(x / softcap);
+          x = softcap * t;
         }
+        float p = expf(x - rowdata[col]);
+        if (!open) {
+          const int r = r0 + col;
+          if (r >= Sq || !attn::visible(r / q_rep, kp, Sk, causal, window))
+            p = 0.f;
+        }
+        g_tile[i * 128 + wtid] = softcap > 0.f ? p * (1.f - t * t) : p;
+        s[i] = p;
       }
+      __threadfence_block();
+      asm volatile("bar.arrive 1, 256;\n" ::: "memory");  // g is written
+      attn::to_a_terms(s, pa, unused);
+      attn::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KV_BQ / 16; ++kk)
+#pragma unroll
+        for (int c = 0; c < CH::kCount; ++c)
+          attn::wgmma_rs(acc[c], pa[0][kk],
+                         attn::mnmajor<KV_BQ>(sdO, c * CH::kPanels, kk), 1);
+    } else {
+      attn::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        attn::wgmma_ss(s, attn::kmajor<KV_BK>(sV, 0, kk),
+                       attn::kmajor<KV_BQ>(sdO, 0, kk), kk > 0);
+      attn::wgmma_commit();
+      attn::wgmma_wait();
+      attn::fence_regs(s);
+      asm volatile("bar.sync 1, 256;\n" ::: "memory");  // wait for g
+#pragma unroll
+      for (int i = 0; i < KV_BQ / 2; ++i) {
+        const int col = (i >> 2) * 8 + col0 + (i & 1);
+        s[i] = g_tile[i * 128 + wtid] * (s[i] - rowdata[KV_BQ + col]);
+      }
+      attn::to_a_terms(s, pa, unused);
+      attn::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KV_BQ / 16; ++kk)
+#pragma unroll
+        for (int c = 0; c < CH::kCount; ++c)
+          attn::wgmma_rs(acc[c], pa[0][kk],
+                         attn::mnmajor<KV_BQ>(sQ, c * CH::kPanels, kk), 1);
     }
+    attn::wgmma_commit();
+    attn::wgmma_wait();
+#pragma unroll
+    for (int c = 0; c < CH::kCount; ++c) attn::fence_regs(acc[c]);
+    attn::fence_regs(pa);
   }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 
+  bf16* dst = wg == 0 ? dv : dk;
+  const float mul = wg == 0 ? 1.f : scale;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kk = k0 + warp * 4 + i;
+  for (int rr = 0; rr < 2; ++rr) {
+    const int kk = key_a + 8 * rr;
     if (kk >= Sk) continue;
-    const size_t off = (((size_t)b * Sk + kk) * H + h) * D;
+    bf16* row = dst + (((size_t)b * Sk + kk) * H + h) * D + col0;
 #pragma unroll
-    for (int j = 0; j < NC; ++j) {
-      dk[off + lane + 32 * j] = __float2bfloat16(dk_acc[i][j] * scale);
-      dv[off + lane + 32 * j] = __float2bfloat16(dv_acc[i][j]);
-    }
+    for (int c = 0; c < CH::kCount; ++c)
+#pragma unroll
+      for (int j = 0; j < CH::N / 8; ++j) {
+        const int i = 4 * j + 2 * rr;
+        *reinterpret_cast<__nv_bfloat162*>(row + c * CH::N + 8 * j) =
+            __floats2bfloat162_rn(acc[c][i] * mul, acc[c][i + 1] * mul);
+      }
   }
 }
 
-template <int NJ>  // NJ = D / 16
-__global__ void __launch_bounds__(kThreads)
+template <int D>
+struct QSmem {
+  static constexpr int kRow = attn::Tile<Q_BQ, D>::kBytes;
+  static constexpr int kKey = attn::Tile<Q_BK, D>::kBytes;
+  static constexpr int kBytes = 2 * kRow + 4 * kKey + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
 bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
               const bf16* __restrict__ v, const bf16* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
               bf16* __restrict__ dq, int Sq, int Sk, int H, int q_rep,
               int causal, int window, float softcap, float scale) {
-  constexpr int D = NJ * 16;
-  constexpr int DS = D + 2;
-  constexpr int NC = D / 32;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* dOs = Qs + BQ * DS;
-  bf16* Ks = dOs + BQ * DS;
-  bf16* Vs = Ks + BKV * DS;
-  float* dSs = reinterpret_cast<float*>(Vs + BKV * DS);
+  using CH = Chunks<D>;
+  using SM = QSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (attn::smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base, sdO = sQ + SM::kRow, sK0 = sdO + SM::kRow;
+  const uint32_t sV0 = sK0 + 2 * SM::kKey;
 
   const int tid = threadIdx.x;
-  const int ty = tid >> 4, tx = tid & 15;
-  const int warp = tid >> 5, lane = tid & 31;
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H;
-  const int r0 = blockIdx.y * BQ;
+  const int r0 = (gridDim.y - 1 - blockIdx.y) * Q_BQ;  // longest tiles first
+  const int rs = H * D;
+  const bf16* qb = q + ((size_t)b * Sq * H + h) * D;
+  const bf16* ob = dout + ((size_t)b * Sq * H + h) * D;
+  const bf16* kb = k + ((size_t)b * Sk * H + h) * D;
+  const bf16* vb = v + ((size_t)b * Sk * H + h) * D;
 
-  load_rows<D>(Qs, q, b, r0, BQ, Sq, H, h);
-  load_rows<D>(dOs, dout, b, r0, BQ, Sq, H, h);
-  const RowInfo ri = row_info(r0, ty, bh, Sq, q_rep, lse, delta);
-
-  float dq_acc[8][NC];  // rows warp*8+i, columns lane+32j
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < NC; ++j) dq_acc[i][j] = 0.f;
-
-  // Key range any row of this tile can see (as in the forward).
-  const int last_row = min(r0 + BQ, Sq) - 1;
-  const int q_lo = r0 / q_rep, q_hi = last_row / q_rep;
+  // Key tiles any row of this CTA can see (as in the forward).
+  const int r_last = min(r0 + Q_BQ, Sq) - 1;
+  const int q_lo = r0 / q_rep, q_hi = r_last / q_rep;
   const int k_end = causal ? min(Sk, q_hi + 1) : Sk;
   const int k_begin = window > 0 ? max(0, q_lo - window + 1) : 0;
+  const int t_begin = k_begin / Q_BK, t_end = (k_end + Q_BK - 1) / Q_BK;
 
-  for (int t = k_begin / BKV; t * BKV < k_end; ++t) {
-    const int k0 = t * BKV;
-    __syncthreads();  // previous tile's readers are done
-    load_rows<D>(Ks, k, b, k0, BKV, Sk, H, h);
-    load_rows<D>(Vs, v, b, k0, BKV, Sk, H, h);
-    __syncthreads();
+  attn::load_tile<Q_BQ, D, kThreads>(sQ, qb, rs, r0, Sq, tid);
+  attn::load_tile<Q_BQ, D, kThreads>(sdO, ob, rs, r0, Sq, tid);
+  if (t_begin < t_end) {
+    attn::load_tile<Q_BK, D, kThreads>(sK0, kb, rs, t_begin * Q_BK, Sk, tid);
+    attn::load_tile<Q_BK, D, kThreads>(sV0, vb, rs, t_begin * Q_BK, Sk, tid);
+  }
+  attn::cp_async_commit();
 
-    float s[4][2], dp[4][2], p[4][2], ds[4][2];
-    tile_scores<D>(Qs, dOs, Ks, Vs, ty, tx, s, dp);
-    tile_probs(s, dp, ri, k0, tx, Sk, causal, window, softcap, scale, p, ds);
+  const int row_a = r0 + wg * 64 + warp * 16 + (lane >> 2);
+  const int col0 = 2 * (lane & 3);
+  const uint32_t q_rows = wg * 64 * 64;
+  int qpos[2];
+  float lse_r[2], delta_r[2];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) dSs[(ty * 4 + i) * PS + tx + 16 * j] = ds[i][j];
-    __syncthreads();  // dS tile complete
-
-    for (int kk = 0; kk < BKV; ++kk) {
-      float dsr[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) dsr[i] = dSs[(warp * 8 + i) * PS + kk];
-#pragma unroll
-      for (int j = 0; j < NC; ++j) {
-        const float kv = __bfloat162float(Ks[kk * DS + lane + 32 * j]);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) dq_acc[i][j] = fmaf(dsr[i], kv, dq_acc[i][j]);
-      }
-    }
+  for (int rr = 0; rr < 2; ++rr) {
+    const int r = row_a + 8 * rr;
+    qpos[rr] = r / q_rep;
+    lse_r[rr] = r < Sq ? lse[(size_t)bh * Sq + r] : 0.f;
+    delta_r[rr] = r < Sq ? delta[(size_t)bh * Sq + r] : 0.f;
   }
 
+  float acc[CH::kCount][CH::N / 2];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = r0 + warp * 8 + i;
+  for (int c = 0; c < CH::kCount; ++c)
+#pragma unroll
+    for (int i = 0; i < CH::N / 2; ++i) acc[c][i] = 0.f;
+
+  for (int t = t_begin; t < t_end; ++t) {
+    const int st = (t - t_begin) & 1;
+    const uint32_t sK = sK0 + st * SM::kKey, sV = sV0 + st * SM::kKey;
+    attn::cp_async_land();
+    if (t + 1 < t_end) {
+      const uint32_t nK = sK0 + (st ^ 1) * SM::kKey;
+      const uint32_t nV = sV0 + (st ^ 1) * SM::kKey;
+      attn::load_tile<Q_BK, D, kThreads>(nK, kb, rs, (t + 1) * Q_BK, Sk, tid);
+      attn::load_tile<Q_BK, D, kThreads>(nV, vb, rs, (t + 1) * Q_BK, Sk, tid);
+    }
+    attn::cp_async_commit();
+
+    float s[Q_BK / 2] = {}, dp[Q_BK / 2] = {};
+    attn::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      attn::wgmma_ss(s, attn::kmajor<Q_BQ>(sQ, q_rows, kk),
+                     attn::kmajor<Q_BK>(sK, 0, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      attn::wgmma_ss(dp, attn::kmajor<Q_BQ>(sdO, q_rows, kk),
+                     attn::kmajor<Q_BK>(sV, 0, kk), kk > 0);
+    attn::wgmma_commit();
+    attn::wgmma_wait();
+    attn::fence_regs(s);
+    attn::fence_regs(dp);
+
+    const int k0 = t * Q_BK;
+    const bool open = attn::tile_open(r0, r_last, k0, k0 + Q_BK - 1, Sk,
+                                      q_rep, causal, window);
+#pragma unroll
+    for (int i = 0; i < Q_BK / 2; ++i) {
+      const int rr = (i >> 1) & 1;
+      float x = s[i] * scale, t2 = 0.f;
+      if (softcap > 0.f) {
+        const float th = tanhf(x / softcap);
+        x = softcap * th;
+        t2 = th * th;
+      }
+      float p = expf(x - lse_r[rr]);
+      if (!open) {
+        const int kp = k0 + (i >> 2) * 8 + col0 + (i & 1);
+        if (!attn::visible(qpos[rr], kp, Sk, causal, window)) p = 0.f;
+      }
+      float d = p * (dp[i] - delta_r[rr]);
+      if (softcap > 0.f) d *= 1.f - t2;
+      s[i] = d;
+    }
+    uint32_t pa[1][Q_BK / 16][4];
+    float unused[2] = {};
+    attn::to_a_terms(s, pa, unused);
+    attn::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < Q_BK / 16; ++kk)
+#pragma unroll
+      for (int c = 0; c < CH::kCount; ++c)
+        attn::wgmma_rs(acc[c], pa[0][kk],
+                       attn::mnmajor<Q_BK>(sK, c * CH::kPanels, kk), 1);
+    attn::wgmma_commit();
+    attn::wgmma_wait();
+#pragma unroll
+    for (int c = 0; c < CH::kCount; ++c) attn::fence_regs(acc[c]);
+    attn::fence_regs(pa);
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int r = row_a + 8 * rr;
     if (r >= Sq) continue;
-    const size_t off = (((size_t)b * Sq + r) * H + h) * D;
+    bf16* row = dq + (((size_t)b * Sq + r) * H + h) * D + col0;
 #pragma unroll
-    for (int j = 0; j < NC; ++j)
-      dq[off + lane + 32 * j] = __float2bfloat16(dq_acc[i][j] * scale);
+    for (int c = 0; c < CH::kCount; ++c)
+#pragma unroll
+      for (int j = 0; j < CH::N / 8; ++j) {
+        const int i = 4 * j + 2 * rr;
+        *reinterpret_cast<__nv_bfloat162*>(row + c * CH::N + 8 * j) =
+            __floats2bfloat162_rn(acc[c][i] * scale, acc[c][i + 1] * scale);
+      }
   }
 }
 
-template <int NJ>
+template <int D>
 int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
            const bf16* dout, const float* lse, float* delta, bf16* dq,
            bf16* dk, bf16* dv, int B, int Sq, int Sk, int H, int q_rep,
-           int causal, int window, float softcap, float scale,
-           cudaStream_t stream) {
-  constexpr int D = NJ * 16;
-  constexpr size_t tile = (size_t)(D + 2) * sizeof(bf16);
-  const size_t smem_kv = 2 * BKV * tile + 2 * BQ * tile
-                         + 2 * (size_t)BQ * PS * sizeof(float);
-  const size_t smem_q = 2 * BQ * tile + 2 * BKV * tile
-                        + (size_t)BQ * PS * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      bwd_dkdv_kernel<NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem_kv);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(bwd_dq_kernel<NJ>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem_q);
-  if (err != cudaSuccess) return (int)err;
+           int causal, int window, int kv_tiles, int q_tiles, float softcap,
+           float scale, cudaStream_t stream) {
+  static int granted_kv[attn::kMaxDevices], granted_q[attn::kMaxDevices];
+  if (kv_tiles != (Sk + KV_BK - 1) / KV_BK
+      || q_tiles != (Sq + Q_BQ - 1) / Q_BQ)
+    return (int)cudaErrorInvalidValue;
+  int err = attn::grant_smem(bwd_dkdv_kernel<D>, KVSmem<D>::kBytes,
+                             granted_kv);
+  if (err == 0)
+    err = attn::grant_smem(bwd_dq_kernel<D>, QSmem<D>::kBytes, granted_q);
+  if (err != 0) return err;
 
   const int rows = B * Sq * H;
   const int warps = kThreads / 32;
   bwd_delta_kernel<<<(rows + warps - 1) / warps, kThreads, 0, stream>>>(
       o, dout, delta, rows, Sq, H, D);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid_kv(B * H, (Sk + BKV - 1) / BKV);
-  bwd_dkdv_kernel<NJ><<<grid_kv, kThreads, smem_kv, stream>>>(
-      q, k, v, dout, lse, delta, dk, dv, Sq, Sk, H, q_rep, causal, window,
-      softcap, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid_q(B * H, (Sq + BQ - 1) / BQ);
-  bwd_dq_kernel<NJ><<<grid_q, kThreads, smem_q, stream>>>(
-      q, k, v, dout, lse, delta, dq, Sq, Sk, H, q_rep, causal, window,
-      softcap, scale);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  bwd_dkdv_kernel<D><<<dim3(B * H, kv_tiles), kThreads, KVSmem<D>::kBytes,
+                       stream>>>(q, k, v, dout, lse, delta, dk, dv, Sq, Sk,
+                                 H, q_rep, causal, window, softcap, scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  bwd_dq_kernel<D><<<dim3(B * H, q_tiles), kThreads, QSmem<D>::kBytes,
+                     stream>>>(q, k, v, dout, lse, delta, dq, Sq, Sk, H,
+                               q_rep, causal, window, softcap, scale);
   return (int)cudaGetLastError();
 }
 
@@ -380,22 +463,27 @@ extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* delta, void* dq, void* dk,
     void* dv, int B, int Sq, int Sk, int H, int D, int q_rep, int causal,
-    int window, float softcap, float scale, void* stream) {
+    int window, int kv_tiles, int q_tiles, float softcap, float scale,
+    void* stream) {
   if (B * H == 0 || Sq == 0 || Sk == 0) return 0;
+  if (!attn::aligned16(q) || !attn::aligned16(k) || !attn::aligned16(v)
+      || !attn::aligned16(dout) || !attn::aligned16(dq)
+      || !attn::aligned16(dk) || !attn::aligned16(dv))
+    return (int)cudaErrorMisalignedAddress;
   auto s = static_cast<cudaStream_t>(stream);
-#define FA_BWD(NJ)                                                           \
-  launch<NJ>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),       \
-             static_cast<const bf16*>(v), static_cast<const bf16*>(o),       \
-             static_cast<const bf16*>(dout), static_cast<const float*>(lse), \
-             static_cast<float*>(delta), static_cast<bf16*>(dq),             \
-             static_cast<bf16*>(dk), static_cast<bf16*>(dv), B, Sq, Sk, H,   \
-             q_rep, causal, window, softcap, scale, s)
+#define FA_BWD(DIM)                                                          \
+  launch<DIM>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),      \
+              static_cast<const bf16*>(v), static_cast<const bf16*>(o),      \
+              static_cast<const bf16*>(dout), static_cast<const float*>(lse),\
+              static_cast<float*>(delta), static_cast<bf16*>(dq),            \
+              static_cast<bf16*>(dk), static_cast<bf16*>(dv), B, Sq, Sk, H,  \
+              q_rep, causal, window, kv_tiles, q_tiles, softcap, scale, s)
   switch (D) {
-    case 64: return FA_BWD(4);
-    case 128: return FA_BWD(8);
-    case 192: return FA_BWD(12);
-    case 256: return FA_BWD(16);
-    case 288: return FA_BWD(18);
+    case 64: return FA_BWD(64);
+    case 128: return FA_BWD(128);
+    case 192: return FA_BWD(192);
+    case 256: return FA_BWD(256);
+    case 288: return FA_BWD(288);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef FA_BWD

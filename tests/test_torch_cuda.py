@@ -399,3 +399,76 @@ def test_decode_rejects_unaligned_rows(dev):
     with pytest.raises(ValueError, match="16-byte aligned"):
         pfd.packed_flash_decode(q, shifted, kp.bases, vp.payload, vp.bases,
                                 pos, f)
+
+
+def _attention_inputs(dev, seed, B, S, KH, hd, rep):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = (torch.randn((B, S * rep, KH, hd), generator=g, device=dev) * 3
+         ).to(torch.bfloat16)
+    k, v = (torch.randn((B, S, KH, hd), generator=g, device=dev)
+            .to(torch.bfloat16) for _ in range(2))
+    do = torch.randn((B, S * rep, KH, hd), generator=g, device=dev).to(
+        torch.bfloat16)
+    return q, k, v, do
+
+
+def _plain_lse(q, k, hd, rep, window, softcap):
+    """(B*KH, S*rep) log-sum-exp of the plain version's masked logits."""
+    B, Sq, KH, _ = q.shape
+    qh, kh = (x.float().permute(0, 2, 1, 3) for x in (q, k))
+    logits = qh @ kh.transpose(-1, -2) / hd ** 0.5
+    if softcap is not None:
+        logits = softcap * torch.tanh(logits / softcap)
+    vis = fa.visible_mask(Sq, k.shape[1], rep, True, window, q.device)
+    logits = torch.where(vis, logits, ref.NEG_INF)
+    return torch.logsumexp(logits, -1).reshape(B * KH, Sq)
+
+
+@pytest.mark.parametrize("hd", fa.HEAD_DIMS)
+@pytest.mark.parametrize("S,rep,window", [(70, 1, None), (129, 2, None),
+                                          (70, 2, 24), (129, 1, 24)])
+def test_flash_attention_tc_every_head_dim(dev, hd, S, rep, window):
+    """Every head dim the kernels are built for, S not a multiple of any
+    tile: the forward within one bf16 ulp of plain, its log-sum-exp
+    against torch.logsumexp of the plain logits, dq/dk/dv within 2^-6 of
+    each gradient's largest element."""
+    B, KH = 2, 2
+    q, k, v, do = _attention_inputs(dev, 13, B, S, KH, hd, rep)
+    kw = dict(causal=True, window=window, softcap=50.0, q_rep=rep)
+    o, lse = fa._forward(q, k, v, True, window, 50.0, rep, with_lse=True)
+    _close(o, fa.plain(q, k, v, **kw))
+    torch.testing.assert_close(lse, _plain_lse(q, k, hd, rep, window, 50.0),
+                               atol=1e-4, rtol=1e-5)
+    got = fa.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    for a, b in zip(got, fa.plain_bwd(q, k, v, do, **kw)):
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= 2 ** -6 * b.float().abs().max().item(), err
+
+
+@pytest.mark.parametrize("hd,window,softcap", [(64, None, None),
+                                               (288, None, 50.0),
+                                               (288, 24, 50.0)])
+def test_flash_attention_deterministic_and_batch_invariant(dev, hd, window,
+                                                           softcap):
+    """Two launches on the same inputs are bit-equal, and each batch row
+    launched alone is bit-equal to the same row inside the batch, forward
+    (output and log-sum-exp) and backward (no floating-point atomics; a
+    CTA's work depends on its own rows only)."""
+    B, KH, S, rep = 3, 2, 129, 2
+    q, k, v, do = _attention_inputs(dev, 14, B, S, KH, hd, rep)
+    kw = dict(causal=True, window=window, softcap=softcap, q_rep=rep)
+
+    def run(sl):
+        a, b_, c, g = (t[sl].contiguous() for t in (q, k, v, do))
+        o, lse = fa._forward(a, b_, c, True, window, softcap, rep,
+                             with_lse=True)
+        return (o, lse, *fa.flash_attention_bwd(a, b_, c, o, g, lse, **kw))
+
+    full, again = run(slice(None)), run(slice(None))
+    for x, y in zip(full, again):
+        assert torch.equal(x, y)
+    for r in range(B):
+        alone = run(slice(r, r + 1))
+        for i, (x, y) in enumerate(zip(alone, full)):
+            want = y[r * KH:(r + 1) * KH] if i == 1 else y[r:r + 1]
+            assert torch.equal(x, want), (r, i)
