@@ -1,9 +1,16 @@
 """Chip smoke test of the PyTorch port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phase gecko [--src DIR]
 
-1. Prints the card (nvidia-smi name, power limit) and builds the CUDA
-   kernels from ``src/repro_torch/csrc``.
+The second form runs only the Gecko kernel checks and timings of step 5
+against the ``repro_torch`` package under DIR (default: this checkout's
+``src``), so two trees can be timed by the same code on one card.
+
+1. Prints the card (nvidia-smi name, power limit), builds the CUDA
+   kernels from ``src/repro_torch/csrc`` and times a launch floor: a
+   one-element fill by the same timer as the kernels, which a one-token
+   pack cannot beat.
 2. Holds each kernel against its plain PyTorch version on the card, at the
    shapes the serving and training paths give it, and times both: the
    fixed-lane kernels at sfp8/sfp16, the dense bit-plane kernels at
@@ -36,12 +43,15 @@
    bit_exact`` at 4 layers, which run the mantissa_quantize kernel, and
    prints the stash's footprint in the paper's variable-length accounting.
 5. Gecko: holds gecko_pack and gecko_unpack byte for byte against their
-   plain versions on four families of exponent groups and times them at
-   the stash shape; trains 4 steps with ``--policy qm+qe --container
-   gecko8`` on the kernel path, the plain path and a witness with only
-   attention plain, then one step from low bits, printing the realized
-   gecko8 stash footprint and the Gecko exponent ratio of each run's
-   stash; serves from a gecko8 cache (the unpack fallback), kernel path
+   plain versions on four families of exponent groups, and at G off the
+   kernels' 32-group warp tile, and times them at the stash shape and
+   the decode shapes (the pack at one token, both over the whole cache),
+   each with its GB/s and share of the byte bound, and again after a
+   flush that leaves L2 clean; trains 4 steps with ``--policy qm+qe
+   --container gecko8`` on the kernel path, the plain path and a witness
+   with only attention plain, then one step from low bits, printing the
+   realized gecko8 stash footprint and the Gecko exponent ratio of each
+   run's stash; serves from a gecko8 cache (the unpack fallback), kernel path
    against plain path and against a raw bf16 cache, whose K/V the
    unpacked gecko8 cache must equal bit for bit after every decode step.
 6. Paged serving (continuous batching): holds the paged decode kernel
@@ -65,6 +75,7 @@ Any failure exits non-zero. The last line is the device JSON.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import statistics
@@ -163,8 +174,10 @@ DENSE_LOW_BITS = {"qm": 1.5, "qe": 3.5}
 # mantissa bits in a byte, the exponents delta-coded in 8x8 groups). Its
 # kernels are held to their plain versions on four families of (G, 64)
 # exponent groups; the ragged G (not a multiple of 128, nor of the
-# kernels' 32-group tile) is the stash's groups cut short.
+# kernels' 32-group warp tile) is the stash's groups cut short: to 147,399
+# and to 47 (one full tile and a ragged one).
 GECKO, GECKO_RAGGED_G, GECKO_UNIFORM_G = "gecko8", 147_399, 4099
+GECKO_SMALL_G = 47
 # Paged serving. Pool rows of 1280 slots (10 blocks of 128); the kernel
 # checks put 8 rows at positions spread over 0-1279 (the last row idle on
 # the trash block). The trace: 12 requests from launch.serve's make_trace
@@ -214,17 +227,22 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, *, reps: int, flush=None) -> float:
+def time_ms(torch, fn, *, reps: int, flush=None, clean=False) -> float:
     """Mean device time of ``fn`` in ms by CUDA events, after a warm-up.
     ``flush`` (a large tensor) is overwritten before each launch so every
-    launch finds its inputs out of L2, as in the serving loop. A device
-    sleep queued ahead of the start event keeps the card busy while the
-    host enqueues ``fn``, so host overhead stays out of the window."""
+    launch finds its inputs out of L2, as in the serving loop; the lines it
+    leaves are dirty, so ``fn`` also pays for writing back up to as many
+    bytes as it moves. ``clean`` reads the flush buffer instead, which
+    leaves clean lines. A device sleep queued ahead of the start event
+    keeps the card busy while the host enqueues ``fn``, so host overhead
+    stays out of the window."""
     fn()
     torch.cuda.synchronize()
     total = 0.0
     for _ in range(reps):
-        if flush is not None:
+        if flush is not None and clean:
+            flush.view(torch.int64).sum()
+        elif flush is not None:
             flush.zero_()
         torch.cuda._sleep(SLEEP_CYCLES)
         e0 = torch.cuda.Event(enable_timing=True)
@@ -298,10 +316,17 @@ def decode_note(plan, rows, kv_heads, bound_ms, ms):
             f"{plan.threads} threads); {gbps:.1f} GB/s")
 
 
+def rate(ms, nbytes):
+    """The bytes the function must move over the kernel's time, in GB/s,
+    and the share of the byte bound that time reaches."""
+    b_ms, _ = bound(0, nbytes)
+    return nbytes / ms / 1e6, b_ms / ms
+
+
 def decode_shape(torch, name, r, call, plain, nbytes, what, flush):
     """Hold a pack kernel to its plain version at the shape a decode step
     gives it, time it there, and add both to its entry's note (its entry
-    is timed at the prefill or stash shape)."""
+    is timed at the prefill or stash shape). Returns the time in ms."""
     got, want = call(), plain()
     torch.cuda.synchronize()
     if not all(torch.equal(a, b) for a, b in zip(got, want)):
@@ -309,9 +334,19 @@ def decode_shape(torch, name, r, call, plain, nbytes, what, flush):
              f"plain version")
     ms = time_ms(torch, call, reps=50, flush=flush)
     b_ms, _ = bound(0, nbytes)
-    note = f"at the decode shape ({what}): {ms:.5f} ms, bound {b_ms:.4g} ms"
+    gbps, share = rate(ms, nbytes)
+    note = (f"at the decode shape ({what}): {ms:.5f} ms, bound {b_ms:.4g} "
+            f"ms, {gbps:.4g} GB/s, {100 * share:.3g}% of the bound")
     print(f"  {name} {note}")
     r["note"] = f"{r['note']}; {note}" if "note" in r else note
+    return ms
+
+
+def launch_floor_ms(torch, flush):
+    """A one-element fill timed like the kernels (device sleep ahead, L2
+    flushed): the least time the timer reports for any launch."""
+    one = torch.empty(1, device="cuda")
+    return time_ms(torch, lambda: one.fill_(1.0), reps=50, flush=flush)
 
 
 def attention_note(plan, heads, flops, r):
@@ -831,8 +866,11 @@ def gecko_kernels(torch, cfg, gen, flush, results):
     (deltas over the full -255..255, with 0 and 255 in one column), the
     bf16 exponents of a stash-shaped (B, S, d) normal tensor (G =
     147,456), the same after truncate_exponent at e = 3 and e = 4, and G
-    not a multiple of 128 (the uniform family's 4099 groups and the stash
-    cut to 147,399). Both are timed at the stash shape."""
+    not a multiple of the kernels' 32-group warp tile (the uniform
+    family's 4099 groups, the stash cut to 147,399 and to 47). Both are
+    timed at the stash shape and at the decode shapes: the pack at one
+    token, both over the whole cache. Returns each timing with its GB/s
+    and share of the byte bound, and its time after a clean flush."""
     from repro_torch.core import containers
     from repro_torch.kernels import gecko_pack as gp
     from repro_torch.kernels import ops
@@ -851,7 +889,8 @@ def gecko_kernels(torch, cfg, gen, flush, results):
         "uniform": uniform, "stash bf16": stash,
         "stash e=3": groups(containers.truncate_exponent(x, 3)),
         "stash e=4": groups(containers.truncate_exponent(x, 4)),
-        "stash ragged": stash[:GECKO_RAGGED_G]}
+        "stash ragged": stash[:GECKO_RAGGED_G],
+        "stash short": stash[:GECKO_SMALL_G]}
     widths = {}
     for name, e in families.items():
         got = gp.gecko_pack(e)
@@ -874,47 +913,74 @@ def gecko_kernels(torch, cfg, gen, flush, results):
     print("  gecko_pack / gecko_unpack byte-equal to their plain versions: "
           + json.dumps(widths))
 
+    # Each group: 64 exponent bytes one way; 8 bases + 7 widths + 63 plane
+    # bytes (pack) or 8 bases + 63 plane bytes (unpack) the other.
+    pack_bytes, unpack_bytes = 64 + 8 + 7 + 63, 8 + 63 + 64
+    timings = {}
+
+    def record(name, what, ms, nbytes, call):
+        """Keep a timing with its rate, and time ``call`` again after a
+        flush that leaves L2 clean."""
+        gbps, share = rate(ms, nbytes)
+        clean = time_ms(torch, call, reps=50, flush=flush, clean=True)
+        clean_gbps, clean_share = rate(clean, nbytes)
+        timings[f"{name}, {what}"] = {
+            "ms": ms, "GB/s": gbps, "share_of_bound": share,
+            "clean_l2_ms": clean, "clean_l2_share": clean_share}
+        print(f"  {name}, {what}, after a clean flush: {clean:.5f} ms, "
+              f"{clean_gbps:.2f} GB/s, {clean_share:.2%} of the bound")
+
     G = stash.shape[0]
     kb, _, kp = gp.gecko_pack(stash)
     note = "no single PyTorch call computes the Gecko plane encode/decode"
     results["gecko_pack"] = dict(
         path="train gecko8", replaces="src/repro/kernels/gecko_pack.py:71",
         source="src/repro_torch/csrc/gecko_pack.cu", max_abs_err=0.0,
-        ms=time_ms(torch, lambda: gp.gecko_pack(stash), reps=20, flush=flush),
+        ms=time_ms(torch, lambda: gp.gecko_pack(stash), reps=50, flush=flush),
         plain_ms=time_ms(torch, lambda: gp.plain(stash), reps=5, flush=flush),
         library_ms=None, note=note)
     results["gecko_unpack"] = dict(
         path="train gecko8", replaces="src/repro/kernels/gecko_pack.py:109",
         source="src/repro_torch/csrc/gecko_pack.cu", max_abs_err=0.0,
-        ms=time_ms(torch, lambda: gp.gecko_unpack(kb, kp), reps=20,
+        ms=time_ms(torch, lambda: gp.gecko_unpack(kb, kp), reps=50,
                    flush=flush),
         plain_ms=time_ms(torch, lambda: gp.plain_unpack(kb, kp), reps=5,
                          flush=flush),
         library_ms=None, note=note)
-    # Each group: 64 exponent bytes one way; 8 bases + 7 widths + 63 plane
-    # bytes (pack) or 8 bases + 63 plane bytes (unpack) the other.
-    results["gecko_pack"]["bound_ms"], results["gecko_pack"]["bound_by"] = \
-        bound(0, G * (64 + 8 + 7 + 63))
-    results["gecko_unpack"]["bound_ms"], \
-        results["gecko_unpack"]["bound_by"] = bound(0, G * (8 + 63 + 64))
+    for name, nbytes, call in (
+            ("gecko_pack", pack_bytes, lambda: gp.gecko_pack(stash)),
+            ("gecko_unpack", unpack_bytes, lambda: gp.gecko_unpack(kb, kp))):
+        r = results[name]
+        r["bound_ms"], r["bound_by"] = bound(0, G * nbytes)
+        gbps, share = rate(r["ms"], G * nbytes)
+        print(f"  {name} at the stash shape ({G} groups): {r['ms']:.5f} "
+              f"ms, bound {r['bound_ms']:.4g} ms, {gbps:.2f} GB/s, "
+              f"{share:.2%} of the bound")
+        record(name, f"stash, {G} groups", r["ms"], G * nbytes, call)
     # Serving from a gecko8 cache, each decode step packs one token's K and
     # V exponents and unpacks each layer's whole cache (B 4 x 1152 slots).
     D = cfg.n_kv_heads * cfg.head_dim_
     L = -(-(PROMPT + MAX_NEW) // ops.DECODE_BLOCK_L) * ops.DECODE_BLOCK_L
     tok = groups(x[:, :1, :D].contiguous())
-    decode_shape(torch, "gecko_pack", results["gecko_pack"],
-                 lambda: gp.gecko_pack(tok), lambda: gp.plain(tok),
-                 tok.shape[0] * (64 + 8 + 7 + 63),
-                 f"B {B}, one token, {tok.shape[0]} groups", flush)
     cache = groups(torch.randn((B, L, D), generator=gen, device=dev).to(
         torch.bfloat16))
     cb, _, cp = gp.gecko_pack(cache)
-    decode_shape(torch, "gecko_unpack", results["gecko_unpack"],
-                 lambda: (gp.gecko_unpack(cb, cp),),
-                 lambda: (gp.plain_unpack(cb, cp),),
-                 cache.shape[0] * (8 + 63 + 64),
-                 f"the whole cache, B {B} x {L} slots, {cache.shape[0]} "
-                 f"groups", flush)
+    one = f"one token, {tok.shape[0]} groups"
+    whole = f"whole cache, {cache.shape[0]} groups"
+    for name, what, shape, call, plain, nbytes in (
+            ("gecko_pack", one, f"B {B}, {one}", lambda: gp.gecko_pack(tok),
+             lambda: gp.plain(tok), tok.shape[0] * pack_bytes),
+            ("gecko_pack", whole, f"the {whole}, B {B} x {L} slots",
+             lambda: gp.gecko_pack(cache), lambda: gp.plain(cache),
+             cache.shape[0] * pack_bytes),
+            ("gecko_unpack", whole, f"the {whole}, B {B} x {L} slots",
+             lambda: (gp.gecko_unpack(cb, cp),),
+             lambda: (gp.plain_unpack(cb, cp),),
+             cache.shape[0] * unpack_bytes)):
+        ms = decode_shape(torch, name, results[name], call, plain, nbytes,
+                          shape, flush)
+        record(name, what, ms, nbytes, call)
+    return timings
 
 
 def stream_agreement(torch, toks, ref, what):
@@ -1750,10 +1816,17 @@ def bit_exact_run(torch, cfg, counters):
              "launches_per_step": expect}, total_launches(records))
 
 
-def main() -> int:
-    if not (SRC / "repro_torch").is_dir():
-        fail(f"{SRC / 'repro_torch'} not found: run from a checkout")
-    sys.path.insert(0, str(SRC))
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phase", choices=("all", "gecko"), default="all",
+                    help="gecko: only the Gecko kernel checks and timings")
+    ap.add_argument("--src", type=Path, default=SRC,
+                    help="the directory holding the repro_torch package")
+    args = ap.parse_args(argv)
+    src = args.src.resolve()
+    if not (src / "repro_torch").is_dir():
+        fail(f"{src / 'repro_torch'} not found: run from a checkout")
+    sys.path.insert(0, str(src))
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a GPU")
@@ -1784,6 +1857,14 @@ def main() -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    floor_ms = launch_floor_ms(torch, flush)
+    print(f"launch floor (a one-element fill, same timer): {floor_ms:.5f} ms")
+    if args.phase == "gecko":
+        timings = gecko_kernels(torch, cfg, gen, flush, {})
+        print(card)
+        print(json.dumps({"tree": str(src), "card": card,
+                          "launch_floor_ms": floor_ms, "gecko": timings}))
+        return 0
     counters = (sp.sfp_pack, sp.sfp_quantize_pack, sp.sfp_unpack,
                 bp.bitplane_pack, bp.bitplane_quantize_pack,
                 bp.bitplane_unpack, mq.mantissa_quantize,
@@ -1856,6 +1937,9 @@ def main() -> int:
         if name in ("gecko_pack", "gecko_unpack"):
             r["note"] += (f"; {path_launches['serve gecko8'][name]} launches "
                           f"per generate from a gecko8 KV cache")
+        if name in ("sfp_pack", "bitplane_pack", "gecko_pack"):
+            r["note"] += (f"; launch floor {floor_ms:.5f} ms (a one-element "
+                          f"fill, same timer)")
         kernels.append(dict(name=name, route="cuda", source=r["source"],
                             replaces=r["replaces"],
                             launches=path_launches[path][name], path=path,

@@ -39,11 +39,11 @@
 //    shared memory to an odd count of 16-byte units (no bank conflicts on
 //    16-byte reads); the wrapper raises on rows that are not 16-byte
 //    aligned.
-// 3. Dense planes by a register SWAR transpose (the JAX package's
-//    _reg_transpose8, Hacker's Delight delta-swaps): a 32-feature chunk of
-//    one slot is uint32 c % 4 of each plane row of group c / 4; one thread
-//    turns its P' (<= 8) plane words into 32 payload bytes with 12 masked
-//    swaps, and P' > 8 takes a second transpose for the high bytes. A
+// 3. Dense planes by a register SWAR transpose (transpose8 in swar.cuh:
+//    the JAX package's _reg_transpose8, Hacker's Delight delta-swaps): a
+//    32-feature chunk of one slot is uint32 c % 4 of each plane row of
+//    group c / 4; one thread turns its P' (<= 8) plane words into 32
+//    payload bytes with 12 masked swaps, and P' > 8 takes a second transpose for the high bytes. A
 //    draft loads only planes P - P' .. P - 1 as rows 0 .. P' - 1, which
 //    are the P'-bit words of the narrow geometry: fewer bytes read.
 // 4. Balanced math: hd threads (hd % 32 == 0), warp c owning 32-feature
@@ -69,6 +69,7 @@
 #include <type_traits>
 
 #include "sfp_common.cuh"
+#include "swar.cuh"
 
 namespace {
 
@@ -90,49 +91,10 @@ __device__ __forceinline__ bool slot_valid(int slot, int pos, int L,
   return kpos >= 0 && kpos <= pos && kpos > pos - window;
 }
 
-// 16-byte asynchronous copy; bytes past src_bytes are filled with zeros.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(s), "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
 // Index of the k-th set bit of m (k counts from 0).
 __device__ __forceinline__ int nth_set(unsigned m, int k) {
   for (; k > 0; --k) m &= m - 1u;
   return __ffs(m) - 1;
-}
-
-// SWAR 8x8 bit-matrix transpose of 4 byte-matrices side by side: on entry
-// byte i of x[p] is row p of matrix i, on exit byte i of x[j] is its
-// column j (ref._reg_transpose8 of the JAX package).
-__device__ __forceinline__ void delta_swap(uint32_t& a, uint32_t& b, int sh,
-                                           uint32_t mask) {
-  const uint32_t t = (a ^ (b << sh)) & mask;
-  a ^= t;
-  b ^= t >> sh;
-}
-__device__ __forceinline__ void transpose8(uint32_t x[8]) {
-  delta_swap(x[0], x[1], 1, 0xAAAAAAAAu);
-  delta_swap(x[2], x[3], 1, 0xAAAAAAAAu);
-  delta_swap(x[4], x[5], 1, 0xAAAAAAAAu);
-  delta_swap(x[6], x[7], 1, 0xAAAAAAAAu);
-  delta_swap(x[0], x[2], 2, 0xCCCCCCCCu);
-  delta_swap(x[1], x[3], 2, 0xCCCCCCCCu);
-  delta_swap(x[4], x[6], 2, 0xCCCCCCCCu);
-  delta_swap(x[5], x[7], 2, 0xCCCCCCCCu);
-  delta_swap(x[0], x[4], 4, 0xF0F0F0F0u);
-  delta_swap(x[1], x[5], 4, 0xF0F0F0F0u);
-  delta_swap(x[2], x[6], 4, 0xF0F0F0F0u);
-  delta_swap(x[3], x[7], 4, 0xF0F0F0F0u);
 }
 
 // After transpose8, byte i of y[j] is the payload byte of lane 8i + j.

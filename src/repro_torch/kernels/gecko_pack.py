@@ -2,11 +2,14 @@
 their plain versions.
 
 Replace the TPU kernels ``src/repro/kernels/gecko_pack.py:gecko_pack`` and
-``gecko_unpack``. The kernels are in ``csrc/gecko_pack.cu`` (a block of
-256 threads per tile of 32 groups, staged through shared memory, one
-thread per (group, row)); any group count G works, with no padding. Both
-are bound by memory on the H100: 64 + 78 bytes per group for the pack,
-71 + 64 for the unpack.
+``gecko_unpack``. The kernels are in ``csrc/gecko_pack.cu``: a lane per
+group, each row's planes built or read by a register SWAR bit transpose and
+byte-SIMD deltas, warps striding over 32-group tiles staged through shared
+memory with 16-byte ``cp.async`` copies, two tiles in flight. Any group
+count G works, with no padding. Both are bound by memory on the H100: 64 +
+78 bytes per group for the pack, 71 + 64 for the unpack.
+``ref.gecko_plane_{encode,decode}_swar`` mirror their arithmetic on the
+CPU, for the tests.
 """
 from __future__ import annotations
 

@@ -3,9 +3,10 @@
 They repeat the arithmetic of the JAX package's oracles
 (``repro.kernels.ref``): mantissa truncation, the SFP word machine (with
 the fused Q(M, n)) stored as fixed-lane words or as dense bit planes,
-Gecko's exponent plane encode and decode, the ring-slot validity mask,
-the packed decode's block recurrence (contiguous and paged, full width
-or the draft's leading-bit prefix) and dense attention.
+Gecko's exponent plane encode and decode (beside a step-for-step mirror
+of its CUDA kernels' SWAR arithmetic, for the tests), the ring-slot
+validity mask, the packed decode's block recurrence (contiguous and
+paged, full width or the draft's leading-bit prefix) and dense attention.
 The CPU path runs them, the tests hold them against the JAX package, and
 ``chip_smoke.py`` holds each CUDA kernel against them on the card.
 """
@@ -284,6 +285,13 @@ def plane_unpack_words(planes: torch.Tensor, payload_bits: int
     return w.reshape(*lead, GROUP)
 
 
+def _delta_swap(a, b, sh: int, mask: int):
+    """The bits of b under mask >> sh trade places with those of a under
+    mask (``delta_swap`` of csrc/swar.cuh)."""
+    t = (a ^ (b << sh)) & mask
+    return a ^ t, b ^ (t >> sh)
+
+
 def _swar_transpose8(x):
     """SWAR 8x8 bit-matrix transpose (Hacker's Delight delta-swaps) of 8
     int64 tensors holding uint32 values, 4 byte-matrices side by side:
@@ -294,8 +302,7 @@ def _swar_transpose8(x):
                             (2, 0xCCCCCCCC, ((0, 2), (1, 3), (4, 6), (5, 7))),
                             (4, 0xF0F0F0F0, ((0, 4), (1, 5), (2, 6), (3, 7)))):
         for i, j in pairs:
-            t = (x[i] ^ (x[j] << sh)) & mask
-            x[i], x[j] = x[i] ^ t, x[j] ^ (t >> sh)
+            x[i], x[j] = _delta_swap(x[i], x[j], sh, mask)
     return x
 
 
@@ -457,6 +464,193 @@ def gecko_plane_decode(bases: torch.Tensor, planes: torch.Tensor
     (``base + delta`` wraps to a byte): the function of ``gecko_unpack``."""
     return gecko_decode_block(bases.to(torch.int32),
                               planes.to(torch.int32)).to(torch.uint8)
+
+
+# The gecko_pack / gecko_unpack kernels' SWAR arithmetic (csrc/gecko_pack.cu,
+# swar.cuh) step for step, on uint32 words held in int64 tensors: the
+# byte-SIMD intrinsics, the 8x8 bit transpose, the assembly of a group's
+# 63-byte record and its unaligned reads and writes in a warp tile's
+# shared-memory slot (32 groups, one a lane). For the tests: equal to
+# gecko_plane_encode / gecko_plane_decode; the kernels can only be run on
+# the card.
+
+GECKO_TILE = 32                       # groups a warp tile
+_U32 = 0xFFFFFFFF
+
+
+def _lanes4(x):
+    return [(x >> (8 * i)) & 0xFF for i in range(4)]
+
+
+def _word(b):
+    return b[0] | (b[1] << 8) | (b[2] << 16) | (b[3] << 24)
+
+
+def _vadd4(a, b):
+    return _word([(x + y) & 0xFF for x, y in zip(_lanes4(a), _lanes4(b))])
+
+
+def _vabsdiffu4(a, b):
+    return _word([(x - y).abs() for x, y in zip(_lanes4(a), _lanes4(b))])
+
+
+def _vcmpltu4(a, b):
+    return _word([(x < y).to(torch.int64) * 0xFF
+                  for x, y in zip(_lanes4(a), _lanes4(b))])
+
+
+def _bitlength8(v):
+    """``32 - __clz(v)`` for v in 0..255."""
+    return sum(((v >> b) != 0).to(torch.int64) for b in range(8))
+
+
+def _funnelshift_r(lo, hi, sh: int):
+    return lo if sh == 0 else ((lo >> sh) | (hi << (32 - sh))) & _U32
+
+
+def _funnelshift_l(lo, hi, sh: int):
+    return hi if sh == 0 else ((hi << sh) | (lo >> (32 - sh))) & _U32
+
+
+def _byte_perm(a, b, sel: int):
+    src = _lanes4(a) + _lanes4(b)
+    return _word([src[(sel >> (4 * k)) & 7] for k in range(4)])
+
+
+def _delta_swap1(x, sh: int, mask: int):
+    t = (x ^ (x >> sh)) & mask
+    return (x ^ t ^ (t << sh)) & _U32
+
+
+def _transpose8x8(lo, hi):
+    """``transpose8x8``: one 8x8 bit matrix, rows 0-3 in lo, 4-7 in hi."""
+    lo = _delta_swap1(lo, 7, 0x00AA00AA)
+    hi = _delta_swap1(hi, 7, 0x00AA00AA)
+    lo = _delta_swap1(lo, 14, 0x0000CCCC)
+    hi = _delta_swap1(hi, 14, 0x0000CCCC)
+    return _delta_swap(lo, hi, 4, 0xF0F0F0F0)
+
+
+def _movemask4(m):
+    return ((m & 0x01010101) * 0x10204080 & _U32) >> 28
+
+
+def _spread4(x):
+    return ((x * 0x00204081) & 0x01010101) * 0xFF
+
+
+def _put_row(R, r: int, s, lo, hi):
+    w, q = 9 * r // 4, 8 * ((9 * r) % 4)
+    v0 = _byte_perm(s, lo, 0x6540)
+    v1 = _byte_perm(lo, hi, 0x6543)
+    v2 = hi >> 24
+    R[w] = R[w] | ((v0 << q) & _U32)
+    R[w + 1] = R[w + 1] | _funnelshift_l(v0, v1, q)
+    R[w + 2] = R[w + 2] | _funnelshift_l(v1, v2, q)
+
+
+def _get_row(R, r: int):
+    w, q = (9 * r + 1) // 4, 8 * ((9 * r + 1) % 4)
+    s = (R[9 * r // 4] >> (8 * ((9 * r) % 4))) & 0xFF
+    return s, _funnelshift_r(R[w], R[w + 1], q), _funnelshift_r(
+        R[w + 1], R[w + 2], q)
+
+
+def _load_record(slot, o: int, n: int):
+    """``load_record``: the n words of the (4n - 1)-byte record at byte o
+    of every tile's slot (T, bytes), from n + 1 aligned words."""
+    a0 = o & ~3
+    w = [_word([slot[:, a0 + 4 * j + i] for i in range(4)])
+         for j in range(n + 1)]
+    return [_funnelshift_r(w[m], w[m + 1], 8 * (o & 3)) for m in range(n)]
+
+
+def _store_record(slot, o: int, R) -> None:
+    """``store_record``: aligned interior words and three edge bytes."""
+    n, h = len(R), (-o) & 3
+    for m in range(n - 1):
+        for i, b in enumerate(_lanes4(_funnelshift_r(R[m], R[m + 1],
+                                                     8 * h))):
+            slot[:, o + h + 4 * m + i] = b
+    for e in range(3):
+        if e < h:
+            slot[:, o + e] = (R[0] >> (8 * e)) & 0xFF
+        else:
+            slot[:, o + 4 * n - 4 + e] = (R[n - 1] >> (8 * e)) & 0xFF
+
+
+def _tiles(rows: torch.Tensor, cols: int) -> torch.Tensor:
+    """(G, cols) bytes -> (T, 32 * cols) int64 warp tiles; the lanes past G
+    hold zeros."""
+    G = rows.shape[0]
+    t = torch.zeros((-(-G // GECKO_TILE) * GECKO_TILE, cols),
+                    dtype=torch.int64)
+    t[:G] = rows.cpu()
+    return t.reshape(-1, GECKO_TILE * cols)
+
+
+def _untile(words, G: int) -> torch.Tensor:
+    """(T, 32) words (one per lane) in order -> (G, 4 * len(words)) uint8."""
+    b = torch.stack([torch.stack(_lanes4(w), -1) for w in words], -2)
+    return b.reshape(-1, 4 * len(words))[:G].to(torch.uint8)
+
+
+def gecko_plane_encode_swar(groups: torch.Tensor):
+    """``gecko_pack``'s arithmetic: (G, 64) uint8 -> uint8 (bases (G, 8),
+    widths (G, 7), planes (G, 63)), equal to ``gecko_plane_encode``."""
+    G = groups.shape[0]
+    b = _tiles(groups, GECKO_GROUP).reshape(-1, GECKO_TILE, 16, 4)
+    x = [_word([b[..., k, i] for i in range(4)]) for k in range(16)]
+    zero = torch.zeros_like(x[0])
+    R, W = [zero] * 16, [zero] * 2
+    for r in range(GECKO_ROWS):
+        a, c = x[2 * r + 2], x[2 * r + 3]
+        lo, hi = _vabsdiffu4(a, x[0]), _vabsdiffu4(c, x[1])
+        sign = (_movemask4(_vcmpltu4(a, x[0]))
+                | (_movemask4(_vcmpltu4(c, x[1])) << 4))
+        m = lo | hi
+        m = m | (m >> 16)
+        m = m | (m >> 8)
+        W[r // 4] = W[r // 4] | (_bitlength8(m & 0xFF) << (8 * (r % 4)))
+        lo, hi = _transpose8x8(lo, hi)
+        _put_row(R, r, sign, lo, hi)
+    T = x[0].shape[0]
+    slot = torch.zeros((T, GECKO_TILE * (GECKO_PLANE_BYTES + GECKO_ROWS)),
+                       dtype=torch.int64)
+    wbase = GECKO_TILE * GECKO_PLANE_BYTES
+    for lane in range(GECKO_TILE):
+        _store_record(slot, GECKO_PLANE_BYTES * lane,
+                      [w[:, lane] for w in R])
+        _store_record(slot, wbase + GECKO_ROWS * lane,
+                      [w[:, lane] for w in W])
+    planes = slot[:, :wbase].reshape(-1, GECKO_PLANE_BYTES)[:G]
+    widths = slot[:, wbase:].reshape(-1, GECKO_ROWS)[:G]
+    return (_untile(x[:2], G), widths.to(torch.uint8),
+            planes.to(torch.uint8))
+
+
+def gecko_plane_decode_swar(bases: torch.Tensor, planes: torch.Tensor
+                            ) -> torch.Tensor:
+    """``gecko_unpack``'s arithmetic: (bases (G, 8), planes (G, 63)) uint8
+    -> (G, 64) uint8, equal to ``gecko_plane_decode``."""
+    G = bases.shape[0]
+    nb = GECKO_TILE * 8
+    slot = torch.cat([_tiles(bases, 8), _tiles(planes, GECKO_PLANE_BYTES),
+                      torch.zeros((-(-G // GECKO_TILE), 16),
+                                  dtype=torch.int64)], dim=1)
+    base = [_word([slot[:, 8 * torch.arange(GECKO_TILE) + 4 * k + i]
+                   for i in range(4)]) for k in range(2)]
+    recs = [_load_record(slot, nb + GECKO_PLANE_BYTES * lane, 16)
+            for lane in range(GECKO_TILE)]
+    R = [torch.stack([rec[m] for rec in recs], -1) for m in range(16)]
+    y = list(base)
+    for r in range(GECKO_ROWS):
+        sign, lo, hi = _get_row(R, r)
+        lo, hi = _transpose8x8(lo, hi)
+        for bw, mag, neg in ((base[0], lo, _spread4(sign & 0xF)),
+                             (base[1], hi, _spread4(sign >> 4))):
+            y.append(_vadd4(bw ^ neg, mag) ^ neg)
+    return _untile(y, G)
 
 
 # ---------------------------------------------------------------------------

@@ -290,8 +290,12 @@ def _gecko_groups(dev, g, G, family):
 
 
 @pytest.mark.parametrize("family", ["uniform", "normal", "e3", "e4"])
-@pytest.mark.parametrize("G", [1, 31, 32, 127, 128, 129, 4099])
+@pytest.mark.parametrize("G", [1, 15, 16, 17, 31, 32, 33, 63, 64, 65, 72,
+                               127, 128, 129, 4099, 82944])
 def test_gecko_pack_and_unpack_kernel_bytes(dev, G, family):
+    """Around the kernels' 32-group warp tile (and its 16-group
+    alignment), the one-token decode shape (B 4 x 18 groups of gemma2-2b's
+    1152 K or V features) and a whole decode cache (x 1152 slots)."""
     g = torch.Generator(device=dev).manual_seed(8)
     e = _gecko_groups(dev, g, G, family)
     got = gp.gecko_pack(e)
