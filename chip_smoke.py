@@ -2,10 +2,12 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phase gecko [--src DIR]
+    python3 chip_smoke.py --phase dense [--src DIR]
 
-The second form runs only the Gecko kernel checks and timings of step 5
-against the ``repro_torch`` package under DIR (default: this checkout's
-``src``), so two trees can be timed by the same code on one card.
+The other forms run only the Gecko kernel checks and timings of step 5,
+or only the dense bit-plane ones of step 2, against the ``repro_torch``
+package under DIR (default: this checkout's ``src``), so two trees can be
+timed by the same code on one card.
 
 1. Prints the card (nvidia-smi name, power limit), builds the CUDA
    kernels from ``src/repro_torch/csrc`` and times a launch floor: a
@@ -14,7 +16,10 @@ against the ``repro_torch`` package under DIR (default: this checkout's
 2. Holds each kernel against its plain PyTorch version on the card, at the
    shapes the serving and training paths give it, and times both: the
    fixed-lane kernels at sfp8/sfp16, the dense bit-plane kernels at
-   sfp-m1e2, sfp-m2e4, sfp-m3e5, sfp-m7e7 (bf16) and sfp-m9e5 (f32).
+   sfp-m1e2, sfp-m2e4, sfp-m3e5, sfp-m7e7 (bf16) and sfp-m9e5 (f32), at
+   the stash shape, ragged sizes and one token, each also bit-equal over
+   two launches and timed with its GB/s, its share of the byte bound and
+   its time after a flush that leaves L2 clean.
    Every read of the split-KV decode (words and planes, full width and
    draft, contiguous, ring and paged), and the attention forward and
    backward at the training shape, must also be bit-equal over two
@@ -177,6 +182,10 @@ DENSE_LOW_BITS = {"qm": 1.5, "qe": 3.5}
 # kernels' 32-group warp tile) is the stash's groups cut short: to 147,399
 # and to 47 (one full tile and a ragged one).
 GECKO, GECKO_RAGGED_G, GECKO_UNIFORM_G = "gecko8", 147_399, 4099
+# Rows past the bit-plane kernels' switch from one-pass (16-row) to
+# two-pass (32-row) tiles (16,896, ref.BITPLANE_ONE_PASS_ROWS), the last
+# tile of 5 rows.
+DENSE_RAGGED_ROWS = 16_901
 GECKO_SMALL_G = 47
 # Paged serving. Pool rows of 1280 slots (10 blocks of 128); the kernel
 # checks put 8 rows at positions spread over 0-1279 (the last row idle on
@@ -340,6 +349,19 @@ def decode_shape(torch, name, r, call, plain, nbytes, what, flush):
     print(f"  {name} {note}")
     r["note"] = f"{r['note']}; {note}" if "note" in r else note
     return ms
+
+
+def record_clean(torch, timings, name, what, ms, nbytes, call, flush):
+    """Keep a timing with its rate, and time ``call`` again after a flush
+    that leaves L2 clean."""
+    gbps, share = rate(ms, nbytes)
+    clean = time_ms(torch, call, reps=50, flush=flush, clean=True)
+    clean_gbps, clean_share = rate(clean, nbytes)
+    timings[f"{name}, {what}"] = {
+        "ms": ms, "GB/s": gbps, "share_of_bound": share,
+        "clean_l2_ms": clean, "clean_l2_share": clean_share}
+    print(f"  {name}, {what}, after a clean flush: {clean:.5f} ms, "
+          f"{clean_gbps:.2f} GB/s, {clean_share:.2%} of the bound")
 
 
 def launch_floor_ms(torch, flush):
@@ -715,15 +737,32 @@ def training_kernels(torch, cfg, gen, flush, results):
 def dense_kernels(torch, cfg, gen, flush, results):
     """bitplane_pack, bitplane_quantize_pack, bitplane_unpack and the dense
     branch of packed_flash_decode against their plain versions: every
-    geometry on the stash shape (B, S, d) and on a ragged flat size, the
-    decode at the serving shape."""
+    geometry at the stash shape (B, S, d), two ragged sizes and one token's
+    rows, each pack and unpack also bit-equal over two launches; the
+    decode at the serving shape. The bit-plane kernels are timed at the
+    stash shape and the decode shapes (the pack over the whole cache and at
+    one token).
+    Returns each timing with its GB/s and share of the byte bound, and its
+    time after a clean flush."""
     from repro_torch.codecs import fields_for
     from repro_torch.kernels import bitplane_pack as bp
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import packed_flash_decode as pfd
     dev = torch.device("cuda")
     shape = (B, TRAIN_SEQ, cfg.d_model)
+    H, KH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    D = KH * hd
     ragged = 1_000_003                   # 7813 rows, the last one padded
+
+    def twice(what, call):
+        """The call's outputs, checked bit-equal over two launches."""
+        a, b = call(), call()
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            fail(f"{what}: two launches on the same inputs are not "
+                 f"bit-equal")
+        return a
+
     for container, dtype in (("sfp-m1e2", torch.bfloat16),
                              (DENSE, torch.bfloat16),
                              ("sfp-m3e5", torch.bfloat16),
@@ -734,30 +773,51 @@ def dense_kernels(torch, cfg, gen, flush, results):
             fail(f"{container} is not a dense geometry: {f}")
         top = 7 if dtype == torch.bfloat16 else 23
         x = wide_range(torch, gen, shape, dev, dtype)
+        flat = x.reshape(-1)
         for rows in (x.reshape(-1, ref.GROUP),
-                     ref.to_rows(x.reshape(-1)[:ragged])):
+                     ref.to_rows(flat[:ragged]),
+                     flat[:DENSE_RAGGED_ROWS * ref.GROUP].reshape(
+                         -1, ref.GROUP),
+                     x[:, :1, :D].reshape(-1, ref.GROUP)):   # one token
             for n in (None, 0, 1, f.man_keep, top):
+                what = f"bitplane pack {container} {dtype} " \
+                       f"rows={rows.shape[0]} n={n}"
                 if n is None:
-                    kp, kb = bp.bitplane_pack(rows, f)
+                    kp, kb = twice(what, lambda: bp.bitplane_pack(rows, f))
                     pp, pb = bp.plain(rows, f)
                 else:
-                    kp, kb = bp.bitplane_quantize_pack(rows, n, f)
+                    kp, kb = twice(what, lambda: bp.bitplane_quantize_pack(
+                        rows, n, f))
                     pp, pb = bp.plain(rows, f, n)
                 torch.cuda.synchronize()
-                what = f"{container} {dtype} rows={rows.shape[0]} n={n}"
                 if not (torch.equal(kp, pp) and torch.equal(kb, pb)):
-                    fail(f"bitplane pack {what}: kernel bytes differ from "
-                         f"the plain version")
-                ku = bp.bitplane_unpack(kp, kb, dtype, f)
+                    fail(f"{what}: kernel bytes differ from the plain "
+                         f"version")
+                what = what.replace("bitplane pack", "bitplane_unpack")
+                ku, = twice(what, lambda: (
+                    bp.bitplane_unpack(kp, kb, dtype, f),))
                 pu = bp.plain_unpack(kp, kb, dtype, f)
                 torch.cuda.synchronize()
                 if not torch.equal(ku.view(torch.uint8), pu.view(torch.uint8)):
-                    fail(f"bitplane_unpack {what}: kernel bits differ from "
-                         f"the plain version")
-        del x, rows, kp, kb, pp, pb, ku, pu
-    print("  bitplane packs byte-equal and unpack bit-equal: sfp-m1e2, "
-          "sfp-m2e4, sfp-m3e5, sfp-m7e7 (bf16), sfp-m9e5 (f32); stash shape "
-          "and ragged; n = none, 0, 1, man_keep, man_bits")
+                    fail(f"{what}: kernel bits differ from the plain "
+                         f"version")
+        del x, flat, rows, kp, kb, pp, pb, ku, pu
+    print("  bitplane packs byte-equal and unpack bit-equal, each also over "
+          "two launches: sfp-m1e2, sfp-m2e4, sfp-m3e5, sfp-m7e7 (bf16), "
+          f"sfp-m9e5 (f32); the stash shape, ragged ({ragged} values), "
+          f"{DENSE_RAGGED_ROWS} rows and one token "
+          f"({B * D // ref.GROUP} rows); n = none, 0, 1, man_keep, man_bits")
+
+    timings = {}
+
+    def record(name, what, ms, nbytes, call):
+        record_clean(torch, timings, name, what, ms, nbytes, call, flush)
+        t = timings[f"{name}, {what}"]
+        note = (f"{what}: {t['GB/s']:.4g} GB/s, "
+                f"{100 * t['share_of_bound']:.3g}% of the bound; after a "
+                f"clean flush {t['clean_l2_ms']:.5f} ms")
+        r = results[name]
+        r["note"] = f"{r['note']}; {note}" if "note" in r else note
 
     # -- the training shapes: fused pack and unpack of the stash ------------
     f = fields_for(DENSE, torch.bfloat16)
@@ -767,36 +827,40 @@ def dense_kernels(torch, cfg, gen, flush, results):
     kp, kb = bp.bitplane_quantize_pack(rows, nd, f)
     n = rows.numel()
     packed_bytes = kp.numel() + kb.numel()
+    stash = f"stash, {rows.shape[0]} rows"
+    calls = {"bitplane_quantize_pack":
+             lambda: bp.bitplane_quantize_pack(rows, nd, f),
+             "bitplane_unpack":
+             lambda: bp.bitplane_unpack(kp, kb, torch.bfloat16, f)}
     results["bitplane_quantize_pack"] = dict(
         path="train dense", replaces="src/repro/kernels/bitplane_pack.py:108",
         source="src/repro_torch/csrc/bitplane_pack.cu", max_abs_err=0.0,
-        ms=time_ms(torch, lambda: bp.bitplane_quantize_pack(rows, nd, f),
-                   reps=20, flush=flush),
+        ms=time_ms(torch, calls["bitplane_quantize_pack"], reps=20,
+                   flush=flush),
         plain_ms=time_ms(torch, lambda: bp.plain(rows, f, nd), reps=5,
                          flush=flush),
         library_ms=None)
     results["bitplane_unpack"] = dict(
         path="train dense", replaces="src/repro/kernels/bitplane_pack.py:165",
         source="src/repro_torch/csrc/bitplane_pack.cu", max_abs_err=0.0,
-        ms=time_ms(torch, lambda: bp.bitplane_unpack(kp, kb, torch.bfloat16,
-                                                     f), reps=20, flush=flush),
+        ms=time_ms(torch, calls["bitplane_unpack"], reps=20, flush=flush),
         plain_ms=time_ms(torch, lambda: bp.plain_unpack(
             kp, kb, torch.bfloat16, f), reps=5, flush=flush),
         library_ms=None)
-    for name in ("bitplane_quantize_pack", "bitplane_unpack"):
-        results[name]["bound_ms"], results[name]["bound_by"] = bound(
-            0, 2 * n + packed_bytes)
-    del rows, kp, kb
+    for name, call in calls.items():
+        r = results[name]
+        r["bound_ms"], r["bound_by"] = bound(0, 2 * n + packed_bytes)
+        record(name, stash, r["ms"], 2 * n + packed_bytes, call)
+    del rows, kp, kb, calls
 
     # -- the serving shapes: the KV pack and the dense decode ---------------
-    H, KH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
-    D = KH * hd
     L = -(-(PROMPT + MAX_NEW) // ops.DECODE_BLOCK_L) * ops.DECODE_BLOCK_L
     G = D // ref.GROUP
     rows = wide_range(torch, gen, (B, L, D), dev, torch.bfloat16).reshape(
         -1, ref.GROUP)
     kp, kb = bp.bitplane_pack(rows, f)
     n = rows.numel()
+    whole = f"whole cache, {rows.shape[0]} rows"
     results["bitplane_pack"] = dict(
         path="serve dense", replaces="src/repro/kernels/bitplane_pack.py:102",
         source="src/repro_torch/csrc/bitplane_pack.cu", max_abs_err=0.0,
@@ -805,16 +869,21 @@ def dense_kernels(torch, cfg, gen, flush, results):
         plain_ms=time_ms(torch, lambda: bp.plain(rows, f), reps=5,
                          flush=flush),
         library_ms=None)
+    nbytes = 2 * n + kp.numel() + kb.numel()
     results["bitplane_pack"]["bound_ms"], \
-        results["bitplane_pack"]["bound_by"] = bound(
-            0, 2 * n + kp.numel() + kb.numel())
+        results["bitplane_pack"]["bound_by"] = bound(0, nbytes)
+    record("bitplane_pack", whole, results["bitplane_pack"]["ms"], nbytes,
+           lambda: bp.bitplane_pack(rows, f))
     tok = wide_range(torch, gen, (B, 1, D), dev, torch.bfloat16).reshape(
         -1, ref.GROUP)
     tp, tb = bp.bitplane_pack(tok, f)
-    decode_shape(torch, "bitplane_pack", results["bitplane_pack"],
-                 lambda: bp.bitplane_pack(tok, f), lambda: bp.plain(tok, f),
-                 2 * tok.numel() + tp.numel() + tb.numel(),
-                 f"B {B}, one token, {tok.shape[0]} rows", flush)
+    nbytes = 2 * tok.numel() + tp.numel() + tb.numel()
+    one = f"one token, {tok.shape[0]} rows"
+    ms = decode_shape(torch, "bitplane_pack", results["bitplane_pack"],
+                      lambda: bp.bitplane_pack(tok, f),
+                      lambda: bp.plain(tok, f), nbytes, f"B {B}, {one}",
+                      flush)
+    record("bitplane_pack", one, ms, nbytes, lambda: bp.bitplane_pack(tok, f))
     del rows, kp, kb
 
     kc = torch.randn((B, L, D), generator=gen, device=dev).to(torch.bfloat16)
@@ -858,6 +927,7 @@ def dense_kernels(torch, cfg, gen, flush, results):
     r = results["packed_flash_decode_dense"]
     r["note"] = decode_note(pfd.split_plan(B, KH, hd, L), B, KH,
                             r["bound_ms"], r["ms"])
+    return timings
 
 
 def gecko_kernels(torch, cfg, gen, flush, results):
@@ -919,16 +989,7 @@ def gecko_kernels(torch, cfg, gen, flush, results):
     timings = {}
 
     def record(name, what, ms, nbytes, call):
-        """Keep a timing with its rate, and time ``call`` again after a
-        flush that leaves L2 clean."""
-        gbps, share = rate(ms, nbytes)
-        clean = time_ms(torch, call, reps=50, flush=flush, clean=True)
-        clean_gbps, clean_share = rate(clean, nbytes)
-        timings[f"{name}, {what}"] = {
-            "ms": ms, "GB/s": gbps, "share_of_bound": share,
-            "clean_l2_ms": clean, "clean_l2_share": clean_share}
-        print(f"  {name}, {what}, after a clean flush: {clean:.5f} ms, "
-              f"{clean_gbps:.2f} GB/s, {clean_share:.2%} of the bound")
+        record_clean(torch, timings, name, what, ms, nbytes, call, flush)
 
     G = stash.shape[0]
     kb, _, kp = gp.gecko_pack(stash)
@@ -1818,8 +1879,10 @@ def bit_exact_run(torch, cfg, counters):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phase", choices=("all", "gecko"), default="all",
-                    help="gecko: only the Gecko kernel checks and timings")
+    ap.add_argument("--phase", choices=("all", "gecko", "dense"),
+                    default="all",
+                    help="gecko / dense: only the Gecko or the dense "
+                         "bit-plane kernel checks and timings")
     ap.add_argument("--src", type=Path, default=SRC,
                     help="the directory holding the repro_torch package")
     args = ap.parse_args(argv)
@@ -1859,11 +1922,13 @@ def main(argv=None) -> int:
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
     floor_ms = launch_floor_ms(torch, flush)
     print(f"launch floor (a one-element fill, same timer): {floor_ms:.5f} ms")
-    if args.phase == "gecko":
-        timings = gecko_kernels(torch, cfg, gen, flush, {})
+    if args.phase != "all":
+        phase = gecko_kernels if args.phase == "gecko" else dense_kernels
+        timings = phase(torch, cfg, gen, flush, {})
         print(card)
         print(json.dumps({"tree": str(src), "card": card,
-                          "launch_floor_ms": floor_ms, "gecko": timings}))
+                          "launch_floor_ms": floor_ms,
+                          args.phase: timings}))
         return 0
     counters = (sp.sfp_pack, sp.sfp_quantize_pack, sp.sfp_unpack,
                 bp.bitplane_pack, bp.bitplane_quantize_pack,

@@ -4,148 +4,348 @@
 // bitplane_pack (_bitplane_pack_kernel), bitplane_quantize_pack
 // (_bitplane_quantize_pack_kernel) and bitplane_unpack
 // (_bitplane_unpack_kernel). Input of the packs: R rows of 128 bf16 or
-// f32 values. Each value becomes the same payload word as in sfp_pack.cu
-// (sfp_encode_word of sfp_common.cuh, with the optional fused Q(M, n), n
-// read from device memory), P = 1 + E + K bits wide (3..16), and the words
-// of a row are stored as P byte-aligned bit planes: plane p is 16 bytes,
-// byte i holds bit p of lanes 8i..8i+7 (bit j <-> lane 8i+j), planes LSB
-// first, so a row is P * 16 bytes. One uint8 base per row (max biased
-// exponent). The unpack is the inverse into bf16 or f32
-// (sfp_decode_word).
+// f32 values. Each value becomes the payload word of sfp_pack.cu (with the
+// optional fused Q(M, n), n read from device memory), P = 1 + E + K bits
+// wide (3..16), and the words of a row are stored as P byte-aligned bit
+// planes: plane p is 16 bytes, byte i holds bit p of lanes 8i..8i+7 (bit
+// j <-> lane 8i+j), planes LSB first, so a row is P * 16 bytes. One uint8
+// base per row (max biased exponent). The unpack is the inverse into bf16
+// or f32. The plain versions are bitplane_pack_rows / bitplane_unpack_rows
+// in kernels/ref.py; bitplane_{pack,unpack}_swar there mirror the
+// arithmetic below step for step.
 //
-// Bound on this card: memory. A bf16 value is read once (2 B) and leaves
-// as P/8 bytes plus 1/128 of a base byte; the unpack moves the same bytes
-// the other way. Design, simple first: one warp per 128-lane group; lane t
-// holds lanes t, 32+t, 64+t and 96+t, so each of its 4 loads is one
-// coalesced 64/128-byte warp access. The base is a __reduce_max_sync; the
-// little-endian uint32 k of plane p is __ballot_sync of bit p of the words
-// of lanes 32k..32k+31 (bit t of that uint32 is lane 32k+t, which is the
-// byte layout above). The P*4 plane words of a row are written by lanes
-// 0..P*4-1 (two rounds when P*4 > 32). The unpack reads them back the same
-// way and lane t takes bit t of each plane word by a warp shuffle. Integer
-// arithmetic only, so the results are bit-for-bit the plain versions'.
+// Bound on this card: bytes, once the integer work per value is small. A
+// bf16 value is read once (2 B) and leaves as P/8 bytes plus 1/128 of a
+// base byte; the unpack moves the same bytes the other way. The card
+// issues 64 integer operations a clock an SM, so at the stash shape
+// (9.4 M values) every 10 operations a value cost ~6 us against a byte
+// bound of ~8 us. Design:
+// 1. A thread per 8 lanes. 16 threads make a row (a half-warp), a block of
+//    256 threads 16 rows a pass. A thread loads its 8 values of a pass with
+//    one 16-byte load (f32: two). Up to the rows an H100 holds at once with
+//    one pass (8 blocks on each of 132 SMs), a tile is one pass, so a
+//    one-token pack of 36 rows is one load and one row a thread; above, a
+//    tile is two passes, both loads in flight before any arithmetic. (On
+//    the H100, two passes at one token, one or four passes at the stash
+//    shape, persistent blocks with the next tile's loads in flight, or a
+//    32-register cap were slower; PERF.md.)
+// 2. Two bf16 values a register. The encode and decode run on both 16-bit
+//    halves at once (encode_pair, decode_pair): no carry or borrow crosses
+//    a half, so ~8 operations a value replace sfp_encode_word's ~14 and
+//    sfp_decode_word's ~16. f32 takes those two unchanged, one value a
+//    register.
+// 3. The row base is a max over the half-warp: 4 __shfl_xor_sync.
+// 4. Planes by register transpose: the low bytes of the thread's 8 words
+//    form one 8x8 bit matrix (byte j = lane j), and one transpose8x8
+//    (swar.cuh) turns it into byte t of planes 0-7 (byte p = plane p); the
+//    high bytes give planes 8-15 by a second one when P > 8. The unpack
+//    runs the same transposes back (each is its own inverse).
+// 5. Tile-staged stores and loads. The tile's rows are contiguous in global
+//    memory (row stride P * 16 bytes), so the pack writes each thread's P
+//    plane bytes into a shared-memory image of the tile and then the block
+//    writes the image, and the tile's bases, out with 16-byte stores; the
+//    unpack copies the tile's planes into shared memory with 16-byte
+//    cp.async and each thread gathers its P bytes from there. A ragged last
+//    tile moves only its own rows (every row is a multiple of 16 bytes).
+// Integer arithmetic only, so the results are bit-for-bit the plain
+// versions'.
 #include "sfp_common.cuh"
+#include "swar.cuh"
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
+constexpr int kThreads = 256;
+constexpr int kRowThreads = 16;                    // 8 lanes a thread
+constexpr int kRowsPerPass = kThreads / kRowThreads;
 constexpr int kMaxPlanes = 16;
+// Rows an H100 holds at once with one pass: 8 blocks on each of 132 SMs.
+constexpr int kOnePassRows = 8 * 132 * kRowsPerPass;
 
-template <int SRC_BITS>
-__global__ void bitplane_pack_kernel(const void* __restrict__ x,
-                                     uint32_t* __restrict__ planes,
-                                     uint8_t* __restrict__ bases, int rows,
-                                     const int* __restrict__ n_ptr,
-                                     SfpFields f) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (row >= rows) return;  // whole warp leaves together
+// Constants of the pair encode and decode of one geometry: a 16-bit value
+// repeated in both halves of each word.
+struct PairFields {
+  uint32_t emask2;   // exponent field after the shift: 0xFF << K
+  uint32_t mkeep2;   // kept mantissa bits after the shift (of (1 << K) - 1)
+  uint32_t magm2;    // word without its sign: (1 << (P - 1)) - 1
+  uint32_t flush2;   // the flush magnitude: dexp_max << K
+  uint32_t flush7;   // the same at a bf16's exponent: dexp_max << 7
+  int man_shift;     // 7 - K: bf16 mantissa bits dropped
+  int sign_shift;    // 16 - P: a half's bit 15 to its bit P - 1
+};
 
+__device__ __forceinline__ uint32_t twice(uint32_t v) { return v * 0x10001u; }
+
+__device__ __forceinline__ PairFields pair_fields(const SfpFields f,
+                                                  uint32_t keep) {
+  const int K = f.man_keep, P = f.payload_bits;
+  PairFields c;
+  c.man_shift = 7 - K;
+  c.sign_shift = 16 - P;
+  c.emask2 = twice(0xFFu << K);
+  c.mkeep2 = twice((keep & 0x7Fu) >> (7 - K));
+  c.magm2 = twice((1u << (P - 1)) - 1u);
+  c.flush2 = twice((uint32_t)f.dexp_max() << K);
+  c.flush7 = twice((uint32_t)f.dexp_max() << 7);
+  return c;
+}
+
+// Encode the two bf16 values in the halves of u2 (y2 = u2 >> (7 - K): a
+// half's exponent e at bits K..K+7 and its top K mantissa bits below; ek2
+// = e << K in each half) against the row base: the payload words of
+// sfp_encode_word in the halves of the result. A value flushes when e <
+// lo = max(1, base - dexp_max) (zero or subnormal, or more than dexp_max
+// binades below the base): ok2 has bit 15 of a half set when it does not
+// (ek + 0x8000 - (lo << K) stays inside the half, since e << K < 2^15).
+// The sign survives unless e == 0.
+__device__ __forceinline__ uint32_t encode_pair(uint32_t u2, uint32_t y2,
+                                                uint32_t ek2, uint32_t c2,
+                                                uint32_t baseK2,
+                                                const PairFields& c) {
+  const uint32_t ok2 = (ek2 + c2) & 0x80008000u;
+  const uint32_t okm = ok2 - (ok2 >> 15);          // 0x7FFF where kept
+  const uint32_t mag = (baseK2 - ek2) | (y2 & c.mkeep2);
+  const uint32_t nz2 = (ek2 + 0x7FFF7FFFu) & 0x80008000u;   // e != 0
+  const uint32_t sgn = (u2 & nz2) >> c.sign_shift;
+  return sgn | (mag & okm) | (c.flush2 & ~okm);
+}
+
+// Decode the two payload words in the halves of p2 against the row base
+// (base2: (base + 256) << 7 in each half) into two bf16 values: the bits
+// of sfp_decode_word. s holds a word's dexp and mantissa where a bf16
+// keeps its exponent and mantissa. The flush code (dexp_max, man 0) gives
+// +0 whatever its sign; the rebuilt exponent base - dexp clamps at 0 (t2 =
+// (256 + base - dexp) << 7 has bit 15 set when it is not negative).
+__device__ __forceinline__ uint32_t decode_pair(uint32_t p2, uint32_t base2,
+                                                const PairFields& c) {
+  const uint32_t s = (p2 & c.magm2) << c.man_shift;
+  const uint32_t nz = ((s ^ c.flush7) + 0x7FFF7FFFu) & 0x80008000u;
+  const uint32_t t2 = base2 - (s & 0x7F807F80u);
+  const uint32_t m = t2 & nz;
+  const uint32_t e = t2 & (m - (m >> 8));          // 0x7F80 where kept
+  return ((p2 << c.sign_shift) & nz) | e | (s & 0x007F007Fu);
+}
+
+__device__ __forceinline__ int half_warp_max(int v) {
+#pragma unroll
+  for (int o = kRowThreads / 2; o > 0; o >>= 1)
+    v = max(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// The thread's 8 payload words as pairs (word 2k in the low half of w[k])
+// into byte t of each plane in the shared-memory image of its row s.
+__device__ __forceinline__ void put_planes(uint8_t* s, const uint32_t w[4],
+                                           int P) {
+  uint32_t lo = __byte_perm(w[0], w[1], 0x6420);   // low bytes, words 0-3
+  uint32_t hi = __byte_perm(w[2], w[3], 0x6420);   // words 4-7
+  transpose8x8(lo, hi);                            // byte p: plane p
+  uint32_t lo2 = 0u, hi2 = 0u;
+  if (P > 8) {
+    lo2 = __byte_perm(w[0], w[1], 0x7531);         // high bytes
+    hi2 = __byte_perm(w[2], w[3], 0x7531);
+    transpose8x8(lo2, hi2);                        // byte p: plane 8 + p
+  }
+#pragma unroll
+  for (int p = 0; p < kMaxPlanes; ++p) {
+    if (p < P) {
+      const uint32_t b = p < 4 ? lo : p < 8 ? hi : p < 12 ? lo2 : hi2;
+      s[16 * p] = (uint8_t)(b >> (8 * (p & 3)));
+    }
+  }
+}
+
+// The inverse: byte t of each plane of row s into the 8 words as pairs.
+__device__ __forceinline__ void get_planes(const uint8_t* s, uint32_t w[4],
+                                           int P) {
+  uint32_t q[4] = {0u, 0u, 0u, 0u};                // lo, hi, lo2, hi2
+#pragma unroll
+  for (int p = 0; p < kMaxPlanes; ++p)
+    if (p < P) q[p >> 2] |= (uint32_t)s[16 * p] << (8 * (p & 3));
+  transpose8x8(q[0], q[1]);                        // byte j: lane j, bits 0-7
+  if (P > 8) transpose8x8(q[2], q[3]);             // bits 8-15
+  w[0] = __byte_perm(q[0], q[2], 0x5140);
+  w[1] = __byte_perm(q[0], q[2], 0x7362);
+  w[2] = __byte_perm(q[1], q[3], 0x5140);
+  w[3] = __byte_perm(q[1], q[3], 0x7362);
+}
+
+template <int SRC_BITS, int U>
+__global__ void __launch_bounds__(kThreads)
+bitplane_pack_kernel(const uint4* __restrict__ x, uint8_t* __restrict__ planes,
+                     uint8_t* __restrict__ bases, int rows,
+                     const int* __restrict__ n_ptr, SfpFields f) {
+  constexpr int kTile = kRowsPerPass * U;          // U passes a tile
+  constexpr int kLoads = SRC_BITS / 16;            // 16-byte loads a row
   constexpr int man_bits = SRC_BITS == 16 ? 7 : 23;
+  __shared__ __align__(16) uint8_t img[kTile * kMaxPlanes * 16 + kTile];
+  uint8_t* img_bases = img + kTile * kMaxPlanes * 16;
+  const int t = threadIdx.x % kRowThreads, q = threadIdx.x / kRowThreads;
+  const long long row0 = (long long)blockIdx.x * kTile;
+  const int n_rows = (int)min((long long)kTile, rows - row0);
+  const int P = f.payload_bits, row_bytes = 16 * P;
+
+  uint4 v[U][kLoads];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int r = q + kRowsPerPass * u;
+#pragma unroll
+    for (int l = 0; l < kLoads; ++l)
+      v[u][l] = r < n_rows
+          ? __ldg(x + (row0 + r) * (16 * kLoads) + kLoads * t + l)
+          : make_uint4(0u, 0u, 0u, 0u);
+  }
   const uint32_t keep = n_ptr == nullptr ? 0xFFFFFFFFu
                                          : sfp_keep_mask(*n_ptr, man_bits);
-  uint32_t u[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const size_t idx = (size_t)row * SFP_GROUP + 32 * i + lane;
-    u[i] = SRC_BITS == 16 ? (uint32_t) reinterpret_cast<const uint16_t*>(x)[idx]
-                          : reinterpret_cast<const uint32_t*>(x)[idx];
-  }
-  int e[4];
-  unsigned emax = 0;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    e[i] = (int)((u[i] >> man_bits) & 0xFFu);
-    emax = max(emax, (unsigned)e[i]);
-  }
-  const int base = (int)__reduce_max_sync(0xffffffffu, emax);
+  const int dmax = f.dexp_max();
+  PairFields c{};
+  if constexpr (SRC_BITS == 16) c = pair_fields(f, keep & 0x7Fu);
 
-  uint32_t word[4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-    word[i] = sfp_encode_word(u[i], e[i], base, SRC_BITS, man_bits, keep, f);
-
-  // Plane word j = 4p + k of the row: lane j keeps it (j < 32), lane j-32
-  // keeps it in its second register (j >= 32).
-  const int P = f.payload_bits;
-  uint32_t mine = 0u, mine2 = 0u;
+  for (int u = 0; u < U; ++u) {
+    const int r = q + kRowsPerPass * u;            // the half-warp's row
+    uint32_t w[4];
+    int base;
+    if constexpr (SRC_BITS == 16) {
+      const int K = f.man_keep;
+      const uint32_t u2[4] = {v[u][0].x, v[u][0].y, v[u][0].z, v[u][0].w};
+      uint32_t y2[4], ek2[4], mh = 0u, ml = 0u;
 #pragma unroll
-  for (int p = 0; p < kMaxPlanes; ++p) {
-    if (p >= P) break;
+      for (int k = 0; k < 4; ++k) {
+        y2[k] = u2[k] >> c.man_shift;
+        ek2[k] = y2[k] & c.emask2;
+        mh = max(mh, ek2[k]);                      // high halves decide
+        ml = max(ml, ek2[k] << 16);                // the low halves alone
+      }
+      const int baseK = half_warp_max((int)(max(mh, ml) >> 16));
+      base = baseK >> K;
+      const int lo = max(1, base - dmax);
+      const uint32_t c2 = twice(0x8000u - ((uint32_t)lo << K));
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const uint32_t b = __ballot_sync(0xffffffffu, (word[k] >> p) & 1u);
-      const int j = 4 * p + k;
-      if (j < 32) { if (lane == j) mine = b; }
-      else if (lane == j - 32) mine2 = b;
+      for (int k = 0; k < 4; ++k)
+        w[k] = encode_pair(u2[k], y2[k], ek2[k], c2, twice(baseK), c);
+    } else {
+      const uint32_t uu[8] = {v[u][0].x, v[u][0].y, v[u][0].z, v[u][0].w,
+                              v[u][1].x, v[u][1].y, v[u][1].z, v[u][1].w};
+      int e[8], emax = 0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        e[j] = (int)((uu[j] >> 23) & 0xFFu);
+        emax = max(emax, e[j]);
+      }
+      base = half_warp_max(emax);
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        w[k] = sfp_encode_word(uu[2 * k], e[2 * k], base, 32, 23, keep, f)
+               | (sfp_encode_word(uu[2 * k + 1], e[2 * k + 1], base, 32, 23,
+                                  keep, f) << 16);
+    }
+    if (r < n_rows) {
+      put_planes(img + r * row_bytes + t, w, P);
+      if (t == 0) img_bases[r] = (uint8_t)base;
     }
   }
-  uint32_t* out = planes + (size_t)row * P * 4;
-  if (lane < 4 * P) out[lane] = mine;
-  if (lane + 32 < 4 * P) out[lane + 32] = mine2;
-  if (lane == 0) bases[row] = (uint8_t)base;
-}
+  __syncthreads();
 
-template <int DST_BITS>
-__global__ void bitplane_unpack_kernel(const uint32_t* __restrict__ planes,
-                                       const uint8_t* __restrict__ bases,
-                                       void* __restrict__ out, int rows,
-                                       SfpFields f) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (row >= rows) return;
-  const int P = f.payload_bits;
-  const uint32_t* in = planes + (size_t)row * P * 4;
-  const uint32_t mine = lane < 4 * P ? in[lane] : 0u;
-  const uint32_t mine2 = lane + 32 < 4 * P ? in[lane + 32] : 0u;
-  const int base = bases[row];
-
-  uint32_t word[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-  for (int p = 0; p < kMaxPlanes; ++p) {
-    if (p >= P) break;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int j = 4 * p + k;  // uniform across the warp
-      const uint32_t b = __shfl_sync(0xffffffffu, j < 32 ? mine : mine2,
-                                     j & 31);
-      word[k] |= ((b >> lane) & 1u) << p;
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const uint32_t bits = __float_as_uint(sfp_decode_word(word[i], base, f));
-    const size_t idx = (size_t)row * SFP_GROUP + 32 * i + lane;
-    if (DST_BITS == 32) reinterpret_cast<uint32_t*>(out)[idx] = bits;
-    else  // a bf16 is the top half of the exact f32 rebuild
-      reinterpret_cast<uint16_t*>(out)[idx] = (uint16_t)(bits >> 16);
+  // The tile's planes and bases leave as 16-byte stores; a ragged last
+  // tile writes its own rows (and the bytes of a partial base chunk).
+  uint4* dst = reinterpret_cast<uint4*>(planes + row0 * row_bytes);
+  const uint4* src = reinterpret_cast<const uint4*>(img);
+  for (int i = threadIdx.x; i < n_rows * P; i += kThreads) dst[i] = src[i];
+  const int i = threadIdx.x;
+  if (16 * i + 16 <= n_rows) {
+    reinterpret_cast<uint4*>(bases + row0)[i] =
+        reinterpret_cast<const uint4*>(img_bases)[i];
+  } else if (16 * i < n_rows) {
+    for (int b = 16 * i; b < n_rows; ++b) bases[row0 + b] = img_bases[b];
   }
 }
 
-bool fields_ok(int man_keep, int dexp_bits, int payload_bits) {
-  return payload_bits >= 3 && payload_bits <= kMaxPlanes && man_keep >= 1
-         && dexp_bits >= 1 && 1 + dexp_bits + man_keep == payload_bits;
+template <int DST_BITS, int U>
+__global__ void __launch_bounds__(kThreads)
+bitplane_unpack_kernel(const uint8_t* __restrict__ planes,
+                       const uint8_t* __restrict__ bases,
+                       uint4* __restrict__ out, int rows, SfpFields f) {
+  constexpr int kTile = kRowsPerPass * U;
+  constexpr int kStores = DST_BITS / 16;           // 16-byte stores a row
+  __shared__ __align__(16) uint8_t img[kTile * kMaxPlanes * 16];
+  const int t = threadIdx.x % kRowThreads, q = threadIdx.x / kRowThreads;
+  const long long row0 = (long long)blockIdx.x * kTile;
+  const int n_rows = (int)min((long long)kTile, rows - row0);
+  const int P = f.payload_bits, row_bytes = 16 * P;
+
+  const uint8_t* src = planes + row0 * row_bytes;
+  for (int i = threadIdx.x; i < n_rows * P; i += kThreads)
+    cp_async16(img + 16 * i, src + 16 * i, 16);
+  cp_async_commit();
+  int base[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int r = q + kRowsPerPass * u;
+    base[u] = r < n_rows ? (int)__ldg(bases + row0 + r) : 0;
+  }
+  PairFields c{};
+  if constexpr (DST_BITS == 16) c = pair_fields(f, 0x7Fu);
+  cp_async_wait<0>();
+  __syncthreads();
+
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int r = q + kRowsPerPass * u;
+    if (r >= n_rows) break;
+    uint32_t w[4];
+    get_planes(img + r * row_bytes + t, w, P);
+    uint4* o = out + (row0 + r) * (16 * kStores) + kStores * t;
+    if constexpr (DST_BITS == 16) {
+      const uint32_t b2 = twice(((uint32_t)base[u] + 256u) << 7);
+      *o = make_uint4(decode_pair(w[0], b2, c), decode_pair(w[1], b2, c),
+                      decode_pair(w[2], b2, c), decode_pair(w[3], b2, c));
+    } else {
+      uint32_t bits[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        bits[j] = __float_as_uint(sfp_decode_word(
+            (w[j >> 1] >> (16 * (j & 1))) & 0xFFFFu, base[u], f));
+      o[0] = make_uint4(bits[0], bits[1], bits[2], bits[3]);
+      o[1] = make_uint4(bits[4], bits[5], bits[6], bits[7]);
+    }
+  }
+}
+
+// A bf16 holds K <= 7 mantissa bits.
+bool fields_ok(int float_bits, int man_keep, int dexp_bits,
+               int payload_bits) {
+  return (float_bits == 16 || float_bits == 32) && payload_bits >= 3
+         && payload_bits <= kMaxPlanes && man_keep >= 1 && dexp_bits >= 1
+         && dexp_bits <= 8 && 1 + dexp_bits + man_keep == payload_bits
+         && (float_bits == 32 || man_keep <= 7);
 }
 
 int pack(const void* x, void* planes, void* bases, int rows, int src_bits,
          const int* n_ptr, int man_keep, int dexp_bits, int payload_bits,
          void* stream) {
   if (rows <= 0) return 0;
-  if (!fields_ok(man_keep, dexp_bits, payload_bits))
+  if (!fields_ok(src_bits, man_keep, dexp_bits, payload_bits))
     return (int)cudaErrorInvalidValue;
   const SfpFields f{man_keep, dexp_bits, payload_bits};
   auto s = static_cast<cudaStream_t>(stream);
-  auto p = static_cast<uint32_t*>(planes);
+  auto xi = static_cast<const uint4*>(x);
+  auto p = static_cast<uint8_t*>(planes);
   auto b = static_cast<uint8_t*>(bases);
-  const int blocks = (rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  if (src_bits == 16)
-    bitplane_pack_kernel<16><<<blocks, kWarpsPerBlock * 32, 0, s>>>(
-        x, p, b, rows, n_ptr, f);
-  else if (src_bits == 32)
-    bitplane_pack_kernel<32><<<blocks, kWarpsPerBlock * 32, 0, s>>>(
-        x, p, b, rows, n_ptr, f);
+  const bool one = rows <= kOnePassRows;
+  const int tile = kRowsPerPass * (one ? 1 : 2);
+  const int grid = (rows + tile - 1) / tile;
+  if (src_bits == 16 && one)
+    bitplane_pack_kernel<16, 1><<<grid, kThreads, 0, s>>>(xi, p, b, rows,
+                                                          n_ptr, f);
+  else if (src_bits == 16)
+    bitplane_pack_kernel<16, 2><<<grid, kThreads, 0, s>>>(xi, p, b, rows,
+                                                          n_ptr, f);
+  else if (one)
+    bitplane_pack_kernel<32, 1><<<grid, kThreads, 0, s>>>(xi, p, b, rows,
+                                                          n_ptr, f);
   else
-    return (int)cudaErrorInvalidValue;
+    bitplane_pack_kernel<32, 2><<<grid, kThreads, 0, s>>>(xi, p, b, rows,
+                                                          n_ptr, f);
   return (int)cudaGetLastError();
 }
 
@@ -174,20 +374,23 @@ extern "C" int bitplane_unpack_launch(const void* planes, const void* bases,
                                       int man_keep, int dexp_bits,
                                       int payload_bits, void* stream) {
   if (rows <= 0) return 0;
-  if (!fields_ok(man_keep, dexp_bits, payload_bits))
+  if (!fields_ok(dst_bits, man_keep, dexp_bits, payload_bits))
     return (int)cudaErrorInvalidValue;
   const SfpFields f{man_keep, dexp_bits, payload_bits};
   auto s = static_cast<cudaStream_t>(stream);
-  auto p = static_cast<const uint32_t*>(planes);
+  auto p = static_cast<const uint8_t*>(planes);
   auto b = static_cast<const uint8_t*>(bases);
-  const int blocks = (rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  if (dst_bits == 16)
-    bitplane_unpack_kernel<16><<<blocks, kWarpsPerBlock * 32, 0, s>>>(
-        p, b, out, rows, f);
-  else if (dst_bits == 32)
-    bitplane_unpack_kernel<32><<<blocks, kWarpsPerBlock * 32, 0, s>>>(
-        p, b, out, rows, f);
+  auto o = static_cast<uint4*>(out);
+  const bool one = rows <= kOnePassRows;
+  const int tile = kRowsPerPass * (one ? 1 : 2);
+  const int grid = (rows + tile - 1) / tile;
+  if (dst_bits == 16 && one)
+    bitplane_unpack_kernel<16, 1><<<grid, kThreads, 0, s>>>(p, b, o, rows, f);
+  else if (dst_bits == 16)
+    bitplane_unpack_kernel<16, 2><<<grid, kThreads, 0, s>>>(p, b, o, rows, f);
+  else if (one)
+    bitplane_unpack_kernel<32, 1><<<grid, kThreads, 0, s>>>(p, b, o, rows, f);
   else
-    return (int)cudaErrorInvalidValue;
+    bitplane_unpack_kernel<32, 2><<<grid, kThreads, 0, s>>>(p, b, o, rows, f);
   return (int)cudaGetLastError();
 }

@@ -3,11 +3,13 @@ wrappers and their plain versions.
 
 Replace the TPU kernels ``src/repro/kernels/bitplane_pack.py:
 bitplane_pack``, ``bitplane_quantize_pack`` and ``bitplane_unpack``. The
-kernels are in ``csrc/bitplane_pack.cu`` (one warp per 128-lane group, the
-word machine of ``sfp_common.cuh``, uint32 k of plane p as a
-``__ballot_sync`` of bit p over lanes 32k..32k+31; ``n`` read from device
-memory). All three are bound by memory on the H100: 2 B per bf16 value one
-way, P/8 B of planes plus 1/128 B of base the other.
+kernels are in ``csrc/bitplane_pack.cu``: a thread per 8 lanes, two bf16
+values encoded or decoded a register, the thread's plane bytes by one
+8x8 register bit transpose (two when P > 8), tiles of 16 or 32 rows
+staged in shared memory and moved by 16-byte stores and copies; ``n`` read
+from device memory. ``ref.bitplane_{pack,unpack}_swar`` mirror them step
+for step. All three are bound by memory on the H100: 2 B per bf16 value
+one way, P/8 B of planes plus 1/128 B of base the other.
 """
 from __future__ import annotations
 

@@ -653,6 +653,210 @@ def gecko_plane_decode_swar(bases: torch.Tensor, planes: torch.Tensor
     return _untile(y, G)
 
 
+# The dense bit-plane kernels' arithmetic (csrc/bitplane_pack.cu) step for
+# step, on uint32 words held in int64 tensors: a thread per 8 lanes (16 a
+# row), the pair encode and decode of two bf16 values a register, the row
+# base as a max over the row's threads, the one or two 8x8 bit transposes
+# of each thread's word bytes and the shared-memory image of a tile of rows
+# (row r of a tile at byte r * P * 16, byte t of plane p of it at 16 p + t,
+# the tile's bases after its largest image). For the tests: equal to
+# plane_pack_words / plane_unpack_words and bitplane_pack_rows /
+# bitplane_unpack_rows; the kernels can only be run on the card.
+
+BITPLANE_ROW_THREADS = 16                 # threads a row: 8 lanes each
+BITPLANE_PASS_ROWS = 16                   # rows a 256-thread block's pass
+# Rows an H100 holds at once with one pass (8 blocks on each of 132 SMs);
+# above, a tile is two passes.
+BITPLANE_ONE_PASS_ROWS = 8 * 132 * BITPLANE_PASS_ROWS
+_IMAGE_ROW = 16 * PLANE_BYTES             # image bytes a row of 16 planes
+
+
+def bitplane_tile_rows(rows: int) -> int:
+    """Rows of the kernels' tile for ``rows`` rows: 16 (one pass) up to
+    ``BITPLANE_ONE_PASS_ROWS``, 32 (two passes) above."""
+    return BITPLANE_PASS_ROWS * (1 if rows <= BITPLANE_ONE_PASS_ROWS else 2)
+
+
+def _twice(v):
+    return v * 0x10001
+
+
+def _pair_fields(f: PackFields, keep: int) -> dict:
+    """``pair_fields``: the constants of the pair encode and decode."""
+    K, P, dmax = f.man_keep, f.payload_bits, f.dexp_max
+    return dict(emask2=_twice(0xFF << K),
+                mkeep2=_twice((keep & 0x7F) >> (7 - K)),
+                magm2=_twice((1 << (P - 1)) - 1), flush2=_twice(dmax << K),
+                flush7=_twice(dmax << 7), man_shift=7 - K, sign_shift=16 - P)
+
+
+def _encode_pair(u2, y2, ek2, c2, baseK2, c: dict):
+    """``encode_pair``: two bf16 values (the halves of u2) -> two payload
+    words, by 16-bit SIMD."""
+    ok2 = (ek2 + c2) & 0x80008000
+    okm = ok2 - (ok2 >> 15)
+    mag = (baseK2 - ek2) | (y2 & c["mkeep2"])
+    nz2 = (ek2 + 0x7FFF7FFF) & 0x80008000
+    sgn = (u2 & nz2) >> c["sign_shift"]
+    return sgn | (mag & okm) | (c["flush2"] & ~okm & _U32)
+
+
+def _decode_pair(p2, base2, c: dict):
+    """``decode_pair``: two payload words -> two bf16 bit patterns."""
+    s = (p2 & c["magm2"]) << c["man_shift"]
+    nz = ((s ^ c["flush7"]) + 0x7FFF7FFF) & 0x80008000
+    t2 = base2 - (s & 0x7F807F80)
+    m = t2 & nz
+    e = t2 & (m - (m >> 8))
+    return (((p2 << c["sign_shift"]) & _U32) & nz) | e | (s & 0x007F007F)
+
+
+def _thread_pairs(vals):
+    """(R, 128) int64 16-bit values -> the 4 pair registers of each of the
+    row's 16 threads, each (R, 16): value 8t + 2k in the low half of
+    register k of thread t, 8t + 2k + 1 in its high half."""
+    v = vals.reshape(-1, BITPLANE_ROW_THREADS, 8)
+    return [v[..., 2 * k] | (v[..., 2 * k + 1] << 16) for k in range(4)]
+
+
+def _put_planes(w, P: int):
+    """``put_planes``: a thread's 4 word pairs -> byte t of planes 0..P-1
+    (bytes p of lo, hi, lo2, hi2)."""
+    lo, hi = _transpose8x8(_byte_perm(w[0], w[1], 0x6420),
+                           _byte_perm(w[2], w[3], 0x6420))
+    zero = torch.zeros_like(lo)
+    lo2, hi2 = ((_transpose8x8(_byte_perm(w[0], w[1], 0x7531),
+                               _byte_perm(w[2], w[3], 0x7531)))
+                if P > 8 else (zero, zero))
+    regs = (lo, hi, lo2, hi2)
+    return [(regs[p >> 2] >> (8 * (p & 3))) & 0xFF for p in range(P)]
+
+
+def _get_planes(b, P: int):
+    """``get_planes``: byte t of planes 0..P-1 -> the thread's 4 word
+    pairs."""
+    q = [torch.zeros_like(b[0]) for _ in range(4)]
+    for p in range(P):
+        q[p >> 2] = q[p >> 2] | (b[p] << (8 * (p & 3)))
+    q[0], q[1] = _transpose8x8(q[0], q[1])
+    if P > 8:
+        q[2], q[3] = _transpose8x8(q[2], q[3])
+    return [_byte_perm(q[0], q[2], 0x5140), _byte_perm(q[0], q[2], 0x7362),
+            _byte_perm(q[1], q[3], 0x5140), _byte_perm(q[1], q[3], 0x7362)]
+
+
+def _image_offsets(R: int, P: int):
+    """(tile index, image byte) of byte t of plane p of every row: (R, 16)
+    tensors for each p."""
+    tile = bitplane_tile_rows(R)
+    r = torch.arange(R).reshape(R, 1)
+    t = torch.arange(BITPLANE_ROW_THREADS).reshape(1, -1)
+    return tile, r // tile, [(r % tile) * 16 * P + 16 * p + t
+                             for p in range(P)]
+
+
+def _pack_image(w, base, R: int, P: int):
+    """Each thread's plane bytes and each row's base into its tile's
+    shared-memory image, then the images out as the kernel's 16-byte
+    stores copy them: (planes (R, P*16) uint8, bases (R, 1) uint8)."""
+    tile, ti, offs = _image_offsets(R, P)
+    T = -(-R // tile)
+    img = torch.zeros((T, tile * _IMAGE_ROW + tile), dtype=torch.int64)
+    for off, byte in zip(offs, _put_planes(w, P)):
+        img[ti.expand_as(off), off] = byte
+    r = torch.arange(R)
+    img[r // tile, tile * _IMAGE_ROW + r % tile] = base.reshape(R)
+    planes = torch.cat([img[i, :min(tile, R - i * tile) * 16 * P]
+                        for i in range(T)])
+    bases = torch.cat([img[i, tile * _IMAGE_ROW:][:min(tile, R - i * tile)]
+                       for i in range(T)])
+    return (planes.reshape(R, 16 * P).to(torch.uint8),
+            bases.reshape(R, 1).to(torch.uint8))
+
+
+def _unpack_image(planes: torch.Tensor, P: int):
+    """The tile images the unpack's 16-byte copies fill, and each thread's
+    P plane bytes gathered from them -> its 4 word pairs."""
+    R = planes.shape[0]
+    tile, ti, offs = _image_offsets(R, P)
+    T = -(-R // tile)
+    img = torch.zeros((T, tile * _IMAGE_ROW), dtype=torch.int64)
+    flat = planes.reshape(-1).to(torch.int64)
+    for i in range(T):
+        n = min(tile, R - i * tile) * 16 * P
+        img[i, :n] = flat[i * tile * 16 * P:][:n]
+    return _get_planes([img[ti.expand_as(off), off] for off in offs], P)
+
+
+def _pairs_to_words(w, R: int):
+    """4 pair registers of each thread -> (R, 128) int32 words."""
+    lanes = [x for k in range(4) for x in (w[k] & 0xFFFF, w[k] >> 16)]
+    return torch.stack(lanes, -1).reshape(R, GROUP).to(torch.int32)
+
+
+def bitplane_encode_swar(words: torch.Tensor, payload_bits: int
+                         ) -> torch.Tensor:
+    """The pack kernel's plane assembly: (R, 128) payload words of
+    ``payload_bits`` bits -> (R, P*16) uint8 planes, equal to
+    ``plane_pack_words``."""
+    R = words.shape[0]
+    w = _thread_pairs(words.to(torch.int64) & 0xFFFF)
+    return _pack_image(w, torch.zeros(R, dtype=torch.int64), R,
+                       payload_bits)[0]
+
+
+def bitplane_decode_swar(planes: torch.Tensor, payload_bits: int
+                         ) -> torch.Tensor:
+    """The unpack kernel's plane reads: (R, P*16) uint8 -> (R, 128) int32
+    words, equal to ``plane_unpack_words``."""
+    return _pairs_to_words(_unpack_image(planes, payload_bits),
+                           planes.shape[0])
+
+
+def bitplane_pack_swar(x: torch.Tensor, fields: PackFields, n=None):
+    """``bitplane_pack`` (``n``: ``bitplane_quantize_pack``) as the kernel
+    computes it: (R, 128) bf16/f32 -> (planes (R, P*16), bases (R, 1))
+    uint8, equal to ``bitplane_pack_rows``."""
+    R = x.shape[0]
+    if x.dtype == torch.float32:     # sfp_encode_word, one value a register
+        words, base = _pack_words(x, fields, containers.spec_for(x), n)
+        w = _thread_pairs(words.to(torch.int64))
+        return _pack_image(w, base.to(torch.int64), R, fields.payload_bits)
+    K = fields.man_keep
+    keep = containers.mantissa_keep_mask(7 if n is None else n,
+                                         containers.spec_for(x))
+    c = _pair_fields(fields, int(keep))
+    u2 = _thread_pairs(x.view(torch.int16).to(torch.int64) & 0xFFFF)
+    y2 = [u >> c["man_shift"] for u in u2]
+    ek2 = [y & c["emask2"] for y in y2]
+    mh = torch.stack(ek2).amax(0)                         # high halves
+    ml = torch.stack([(e << 16) & _U32 for e in ek2]).amax(0)
+    emax = torch.maximum(mh, ml) >> 16                    # (R, 16) threads
+    baseK = emax.amax(-1, keepdim=True)                   # half-warp max
+    base = baseK >> K
+    lo = torch.clamp(base - fields.dexp_max, min=1)
+    c2 = _twice(0x8000 - (lo << K))
+    w = [_encode_pair(u, y, e, c2, _twice(baseK), c)
+         for u, y, e in zip(u2, y2, ek2)]
+    return _pack_image(w, base, R, fields.payload_bits)
+
+
+def bitplane_unpack_swar(planes: torch.Tensor, bases: torch.Tensor,
+                         dtype: torch.dtype, fields: PackFields
+                         ) -> torch.Tensor:
+    """``bitplane_unpack`` as the kernel computes it: (R, P*16) planes +
+    (R, 1) bases -> (R, 128) floats, equal to ``bitplane_unpack_rows``."""
+    R = planes.shape[0]
+    w = _unpack_image(planes, fields.payload_bits)
+    if dtype == torch.float32:       # sfp_decode_word, one value a register
+        return _unpack_words(_pairs_to_words(w, R), bases.to(torch.int32),
+                             fields, containers.spec_for(dtype))
+    b2 = _twice((bases.to(torch.int64) + 256) << 7)
+    c = _pair_fields(fields, 0x7F)
+    bits = _pairs_to_words([_decode_pair(p, b2, c) for p in w], R)
+    return bits.to(torch.int16).view(torch.bfloat16)
+
+
 # ---------------------------------------------------------------------------
 # Decode over the packed KV cache
 # ---------------------------------------------------------------------------

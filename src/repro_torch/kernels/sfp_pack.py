@@ -104,8 +104,11 @@ def _unpack(name: str, payload: torch.Tensor, bases: torch.Tensor, dtype,
         raise ValueError(f"{name} takes (R, {cols}) payload and (R, 1) "
                          f"bases, got {tuple(payload.shape)} "
                          f"{tuple(bases.shape)}")
-    if payload.data_ptr() % 4:
-        raise ValueError(f"{name} needs a 4-byte aligned payload")
+    # The bit-plane unpack copies whole 16-byte plane chunks; every caller's
+    # planes are a pack's output or rows of one (P * 16 bytes a row).
+    align = 16 if dense else 4
+    if payload.data_ptr() % align:
+        raise ValueError(f"{name} needs a {align}-byte aligned payload")
     out = torch.empty((R, GROUP), dtype=dtype, device=payload.device)
     launch = getattr(lib, ("bitplane" if dense else "sfp") + "_unpack_launch")
     err = launch(payload.data_ptr(), bases.data_ptr(), out.data_ptr(), R,

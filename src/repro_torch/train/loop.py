@@ -15,6 +15,8 @@ from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import torch
 
+from repro_torch import resolve_device
+
 PROFILE_TOP = 20  # kernels listed in the profile summary
 
 
@@ -95,9 +97,13 @@ class _Profiler:
 
 def run(train_step: Callable, state: Any,
         batch_iter_factory: Callable[[int], Iterator[Dict[str, Any]]],
-        cfg: LoopConfig, device="cpu") -> LoopResult:
+        cfg: LoopConfig, device=None) -> LoopResult:
     """Run steps ``state.step`` .. ``cfg.total_steps - 1``.
-    ``batch_iter_factory(start_step)`` starts the stream at a step."""
+    ``batch_iter_factory(start_step)`` starts the stream at a step.
+    ``device`` (where the step runs; it brackets the profile window with
+    synchronizes on CUDA) defaults to CUDA and raises without a GPU, as the
+    launchers do: pass ``"cpu"`` for the plain path."""
+    device = resolve_device(device)
     history = []
     sink = None
     if cfg.metrics_file:

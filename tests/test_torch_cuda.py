@@ -160,21 +160,39 @@ def test_flash_attention_backward_kernel(dev, hd, S, rep, window):
     ("sfp-m3e5", torch.bfloat16), ("sfp-m7e7", torch.bfloat16),
     ("sfp-m9e5", torch.float32), ("sfp-m2e4", torch.float32)])
 def test_bitplane_pack_and_unpack_kernel_bits(dev, container, dtype):
+    """333 rows, one token of the serving shape (36 rows), one row, and
+    rows past the kernels' switch to two-pass tiles (16,896), whole and
+    with a ragged last tile."""
     g = torch.Generator(device=dev).manual_seed(6)
-    x = _wide(dev, g, (333, 128), dtype)
     f = fields_for(container, dtype)
     assert f.dense
+    for rows in (333, 36, 1, 16 * 3000, 16 * 1056 + 5):
+        x = _wide(dev, g, (rows, 128), dtype)
+        kp, kb = bp.bitplane_pack(x, f)
+        pp, pb = bp.plain(x, f)
+        assert torch.equal(kp, pp) and torch.equal(kb, pb), rows
+        for n in (0, 1, f.man_keep, 7 if dtype == torch.bfloat16 else 23):
+            nd = torch.tensor(n, dtype=torch.int32, device=dev)
+            kp, kb = bp.bitplane_quantize_pack(x, nd, f)
+            pp, pb = bp.plain(x, f, n)
+            assert torch.equal(kp, pp) and torch.equal(kb, pb), (rows, n)
+            ku = bp.bitplane_unpack(kp, kb, dtype, f)
+            pu = bp.plain_unpack(kp, kb, dtype, f)
+            assert torch.equal(ku.view(torch.uint8),
+                               pu.view(torch.uint8)), (rows, n)
+
+
+def test_bitplane_unpack_needs_aligned_planes(dev):
+    """The unpack copies 16-byte plane chunks: planes off a 16-byte
+    boundary raise instead of launching."""
+    f = fields_for("sfp-m2e4", torch.bfloat16)
+    x = torch.randn((4, 128), device=dev).to(torch.bfloat16)
     kp, kb = bp.bitplane_pack(x, f)
-    pp, pb = bp.plain(x, f)
-    assert torch.equal(kp, pp) and torch.equal(kb, pb)
-    for n in (0, 1, f.man_keep, 7 if dtype == torch.bfloat16 else 23):
-        nd = torch.tensor(n, dtype=torch.int32, device=dev)
-        kp, kb = bp.bitplane_quantize_pack(x, nd, f)
-        pp, pb = bp.plain(x, f, n)
-        assert torch.equal(kp, pp) and torch.equal(kb, pb), n
-        ku = bp.bitplane_unpack(kp, kb, dtype, f)
-        pu = bp.plain_unpack(kp, kb, dtype, f)
-        assert torch.equal(ku.view(torch.uint8), pu.view(torch.uint8)), n
+    buf = torch.empty(kp.numel() + 16, dtype=torch.uint8, device=dev)
+    off = buf[4:4 + kp.numel()].view(kp.shape)
+    off.copy_(kp)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        bp.bitplane_unpack(off, kb, torch.bfloat16, f)
 
 
 @pytest.mark.parametrize("container", ["sfp-m2e4", "sfp-m7e7", "sfp-m1e2"])
