@@ -3,11 +3,12 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --phase gecko [--src DIR]
     python3 chip_smoke.py --phase dense [--src DIR]
+    python3 chip_smoke.py --phase sfp [--src DIR]
 
 The other forms run only the Gecko kernel checks and timings of step 5,
-or only the dense bit-plane ones of step 2, against the ``repro_torch``
-package under DIR (default: this checkout's ``src``), so two trees can be
-timed by the same code on one card.
+or only the dense bit-plane or the fixed-lane word ones of step 2, against
+the ``repro_torch`` package under DIR (default: this checkout's ``src``),
+so two trees can be timed by the same code on one card.
 
 1. Prints the card (nvidia-smi name, power limit), builds the CUDA
    kernels from ``src/repro_torch/csrc`` and times a launch floor: a
@@ -15,11 +16,13 @@ timed by the same code on one card.
    pack cannot beat.
 2. Holds each kernel against its plain PyTorch version on the card, at the
    shapes the serving and training paths give it, and times both: the
-   fixed-lane kernels at sfp8/sfp16, the dense bit-plane kernels at
-   sfp-m1e2, sfp-m2e4, sfp-m3e5, sfp-m7e7 (bf16) and sfp-m9e5 (f32), at
-   the stash shape, ragged sizes and one token, each also bit-equal over
-   two launches and timed with its GB/s, its share of the byte bound and
-   its time after a flush that leaves L2 clean.
+   fixed-lane kernels at sfp8, sfp16, sfp8-m2e4, sfp16-m7e8 (bf16) and
+   sfp8, sfp16 (f32), the dense bit-plane kernels at sfp-m1e2, sfp-m2e4,
+   sfp-m3e5, sfp-m7e7 (bf16) and sfp-m9e5 (f32), at the stash shape,
+   ragged sizes and one token (the word kernels also over the whole
+   decode cache), each also bit-equal over two launches and timed with its
+   GB/s, its share of the byte bound and its time after a flush that
+   leaves L2 clean.
    Every read of the split-KV decode (words and planes, full width and
    draft, contiguous, ring and paged), and the attention forward and
    backward at the training shape, must also be bit-equal over two
@@ -187,6 +190,11 @@ GECKO, GECKO_RAGGED_G, GECKO_UNIFORM_G = "gecko8", 147_399, 4099
 # tile of 5 rows.
 DENSE_RAGGED_ROWS = 16_901
 GECKO_SMALL_G = 47
+# The fixed-lane word kernels' geometries: padding bits below the mantissa
+# 0 (sfp8, sfp16 on f32, sfp16-m7e8), 1 (sfp8-m2e4) and 3 (sfp16 on bf16).
+WORD_GEOMETRIES = (("sfp8", "bfloat16"), ("sfp16", "bfloat16"),
+                   ("sfp8-m2e4", "bfloat16"), ("sfp16-m7e8", "bfloat16"),
+                   ("sfp8", "float32"), ("sfp16", "float32"))
 # Paged serving. Pool rows of 1280 slots (10 blocks of 128); the kernel
 # checks put 8 rows at positions spread over 0-1279 (the last row idle on
 # the trash block). The trace: 12 requests from launch.serve's make_trace
@@ -351,15 +359,25 @@ def decode_shape(torch, name, r, call, plain, nbytes, what, flush):
     return ms
 
 
+def twice(torch, what, call):
+    """The call's outputs, checked bit-equal over two launches."""
+    a, b = call(), call()
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        fail(f"{what}: two launches on the same inputs are not bit-equal")
+    return a
+
+
 def record_clean(torch, timings, name, what, ms, nbytes, call, flush):
-    """Keep a timing with its rate, and time ``call`` again after a flush
-    that leaves L2 clean."""
+    """Keep a timing with its rate and byte bound, and time ``call`` again
+    after a flush that leaves L2 clean."""
     gbps, share = rate(ms, nbytes)
     clean = time_ms(torch, call, reps=50, flush=flush, clean=True)
     clean_gbps, clean_share = rate(clean, nbytes)
     timings[f"{name}, {what}"] = {
         "ms": ms, "GB/s": gbps, "share_of_bound": share,
-        "clean_l2_ms": clean, "clean_l2_share": clean_share}
+        "clean_l2_ms": clean, "clean_l2_share": clean_share,
+        "bound_ms": bound(0, nbytes)[0]}
     print(f"  {name}, {what}, after a clean flush: {clean:.5f} ms, "
           f"{clean_gbps:.2f} GB/s, {clean_share:.2%} of the bound")
 
@@ -754,15 +772,6 @@ def dense_kernels(torch, cfg, gen, flush, results):
     D = KH * hd
     ragged = 1_000_003                   # 7813 rows, the last one padded
 
-    def twice(what, call):
-        """The call's outputs, checked bit-equal over two launches."""
-        a, b = call(), call()
-        torch.cuda.synchronize()
-        if not all(torch.equal(x, y) for x, y in zip(a, b)):
-            fail(f"{what}: two launches on the same inputs are not "
-                 f"bit-equal")
-        return a
-
     for container, dtype in (("sfp-m1e2", torch.bfloat16),
                              (DENSE, torch.bfloat16),
                              ("sfp-m3e5", torch.bfloat16),
@@ -783,18 +792,20 @@ def dense_kernels(torch, cfg, gen, flush, results):
                 what = f"bitplane pack {container} {dtype} " \
                        f"rows={rows.shape[0]} n={n}"
                 if n is None:
-                    kp, kb = twice(what, lambda: bp.bitplane_pack(rows, f))
+                    kp, kb = twice(torch, what,
+                                   lambda: bp.bitplane_pack(rows, f))
                     pp, pb = bp.plain(rows, f)
                 else:
-                    kp, kb = twice(what, lambda: bp.bitplane_quantize_pack(
-                        rows, n, f))
+                    kp, kb = twice(torch, what,
+                                   lambda: bp.bitplane_quantize_pack(
+                                       rows, n, f))
                     pp, pb = bp.plain(rows, f, n)
                 torch.cuda.synchronize()
                 if not (torch.equal(kp, pp) and torch.equal(kb, pb)):
                     fail(f"{what}: kernel bytes differ from the plain "
                          f"version")
                 what = what.replace("bitplane pack", "bitplane_unpack")
-                ku, = twice(what, lambda: (
+                ku, = twice(torch, what, lambda: (
                     bp.bitplane_unpack(kp, kb, dtype, f),))
                 pu = bp.plain_unpack(kp, kb, dtype, f)
                 torch.cuda.synchronize()
@@ -927,6 +938,106 @@ def dense_kernels(torch, cfg, gen, flush, results):
     r = results["packed_flash_decode_dense"]
     r["note"] = decode_note(pfd.split_plan(B, KH, hd, L), B, KH,
                             r["bound_ms"], r["ms"])
+    return timings
+
+
+def sfp_kernels(torch, cfg, gen, flush, results):
+    """sfp_pack, sfp_quantize_pack and sfp_unpack against their plain
+    versions: every fixed-lane geometry of WORD_GEOMETRIES at the stash
+    shape (B, S, d), a ragged size, past the one-pass threshold, the whole
+    decode cache and one token's rows, for n = none, 0, 1, man_keep and
+    man_bits, each pack and unpack also bit-equal over two launches. Times
+    the fused pack and the unpack at the stash shape and the pack over the
+    whole cache and at one token. Draws its inputs from its own generator,
+    so the runs after it see the same inputs with or without it. Returns
+    each timing with its GB/s, share of the byte bound and its time after
+    a clean flush."""
+    from repro_torch.codecs import fields_for
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import sfp_pack as sp
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 1)
+    shape = (B, TRAIN_SEQ, cfg.d_model)
+    D = cfg.n_kv_heads * cfg.head_dim_
+    L = -(-(PROMPT + MAX_NEW) // ops.DECODE_BLOCK_L) * ops.DECODE_BLOCK_L
+    cache_rows = B * L * D // ref.GROUP                  # 41,472
+    ragged = 1_000_003                   # 7813 rows, the last one padded
+
+    for container, dname in WORD_GEOMETRIES:
+        dtype = getattr(torch, dname)
+        f = fields_for(container, dtype)
+        if f.dense:
+            fail(f"{container} is not a fixed-lane geometry: {f}")
+        top = 7 if dtype == torch.bfloat16 else 23
+        x = wide_range(torch, gen, shape, dev, dtype)
+        flat = x.reshape(-1)
+        for rows in (x.reshape(-1, ref.GROUP),
+                     ref.to_rows(flat[:ragged]),
+                     flat[:DENSE_RAGGED_ROWS * ref.GROUP].reshape(
+                         -1, ref.GROUP),
+                     flat[:cache_rows * ref.GROUP].reshape(-1, ref.GROUP),
+                     x[:, :1, :D].reshape(-1, ref.GROUP)):   # one token
+            for n in (None, 0, 1, f.man_keep, top):
+                what = f"sfp pack {container} {dtype} " \
+                       f"rows={rows.shape[0]} n={n}"
+                if n is None:
+                    kp, kb = twice(torch, what, lambda: sp.sfp_pack(rows, f))
+                else:
+                    kp, kb = twice(torch, what,
+                                   lambda: sp.sfp_quantize_pack(rows, n, f))
+                pp, pb = sp.plain(rows, f, n)
+                torch.cuda.synchronize()
+                if not (torch.equal(kp, pp) and torch.equal(kb, pb)):
+                    fail(f"{what}: kernel bytes differ from the plain "
+                         f"version")
+                what = what.replace("sfp pack", "sfp_unpack")
+                ku, = twice(torch, what,
+                            lambda: (sp.sfp_unpack(kp, kb, dtype, f),))
+                pu = sp.plain_unpack(kp, kb, dtype, f)
+                torch.cuda.synchronize()
+                if not torch.equal(ku.view(torch.uint8), pu.view(torch.uint8)):
+                    fail(f"{what}: kernel bits differ from the plain "
+                         f"version")
+        del x, flat, rows, kp, kb, pp, pb, ku, pu
+    print("  sfp packs byte-equal and unpack bit-equal, each also over two "
+          "launches: " + ", ".join(f"{c} ({d})" for c, d in WORD_GEOMETRIES)
+          + f"; the stash shape, ragged ({ragged} values), "
+          f"{DENSE_RAGGED_ROWS} rows, the whole cache ({cache_rows} rows) "
+          f"and one token ({B * D // ref.GROUP} rows); n = none, 0, 1, "
+          f"man_keep, man_bits")
+
+    timings = {}
+
+    def record(name, what, call, nbytes):
+        ms = time_ms(torch, call, reps=50, flush=flush)
+        record_clean(torch, timings, name, what, ms, nbytes, call, flush)
+        t = timings[f"{name}, {what}"]
+        note = (f"{what}: {ms:.5f} ms, {t['GB/s']:.4g} GB/s, "
+                f"{100 * t['share_of_bound']:.3g}% of the bound; after a "
+                f"clean flush {t['clean_l2_ms']:.5f} ms")
+        print(f"  {name}, {note}")
+        r = results.setdefault(name, {})
+        r["note"] = f"{r['note']}; {note}" if "note" in r else note
+
+    f = fields_for(CONTAINER, torch.bfloat16)
+    rows = wide_range(torch, gen, shape, dev, torch.bfloat16).reshape(
+        -1, ref.GROUP)
+    nd = torch.tensor(SFP8_KEPT_BITS, dtype=torch.int32, device=dev)
+    kp, kb = sp.sfp_quantize_pack(rows, nd, f)
+    nbytes = 2 * rows.numel() + kp.numel() + kb.numel()
+    stash = f"stash, {rows.shape[0]} rows"
+    record("sfp_quantize_pack", stash,
+           lambda: sp.sfp_quantize_pack(rows, nd, f), nbytes)
+    record("sfp_unpack", stash,
+           lambda: sp.sfp_unpack(kp, kb, torch.bfloat16, f), nbytes)
+    for what, shape_ in ((f"whole cache, {cache_rows} rows", (B, L, D)),
+                         (f"one token, {B * D // ref.GROUP} rows",
+                          (B, 1, D))):
+        rows = wide_range(torch, gen, shape_, dev, torch.bfloat16).reshape(
+            -1, ref.GROUP)
+        record("sfp_pack", what, lambda: sp.sfp_pack(rows, f),
+               3 * rows.numel() + rows.shape[0])
     return timings
 
 
@@ -1879,10 +1990,11 @@ def bit_exact_run(torch, cfg, counters):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phase", choices=("all", "gecko", "dense"),
+    ap.add_argument("--phase", choices=("all", "gecko", "dense", "sfp"),
                     default="all",
-                    help="gecko / dense: only the Gecko or the dense "
-                         "bit-plane kernel checks and timings")
+                    help="gecko / dense / sfp: only the Gecko, the dense "
+                         "bit-plane or the fixed-lane word kernel checks "
+                         "and timings")
     ap.add_argument("--src", type=Path, default=SRC,
                     help="the directory holding the repro_torch package")
     args = ap.parse_args(argv)
@@ -1923,8 +2035,14 @@ def main(argv=None) -> int:
     floor_ms = launch_floor_ms(torch, flush)
     print(f"launch floor (a one-element fill, same timer): {floor_ms:.5f} ms")
     if args.phase != "all":
-        phase = gecko_kernels if args.phase == "gecko" else dense_kernels
+        phase = {"gecko": gecko_kernels, "dense": dense_kernels,
+                 "sfp": sfp_kernels}[args.phase]
         timings = phase(torch, cfg, gen, flush, {})
+        for what, t in timings.items():
+            t["clean_less_floor_over_bound"] = (
+                (t["clean_l2_ms"] - floor_ms) / t["bound_ms"])
+            print(f"  {what}: (clean L2 - launch floor) / bound "
+                  f"{t['clean_less_floor_over_bound']:.4g}")
         print(card)
         print(json.dumps({"tree": str(src), "card": card,
                           "launch_floor_ms": floor_ms,
@@ -1945,6 +2063,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     serving_kernels(torch, cfg, gen, flush, results)
     training_kernels(torch, cfg, gen, flush, results)
+    sfp_kernels(torch, cfg, gen, flush, results)
     dense_kernels(torch, cfg, gen, flush, results)
     gecko_kernels(torch, cfg, gen, flush, results)
     paged_kernels(torch, cfg, gen, flush, results)

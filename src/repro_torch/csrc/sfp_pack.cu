@@ -10,134 +10,266 @@
 // sign cleared; values more than dexp_max binades below the base flush too.
 // The fused pack first keeps only the top n mantissa bits (Q(M, n), n read
 // from device memory so a step-varying bitlength needs no host sync); the
-// plain pack is the same kernel with no n. The unpack is the inverse bit
-// machine (sfp_decode_word) into bf16 or f32.
+// plain pack is the same kernel with no n. The unpack is the inverse into
+// bf16 or f32. The plain versions are sfp_pack_rows / sfp_unpack_rows in
+// kernels/ref.py; sfp_{pack,unpack}_swar there mirror the arithmetic below
+// step for step.
 //
-// Bound on this card: memory. A bf16 value is read once (2 B) and leaves as
-// a 1-byte word plus 1/128 of a base byte (~1.008 B), and the unpack moves
-// the same bytes the other way. Design: one warp per 128-lane group, 4
-// consecutive values per lane, so each lane issues one 8-byte (bf16) or
-// 16-byte (f32) access and one 4- or 8-byte payload access, and the group
-// base is a single __reduce_max_sync over the lanes' exponent maxima.
+// Bound on this card: bytes. A bf16 value is read once (2 B) and leaves as
+// a 1-byte word plus 1/128 of a base byte (~1.008 B); the unpack moves the
+// same bytes the other way. At the stash shape (9.4 M values) that is ~8.5
+// us at 3.35 TB/s, and every 10 integer operations a value cost ~6 us at
+// 64 a clock an SM, so the design keeps both the bytes in flight and the
+// operations a value low (the layout of csrc/bitplane_pack.cu without its
+// plane transposes):
+// 1. A thread per 8 lanes. 16 threads make a row (a half-warp), a block of
+//    256 threads 16 rows a pass. A bf16 thread reads its 8 values with one
+//    16-byte load (f32: two). Up to the rows an H100 holds at once with one
+//    pass (8 blocks on each of 132 SMs), a tile is one pass, so a one-token
+//    pack of 36 rows is one load a thread; above, a tile is two passes,
+//    both loads in flight before any arithmetic.
+// 2. Two bf16 values a register (encode_pair, decode_pair; sfp_pair.cuh),
+//    ~8 operations a value against sfp_encode_word's ~14 and
+//    sfp_decode_word's ~16. They work on the word's payload width P' = 1 +
+//    E + K. A fixed-lane word may carry man_shift = P - P' padding bits
+//    below its mantissa (3 for sfp16 on bf16), so the pack shifts each pair
+//    left by man_shift and the unpack right, before decode_pair, whose
+//    masks drop the padding that slides into the low half. f32 takes
+//    sfp_encode_word / sfp_decode_word, one value a register.
+// 3. The row base is a max over the half-warp: 4 __shfl_xor_sync.
+// 4. One access a thread and row each way. A thread's 8 words are its
+//    4 pair registers (sfp16: one 16-byte store or load) or their low bytes
+//    (sfp8: two __byte_perm, one 8-byte store or load), the 16 threads of a
+//    row cover it in order, so a warp moves 512 or 256 contiguous bytes.
+//    The first thread of a row stores its base byte; the unpack's threads
+//    read their row's base byte, one broadcast a half-warp. No shared
+//    memory and no barrier.
+// Tried on the H100 and dropped (PERF.md): the tile's bases staged
+// in shared memory and stored 16 to a store (as in csrc/bitplane_pack.cu)
+// tied at the large shapes but cost the one-token pack ~0.15 us, the
+// barrier and a dependent store; sfp8 words staged for 16-byte stores tied
+// with the direct 8-byte ones; two passes at one token, one pass at the
+// stash shape and four passes above the threshold were slower; a
+// half-warp __reduce_max_sync in place of the 4 shuffles gained nothing.
 // Integer arithmetic only, so the results are bit-for-bit the plain
 // versions'.
 #include "sfp_common.cuh"
+#include "sfp_pair.cuh"
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
+constexpr int kThreads = 256;
+constexpr int kRowThreads = 16;                    // 8 lanes a thread
+constexpr int kRowsPerPass = kThreads / kRowThreads;
+// Rows an H100 holds at once with one pass: 8 blocks on each of 132 SMs.
+constexpr int kOnePassRows = 8 * 132 * kRowsPerPass;
 
-template <int SRC_BITS, int WORD_BITS>
-__global__ void sfp_pack_kernel(const void* __restrict__ x,
-                                void* __restrict__ payload,
-                                uint8_t* __restrict__ bases, int rows,
-                                const int* __restrict__ n_ptr, SfpFields f) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (row >= rows) return;  // whole warp leaves together
+// The pair geometry of a fixed-lane word: its fields without the padding.
+__device__ __forceinline__ SfpFields unpadded(const SfpFields f) {
+  return SfpFields{f.man_keep, f.dexp_bits, 1 + f.dexp_bits + f.man_keep};
+}
 
+template <int SRC_BITS, int WORD_BITS, int U>
+__global__ void __launch_bounds__(kThreads)
+sfp_pack_kernel(const uint4* __restrict__ x, void* __restrict__ payload,
+                uint8_t* __restrict__ bases, int rows,
+                const int* __restrict__ n_ptr, SfpFields f) {
+  constexpr int kTile = kRowsPerPass * U;          // U passes a tile
+  constexpr int kLoads = SRC_BITS / 16;            // 16-byte loads a row
   constexpr int man_bits = SRC_BITS == 16 ? 7 : 23;
+  const int t = threadIdx.x % kRowThreads, q = threadIdx.x / kRowThreads;
+  const long long row0 = (long long)blockIdx.x * kTile;
+  const int n_rows = (int)min((long long)kTile, rows - row0);
+
+  uint4 v[U][kLoads];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int r = q + kRowsPerPass * u;
+#pragma unroll
+    for (int l = 0; l < kLoads; ++l)
+      v[u][l] = r < n_rows
+          ? __ldg(x + (row0 + r) * (16 * kLoads) + kLoads * t + l)
+          : make_uint4(0u, 0u, 0u, 0u);
+  }
   const uint32_t keep = n_ptr == nullptr ? 0xFFFFFFFFu
                                          : sfp_keep_mask(*n_ptr, man_bits);
-  uint32_t u[4];
-  if (SRC_BITS == 16) {
-    const uint2 w = reinterpret_cast<const uint2*>(x)[(size_t)row * 32 + lane];
-    u[0] = w.x & 0xFFFFu; u[1] = w.x >> 16;
-    u[2] = w.y & 0xFFFFu; u[3] = w.y >> 16;
-  } else {
-    const uint4 w = reinterpret_cast<const uint4*>(x)[(size_t)row * 32 + lane];
-    u[0] = w.x; u[1] = w.y; u[2] = w.z; u[3] = w.w;
-  }
-  int e[4];
-  unsigned emax = 0;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    e[i] = (int)((u[i] >> man_bits) & 0xFFu);
-    emax = max(emax, (unsigned)e[i]);
-  }
-  const int base = (int)__reduce_max_sync(0xffffffffu, emax);
+  const int dmax = f.dexp_max(), pad = f.man_shift();
+  PairFields c{};
+  if constexpr (SRC_BITS == 16) c = pair_fields(unpadded(f), keep & 0x7Fu);
 
-  uint32_t word[4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-    word[i] = sfp_encode_word(u[i], e[i], base, SRC_BITS, man_bits, keep, f);
-  if (WORD_BITS == 8) {
-    const uint32_t packed = (word[0] & 0xFFu) | ((word[1] & 0xFFu) << 8)
-                            | ((word[2] & 0xFFu) << 16) | ((word[3] & 0xFFu) << 24);
-    reinterpret_cast<uint32_t*>(payload)[(size_t)row * 32 + lane] = packed;
-  } else {
-    uint2 packed;
-    packed.x = (word[0] & 0xFFFFu) | ((word[1] & 0xFFFFu) << 16);
-    packed.y = (word[2] & 0xFFFFu) | ((word[3] & 0xFFFFu) << 16);
-    reinterpret_cast<uint2*>(payload)[(size_t)row * 32 + lane] = packed;
+  for (int u = 0; u < U; ++u) {
+    const int r = q + kRowsPerPass * u;            // the half-warp's row
+    uint32_t w[4];                                 // words 2k, 2k + 1
+    int base;
+    if constexpr (SRC_BITS == 16) {
+      const int K = f.man_keep;
+      const uint32_t u2[4] = {v[u][0].x, v[u][0].y, v[u][0].z, v[u][0].w};
+      uint32_t y2[4], ek2[4], mh = 0u, ml = 0u;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        y2[k] = u2[k] >> c.man_shift;
+        ek2[k] = y2[k] & c.emask2;
+        mh = max(mh, ek2[k]);                      // high halves decide
+        ml = max(ml, ek2[k] << 16);                // the low halves alone
+      }
+      const int baseK = half_warp_max((int)(max(mh, ml) >> 16));
+      base = baseK >> K;
+      const int lo = max(1, base - dmax);
+      const uint32_t c2 = twice(0x8000u - ((uint32_t)lo << K));
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        w[k] = encode_pair(u2[k], y2[k], ek2[k], c2, twice(baseK), c) << pad;
+    } else {
+      const uint32_t uu[8] = {v[u][0].x, v[u][0].y, v[u][0].z, v[u][0].w,
+                              v[u][1].x, v[u][1].y, v[u][1].z, v[u][1].w};
+      int e[8], emax = 0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        e[j] = (int)((uu[j] >> 23) & 0xFFu);
+        emax = max(emax, e[j]);
+      }
+      base = half_warp_max(emax);
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        w[k] = sfp_encode_word(uu[2 * k], e[2 * k], base, 32, 23, keep, f)
+               | (sfp_encode_word(uu[2 * k + 1], e[2 * k + 1], base, 32, 23,
+                                  keep, f) << 16);
+    }
+    if (r < n_rows) {
+      const long long i = (row0 + r) * kRowThreads + t;   // the thread's chunk
+      if constexpr (WORD_BITS == 16) {
+        reinterpret_cast<uint4*>(payload)[i] = make_uint4(w[0], w[1], w[2],
+                                                          w[3]);
+      } else {
+        reinterpret_cast<uint2*>(payload)[i] = make_uint2(
+            __byte_perm(w[0], w[1], 0x6420), __byte_perm(w[2], w[3], 0x6420));
+      }
+      if (t == 0) bases[row0 + r] = (uint8_t)base;
+    }
   }
-  if (lane == 0) bases[row] = (uint8_t)base;
 }
 
-template <int DST_BITS, int WORD_BITS>
-__global__ void sfp_unpack_kernel(const void* __restrict__ payload,
-                                  const uint8_t* __restrict__ bases,
-                                  void* __restrict__ out, int rows,
-                                  SfpFields f) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (row >= rows) return;
-  const int base = bases[row];
-  uint32_t p[4];
-  if (WORD_BITS == 8) {
-    const uint32_t w = reinterpret_cast<const uint32_t*>(payload)[(size_t)row * 32 + lane];
-    p[0] = w & 0xFFu; p[1] = (w >> 8) & 0xFFu;
-    p[2] = (w >> 16) & 0xFFu; p[3] = w >> 24;
-  } else {
-    const uint2 w = reinterpret_cast<const uint2*>(payload)[(size_t)row * 32 + lane];
-    p[0] = w.x & 0xFFFFu; p[1] = w.x >> 16;
-    p[2] = w.y & 0xFFFFu; p[3] = w.y >> 16;
-  }
-  uint32_t bits[4];
+template <int DST_BITS, int WORD_BITS, int U>
+__global__ void __launch_bounds__(kThreads)
+sfp_unpack_kernel(const void* __restrict__ payload,
+                  const uint8_t* __restrict__ bases, uint4* __restrict__ out,
+                  int rows, SfpFields f) {
+  constexpr int kStores = DST_BITS / 16;           // 16-byte stores a row
+  const int t = threadIdx.x % kRowThreads, q = threadIdx.x / kRowThreads;
+  const long long row0 = (long long)blockIdx.x * kRowsPerPass * U;
+  const int n_rows = (int)min((long long)kRowsPerPass * U, rows - row0);
+
+  uint4 p[U];                                      // sfp8: .x and .y
+  int base[U];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-    bits[i] = __float_as_uint(sfp_decode_word(p[i], base, f));
-  if (DST_BITS == 32) {
-    reinterpret_cast<uint4*>(out)[(size_t)row * 32 + lane] =
-        make_uint4(bits[0], bits[1], bits[2], bits[3]);
-  } else {  // a bf16 is the top half of the exact f32 rebuild
-    uint2 o;
-    o.x = (bits[0] >> 16) | (bits[1] & 0xFFFF0000u);
-    o.y = (bits[2] >> 16) | (bits[3] & 0xFFFF0000u);
-    reinterpret_cast<uint2*>(out)[(size_t)row * 32 + lane] = o;
+  for (int u = 0; u < U; ++u) {
+    const int r = q + kRowsPerPass * u;
+    const long long i = (row0 + r) * kRowThreads + t;     // the thread's chunk
+    p[u] = make_uint4(0u, 0u, 0u, 0u);
+    base[u] = 0;
+    if (r < n_rows) {
+      if constexpr (WORD_BITS == 16) {
+        p[u] = __ldg(reinterpret_cast<const uint4*>(payload) + i);
+      } else {
+        const uint2 b = __ldg(reinterpret_cast<const uint2*>(payload) + i);
+        p[u].x = b.x;
+        p[u].y = b.y;
+      }
+      base[u] = (int)__ldg(bases + row0 + r);
+    }
   }
+  const int pad = f.man_shift();
+  PairFields c{};
+  if constexpr (DST_BITS == 16) c = pair_fields(unpadded(f), 0x7Fu);
+
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int r = q + kRowsPerPass * u;
+    if (r >= n_rows) break;
+    uint32_t w[4];                                 // words 2k, 2k + 1
+    if constexpr (WORD_BITS == 16) {
+      w[0] = p[u].x; w[1] = p[u].y; w[2] = p[u].z; w[3] = p[u].w;
+    } else {
+      w[0] = __byte_perm(p[u].x, 0u, 0x4140);
+      w[1] = __byte_perm(p[u].x, 0u, 0x4342);
+      w[2] = __byte_perm(p[u].y, 0u, 0x4140);
+      w[3] = __byte_perm(p[u].y, 0u, 0x4342);
+    }
+    uint4* o = out + (row0 + r) * (16 * kStores) + kStores * t;
+    if constexpr (DST_BITS == 16) {
+      // The high word's padding lands in the low half's bits P'..15,
+      // which decode_pair masks off.
+      const uint32_t b2 = twice(((uint32_t)base[u] + 256u) << 7);
+      *o = make_uint4(decode_pair(w[0] >> pad, b2, c),
+                      decode_pair(w[1] >> pad, b2, c),
+                      decode_pair(w[2] >> pad, b2, c),
+                      decode_pair(w[3] >> pad, b2, c));
+    } else {
+      uint32_t bits[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        bits[j] = __float_as_uint(sfp_decode_word(
+            (w[j >> 1] >> (16 * (j & 1))) & 0xFFFFu, base[u], f));
+      o[0] = make_uint4(bits[0], bits[1], bits[2], bits[3]);
+      o[1] = make_uint4(bits[4], bits[5], bits[6], bits[7]);
+    }
+  }
+}
+
+// Words of 8 or 16 bits that hold their fields; a bf16 pair holds K <= 7
+// mantissa bits and, for its decode, E <= 8 exponent-delta bits.
+bool fields_ok(int float_bits, int man_keep, int dexp_bits,
+               int payload_bits) {
+  return (float_bits == 16 || float_bits == 32)
+         && (payload_bits == 8 || payload_bits == 16) && man_keep >= 0
+         && dexp_bits >= 1 && 1 + dexp_bits + man_keep <= payload_bits
+         && man_keep <= (float_bits == 16 ? 7 : 23)
+         && (float_bits == 32 || dexp_bits <= 8);
 }
 
 template <int SRC_BITS, int WORD_BITS>
-void launch_pack(const void* x, void* payload, uint8_t* bases, int rows,
-                 const int* n_ptr, SfpFields f, cudaStream_t stream) {
-  const int blocks = (rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  sfp_pack_kernel<SRC_BITS, WORD_BITS>
-      <<<blocks, kWarpsPerBlock * 32, 0, stream>>>(x, payload, bases, rows,
-                                                   n_ptr, f);
+void launch_pack(const uint4* x, void* payload, uint8_t* bases, int rows,
+                 const int* n_ptr, SfpFields f, cudaStream_t s) {
+  if (rows <= kOnePassRows) {
+    const int grid = (rows + kRowsPerPass - 1) / kRowsPerPass;
+    sfp_pack_kernel<SRC_BITS, WORD_BITS, 1><<<grid, kThreads, 0, s>>>(
+        x, payload, bases, rows, n_ptr, f);
+  } else {
+    const int grid = (rows + 2 * kRowsPerPass - 1) / (2 * kRowsPerPass);
+    sfp_pack_kernel<SRC_BITS, WORD_BITS, 2><<<grid, kThreads, 0, s>>>(
+        x, payload, bases, rows, n_ptr, f);
+  }
 }
 
 template <int DST_BITS, int WORD_BITS>
-void launch_unpack(const void* payload, const uint8_t* bases, void* out,
-                   int rows, SfpFields f, cudaStream_t stream) {
-  const int blocks = (rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  sfp_unpack_kernel<DST_BITS, WORD_BITS>
-      <<<blocks, kWarpsPerBlock * 32, 0, stream>>>(payload, bases, out, rows,
-                                                   f);
+void launch_unpack(const void* payload, const uint8_t* bases, uint4* out,
+                   int rows, SfpFields f, cudaStream_t s) {
+  if (rows <= kOnePassRows) {
+    const int grid = (rows + kRowsPerPass - 1) / kRowsPerPass;
+    sfp_unpack_kernel<DST_BITS, WORD_BITS, 1><<<grid, kThreads, 0, s>>>(
+        payload, bases, out, rows, f);
+  } else {
+    const int grid = (rows + 2 * kRowsPerPass - 1) / (2 * kRowsPerPass);
+    sfp_unpack_kernel<DST_BITS, WORD_BITS, 2><<<grid, kThreads, 0, s>>>(
+        payload, bases, out, rows, f);
+  }
 }
 
 int pack(const void* x, void* payload, void* bases, int rows, int src_bits,
          const int* n_ptr, int man_keep, int dexp_bits, int payload_bits,
          void* stream) {
   if (rows <= 0) return 0;
+  if (!fields_ok(src_bits, man_keep, dexp_bits, payload_bits))
+    return (int)cudaErrorInvalidValue;
   const SfpFields f{man_keep, dexp_bits, payload_bits};
   auto s = static_cast<cudaStream_t>(stream);
+  auto xi = static_cast<const uint4*>(x);
   auto b = static_cast<uint8_t*>(bases);
-  if (src_bits == 16 && payload_bits == 8) launch_pack<16, 8>(x, payload, b, rows, n_ptr, f, s);
-  else if (src_bits == 16 && payload_bits == 16) launch_pack<16, 16>(x, payload, b, rows, n_ptr, f, s);
-  else if (src_bits == 32 && payload_bits == 8) launch_pack<32, 8>(x, payload, b, rows, n_ptr, f, s);
-  else if (src_bits == 32 && payload_bits == 16) launch_pack<32, 16>(x, payload, b, rows, n_ptr, f, s);
-  else return (int)cudaErrorInvalidValue;
+  if (src_bits == 16 && payload_bits == 8) launch_pack<16, 8>(xi, payload, b, rows, n_ptr, f, s);
+  else if (src_bits == 16) launch_pack<16, 16>(xi, payload, b, rows, n_ptr, f, s);
+  else if (payload_bits == 8) launch_pack<32, 8>(xi, payload, b, rows, n_ptr, f, s);
+  else launch_pack<32, 16>(xi, payload, b, rows, n_ptr, f, s);
   return (int)cudaGetLastError();
 }
 
@@ -165,13 +297,15 @@ extern "C" int sfp_unpack_launch(const void* payload, const void* bases,
                                  int man_keep, int dexp_bits,
                                  int payload_bits, void* stream) {
   if (rows <= 0) return 0;
+  if (!fields_ok(dst_bits, man_keep, dexp_bits, payload_bits))
+    return (int)cudaErrorInvalidValue;
   const SfpFields f{man_keep, dexp_bits, payload_bits};
   auto s = static_cast<cudaStream_t>(stream);
   auto b = static_cast<const uint8_t*>(bases);
-  if (dst_bits == 16 && payload_bits == 8) launch_unpack<16, 8>(payload, b, out, rows, f, s);
-  else if (dst_bits == 16 && payload_bits == 16) launch_unpack<16, 16>(payload, b, out, rows, f, s);
-  else if (dst_bits == 32 && payload_bits == 8) launch_unpack<32, 8>(payload, b, out, rows, f, s);
-  else if (dst_bits == 32 && payload_bits == 16) launch_unpack<32, 16>(payload, b, out, rows, f, s);
-  else return (int)cudaErrorInvalidValue;
+  auto o = static_cast<uint4*>(out);
+  if (dst_bits == 16 && payload_bits == 8) launch_unpack<16, 8>(payload, b, o, rows, f, s);
+  else if (dst_bits == 16) launch_unpack<16, 16>(payload, b, o, rows, f, s);
+  else if (payload_bits == 8) launch_unpack<32, 8>(payload, b, o, rows, f, s);
+  else launch_unpack<32, 16>(payload, b, o, rows, f, s);
   return (int)cudaGetLastError();
 }

@@ -813,19 +813,24 @@ def bitplane_decode_swar(planes: torch.Tensor, payload_bits: int
                            planes.shape[0])
 
 
-def bitplane_pack_swar(x: torch.Tensor, fields: PackFields, n=None):
-    """``bitplane_pack`` (``n``: ``bitplane_quantize_pack``) as the kernel
-    computes it: (R, 128) bf16/f32 -> (planes (R, P*16), bases (R, 1))
-    uint8, equal to ``bitplane_pack_rows``."""
-    R = x.shape[0]
-    if x.dtype == torch.float32:     # sfp_encode_word, one value a register
+def _unpadded(f: PackFields) -> PackFields:
+    """``unpadded``: the pair geometry of a word, P' = 1 + E + K bits (a
+    fixed-lane word's man_shift padding bits below its mantissa off)."""
+    return PackFields(f.man_keep, f.dexp_bits, 1 + f.dexp_bits + f.man_keep)
+
+
+def _pack_pairs(x: torch.Tensor, fields: PackFields, n=None):
+    """The pack kernels' encode: (R, 128) bf16/f32 -> (each thread's 4
+    word pairs, (R, 16) each; the row bases (R, 1) int64). bf16 by the
+    pair encode at P', each pair shifted left by the word's padding; f32
+    by ``sfp_encode_word``, one value a register."""
+    if x.dtype == torch.float32:
         words, base = _pack_words(x, fields, containers.spec_for(x), n)
-        w = _thread_pairs(words.to(torch.int64))
-        return _pack_image(w, base.to(torch.int64), R, fields.payload_bits)
+        return _thread_pairs(words.to(torch.int64)), base.to(torch.int64)
     K = fields.man_keep
     keep = containers.mantissa_keep_mask(7 if n is None else n,
                                          containers.spec_for(x))
-    c = _pair_fields(fields, int(keep))
+    c = _pair_fields(_unpadded(fields), int(keep))
     u2 = _thread_pairs(x.view(torch.int16).to(torch.int64) & 0xFFFF)
     y2 = [u >> c["man_shift"] for u in u2]
     ek2 = [y & c["emask2"] for y in y2]
@@ -836,9 +841,34 @@ def bitplane_pack_swar(x: torch.Tensor, fields: PackFields, n=None):
     base = baseK >> K
     lo = torch.clamp(base - fields.dexp_max, min=1)
     c2 = _twice(0x8000 - (lo << K))
-    w = [_encode_pair(u, y, e, c2, _twice(baseK), c)
-         for u, y, e in zip(u2, y2, ek2)]
-    return _pack_image(w, base, R, fields.payload_bits)
+    return [_encode_pair(u, y, e, c2, _twice(baseK), c) << fields.man_shift
+            for u, y, e in zip(u2, y2, ek2)], base
+
+
+def _unpack_pairs(w, bases: torch.Tensor, dtype: torch.dtype,
+                  fields: PackFields) -> torch.Tensor:
+    """The unpack kernels' decode: each thread's 4 word pairs and the row
+    bases (R, 1) -> (R, 128) floats. bf16 by the pair decode at P' of each
+    pair shifted right by the word's padding (the high word's padding
+    lands in the low half's bits P'..15, which the decode masks off); f32
+    by ``sfp_decode_word``, one value a register."""
+    R = bases.shape[0]
+    if dtype == torch.float32:
+        return _unpack_words(_pairs_to_words(w, R), bases.to(torch.int32),
+                             fields, containers.spec_for(dtype))
+    b2 = _twice((bases.to(torch.int64) + 256) << 7)
+    c = _pair_fields(_unpadded(fields), 0x7F)
+    bits = _pairs_to_words([_decode_pair(p >> fields.man_shift, b2, c)
+                            for p in w], R)
+    return bits.to(torch.int16).view(torch.bfloat16)
+
+
+def bitplane_pack_swar(x: torch.Tensor, fields: PackFields, n=None):
+    """``bitplane_pack`` (``n``: ``bitplane_quantize_pack``) as the kernel
+    computes it: (R, 128) bf16/f32 -> (planes (R, P*16), bases (R, 1))
+    uint8, equal to ``bitplane_pack_rows``."""
+    w, base = _pack_pairs(x, fields, n)
+    return _pack_image(w, base, x.shape[0], fields.payload_bits)
 
 
 def bitplane_unpack_swar(planes: torch.Tensor, bases: torch.Tensor,
@@ -846,15 +876,46 @@ def bitplane_unpack_swar(planes: torch.Tensor, bases: torch.Tensor,
                          ) -> torch.Tensor:
     """``bitplane_unpack`` as the kernel computes it: (R, P*16) planes +
     (R, 1) bases -> (R, 128) floats, equal to ``bitplane_unpack_rows``."""
-    R = planes.shape[0]
-    w = _unpack_image(planes, fields.payload_bits)
-    if dtype == torch.float32:       # sfp_decode_word, one value a register
-        return _unpack_words(_pairs_to_words(w, R), bases.to(torch.int32),
-                             fields, containers.spec_for(dtype))
-    b2 = _twice((bases.to(torch.int64) + 256) << 7)
-    c = _pair_fields(fields, 0x7F)
-    bits = _pairs_to_words([_decode_pair(p, b2, c) for p in w], R)
-    return bits.to(torch.int16).view(torch.bfloat16)
+    return _unpack_pairs(_unpack_image(planes, fields.payload_bits), bases,
+                         dtype, fields)
+
+
+# The fixed-lane word kernels' arithmetic (csrc/sfp_pack.cu) step for
+# step, on the bit-plane kernels' pair encode and decode: a thread per 8
+# lanes, its 8 words stored and loaded as one 16-byte (sfp16) or 8-byte
+# (sfp8: the pairs' low bytes by __byte_perm) chunk at byte 16 t or 8 t of
+# its row, the row's base stored by its first thread. For the tests: equal
+# to sfp_pack_rows / sfp_unpack_rows; the kernels can only be run on the
+# card.
+
+
+def sfp_pack_swar(x: torch.Tensor, fields: PackFields, n=None):
+    """``sfp_pack`` (``n``: ``sfp_quantize_pack``) as the kernel computes
+    it: (R, 128) bf16/f32 -> (payload (R, 128) words, bases (R, 1) uint8),
+    equal to ``sfp_pack_rows``."""
+    R = x.shape[0]
+    w, base = _pack_pairs(x, fields, n)
+    regs = w if fields.payload_bits == 16 else [
+        _byte_perm(w[0], w[1], 0x6420), _byte_perm(w[2], w[3], 0x6420)]
+    chunk = torch.stack([b for reg in regs for b in _lanes4(reg)], -1)
+    payload = chunk.reshape(R, -1).to(torch.uint8).view(fields.word_dtype)
+    return payload, base.reshape(R, 1).to(torch.uint8)
+
+
+def sfp_unpack_swar(payload: torch.Tensor, bases: torch.Tensor,
+                    dtype: torch.dtype, fields: PackFields) -> torch.Tensor:
+    """``sfp_unpack`` as the kernel computes it: (R, 128) words + (R, 1)
+    bases -> (R, 128) floats, equal to ``sfp_unpack_rows``."""
+    R = payload.shape[0]
+    chunk = payload.contiguous().view(torch.uint8).reshape(
+        R, BITPLANE_ROW_THREADS, -1).to(torch.int64)
+    regs = [_word([chunk[..., 4 * j + i] for i in range(4)])
+            for j in range(chunk.shape[-1] // 4)]
+    if fields.payload_bits == 8:     # bytes 2k, 2k + 1 into the halves
+        zero = torch.zeros_like(regs[0])
+        regs = [_byte_perm(regs[k >> 1], zero, 0x4342 if k & 1 else 0x4140)
+                for k in range(4)]
+    return _unpack_pairs(regs, bases, dtype, fields)
 
 
 # ---------------------------------------------------------------------------

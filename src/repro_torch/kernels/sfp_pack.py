@@ -3,10 +3,15 @@ wrappers and their plain versions.
 
 Replace the TPU kernels ``src/repro/kernels/sfp_pack.py:sfp_pack``,
 ``sfp_quantize_pack`` and ``sfp_unpack``. The kernels are in
-``csrc/sfp_pack.cu`` (one warp per 128-lane group, base by a warp max of
-the exponent field; the fused pack masks the mantissa to ``n`` bits first,
-``n`` read from device memory). All three are bound by memory on the
-H100: 2 B per bf16 value one way, ~1.008 B of payload and base the other.
+``csrc/sfp_pack.cu``: a thread per 8 lanes (16 a row), two bf16 values
+encoded or decoded a register at the word's unpadded width and shifted
+across its padding bits, the row base by a half-warp max, one 16-byte
+(sfp16) or 8-byte (sfp8) word access a thread and row; tiles of 16 rows,
+or 32 above the rows an H100 holds at once; ``n`` read from device
+memory. ``ref.sfp_{pack,unpack}_swar`` mirror them step for step. All
+three are bound by memory on the H100: 2 B per bf16 value one way, ~1.008
+B of payload and base the other. The wrappers of the bit-plane kernels
+(``bitplane_pack.py``) share ``_pack`` and ``_unpack``.
 """
 from __future__ import annotations
 
@@ -104,11 +109,11 @@ def _unpack(name: str, payload: torch.Tensor, bases: torch.Tensor, dtype,
         raise ValueError(f"{name} takes (R, {cols}) payload and (R, 1) "
                          f"bases, got {tuple(payload.shape)} "
                          f"{tuple(bases.shape)}")
-    # The bit-plane unpack copies whole 16-byte plane chunks; every caller's
-    # planes are a pack's output or rows of one (P * 16 bytes a row).
-    align = 16 if dense else 4
-    if payload.data_ptr() % align:
-        raise ValueError(f"{name} needs a {align}-byte aligned payload")
+    # Both unpacks read a thread's words or planes as 16-byte chunks (sfp8
+    # words as 8); every caller's payload is a pack's output or rows of one
+    # (128, 256 or P * 16 bytes a row).
+    if payload.data_ptr() % 16:
+        raise ValueError(f"{name} needs a 16-byte aligned payload")
     out = torch.empty((R, GROUP), dtype=dtype, device=payload.device)
     launch = getattr(lib, ("bitplane" if dense else "sfp") + "_unpack_launch")
     err = launch(payload.data_ptr(), bases.data_ptr(), out.data_ptr(), R,

@@ -42,20 +42,39 @@ def _close(got, want):
         err.max().item()
 
 
-@pytest.mark.parametrize("container", ["sfp8", "sfp16"])
+# Fixed-lane geometries: padding bits below the mantissa 0 (sfp8, sfp16
+# on f32, sfp16-m7e8), 1 (sfp8-m2e4) and 3 (sfp16 on bf16).
+WORD_CONTAINERS = ["sfp8", "sfp16", "sfp8-m2e4", "sfp16-m7e8"]
+# One row, one token of the serving shape (36), 333, and rows past the word
+# kernels' switch to two-pass tiles (16,896): with a ragged last tile, and
+# whole.
+WORD_ROWS = (1, 36, 333, 16_901, 48_000)
+
+
+def _twice(call):
+    """The call's outputs, checked bit-equal over two launches."""
+    a, b = call(), call()
+    a, b = (a, b) if isinstance(a, tuple) else ((a,), (b,))
+    assert all(torch.equal(x.view(torch.uint8), y.view(torch.uint8))
+               for x, y in zip(a, b))
+    return a
+
+
+@pytest.mark.parametrize("container", WORD_CONTAINERS)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_sfp_pack_kernel_bytes(dev, container, dtype):
     g = torch.Generator(device=dev).manual_seed(0)
-    x = torch.randn((333, 128), generator=g, device=dev)
-    x = x * torch.exp2(torch.randint(-30, 30, x.shape, generator=g,
-                                     device=dev).float())
-    x[::7] = 0.0
-    x[1::11] = 1e-39
-    x = x.to(dtype)
     f = fields_for(container, dtype)
-    kp, kb = sp.sfp_pack(x, f)
-    pp, pb = sp.plain(x, f)
-    assert torch.equal(kp, pp) and torch.equal(kb, pb)
+    for rows in (333,) + tuple(r for r in WORD_ROWS if r != 333):
+        x = torch.randn((rows, 128), generator=g, device=dev)
+        x = x * torch.exp2(torch.randint(-30, 30, x.shape, generator=g,
+                                         device=dev).float())
+        x[::7] = 0.0
+        x[1::11] = 1e-39
+        x = x.to(dtype)
+        kp, kb = _twice(lambda: sp.sfp_pack(x, f))
+        pp, pb = sp.plain(x, f)
+        assert torch.equal(kp, pp) and torch.equal(kb, pb), rows
 
 
 @pytest.mark.parametrize("hd,S,rep,window", [(64, 70, 1, None),
@@ -101,21 +120,39 @@ def _wide(dev, g, shape, dtype):
     return x.to(dtype)
 
 
-@pytest.mark.parametrize("container", ["sfp8", "sfp16"])
+@pytest.mark.parametrize("container", WORD_CONTAINERS)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_sfp_quantize_pack_and_unpack_kernel_bits(dev, container, dtype):
     g = torch.Generator(device=dev).manual_seed(3)
-    x = _wide(dev, g, (333, 128), dtype)
     f = fields_for(container, dtype)
     top = 7 if dtype == torch.bfloat16 else 23
-    for n in (0, 1, 3, top):
-        nd = torch.tensor(n, dtype=torch.int32, device=dev)
-        kp, kb = sp.sfp_quantize_pack(x, nd, f)
-        pp, pb = sp.plain(x, f, n)
-        assert torch.equal(kp, pp) and torch.equal(kb, pb), n
-        ku = sp.sfp_unpack(kp, kb, dtype, f)
-        pu = sp.plain_unpack(kp, kb, dtype, f)
-        assert torch.equal(ku.view(torch.uint8), pu.view(torch.uint8)), n
+    for rows in (333,) + tuple(r for r in WORD_ROWS if r != 333):
+        x = _wide(dev, g, (rows, 128), dtype)
+        for n in (0, 1, 3, f.man_keep, top):
+            nd = torch.tensor(n, dtype=torch.int32, device=dev)
+            kp, kb = _twice(lambda: sp.sfp_quantize_pack(x, nd, f))
+            pp, pb = sp.plain(x, f, n)
+            assert torch.equal(kp, pp) and torch.equal(kb, pb), (rows, n)
+            ku, = _twice(lambda: sp.sfp_unpack(kp, kb, dtype, f))
+            pu = sp.plain_unpack(kp, kb, dtype, f)
+            assert torch.equal(ku.view(torch.uint8),
+                               pu.view(torch.uint8)), (rows, n)
+
+
+def test_sfp_unpack_needs_aligned_payload(dev):
+    """The word unpack reads a thread's words as one 16- or 8-byte chunk:
+    a payload off a 16-byte boundary raises instead of launching."""
+    for container in ("sfp8", "sfp16"):
+        f = fields_for(container, torch.bfloat16)
+        x = torch.randn((4, 128), device=dev).to(torch.bfloat16)
+        kp, kb = sp.sfp_pack(x, f)
+        raw = kp.view(torch.uint8)
+        buf = torch.empty(raw.numel() + 16, dtype=torch.uint8, device=dev)
+        off = buf[8:8 + raw.numel()]
+        off.copy_(raw.reshape(-1))
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            sp.sfp_unpack(off.view(f.payload_dtype).view(kp.shape), kb,
+                          torch.bfloat16, f)
 
 
 @pytest.mark.parametrize("shape", [(4, 1024), (1001,), (3,)])
