@@ -16,9 +16,14 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from repro_torch.core import bitchop
 from repro_torch.optim import adamw
 from repro_torch.policies import PolicyState
 from repro_torch.train.state import TrainState
+
+# The port's controller states, by the name of the JAX NamedTuple.
+_CTRL_STATES = {cls.__name__: cls for cls in (bitchop.BitChopState,
+                                              bitchop.BitWaveState)}
 
 
 def to_tensor(a: np.ndarray, device="cpu") -> torch.Tensor:
@@ -34,6 +39,17 @@ def _tree(x, fn):
     if isinstance(x, dict):
         return {k: _tree(v, fn) for k, v in x.items()}
     return fn(x)
+
+
+def _ctrl(x, device):
+    """Controller state: nested dicts (a composite's, by sub-policy name)
+    whose leaves are arrays or BitChop / BitWave state NamedTuples."""
+    if isinstance(x, dict):
+        return {k: _ctrl(v, device) for k, v in x.items()}
+    cls = _CTRL_STATES.get(type(x).__name__)
+    if cls is not None:
+        return cls(*(to_tensor(np.asarray(v), device) for v in x))
+    return to_tensor(np.asarray(x), device)
 
 
 def _index(tree, i: int):
@@ -61,8 +77,8 @@ def state_from_jax(state, cfg, device="cpu", seed: int = 0) -> TrainState:
     parameters (requiring grad), AdamW m/v/count, the learned bitlengths
     (nested per sub-policy for a composite such as "qm+qe") and the step.
     The JAX key has no torch counterpart; the port's generator is seeded
-    with ``seed``. Controller state keeps its nesting (no ported policy
-    has controller registers)."""
+    with ``seed``. Controller state keeps its nesting, BitChop and BitWave
+    registers as the port's state NamedTuples of 0-d tensors."""
     params = from_jax(state.params, cfg, device)
     for p in adamw.leaves(params):
         p.requires_grad_(True)
@@ -71,8 +87,7 @@ def state_from_jax(state, cfg, device="cpu", seed: int = 0) -> TrainState:
                            count=int(np.asarray(state.opt.count)))
     learn = _tree(state.pstate.learn, lambda v: to_tensor(
         np.asarray(v, np.float32), device).requires_grad_())
-    ctrl = _tree(state.pstate.ctrl, lambda v: to_tensor(np.asarray(v),
-                                                        device))
+    ctrl = _ctrl(state.pstate.ctrl, device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     return TrainState(params=params, opt=opt,

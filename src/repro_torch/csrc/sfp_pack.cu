@@ -34,8 +34,10 @@
 //    E + K. A fixed-lane word may carry man_shift = P - P' padding bits
 //    below its mantissa (3 for sfp16 on bf16), so the pack shifts each pair
 //    left by man_shift and the unpack right, before decode_pair, whose
-//    masks drop the padding that slides into the low half. f32 takes
-//    sfp_encode_word / sfp_decode_word, one value a register.
+//    masks drop the padding that slides into the low half. The pair
+//    decode holds E <= 8 delta bits, so bf16 words with a wider delta
+//    field (sfp16-m3e10, sfp16-m1e14) take sfp_encode_word /
+//    sfp_decode_word, one value a register, as f32 does.
 // 3. The row base is a max over the half-warp: 4 __shfl_xor_sync.
 // 4. One access a thread and row each way. A thread's 8 words are its
 //    4 pair registers (sfp16: one 16-byte store or load) or their low bytes
@@ -69,7 +71,7 @@ __device__ __forceinline__ SfpFields unpadded(const SfpFields f) {
   return SfpFields{f.man_keep, f.dexp_bits, 1 + f.dexp_bits + f.man_keep};
 }
 
-template <int SRC_BITS, int WORD_BITS, int U>
+template <int SRC_BITS, int WORD_BITS, int U, bool PAIR>
 __global__ void __launch_bounds__(kThreads)
 sfp_pack_kernel(const uint4* __restrict__ x, void* __restrict__ payload,
                 uint8_t* __restrict__ bases, int rows,
@@ -95,14 +97,14 @@ sfp_pack_kernel(const uint4* __restrict__ x, void* __restrict__ payload,
                                          : sfp_keep_mask(*n_ptr, man_bits);
   const int dmax = f.dexp_max(), pad = f.man_shift();
   PairFields c{};
-  if constexpr (SRC_BITS == 16) c = pair_fields(unpadded(f), keep & 0x7Fu);
+  if constexpr (PAIR) c = pair_fields(unpadded(f), keep & 0x7Fu);
 
 #pragma unroll
   for (int u = 0; u < U; ++u) {
     const int r = q + kRowsPerPass * u;            // the half-warp's row
     uint32_t w[4];                                 // words 2k, 2k + 1
     int base;
-    if constexpr (SRC_BITS == 16) {
+    if constexpr (PAIR) {
       const int K = f.man_keep;
       const uint32_t u2[4] = {v[u][0].x, v[u][0].y, v[u][0].z, v[u][0].w};
       uint32_t y2[4], ek2[4], mh = 0u, ml = 0u;
@@ -120,6 +122,23 @@ sfp_pack_kernel(const uint4* __restrict__ x, void* __restrict__ payload,
 #pragma unroll
       for (int k = 0; k < 4; ++k)
         w[k] = encode_pair(u2[k], y2[k], ek2[k], c2, twice(baseK), c) << pad;
+    } else if constexpr (SRC_BITS == 16) {
+      // A delta field wider than 8 bits: one value a register.
+      const uint32_t u2[4] = {v[u][0].x, v[u][0].y, v[u][0].z, v[u][0].w};
+      uint32_t uu[8];
+      int e[8], emax = 0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        uu[j] = (u2[j >> 1] >> (16 * (j & 1))) & 0xFFFFu;
+        e[j] = (int)((uu[j] >> 7) & 0xFFu);
+        emax = max(emax, e[j]);
+      }
+      base = half_warp_max(emax);
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        w[k] = sfp_encode_word(uu[2 * k], e[2 * k], base, 16, 7, keep, f)
+               | (sfp_encode_word(uu[2 * k + 1], e[2 * k + 1], base, 16, 7,
+                                  keep, f) << 16);
     } else {
       const uint32_t uu[8] = {v[u][0].x, v[u][0].y, v[u][0].z, v[u][0].w,
                               v[u][1].x, v[u][1].y, v[u][1].z, v[u][1].w};
@@ -150,7 +169,7 @@ sfp_pack_kernel(const uint4* __restrict__ x, void* __restrict__ payload,
   }
 }
 
-template <int DST_BITS, int WORD_BITS, int U>
+template <int DST_BITS, int WORD_BITS, int U, bool PAIR>
 __global__ void __launch_bounds__(kThreads)
 sfp_unpack_kernel(const void* __restrict__ payload,
                   const uint8_t* __restrict__ bases, uint4* __restrict__ out,
@@ -181,7 +200,7 @@ sfp_unpack_kernel(const void* __restrict__ payload,
   }
   const int pad = f.man_shift();
   PairFields c{};
-  if constexpr (DST_BITS == 16) c = pair_fields(unpadded(f), 0x7Fu);
+  if constexpr (PAIR) c = pair_fields(unpadded(f), 0x7Fu);
 
 #pragma unroll
   for (int u = 0; u < U; ++u) {
@@ -197,7 +216,7 @@ sfp_unpack_kernel(const void* __restrict__ payload,
       w[3] = __byte_perm(p[u].y, 0u, 0x4342);
     }
     uint4* o = out + (row0 + r) * (16 * kStores) + kStores * t;
-    if constexpr (DST_BITS == 16) {
+    if constexpr (PAIR) {
       // The high word's padding lands in the low half's bits P'..15,
       // which decode_pair masks off.
       const uint32_t b2 = twice(((uint32_t)base[u] + 256u) << 7);
@@ -205,6 +224,17 @@ sfp_unpack_kernel(const void* __restrict__ payload,
                       decode_pair(w[1] >> pad, b2, c),
                       decode_pair(w[2] >> pad, b2, c),
                       decode_pair(w[3] >> pad, b2, c));
+    } else if constexpr (DST_BITS == 16) {
+      // A delta field wider than 8 bits: one value a register; a bf16 is
+      // the top half of the f32 the decode rebuilds, exactly.
+      uint32_t bits[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        bits[k] = (__float_as_uint(sfp_decode_word(w[k] & 0xFFFFu, base[u],
+                                                   f)) >> 16)
+                  | (__float_as_uint(sfp_decode_word(w[k] >> 16, base[u], f))
+                     & 0xFFFF0000u);
+      *o = make_uint4(bits[0], bits[1], bits[2], bits[3]);
     } else {
       uint32_t bits[8];
 #pragma unroll
@@ -217,42 +247,47 @@ sfp_unpack_kernel(const void* __restrict__ payload,
   }
 }
 
-// Words of 8 or 16 bits that hold their fields; a bf16 pair holds K <= 7
-// mantissa bits and, for its decode, E <= 8 exponent-delta bits.
+// Words of 8 or 16 bits that hold their fields (K <= 7 mantissa bits from
+// a bf16).
 bool fields_ok(int float_bits, int man_keep, int dexp_bits,
                int payload_bits) {
   return (float_bits == 16 || float_bits == 32)
          && (payload_bits == 8 || payload_bits == 16) && man_keep >= 0
          && dexp_bits >= 1 && 1 + dexp_bits + man_keep <= payload_bits
-         && man_keep <= (float_bits == 16 ? 7 : 23)
-         && (float_bits == 32 || dexp_bits <= 8);
+         && man_keep <= (float_bits == 16 ? 7 : 23);
 }
 
-template <int SRC_BITS, int WORD_BITS>
+// bf16 words take the pair code, whose decode holds E <= 8 delta bits;
+// wider deltas (sfp16-m3e10, sfp16-m1e14) and f32 one value a register.
+bool pair_route(int float_bits, int dexp_bits) {
+  return float_bits == 16 && dexp_bits <= 8;
+}
+
+template <int SRC_BITS, int WORD_BITS, bool PAIR>
 void launch_pack(const uint4* x, void* payload, uint8_t* bases, int rows,
                  const int* n_ptr, SfpFields f, cudaStream_t s) {
   if (rows <= kOnePassRows) {
     const int grid = (rows + kRowsPerPass - 1) / kRowsPerPass;
-    sfp_pack_kernel<SRC_BITS, WORD_BITS, 1><<<grid, kThreads, 0, s>>>(
+    sfp_pack_kernel<SRC_BITS, WORD_BITS, 1, PAIR><<<grid, kThreads, 0, s>>>(
         x, payload, bases, rows, n_ptr, f);
   } else {
     const int grid = (rows + 2 * kRowsPerPass - 1) / (2 * kRowsPerPass);
-    sfp_pack_kernel<SRC_BITS, WORD_BITS, 2><<<grid, kThreads, 0, s>>>(
+    sfp_pack_kernel<SRC_BITS, WORD_BITS, 2, PAIR><<<grid, kThreads, 0, s>>>(
         x, payload, bases, rows, n_ptr, f);
   }
 }
 
-template <int DST_BITS, int WORD_BITS>
+template <int DST_BITS, int WORD_BITS, bool PAIR>
 void launch_unpack(const void* payload, const uint8_t* bases, uint4* out,
                    int rows, SfpFields f, cudaStream_t s) {
   if (rows <= kOnePassRows) {
     const int grid = (rows + kRowsPerPass - 1) / kRowsPerPass;
-    sfp_unpack_kernel<DST_BITS, WORD_BITS, 1><<<grid, kThreads, 0, s>>>(
-        payload, bases, out, rows, f);
+    sfp_unpack_kernel<DST_BITS, WORD_BITS, 1, PAIR>
+        <<<grid, kThreads, 0, s>>>(payload, bases, out, rows, f);
   } else {
     const int grid = (rows + 2 * kRowsPerPass - 1) / (2 * kRowsPerPass);
-    sfp_unpack_kernel<DST_BITS, WORD_BITS, 2><<<grid, kThreads, 0, s>>>(
-        payload, bases, out, rows, f);
+    sfp_unpack_kernel<DST_BITS, WORD_BITS, 2, PAIR>
+        <<<grid, kThreads, 0, s>>>(payload, bases, out, rows, f);
   }
 }
 
@@ -266,10 +301,11 @@ int pack(const void* x, void* payload, void* bases, int rows, int src_bits,
   auto s = static_cast<cudaStream_t>(stream);
   auto xi = static_cast<const uint4*>(x);
   auto b = static_cast<uint8_t*>(bases);
-  if (src_bits == 16 && payload_bits == 8) launch_pack<16, 8>(xi, payload, b, rows, n_ptr, f, s);
-  else if (src_bits == 16) launch_pack<16, 16>(xi, payload, b, rows, n_ptr, f, s);
-  else if (payload_bits == 8) launch_pack<32, 8>(xi, payload, b, rows, n_ptr, f, s);
-  else launch_pack<32, 16>(xi, payload, b, rows, n_ptr, f, s);
+  if (src_bits == 16 && payload_bits == 8) launch_pack<16, 8, true>(xi, payload, b, rows, n_ptr, f, s);
+  else if (pair_route(src_bits, dexp_bits)) launch_pack<16, 16, true>(xi, payload, b, rows, n_ptr, f, s);
+  else if (src_bits == 16) launch_pack<16, 16, false>(xi, payload, b, rows, n_ptr, f, s);
+  else if (payload_bits == 8) launch_pack<32, 8, false>(xi, payload, b, rows, n_ptr, f, s);
+  else launch_pack<32, 16, false>(xi, payload, b, rows, n_ptr, f, s);
   return (int)cudaGetLastError();
 }
 
@@ -303,9 +339,10 @@ extern "C" int sfp_unpack_launch(const void* payload, const void* bases,
   auto s = static_cast<cudaStream_t>(stream);
   auto b = static_cast<const uint8_t*>(bases);
   auto o = static_cast<uint4*>(out);
-  if (dst_bits == 16 && payload_bits == 8) launch_unpack<16, 8>(payload, b, o, rows, f, s);
-  else if (dst_bits == 16) launch_unpack<16, 16>(payload, b, o, rows, f, s);
-  else if (payload_bits == 8) launch_unpack<32, 8>(payload, b, o, rows, f, s);
-  else launch_unpack<32, 16>(payload, b, o, rows, f, s);
+  if (dst_bits == 16 && payload_bits == 8) launch_unpack<16, 8, true>(payload, b, o, rows, f, s);
+  else if (pair_route(dst_bits, dexp_bits)) launch_unpack<16, 16, true>(payload, b, o, rows, f, s);
+  else if (dst_bits == 16) launch_unpack<16, 16, false>(payload, b, o, rows, f, s);
+  else if (payload_bits == 8) launch_unpack<32, 8, false>(payload, b, o, rows, f, s);
+  else launch_unpack<32, 16, false>(payload, b, o, rows, f, s);
   return (int)cudaGetLastError();
 }

@@ -819,14 +819,24 @@ def _unpadded(f: PackFields) -> PackFields:
     return PackFields(f.man_keep, f.dexp_bits, 1 + f.dexp_bits + f.man_keep)
 
 
+def pair_route(dtype: torch.dtype, fields: PackFields) -> bool:
+    """Whether the kernels encode and decode two values a register: bf16
+    with a delta field of at most 8 bits, which the pair decode holds. f32
+    and wider bf16 delta fields (``sfp16-m3e10``, ``sfp16-m1e14``) take
+    ``sfp_encode_word`` / ``sfp_decode_word``, one value a register."""
+    return dtype == torch.bfloat16 and fields.dexp_bits <= 8
+
+
 def _pack_pairs(x: torch.Tensor, fields: PackFields, n=None):
     """The pack kernels' encode: (R, 128) bf16/f32 -> (each thread's 4
-    word pairs, (R, 16) each; the row bases (R, 1) int64). bf16 by the
-    pair encode at P', each pair shifted left by the word's padding; f32
-    by ``sfp_encode_word``, one value a register."""
-    if x.dtype == torch.float32:
+    word pairs, (R, 16) each; the row bases (R, 1) int64). On the pair
+    route (``pair_route``) by the pair encode at P', each pair shifted
+    left by the word's padding; else by ``sfp_encode_word``, one value a
+    register."""
+    if not pair_route(x.dtype, fields):
         words, base = _pack_words(x, fields, containers.spec_for(x), n)
-        return _thread_pairs(words.to(torch.int64)), base.to(torch.int64)
+        return (_thread_pairs(words.to(torch.int64) & 0xFFFF),
+                base.to(torch.int64))
     K = fields.man_keep
     keep = containers.mantissa_keep_mask(7 if n is None else n,
                                          containers.spec_for(x))
@@ -848,12 +858,12 @@ def _pack_pairs(x: torch.Tensor, fields: PackFields, n=None):
 def _unpack_pairs(w, bases: torch.Tensor, dtype: torch.dtype,
                   fields: PackFields) -> torch.Tensor:
     """The unpack kernels' decode: each thread's 4 word pairs and the row
-    bases (R, 1) -> (R, 128) floats. bf16 by the pair decode at P' of each
-    pair shifted right by the word's padding (the high word's padding
-    lands in the low half's bits P'..15, which the decode masks off); f32
-    by ``sfp_decode_word``, one value a register."""
+    bases (R, 1) -> (R, 128) floats. On the pair route by the pair decode
+    at P' of each pair shifted right by the word's padding (the high
+    word's padding lands in the low half's bits P'..15, which the decode
+    masks off); else by ``sfp_decode_word``, one value a register."""
     R = bases.shape[0]
-    if dtype == torch.float32:
+    if not pair_route(dtype, fields):
         return _unpack_words(_pairs_to_words(w, R), bases.to(torch.int32),
                              fields, containers.spec_for(dtype))
     b2 = _twice((bases.to(torch.int64) + 256) << 7)

@@ -5,7 +5,8 @@ Replace the TPU kernels ``src/repro/kernels/sfp_pack.py:sfp_pack``,
 ``sfp_quantize_pack`` and ``sfp_unpack``. The kernels are in
 ``csrc/sfp_pack.cu``: a thread per 8 lanes (16 a row), two bf16 values
 encoded or decoded a register at the word's unpadded width and shifted
-across its padding bits, the row base by a half-warp max, one 16-byte
+across its padding bits (one value a register for f32 and for bf16 delta
+fields wider than 8 bits), the row base by a half-warp max, one 16-byte
 (sfp16) or 8-byte (sfp8) word access a thread and row; tiles of 16 rows,
 or 32 above the rows an H100 holds at once; ``n`` read from device
 memory. ``ref.sfp_{pack,unpack}_swar`` mirror them step for step. All

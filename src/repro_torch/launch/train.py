@@ -3,22 +3,28 @@
   python -m repro_torch.launch.train --arch gemma2-2b --preset full \
       --policy qm --container sfp8 --batch 4 --seq 1024 --steps 4
 
-``--policy`` takes a registered precision policy (none, qm, qe) or a
-'+'-composition such as ``qm+qe`` (learn mantissa and exponent bitlengths
-in one run; the ``--qm-*`` flags reach qm, the ``--qe-*`` flags qe);
-``--container`` the stash codec (sfp8, sfp16, bit_exact, gecko8, or a
-dense geometry such as sfp-m2e4). Runs on CUDA; ``--device cpu``
+``--policy`` takes a registered precision policy (none, static, qm, qe,
+bitchop, bitwave) or a '+'-composition such as ``qm+qe`` (learn mantissa
+and exponent bitlengths in one run; the ``--qm-*`` flags reach qm, the
+``--qe-*`` flags qe) or ``qm+bitchop``; ``--container`` the stash codec
+(sfp8, sfp16, bit_exact, gecko8, or a dense geometry such as sfp-m2e4).
+``--per-layer-stash`` packs each period's stash in its own dense container
+from the policy's per-layer decisions (``DecoderModel.stash_plan``),
+re-derived every ``--stash-refresh`` steps; the model is rebuilt only when
+the plan changes. Runs on CUDA; ``--device cpu``
 runs the plain PyTorch path on the CPU. Weights are random, drawn from
 ``--seed``; batches come from the seeded synthetic Markov corpus. The
 tiny and small presets shrink the config and fix batch 8 and sequence 64
 or 128, as the JAX launcher does. ``--profile-steps N`` brackets
 ``torch.profiler`` around steps 1..N and prints device time by kernel.
-The final report is the last step's metrics and the modeled stash
-footprint under the learned decisions.
+The final report is the last step's metrics (with the controllers'
+bitlengths ``bc_bits``, ``bw_man_bits``, ``bw_exp_bits``) and the modeled
+stash footprint under the learned decisions.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 
 import torch
@@ -34,6 +40,12 @@ from repro_torch.train import loop as loop_mod
 from repro_torch.train import step as step_mod
 
 PROFILE_START = 1  # profile after the first (warm-up) step
+# Steps between per-layer stash plan refreshes (the JAX launcher's default
+# is its --ckpt-every, 100; the port has no checkpointing yet).
+STASH_REFRESH = 100
+REPORT_KEYS = ("step", "loss", "xent", "qm_act_mean", "qm_w_mean",
+               "qe_act_mean", "qe_w_mean", "bc_bits", "bw_man_bits",
+               "bw_exp_bits", "step_time_s")
 
 
 def build_policy(args) -> policies.Policy:
@@ -74,6 +86,37 @@ def build(args):
     return cfg, model, tc, batch, seq
 
 
+def run_per_layer(model, tc, state, batches, lc, refresh: int,
+                  make_step=step_mod.make_train_step, log=print):
+    """The loop in segments of ``refresh`` steps: at each boundary the
+    per-layer stash plan is re-derived from the live policy state, and the
+    model and its step are rebuilt only when the plan changed (printing
+    it). The segments append to one metrics file. ``make_step(model, tc)``
+    builds each plan's step. Returns (the loop's result over all steps,
+    the final model, [(step, plan), ...] of every plan put in force)."""
+    plan, plans, history, res = None, [], [], None
+    while state.step < lc.total_steps:
+        new_plan = model.stash_plan(state.pstate)
+        if new_plan != plan:
+            plan = new_plan
+            log(f"[train] per-layer stash plan @ step {state.step}: "
+                f"{','.join(plan)}")
+            plans.append((state.step, plan))
+            model = DecoderModel(model.cfg, model.policy, device=model.device,
+                                 stash_containers=plan)
+            train_step = make_step(model, tc)
+        seg = dataclasses.replace(
+            lc, total_steps=min(state.step + refresh, lc.total_steps),
+            metrics_truncate=res is None)
+        res = loop_mod.run(train_step, state, batches, seg,
+                           device=model.device)
+        state = res.state
+        history.extend(res.history)
+    log(f"[train] final per-layer stash plan: {','.join(plan)}")
+    return (dataclasses.replace(res, state=state, history=history), model,
+            plans)
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -98,6 +141,14 @@ def build_parser() -> argparse.ArgumentParser:
                     help="QE footprint-penalty strength")
     ap.add_argument("--qe-lr", type=float, default=0.05)
     ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--per-layer-stash", action="store_true",
+                    help="pack each period's stash in its own dense "
+                         "container from the policy's per-layer decisions "
+                         "(model.stash_plan); the plan is re-derived every "
+                         "--stash-refresh steps and the model rebuilt when "
+                         "it changes")
+    ap.add_argument("--stash-refresh", type=int, default=STASH_REFRESH,
+                    help="steps between per-layer stash plan refreshes")
     ap.add_argument("--metrics", default=None,
                     help="per-step metrics JSONL")
     ap.add_argument("--profile-steps", type=int, default=None, metavar="N",
@@ -131,20 +182,23 @@ def main(argv=None) -> dict:
         metrics_file=args.metrics,
         profile_steps=(None if args.profile_steps is None
                        else (PROFILE_START, args.profile_steps)))
-    res = loop_mod.run(step_mod.make_train_step(model, tc), state, batches,
-                       lc, device=model.device)
+    plans = None
+    if args.per_layer_stash:
+        res, model, plans = run_per_layer(model, tc, state, batches, lc,
+                                          max(1, args.stash_refresh))
+    else:
+        res = loop_mod.run(step_mod.make_train_step(model, tc), state,
+                           batches, lc, device=model.device)
     if res.profile is not None:
         print("profile " + json.dumps(res.profile))
     last = res.history[-1]
-    report = {k: last[k] for k in ("step", "loss", "xent", "qm_act_mean",
-                                   "qm_w_mean", "qe_act_mean", "qe_w_mean",
-                                   "step_time_s") if k in last}
-    print(json.dumps(report, indent=2))
+    print(json.dumps({k: last[k] for k in REPORT_KEYS if k in last},
+                     indent=2))
     fp = policies.modeled_footprint(model.policy, res.state.pstate,
                                     model.dims)
     print("footprint " + json.dumps({k: round(v, 4) for k, v in fp.items()}))
     return {"history": res.history, "footprint": fp, "state": res.state,
-            "profile": res.profile}
+            "profile": res.profile, "plans": plans}
 
 
 if __name__ == "__main__":

@@ -4,8 +4,10 @@ Parameters are a plain dict: ``embed``, ``final_norm`` and ``layers``, one
 dict per layer in order (the JAX package stacks each period's layers and
 scans over them; ``repro_torch.convert`` unstacks that tree). Training
 runs ``loss`` / ``forward``: the periods go through ``core.stash.sfp_scan``
-with the policy's container as the cross-pass activation stash, and the
-policy fake-quantizes the weights at their use sites. Serving runs
+with the policy's container as the cross-pass activation stash (or, with
+``stash_containers``, each period's own container: the per-layer plan of
+``stash_plan``), and a policy that quantizes weights fake-quantizes them
+at their use sites. Serving runs
 ``prefill`` over the prompt and ``decode_step`` per token over a KV cache
 that is updated in place — raw bf16, or packed by a registry codec
 (``kv_container``): read through the fused decode kernel for the SFP
@@ -16,7 +18,8 @@ the GLOBAL layers and per-slot rings for the LOCAL ones.
 from __future__ import annotations
 
 import itertools
-from typing import Any, Dict, NamedTuple, Optional, Tuple, Union
+from typing import (Any, Dict, NamedTuple, Optional, Sequence, Tuple,
+                    Union)
 
 import torch
 import torch.nn.functional as F
@@ -66,10 +69,16 @@ def _count_truncation(count, h, t):
 class DecoderModel:
     def __init__(self, cfg: ArchConfig, policy=None,
                  kv_container: Optional[str] = None,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 stash_containers: Optional[Sequence[str]] = None):
         """``policy``: a ``policies.Policy``, a registry name or None (full
         precision). ``device`` defaults to CUDA and raises without a GPU;
-        pass ``device="cpu"`` for the plain path on the CPU."""
+        pass ``device="cpu"`` for the plain path on the CPU.
+        ``stash_containers`` (one codec name per period) packs each
+        period's stash in its own container instead of the policy's: the
+        per-layer realized containers of ``stash_plan``. Each period is its
+        own compress/decompress pair in ``sfp_scan``, so a new plan needs
+        only a new model."""
         bad = set(cfg.period) - {GLOBAL, LOCAL}
         if bad or cfg.is_moe or not cfg.tie_embeddings or cfg.qk_norm:
             raise NotImplementedError(
@@ -83,6 +92,13 @@ class DecoderModel:
                 f"the period; its straight-through stash decision is not "
                 f"ported yet")
         self.kv_container = kv_container
+        if stash_containers is not None:
+            stash_containers = tuple(stash_containers)
+            if len(stash_containers) != cfg.n_periods:
+                raise ValueError(
+                    f"stash_containers needs one codec per period "
+                    f"({cfg.n_periods}), got {len(stash_containers)}")
+        self.stash_containers = stash_containers
         self.device = resolve_device(device)
         self.kinds = cfg.layer_kinds()
         self.dims = scope_dims(cfg)
@@ -131,7 +147,7 @@ class DecoderModel:
         def pick(j):
             if isinstance(draws, dict):
                 return {k: v[j] for k, v in draws.items()}
-            return draws[j]
+            return None if draws is None else draws[j]
 
         def quant(tree):
             if isinstance(tree, dict):
@@ -152,12 +168,13 @@ class DecoderModel:
         return h + common.mlp(slot_params["mlp"], hm, cfg.act, cfg.glu)
 
     def _codec_fns(self):
-        """Stash compress/decompress/stash_grad closures for the policy's
-        container; the raw activation when the policy is off."""
+        """Stash compress/decompress/stash_grad closures; the raw
+        activation when the policy is off. Each period's codec is
+        ``x["codec"]`` (``_period_inputs``): the policy's container, or the
+        period's own under a per-layer plan."""
         pol, dims = self.policy, self.dims
         if not pol.enabled:
             return stash.identity_compress, stash.identity_decompress, None
-        codec = codecs.get(pol.container)
 
         def compress(h, x):
             # Fused quantize+pack: the drawn mantissa bitlength rides into
@@ -171,11 +188,10 @@ class DecoderModel:
                 if self.truncation_count is not None:
                     _count_truncation(self.truncation_count, h, t)
                 h = t
-            return codec.pack(h, bits=act["man"])
+            return x["codec"].pack(h, bits=act["man"])
 
         def decompress(c, x):
-            del x
-            return codec.unpack(c)
+            return x["codec"].unpack(c)
 
         stash_grad = None
         if pol.has_stash_grad:
@@ -183,16 +199,33 @@ class DecoderModel:
                 return {"pol": pol.stash_grad(dh, h_q, x["pol"], dims)}
         return compress, decompress, stash_grad
 
+    def stash_plan(self, pstate: Optional[policies.PolicyState] = None
+                   ) -> Tuple[str, ...]:
+        """Per-period dense container names realized from the policy's
+        current per-layer decisions (fresh state when ``pstate`` is None):
+        each period's (man_bits, exp_bits) through ``codecs.dense_name``,
+        so a period that learned 2 mantissa and 4 exponent bits stashes
+        7-bit payloads while a precision-hungry neighbour keeps a wider
+        container. On the host: pass the result as ``stash_containers`` to
+        a new model when the plan changes."""
+        pol = self.policy
+        st = (pol.init_state(self.dims, self.device) if pstate is None
+              else pstate)
+        return tuple(codecs.dense_name(m, e)
+                     for m, e in pol.layer_decisions(st, self.dims))
+
     def _period_inputs(self, params, run: RunState):
-        """One ``sfp_scan`` input per period: its layers, its policy slice
-        and every bitlength it draws, drawn here so the backward's
-        recompute replays them. The order of the draws from ``run.gen``:
-        per period, the act decision (for "qm+qe", qm's draw then qe's),
-        then per layer its weight draws (qm's for every leaf, then qe's).
-        Layer i belongs to period i // len(period)."""
+        """One ``sfp_scan`` input per period: its layers, its stash codec,
+        its policy slice and every bitlength it draws, drawn here so the
+        backward's recompute replays them. The order of the draws from
+        ``run.gen``: per period, the act decision (for "qm+qe", qm's draw
+        then qe's), then per layer its weight draws (qm's for every leaf,
+        then qe's) when the policy quantizes weights. Layer i belongs to
+        period i // len(period)."""
         cfg, pol, dims = self.cfg, self.policy, self.dims
         n_slot = len(cfg.period)
         slices = pol.scan_slices(run.pol, dims) if pol.enabled else None
+        names = self.stash_containers or (pol.container,) * cfg.n_periods
         xs = []
         for p in range(cfg.n_periods):
             layers = params["layers"][p * n_slot:(p + 1) * n_slot]
@@ -203,7 +236,8 @@ class DecoderModel:
                 w = [pol.weight_draws(
                     ps, run.gen, sum(1 for _, t in stash.float_leaves(lp)
                                      if _quantized(t)), dims)
-                     for lp in layers]
+                     for lp in layers] if pol.quantizes_weights else None
+                x["codec"] = codecs.get(names[p])
                 x["pol"] = ps
                 x["draws"] = {"act": {"man": d.man_bits, "exp": d.exp_bits},
                               "w": w}
@@ -224,7 +258,7 @@ class DecoderModel:
             draws = x.get("draws")
             for i, kind in enumerate(cfg.period):
                 sp = x["params"][i]
-                if pol.enabled:
+                if pol.quantizes_weights:
                     sp = self._quantize_weights(sp, x["pol"],
                                                 draws["w"][i])
                 h = self._apply_slot(sp, h, kind, positions=positions)

@@ -3,25 +3,35 @@
     policy = policies.get("qm", container="sfp8", gamma=0.05)
     state  = policy.init_state(dims, device)   # PolicyState(learn, ctrl)
 
-Registered: ``none`` (full precision), ``qm`` (Quantum Mantissa) and
-``qe`` (Quantum Exponent); ``policies.get("qm+qe")`` composes them
-(``CompositePolicy``), learning mantissa and exponent bits at once.
+Registered: ``none`` (full precision), ``static`` (fixed Gist-style
+bitlengths), ``qm`` (Quantum Mantissa), ``qe`` (Quantum Exponent),
+``bitchop`` (loss-EMA controlled network-wide mantissa bits, §IV-B) and
+``bitwave`` (the same controller on mantissa and exponent bits);
+``policies.get("qm+qe")`` composes (``CompositePolicy``), e.g. learning
+mantissa and exponent bits at once.
 """
 from repro_torch.policies.base import (NotYetPorted, Policy, PolicyState,
-                                       PrecisionDecision, ScopeDims, coerce,
+                                       PrecisionDecision, ScopeDims,
+                                       apply_decision_ste, coerce,
                                        full_decision, get, modeled_footprint,
-                                       names, register, validate_name)
+                                       names, register, ste_truncate,
+                                       validate_name)
+from repro_torch.policies.bitwave import BitChopPolicy, BitWavePolicy
 from repro_torch.policies.composite import CompositePolicy
 from repro_torch.policies.quantum import QEPolicy, QMPolicy
-from repro_torch.policies.static import NonePolicy
+from repro_torch.policies.static import NonePolicy, StaticPolicy
 
 register(NonePolicy)
+register(StaticPolicy)
 register(QMPolicy)
 register(QEPolicy)
+register(BitChopPolicy)
+register(BitWavePolicy)
 
 __all__ = [
     "NotYetPorted", "Policy", "PolicyState", "PrecisionDecision",
-    "ScopeDims", "coerce", "full_decision", "get", "modeled_footprint",
-    "names", "register", "validate_name", "CompositePolicy", "NonePolicy",
-    "QEPolicy", "QMPolicy",
+    "ScopeDims", "apply_decision_ste", "coerce", "full_decision", "get",
+    "modeled_footprint", "names", "register", "ste_truncate",
+    "validate_name", "BitChopPolicy", "BitWavePolicy", "CompositePolicy",
+    "NonePolicy", "QEPolicy", "QMPolicy", "StaticPolicy",
 ]

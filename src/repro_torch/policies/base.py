@@ -11,9 +11,9 @@ name and every consumer resolves them through ``get()``.
 Random draws come from an explicit ``torch.Generator`` and are taken
 before a period runs (``act_decision``, ``weight_draws``), so the stash's
 recompute in the backward pass replays them, as the JAX package replays
-its keys. Ported: ``none``, ``qm``, ``qe`` and '+'-compositions of them
-(``"qm+qe"``: ``policies/composite.py``); the other names of the JAX
-registry raise a "not yet ported" error.
+its keys. Ported: ``none``, ``static``, ``qm``, ``qe``, ``bitchop``,
+``bitwave`` and '+'-compositions of them (``"qm+qe"``, ``"qm+bitchop"``:
+``policies/composite.py``); ``afloat`` raises a "not yet ported" error.
 """
 from __future__ import annotations
 
@@ -27,7 +27,7 @@ from repro_torch import NotYetPorted
 from repro_torch.core import containers
 
 # Registered in the JAX package, still to be ported here.
-NOT_YET_PORTED = ("static", "afloat", "bitchop", "bitwave")
+NOT_YET_PORTED = ("afloat",)
 
 
 class PrecisionDecision(NamedTuple):
@@ -76,18 +76,68 @@ def jclip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     return torch.minimum(hi_t, torch.maximum(lo_t, x))
 
 
+class _SteTruncate(torch.autograd.Function):
+    """Q(M, n) forward, identity gradient in x (the straight-through
+    estimator, §IV-A1)."""
+
+    @staticmethod
+    def forward(ctx, x, n):
+        return containers.truncate_mantissa(x, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _SteTruncateExp(torch.autograd.Function):
+    """Exponent truncation forward, identity gradient in x."""
+
+    @staticmethod
+    def forward(ctx, x, e):
+        return containers.truncate_exponent(x, e)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def ste_truncate(x: torch.Tensor, n) -> torch.Tensor:
+    """Mantissa truncation with a straight-through gradient (§IV-A1)."""
+    return _SteTruncate.apply(x, n)
+
+
+def apply_decision_ste(x: torch.Tensor, d: PrecisionDecision,
+                       dims: ScopeDims, *, adapts_exponent: bool
+                       ) -> torch.Tensor:
+    """Realize a decision on a tensor, straight-through in x; the exponent
+    truncation only for policies that adapt the exponent, so a
+    mantissa-only policy's values are Q(M, n) alone."""
+    x = _SteTruncate.apply(x, d.man_bits)
+    if adapts_exponent:
+        x = _SteTruncateExp.apply(x, d.exp_bits)
+    return x
+
+
 @dataclasses.dataclass(frozen=True)
 class Policy:
     """One precision-adaptation strategy; hyper-parameters ride on the
     frozen instance."""
 
-    container: str = "sfp8"   # realized stash container (codec name)
+    container: str = "sfp8"        # realized stash container (codec name)
+    quantize_weights: bool = True  # weight-side fake-quant at use sites
 
     # Class attributes, not dataclass fields.
     name = "?"
     enabled = True            # False -> the model skips all hooks
     adapts_exponent = False   # True -> the stash truncates exponents first
     has_stash_grad = False    # stash-side bitlength estimator
+    requires_act_bits = False  # CNN path: skip when no bits are provided
+
+    @property
+    def quantizes_weights(self) -> bool:
+        """Whether the model fake-quantizes (and draws bits for) weights;
+        the controller policies quantize activations only."""
+        return self.enabled and self.quantize_weights
 
     # -- state ----------------------------------------------------------
 
@@ -107,12 +157,23 @@ class Policy:
         """Per-period views: a dict of tensors with leading n_periods."""
         return {}
 
+    def rem_slice(self, view: Any, i: int, dims: ScopeDims) -> Any:
+        """The scope view of remainder layer ``i``."""
+        return {}
+
     # -- draws and quantizers --------------------------------------------
 
     def act_decision(self, pslice: Any, generator: torch.Generator,
                      dims: ScopeDims) -> PrecisionDecision:
         """The stash decision of one scope (may draw once)."""
         return full_decision(dims)
+
+    def quantize_act(self, x: torch.Tensor, pslice: Any,
+                     generator: torch.Generator, dims: ScopeDims
+                     ) -> torch.Tensor:
+        """Differentiable activation quantization at a use site (the CNN
+        path; the decoder's stash goes through ``act_decision``)."""
+        return x
 
     def weight_draws(self, pslice: Any, generator: torch.Generator,
                      count: int, dims: ScopeDims) -> Optional[torch.Tensor]:
@@ -150,6 +211,10 @@ class Policy:
 
     def metrics(self, state: PolicyState, dims: ScopeDims
                 ) -> Dict[str, torch.Tensor]:
+        return {}
+
+    def snapshot(self, state: PolicyState) -> Dict[str, Any]:
+        """Host-side trajectory record (tensors allowed)."""
         return {}
 
     def decision_summary(self, state: PolicyState, dims: ScopeDims

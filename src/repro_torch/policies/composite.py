@@ -13,6 +13,8 @@ from the step's one generator, in a fixed order: per period, each
 sub-policy's act draw in registration order (``act_decision``), then per
 layer each sub-policy's weight draws in registration order
 (``weight_draws``, one dict of per-leaf integer bitlengths per layer).
+Only the sub-policies that quantize weights draw for them and fake-quantize
+them (``quantizes_weights``: not BitChop or BitWave).
 """
 from __future__ import annotations
 
@@ -44,6 +46,14 @@ class CompositePolicy(base.Policy):
     def has_stash_grad(self):  # type: ignore[override]
         return any(p.has_stash_grad for p in self.policies)
 
+    @property
+    def requires_act_bits(self):  # type: ignore[override]
+        return any(p.requires_act_bits for p in self.policies)
+
+    @property
+    def quantizes_weights(self):  # type: ignore[override]
+        return any(p.quantizes_weights for p in self.policies)
+
     def _sub(self, fn):
         return {p.name: fn(p) for p in self.policies}
 
@@ -67,6 +77,9 @@ class CompositePolicy(base.Policy):
     def scan_slices(self, view, dims):
         return self._sub(lambda p: p.scan_slices(view[p.name], dims))
 
+    def rem_slice(self, view, i, dims):
+        return self._sub(lambda p: p.rem_slice(view[p.name], i, dims))
+
     def act_decision(self, pslice, generator, dims):
         man = exp = None
         for p in self.policies:
@@ -77,21 +90,27 @@ class CompositePolicy(base.Policy):
                                                                d.exp_bits)
         return base.PrecisionDecision(man_bits=man, exp_bits=exp)
 
+    def quantize_act(self, x, pslice, generator, dims):
+        for p in self.policies:
+            x = p.quantize_act(x, pslice[p.name], generator, dims)
+        return x
+
     def weight_draws(self, pslice, generator, count, dims):
-        return self._sub(
-            lambda p: p.weight_draws(pslice[p.name], generator, count, dims))
+        return {p.name: p.weight_draws(pslice[p.name], generator, count, dims)
+                for p in self.policies if p.quantizes_weights}
 
     def quantize_weight(self, w, pslice, n_int, dims):
         for p in self.policies:
-            w = p.quantize_weight(w, pslice[p.name], n_int[p.name], dims)
+            if p.quantizes_weights:
+                w = p.quantize_weight(w, pslice[p.name], n_int[p.name], dims)
         return w
 
     def stash_grad(self, dh, h_q, pslice, dims):
+        # A sub-policy without an estimator adds nothing (a controller's
+        # slice holds integer bitlengths, which have no cotangent).
         return self._sub(
             lambda p: p.stash_grad(dh, h_q, pslice[p.name], dims)
-            if p.has_stash_grad else
-            {k: torch.zeros((), dtype=torch.float32, device=dh.device)
-             for k in pslice[p.name]})
+            if p.has_stash_grad else {})
 
     def penalty(self, learn, lam, dims):
         return sum(p.penalty(learn[p.name], lam, dims)
@@ -109,6 +128,12 @@ class CompositePolicy(base.Policy):
         out = {}
         for p in self.policies:
             out.update(p.metrics(self._state(state, p), dims))
+        return out
+
+    def snapshot(self, state):
+        out = {}
+        for p in self.policies:
+            out.update(p.snapshot(self._state(state, p)))
         return out
 
     def decision_summary(self, state, dims):

@@ -62,6 +62,18 @@ class _LearnedBitsPolicy(base.Policy):
     def scan_slices(self, view, dims):
         return {"act": view["act"], "w": view["w"]}
 
+    def rem_slice(self, view, i, dims):
+        return {"act": view["act_rem"][i], "w": view["w_rem"][i]}
+
+    # quantizers ---------------------------------------------------------
+
+    def quantize_act(self, x, pslice, generator, dims):
+        """The weights' quantizer on an activation (the CNN path): one
+        draw of the act bitlength, then its estimator's forward."""
+        n_int = self.weight_draws({"w": pslice["act"]}, generator, 1,
+                                  dims)[0]
+        return self.quantize_weight(x, {"w": pslice["act"]}, n_int, dims)
+
     # estimators ---------------------------------------------------------
 
     def stash_grad(self, dh, h_q, pslice, dims):
@@ -154,6 +166,9 @@ class QMPolicy(_LearnedBitsPolicy):
         act, w = self._means(state, dims)
         return {"qm_act_mean": act, "qm_w_mean": w}
 
+    def snapshot(self, state):
+        return {"act": state.learn["act"], "w": state.learn["w"]}
+
     def decision_summary(self, state, dims):
         return {"man_bits": self._deployed_mean(state, dims),
                 "exp_bits": float(dims.exp_bits)}
@@ -206,6 +221,9 @@ class QEPolicy(_LearnedBitsPolicy):
     def metrics(self, state, dims):
         act, w = self._means(state, dims)
         return {"qe_act_mean": act, "qe_w_mean": w}
+
+    def snapshot(self, state):
+        return {"act_e": state.learn["act"], "w_e": state.learn["w"]}
 
     def decision_summary(self, state, dims):
         return {"man_bits": float(dims.man_bits),

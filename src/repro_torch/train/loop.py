@@ -25,6 +25,9 @@ class LoopConfig:
     total_steps: int = 100
     log_every: int = 10
     metrics_file: Optional[str] = None
+    # False appends to the metrics file (the per-layer-stash launcher runs
+    # the loop in segments that share one file).
+    metrics_truncate: bool = True
     # (start, n): bracket torch.profiler around steps [start, start + n)
     profile_steps: Optional[Tuple[int, int]] = None
 
@@ -108,7 +111,7 @@ def run(train_step: Callable, state: Any,
     sink = None
     if cfg.metrics_file:
         Path(cfg.metrics_file).parent.mkdir(parents=True, exist_ok=True)
-        sink = open(cfg.metrics_file, "w")
+        sink = open(cfg.metrics_file, "w" if cfg.metrics_truncate else "a")
     prof = _Profiler(cfg, device)
     step = state.step
     try:

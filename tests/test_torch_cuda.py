@@ -12,10 +12,14 @@ element (``chip_smoke.GRAD_TOL`` says why). The packs (fixed-lane and
 bit-plane), the unpacks, the mantissa truncation and the Gecko exponent
 pack and unpack are integer arithmetic and must be bit-equal.
 """
+import dataclasses
+
 import pytest
 import torch
 
+from repro_torch import configs, policies
 from repro_torch.codecs import fields_for
+from repro_torch.configs.base import reduced
 from repro_torch.core import containers
 from repro_torch.kernels import bitplane_pack as bp
 from repro_torch.kernels import flash_attention as fa
@@ -25,6 +29,8 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import packed_flash_decode as pfd
 from repro_torch.kernels import ref
 from repro_torch.kernels import sfp_pack as sp
+from repro_torch.models.model import DecoderModel
+from repro_torch.train import step as tstep
 
 pytestmark = pytest.mark.cuda
 
@@ -137,6 +143,34 @@ def test_sfp_quantize_pack_and_unpack_kernel_bits(dev, container, dtype):
             pu = sp.plain_unpack(kp, kb, dtype, f)
             assert torch.equal(ku.view(torch.uint8),
                                pu.view(torch.uint8)), (rows, n)
+
+
+# bf16 words with a delta field wider than 8 bits: the kernels encode and
+# decode them one value a register (``ref.pair_route``).
+WIDE_DELTA_WORDS = ["sfp16-m3e10", "sfp16-m1e14"]
+
+
+@pytest.mark.parametrize("container", WIDE_DELTA_WORDS)
+@pytest.mark.parametrize("rows", [333, 1, 36, 16_901])
+def test_wide_delta_words_kernel_bits(dev, container, rows):
+    """The pack, the fused pack at n none, 0, 1, K and 7, and the unpack
+    of every one, bit-equal to the plain versions and over two launches,
+    on one- and two-pass tiles."""
+    g = torch.Generator(device=dev).manual_seed(rows)
+    f = fields_for(container, torch.bfloat16)
+    assert not ref.pair_route(torch.bfloat16, f)
+    x = _wide(dev, g, (rows, 128), torch.bfloat16)
+    for n in (None, 0, 1, f.man_keep, 7):
+        if n is None:
+            kp, kb = _twice(lambda: sp.sfp_pack(x, f))
+        else:
+            nd = torch.tensor(n, dtype=torch.int32, device=dev)
+            kp, kb = _twice(lambda: sp.sfp_quantize_pack(x, nd, f))
+        pp, pb = sp.plain(x, f, n)
+        assert torch.equal(kp, pp) and torch.equal(kb, pb), n
+        ku, = _twice(lambda: sp.sfp_unpack(kp, kb, torch.bfloat16, f))
+        pu = sp.plain_unpack(kp, kb, torch.bfloat16, f)
+        assert torch.equal(ku.view(torch.uint8), pu.view(torch.uint8)), n
 
 
 def test_sfp_unpack_needs_aligned_payload(dev):
@@ -531,3 +565,51 @@ def test_flash_attention_deterministic_and_batch_invariant(dev, hd, window,
         for i, (x, y) in enumerate(zip(alone, full)):
             want = y[r * KH:(r + 1) * KH] if i == 1 else y[r:r + 1]
             assert torch.equal(x, want), (r, i)
+
+
+# One training step of a small model on the card (4 layers, d 256, head
+# dim 64, which the attention kernels take), by the launch counts of the
+# stash and attention wrappers.
+STEP_COUNTERS = (sp.sfp_quantize_pack, sp.sfp_unpack,
+                 bp.bitplane_quantize_pack, bp.bitplane_unpack,
+                 fa.flash_attention, fa.flash_attention_bwd)
+
+
+def _step_launches(dev, policy, stash_containers=None):
+    cfg = dataclasses.replace(reduced(configs.get("gemma2-2b"), n_layers=4,
+                                      d_model=256), n_kv_heads=2)
+    model = DecoderModel(cfg, policy, device=dev,
+                         stash_containers=stash_containers)
+    tc = tstep.TrainConfig()
+    state = tstep.init_state(model, 0, tc)
+    g = torch.Generator(device=dev).manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab, (2, 64), generator=g, device=dev)
+    for c in STEP_COUNTERS:
+        c.launches = 0
+    _, met = tstep.make_train_step(model, tc)(
+        state, {"tokens": tokens, "labels": tokens})
+    torch.cuda.synchronize()
+    assert torch.isfinite(met["loss"])
+    return cfg, {c.__name__: c.launches for c in STEP_COUNTERS}
+
+
+def test_bitchop_step_launches(dev):
+    """bitchop over sfp8: one fused word pack and two unpacks a period, the
+    attention kernels twice and once a layer; nothing else."""
+    cfg, got = _step_launches(dev, policies.get("bitchop", container="sfp8"))
+    assert got == {"sfp_quantize_pack": cfg.n_periods,
+                   "sfp_unpack": 2 * cfg.n_periods,
+                   "bitplane_quantize_pack": 0, "bitplane_unpack": 0,
+                   "flash_attention": 2 * cfg.n_layers,
+                   "flash_attention_bwd": cfg.n_layers}
+
+
+def test_per_layer_step_launches_follow_plan(dev):
+    """A per-layer plan of a payload-8 word period (m3e4) and a dense one
+    (m2e4): one pack and two unpacks of each family."""
+    pol = policies.get("qm+qe", container="sfp-m2e4")
+    cfg, got = _step_launches(dev, pol, ("sfp-m3e4", "sfp-m2e4"))
+    assert got == {"sfp_quantize_pack": 1, "sfp_unpack": 2,
+                   "bitplane_quantize_pack": 1, "bitplane_unpack": 2,
+                   "flash_attention": 2 * cfg.n_layers,
+                   "flash_attention_bwd": cfg.n_layers}

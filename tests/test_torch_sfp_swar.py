@@ -2,7 +2,8 @@
 
 ``ref.sfp_pack_swar`` / ``sfp_unpack_swar`` repeat ``csrc/sfp_pack.cu``
 step for step: a thread per 8 lanes, the encode and decode of two bf16
-values a register at the word's unpadded width P' = 1 + E + K, shifted
+values a register at the word's unpadded width P' = 1 + E + K (one value
+a register for f32 and for delta fields wider than 8 bits), shifted
 across the word's padding bits (``man_shift``: 3 for sfp16 on bf16, 1 for
 sfp8-m2e4), the row base as a max over the row's 16 threads, and each
 thread's words as one 16-byte (sfp16) or 8-byte (sfp8) chunk. They are
@@ -29,11 +30,23 @@ from repro_torch.kernels import ref as tref
 torch.set_num_threads(1)
 
 # (container, dtype): every fixed-lane geometry the port's paths pack,
-# with the padding widths 0, 1 (sfp8-m2e4) and 3 (sfp16 on bf16) and a
-# full 8-bit exponent delta (sfp16-m7e8).
+# with the padding widths 0, 1 (sfp8-m2e4) and 3 (sfp16 on bf16), a full
+# 8-bit exponent delta (sfp16-m7e8), and bf16 delta fields wider than 8
+# bits (sfp16-m3e10 with 2 padding bits, sfp16-m1e14 with none), which the
+# kernels encode and decode one value a register.
 GEOMETRIES = [("sfp8", torch.bfloat16), ("sfp16", torch.bfloat16),
               ("sfp8-m2e4", torch.bfloat16), ("sfp16-m7e8", torch.bfloat16),
+              ("sfp16-m3e10", torch.bfloat16),
+              ("sfp16-m1e14", torch.bfloat16),
               ("sfp8", torch.float32), ("sfp16", torch.float32)]
+# The kernels' route of each geometry: two values a register (the pair
+# code) or one.
+PAIR_ROUTE = {("sfp8", torch.bfloat16): True, ("sfp16", torch.bfloat16): True,
+              ("sfp8-m2e4", torch.bfloat16): True,
+              ("sfp16-m7e8", torch.bfloat16): True,
+              ("sfp16-m3e10", torch.bfloat16): False,
+              ("sfp16-m1e14", torch.bfloat16): False,
+              ("sfp8", torch.float32): False, ("sfp16", torch.float32): False}
 # One row, around the 16-row pass, one token of the serving shape (36),
 # around the 32-row two-pass tile and ragged many-tile counts.
 ROW_COUNTS = [1, 15, 16, 17, 36, 47, 48, 333]
@@ -168,6 +181,18 @@ def _assert_pack_equal(got, want) -> None:
         _np(wp) if isinstance(wp, torch.Tensor) else wp))
     np.testing.assert_array_equal(gb.numpy(), np.asarray(
         wb.numpy() if isinstance(wb, torch.Tensor) else wb))
+
+
+@pytest.mark.parametrize("container,dtype", GEOMETRIES, ids=_IDS)
+def test_route_of_each_geometry(container, dtype):
+    """bf16 words with a delta field of at most 8 bits take the pair code,
+    wider ones (whose deltas the pair decode cannot hold) and f32 one value
+    a register; the widths of the two wide geometries."""
+    tf, _ = _fields(container, dtype)
+    assert tref.pair_route(dtype, tf) is PAIR_ROUTE[(container, dtype)]
+    if container in ("sfp16-m3e10", "sfp16-m1e14"):
+        assert (tf.man_keep, tf.dexp_bits, tf.man_shift) == (
+            (3, 10, 2) if container == "sfp16-m3e10" else (1, 14, 0))
 
 
 @pytest.mark.parametrize("R", ROW_COUNTS)

@@ -286,7 +286,13 @@ def test_codec_names_and_validation():
 
 
 def test_policy_names_and_validation():
-    assert tpolicies.names() == ("none", "qe", "qm")
+    assert tpolicies.names() == ("bitchop", "bitwave", "none", "qe", "qm",
+                                 "static")
+    # The controller and static policies' modules are among the files
+    # whose imports are checked (no jax, no repro).
+    for rel in ("core/bitchop.py", "policies/bitwave.py",
+                "policies/static.py"):
+        assert ROOT / "src" / "repro_torch" / rel in PORT_FILES, rel
     assert tpolicies.coerce(None).name == "none"
     assert tpolicies.get("qm", container="sfp8", gamma=0.2).gamma == 0.2
     with pytest.raises(ValueError, match="did you mean 'qm'"):
@@ -296,7 +302,8 @@ def test_policy_names_and_validation():
     assert comp.name == "qm+qe" and comp.container == "sfp-m2e4"
     assert [p.gamma for p in comp.policies] == [0.2, 0.2]
     assert tpolicies.validate_name("qm+qe") == ("qm", "qe")
-    for name in ("bitchop", "qm+bitchop"):
+    assert tpolicies.validate_name("qm+bitchop") == ("qm", "bitchop")
+    for name in ("afloat", "qm+afloat"):
         with pytest.raises(ValueError, match="not yet ported"):
             tpolicies.validate_name(name)
         with pytest.raises(tpolicies.NotYetPorted):
