@@ -4,11 +4,13 @@
     python3 chip_smoke.py --phase gecko [--src DIR]
     python3 chip_smoke.py --phase dense [--src DIR]
     python3 chip_smoke.py --phase sfp [--src DIR]
+    python3 chip_smoke.py --phase cnn [--src DIR]
 
 The other forms run only the Gecko kernel checks and timings of step 5,
-or only the dense bit-plane or the fixed-lane word ones of step 2, against
-the ``repro_torch`` package under DIR (default: this checkout's ``src``),
-so two trees can be timed by the same code on one card.
+or only the dense bit-plane or the fixed-lane word ones of step 2, or
+only the CNN phase of step 8, against the ``repro_torch`` package under
+DIR (default: this checkout's ``src``), so two trees can be timed by the
+same code on one card.
 
 1. Prints the card (nvidia-smi name, power limit), builds the CUDA
    kernels from ``src/repro_torch/csrc`` and times a launch floor: a
@@ -98,6 +100,18 @@ so two trees can be timed by the same code on one card.
    following the plan in force (word kernels for its payload-8 periods,
    bit-plane kernels for the rest), the printed plans held to
    ``stash_plan``, with the realized stash bytes per step.
+8. CNNs (the paper's §VI targets), with TF32 off: (a) ResNet-8, one step
+   each of ``none``, ``qm`` (from 7 bits) and ``bitchop`` (from n 7) on
+   the card and on the CPU from the same weights and images, losses
+   within 1e-4 relative, QM bits within 1e-3 and BitChop's n equal;
+   (b) ResNet-18 and MobileNetV3-Small at their published widths, batch
+   64, 4 steps a mode (BitChop's warm-up 1), printing step ms, images/s,
+   peak memory, the stash's values and footprint, losses and bits, each
+   loss finite and each footprint between 0 and fp32's; (c) the Table I
+   twin, ResNet-8 trained 80 steps a mode, then the rows
+   ``resnet8_qm``, ``resnet8_bitchop`` and ``resnet8_qm_exp5`` of its
+   stash's footprint against fp32 and bf16 and its accuracy against the
+   baseline.
 
 Any failure exits non-zero. The last line is the device JSON.
 """
@@ -265,6 +279,25 @@ PAGED_TRACE = ["--requests", "12", "--prompt-len-min", "256",
                "--max-slots", str(PAGED_SLOTS), "--max-len",
                str(PAGED_MAX_LEN), "--num-blocks", str(PAGED_BLOCKS),
                "--seed", str(SEED)]
+
+
+# CNNs (the paper's own targets, §VI). (a) ResNet-8, one step of each
+# mode from the same weights and images on the card and on the CPU (TF32
+# off, so both compute f32): losses within 1e-4 relative (the convolutions'
+# summation orders differ; QM truncates at 7 bits, where a one-ulp
+# difference can flip a value and the per-sample norms spread it, ~5e-5 of
+# the cross-entropy on the CPU against JAX), QM bits within 1e-3 (the
+# estimator sums those flips), BitChop's n equal; BitChop's step starts
+# from n = 7 (its full 23 bits would truncate nothing), so the card's
+# truncation is held too. (b) ResNet-18 and MobileNetV3-Small at their
+# published widths (224x224, 1000 classes), batch 64 (cut to keep the
+# phase near a minute), 4 steps each under none, qm (from 7 bits) and
+# bitchop (warm-up 1, so it decides). (c) The Table I twin: ResNet-8, 80
+# steps of batch 16 under each mode (BitChop's warm-up 6), then the stash
+# of an 8-image forward.
+CNN_LOSS_RTOL, CNN_BITS_ATOL = 1e-4, 1e-3
+CNN_BC_BITS = 7
+CNN_BATCH, CNN_STEPS, CNN_T1_STEPS = 64, 4, 80
 
 
 class DraftCount:
@@ -2516,13 +2549,172 @@ def bit_exact_run(torch, cfg, counters):
              "launches_per_step": expect}, total_launches(records))
 
 
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def cnn_card_vs_cpu(torch, card, dev):
+    """(a): ResNet-8, one step of each mode on the card and on the CPU."""
+    from repro_torch import policies
+    from repro_torch.models import cnn
+    from repro_torch.train import cnn as cnn_train
+
+    gaps = {}
+    for mode in cnn_train.MODES:
+        runs = {}
+        for where in ("cpu", dev):
+            model = cnn.CNN(cnn.RESNET8, policies.get(mode), where)
+            params = _to(cnn.CNN(cnn.RESNET8, device="cpu").init(SEED),
+                         where)
+            state = cnn_train.init_state(model, SEED, params=params)
+            if mode == "bitchop":  # truncate, as QM does from its 7 bits
+                state = state._replace(bc=state.bc._replace(
+                    n=torch.tensor(CNN_BC_BITS, dtype=torch.int32,
+                                   device=where)))
+            batch = _to(cnn_train.batch_at(cnn.RESNET8, SEED, 0, 16, "cpu"),
+                        where)
+            state, met = cnn_train.make_step(model, mode)(state, batch)
+            runs[where] = (float(met["loss"]), int(met["bc_bits"]),
+                           {k: float(v.detach())
+                            for k, v in state.qm_bits.items()})
+        (lc, nc, bc), (lg, ng, bg) = runs["cpu"], runs[dev]
+        gap = {"loss_rel": abs(lg - lc) / abs(lc),
+               "qm_bits_abs": max(abs(bg[k] - bc[k]) for k in bc),
+               "bc_bits": [nc, ng], "loss": [lc, lg]}
+        if not (math.isfinite(lg) and gap["loss_rel"] <= CNN_LOSS_RTOL):
+            fail(f"cnn {mode}: card loss {lg} vs cpu {lc}")
+        if gap["qm_bits_abs"] > CNN_BITS_ATOL or ng != nc:
+            fail(f"cnn {mode}: bits card vs cpu {gap}")
+        gaps[mode] = gap
+    print("cnn card vs cpu (resnet8, 1 step): "
+          + json.dumps({"card": card, **gaps}))
+    return gaps
+
+
+def cnn_full_width(torch, card, dev, cfgs):
+    """(b): ResNet-18 and MobileNetV3-Small at full width, batch 64."""
+    from repro_torch import policies
+    from repro_torch.models import cnn
+    from repro_torch.train import cnn as cnn_train
+
+    out = {}
+    for cfg in cfgs:
+        for mode in cnn_train.MODES:
+            model = cnn.CNN(cfg, policies.get(mode, container="bit_exact"),
+                            dev)
+            state = cnn_train.init_state(model, SEED)
+            step = cnn_train.make_step(model, mode, bc_warmup=1)
+            batches = [cnn_train.batch_at(cfg, SEED, i, CNN_BATCH, dev)
+                       for i in range(CNN_STEPS)]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            times, losses = [], []
+            for i, batch in enumerate(batches):
+                last = i == CNN_STEPS - 1
+                bits = {"qm": {k: float(v.detach())
+                               for k, v in state.qm_bits.items()},
+                        "bitchop": int(state.bc.n)}.get(mode,
+                                                        cnn_train.MAX_BITS)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, met = step(state, batch, collect_stash=last)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                losses.append(float(met["loss"]))
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            stash = met["stash"]
+            fp = cnn_train.stash_footprint(stash, bits)
+            n_values = sum(s["tensor"].numel() for s in stash)
+            step_ms = statistics.median(times[1:]) * 1e3
+            row = {"card": card, "model": cfg.name, "mode": mode,
+                   "batch": CNN_BATCH, "step_ms_median_steps_2_4": step_ms,
+                   "step_ms": [t * 1e3 for t in times],
+                   "images_per_s": CNN_BATCH / step_ms * 1e3,
+                   "peak_mem_gb": peak, "stash_sites": len(stash),
+                   "stash_values": n_values, "stash_f32_bytes": 4 * n_values,
+                   "stash_vs_fp32": fp["vs_fp32"],
+                   "stash_vs_bf16": fp["vs_bf16"],
+                   "stash_sfp_bits": fp["sfp_bits"], "loss": losses,
+                   "qm_bits_mean": float(met["qm_bits"]),
+                   "bc_bits": int(met["bc_bits"])}
+            if not all(math.isfinite(v) for v in losses):
+                fail(f"cnn {cfg.name} {mode}: non-finite loss {losses}")
+            if not 0 < fp["vs_fp32"] < 1:
+                fail(f"cnn {cfg.name} {mode}: footprint {fp}")
+            print(f"cnn full width {cfg.name} {mode}: " + json.dumps(row))
+            out[f"{cfg.name} {mode}"] = row
+            del state, step, batches, stash, met
+            torch.cuda.empty_cache()
+    return out
+
+
+def cnn_table1(torch, card, dev):
+    """(c): the Table I twin, ResNet-8 trained 80 steps in each mode."""
+    from repro_torch.train import cnn as cnn_train
+
+    runs = {mode: cnn_train.run(mode, steps=CNN_T1_STEPS, seed=SEED,
+                                device=dev)
+            for mode in cnn_train.MODES}
+
+    def acc(r):
+        return statistics.fmean(h["acc"] for h in r["history"][-10:])
+
+    base = acc(runs["none"])
+    rows = {}
+    for mode in ("qm", "bitchop"):
+        r = runs[mode]
+        bits = (r["final_qm_bits_per_layer"] if mode == "qm"
+                else float(r["final_bc_bits"]))
+        stash = cnn_train.stash(r["params"], mode, act_bits=bits,
+                                device=dev)
+        mean_bits = (statistics.fmean(bits.values()) if mode == "qm"
+                     else bits)
+        head = {"acc": acc(r), "acc_fp32_baseline": base,
+                "acc_delta": acc(r) - base, "mantissa_bits": mean_bits}
+        rows[f"resnet8_{mode}"] = {**head,
+                                   **cnn_train.stash_footprint(stash, bits)}
+        if mode == "qm":
+            rows["resnet8_qm"]["bits_per_layer"] = bits
+            rows["resnet8_qm_exp5"] = {
+                **head, "exponent_bits": 5.0,
+                **cnn_train.stash_footprint(stash, bits, exp_bits=5)}
+    for name, row in rows.items():
+        if not 0 < row["vs_fp32"] < 1:
+            fail(f"cnn table1 {name}: footprint {row}")
+        print(f"cnn table1 {name}: " + json.dumps({"card": card, **row}))
+    for mode, r in runs.items():
+        hist = r["history"]
+        print(f"cnn table1 run {mode}: " + json.dumps({
+            "card": card, "loss_first_last": [hist[0]["loss"],
+                                              hist[-1]["loss"]],
+            "qm_bits_last": hist[-1]["qm_bits"],
+            "bc_bits_last": hist[-1]["bc_bits"]}))
+    return rows
+
+
+def cnn_phase(torch, card, dev="cuda"):
+    """The CNN phase: (a), (b) and (c) above; returns their summaries."""
+    from repro_torch.models import cnn
+
+    t0 = time.perf_counter()
+    out = {"card_vs_cpu": cnn_card_vs_cpu(torch, card, dev),
+           "full_width": cnn_full_width(
+               torch, card, dev, (cnn.RESNET18, cnn.MOBILENETV3_SMALL)),
+           "table1": cnn_table1(torch, card, dev)}
+    print(f"cnn: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phase", choices=("all", "gecko", "dense", "sfp"),
+    ap.add_argument("--phase", choices=("all", "gecko", "dense", "sfp",
+                                        "cnn"),
                     default="all",
                     help="gecko / dense / sfp: only the Gecko, the dense "
                          "bit-plane or the fixed-lane word kernel checks "
-                         "and timings")
+                         "and timings; cnn: only the CNN phase")
     ap.add_argument("--src", type=Path, default=SRC,
                     help="the directory holding the repro_torch package")
     args = ap.parse_args(argv)
@@ -2548,6 +2740,11 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     card = card_line()
     print(f"card: {card}")
+    if args.phase == "cnn":
+        summary = cnn_phase(torch, card)
+        print(card)
+        print(json.dumps({"tree": str(src), "card": card, "cnn": summary}))
+        return 0
     t0 = time.perf_counter()
     _lib.load()
     print(f"kernel build+load: {time.perf_counter() - t0:.2f} s "
@@ -2661,6 +2858,8 @@ def main(argv=None) -> int:
                                                              counters)
     print("train bit_exact: " + json.dumps(be_e2e))
     print(f"bit_exact training: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    cnn_phase(torch, card)
 
     kernels = []
     for c in counters:

@@ -8,6 +8,8 @@ layer in order: period 0 slot 0, period 0 slot 1, ..., then the
 remainder. Input leaves are numpy arrays (e.g. ``np.asarray`` of the JAX
 arrays); bf16 arrives as an ``ml_dtypes`` array and is reinterpreted
 through its 16-bit pattern, so ``ml_dtypes`` is never imported.
+``cnn_params_from_jax`` does the same for ``repro.models.cnn``'s tree,
+turning its HWIO convolution kernels into the port's OIHW.
 """
 from __future__ import annotations
 
@@ -70,6 +72,20 @@ def from_jax(params: Dict[str, Any], cfg, device="cpu") -> Dict[str, Any]:
     return {"embed": conv(params["embed"]),
             "final_norm": conv(params["final_norm"]),
             "layers": layers}
+
+
+def cnn_params_from_jax(params: Dict[str, Any], device="cpu"
+                        ) -> Dict[str, Any]:
+    """JAX ``CNN`` params (nested dicts of numpy arrays) -> the port's
+    ``models.cnn.CNN`` params, bit for bit: every 4-D leaf (an HWIO
+    convolution kernel; depthwise ``(kh, kw, 1, C)``) becomes OIHW
+    (``(C, 1, kh, kw)``), every other leaf keeps its layout."""
+    def leaf(a):
+        t = to_tensor(np.asarray(a))
+        if t.dim() == 4:
+            t = t.permute(3, 2, 0, 1).contiguous()
+        return t.to(device)
+    return _tree(params, leaf)
 
 
 def state_from_jax(state, cfg, device="cpu", seed: int = 0) -> TrainState:

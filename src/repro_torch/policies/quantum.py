@@ -140,6 +140,7 @@ class QMPolicy(_LearnedBitsPolicy):
 
     name = "qm"
     has_stash_grad = True
+    requires_act_bits = True
 
     def _max_bits(self, dims):
         return dims.man_bits
@@ -191,6 +192,7 @@ class QEPolicy(_LearnedBitsPolicy):
     name = "qe"
     adapts_exponent = True
     has_stash_grad = True
+    requires_act_bits = True
 
     def _max_bits(self, dims):
         return dims.exp_bits

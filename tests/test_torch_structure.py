@@ -28,7 +28,9 @@ from repro_torch.kernels import packed_flash_decode as tpfd
 from repro_torch.kernels import sfp_pack as tsp
 from repro_torch.launch import serve as tserve
 from repro_torch.launch import train as ttrain
+from repro_torch.models import cnn as tcnn
 from repro_torch.models.model import DecoderModel
+from repro_torch.train import cnn as tcnn_train
 from repro_torch.serve import engine
 
 torch.set_num_threads(1)
@@ -95,6 +97,40 @@ def test_entry_points_raise_without_gpu(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         engine.generate(model, params, torch.zeros((1, 4), dtype=torch.long),
                         2)
+
+
+def test_cnn_entry_points_raise_without_gpu(monkeypatch):
+    _no_gpu(monkeypatch)
+    for cfg in (tcnn.RESNET18, tcnn.RESNET8, tcnn.MOBILENETV3_SMALL):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tcnn.CNN(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tcnn.CNN(tcnn.RESNET8, "qm")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tcnn.synthetic_images(torch.Generator(), 2, tcnn.RESNET8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tcnn_train.run("qm", steps=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tcnn_train.stash({}, "none")
+    with pytest.raises(ValueError, match="mode"):
+        tcnn_train.make_step(tcnn.CNN(tcnn.RESNET8, device="cpu"), "qe")
+
+
+@pytest.mark.parametrize("mode", ["none", "qm", "bitchop"])
+def test_cnn_run_on_cpu_when_asked(monkeypatch, mode):
+    """ResNet-8, 2 steps of batch 4 and the Table I stash, on the CPU."""
+    _no_gpu(monkeypatch)
+    r = tcnn_train.run(mode, steps=2, batch=4, device="cpu")
+    assert len(r["history"]) == 2
+    assert all(np.isfinite(h["loss"]) for h in r["history"])
+    bits = {"qm": r["final_qm_bits_per_layer"],
+            "bitchop": float(r["final_bc_bits"])}.get(mode)
+    stash = tcnn_train.stash(r["params"], mode, act_bits=bits, device="cpu")
+    assert [s["name"] for s in stash][-1] == "pool"
+    assert stash[0]["tensor"].shape == (8, 32, 32, 16)
+    fp = tcnn_train.stash_footprint(stash, 23 if bits is None else bits)
+    assert fp["fp32_bits"] == 32 * 8 * 73_792
+    assert 0 < fp["vs_fp32"] < 1 and fp["vs_bf16"] == 2 * fp["vs_fp32"]
 
 
 def test_launcher_runs_on_cpu_when_asked(monkeypatch):
