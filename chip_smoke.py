@@ -5,12 +5,13 @@
     python3 chip_smoke.py --phase dense [--src DIR]
     python3 chip_smoke.py --phase sfp [--src DIR]
     python3 chip_smoke.py --phase cnn [--src DIR]
+    python3 chip_smoke.py --phase ckpt [--src DIR]
 
 The other forms run only the Gecko kernel checks and timings of step 5,
 or only the dense bit-plane or the fixed-lane word ones of step 2, or
-only the CNN phase of step 8, against the ``repro_torch`` package under
-DIR (default: this checkout's ``src``), so two trees can be timed by the
-same code on one card.
+only the CNN phase of step 8, or only the checkpoint phase of step 9,
+against the ``repro_torch`` package under DIR (default: this checkout's
+``src``), so two trees can be timed by the same code on one card.
 
 1. Prints the card (nvidia-smi name, power limit), builds the CUDA
    kernels from ``src/repro_torch/csrc`` and times a launch floor: a
@@ -112,6 +113,22 @@ same code on one card.
    ``resnet8_qm``, ``resnet8_bitchop`` and ``resnet8_qm_exp5`` of its
    stash's footprint against fp32 and bf16 and its accuracy against the
    baseline.
+9. Checkpoints, in a temporary directory (free disk printed and checked
+   first, removed at the end): (a) ``launch.train --preset full --policy
+   qm --container sfp8`` for 3 steps with ``--ckpt-dir``, ``--ckpt-every
+   2`` and every telemetry file, printing the async save's blocking share
+   (the host snapshot), the write seconds and the bytes on disk against
+   the raw state; step 3 restored into a fresh state must equal the run's
+   final state bit for bit, generator included, and the telemetry must
+   pass ``obs.validate``; (c) the trained parameters saved through gecko8
+   on the card (``gecko_pack`` / ``gecko_unpack`` launches, bytes against
+   raw bf16, a bit-equal restore), one layer's files byte-equal to the
+   CPU's plain path, and f32 copies of its matrices under
+   ``compress_bits=4`` (``mantissa_quantize``) too; (d) batch serving with
+   ``--policy-ckpt`` from the container the checkpoint stamped, through
+   the decode kernel of its geometry; (b) restore-and-continue at 2
+   layers: 4 steps uninterrupted, with a fault at step 3, and resumed by a
+   second ``loop.run``, bit-equal at steps 2-3 and in the final state.
 
 Any failure exits non-zero. The last line is the device JSON.
 """
@@ -120,6 +137,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -298,6 +316,19 @@ PAGED_TRACE = ["--requests", "12", "--prompt-len-min", "256",
 CNN_LOSS_RTOL, CNN_BITS_ATOL = 1e-4, 1e-3
 CNN_BC_BITS = 7
 CNN_BATCH, CNN_STEPS, CNN_T1_STEPS = 64, 4, 80
+# Checkpointing (slice 13). (a) The launcher at full width and depth, qm +
+# sfp8, 3 steps with --ckpt-every 2: an async save at step 2 and the final
+# blocking save at step 3, each 26.6 GB (5.3 GB of bf16 parameters, 21.3
+# GB of f32 AdamW moments); step 3 restored into a fresh state bit for
+# bit, generator included. (b) Restore-and-continue at full width, depth
+# cut to 2 layers for time: 4 steps uninterrupted, with a fault at step 3,
+# and resumed by a second loop.run; bit-equal. (c) The trained parameters
+# (183 bf16 matrices) through gecko8 on the card. (d) Batch serving (16
+# new tokens) from the container the checkpoint stamped. The phase needs
+# two raw checkpoints and the gecko8 copy on disk, with a margin.
+CKPT_STEPS, CKPT_EVERY, CKPT_SERVE_NEW = 3, 2, 16
+CKPT_B_LAYERS, CKPT_B_STEPS, CKPT_FAULT_STEP = 2, 4, 3
+CKPT_DISK_MARGIN = 1.1
 
 
 class DraftCount:
@@ -2085,6 +2116,11 @@ def train_argv(cfg, policy, container, steps, *extra):
             *extra]
 
 
+def serve_argv(cfg, *extra):
+    """The serving launcher's arguments at full width."""
+    return ["--arch", cfg.name, "--preset", "full", *extra]
+
+
 def stash_kernels(fields):
     """The (pack, unpack) wrappers a stash geometry's codec launches."""
     if fields.dense:
@@ -2707,14 +2743,492 @@ def cnn_phase(torch, card, dev="cuda"):
     return out
 
 
+def _bits(torch, t):
+    """A tensor's bit patterns (floats as same-width ints), so equality is
+    bit equality (-0.0 against 0.0, NaN payloads)."""
+    if t.is_floating_point():
+        return t.view({2: torch.int16, 4: torch.int32,
+                       8: torch.int64}[t.element_size()])
+    return t
+
+
+def same_leaf(torch, a, b) -> bool:
+    """Bit equality of two leaves (tensors on any devices, generators or
+    their states, ints)."""
+    if isinstance(a, torch.Generator):
+        a = a.get_state()
+    if isinstance(b, torch.Generator):
+        b = b.get_state()
+    if isinstance(a, torch.Tensor):
+        return (a.dtype == b.dtype and a.shape == b.shape
+                and torch.equal(_bits(torch, a.detach()),
+                                _bits(torch, b.detach().to(a.device))))
+    return a == b
+
+
+def dir_bytes(path: Path) -> int:
+    return sum(p.stat().st_size for p in path.rglob("*") if p.is_file())
+
+
+def files_equal(a: Path, b: Path):
+    """(manifests equal less ``time``, [.npy files that differ])."""
+    ma, mb = (json.loads((d / "manifest.json").read_text()) for d in (a, b))
+    ma.pop("time")
+    mb.pop("time")
+    files = sorted(p.name for p in a.glob("*.npy"))
+    if files != sorted(p.name for p in b.glob("*.npy")):
+        return ma == mb, ["(file lists differ)"]
+    return ma == mb, [f for f in files
+                      if (a / f).read_bytes() != (b / f).read_bytes()]
+
+
+def state_bytes(torch, tree) -> int:
+    """The raw bytes of a state's leaves (tensors at their element size,
+    ints as 8-byte 0-d arrays, a generator as its state)."""
+    from repro_torch.checkpoint import named_leaves
+    total = 0
+    for _, leaf in named_leaves(tree):
+        if isinstance(leaf, torch.Generator):
+            leaf = leaf.get_state()
+        total += (leaf.numel() * leaf.element_size()
+                  if isinstance(leaf, torch.Tensor) else 8)
+    return total
+
+
+class SaveClock:
+    """Times ``CheckpointManager.save`` (the caller's share: the wait for a
+    previous writer, the host snapshot, and for a blocking save the write),
+    ``wait`` and ``_write`` (the writer's seconds) while installed."""
+
+    def __init__(self):
+        from repro_torch.checkpoint import CheckpointManager
+        self.cls = CheckpointManager
+        self.orig = {k: getattr(CheckpointManager, k)
+                     for k in ("save", "wait", "_write")}
+        self.saves, self.waits, self.writes = [], [], []
+
+    def __enter__(self):
+        clock = self
+
+        def save(mgr, step, tree, *, blocking=True, extra=None):
+            t0 = time.perf_counter()
+            clock.orig["save"](mgr, step, tree, blocking=blocking,
+                               extra=extra)
+            clock.saves.append({"step": int(step), "blocking": blocking,
+                                "s": time.perf_counter() - t0})
+
+        def wait(mgr):
+            t0 = time.perf_counter()
+            clock.orig["wait"](mgr)
+            clock.waits.append(time.perf_counter() - t0)
+
+        def write(mgr, step, host, extra=None):
+            t0 = time.perf_counter()
+            clock.orig["_write"](mgr, step, host, extra)
+            clock.writes.append({"step": int(step),
+                                 "s": time.perf_counter() - t0})
+
+        self.cls.save, self.cls.wait, self.cls._write = save, wait, write
+        return self
+
+    def __exit__(self, *exc):
+        for k, f in self.orig.items():
+            setattr(self.cls, k, f)
+
+
+def ckpt_disk_need(cfg) -> float:
+    """Peak bytes the phase puts on disk: two raw full-width checkpoints
+    (bf16 parameters, f32 AdamW moments) and the gecko8 copy of the
+    parameters (at most their bf16 bytes), with a margin."""
+    from repro_torch.models.model import DecoderModel
+    per_layer = DecoderModel(cfg, device="cpu").layer_param_count()
+    n = cfg.n_layers * per_layer + cfg.vocab * cfg.d_model + cfg.d_model
+    return CKPT_DISK_MARGIN * (2 * n * (2 + 4 + 4) + 2 * n)
+
+
+def ckpt_launcher(torch, cfg, counters, work: Path):
+    """(a): the launcher at full width and depth with checkpoints and every
+    telemetry file; the step-3 checkpoint restored into a fresh state bit
+    for bit; the telemetry validated. Returns (report, the restored state,
+    the checkpoint directory)."""
+    from repro_torch.checkpoint import CheckpointManager, named_leaves
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.obs import validate
+    from repro_torch.train import step as step_mod
+    d = work / "a"
+    ckdir, obs_files = d / "ckpt", {k: d / f for k, f in (
+        ("metrics", "events.jsonl"), ("metrics_out", "metrics.prom"),
+        ("trace_out", "trace.json"), ("timeline_out", "timeline.jsonl"))}
+    d.mkdir(parents=True)
+    argv = train_argv(cfg, "qm", CONTAINER, CKPT_STEPS, "--ckpt-dir",
+                      str(ckdir), "--ckpt-every", str(CKPT_EVERY),
+                      "--timeline-every", "1",
+                      *(x for k, f in obs_files.items()
+                        for x in (f"--{k.replace('_', '-')}", str(f))))
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    with SaveClock() as clock:
+        out = tlaunch.main(argv)
+    run_s = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters if c.launches}
+    for name in ("sfp_quantize_pack", "sfp_unpack", "flash_attention",
+                 "flash_attention_bwd"):
+        if not launches.get(name):
+            fail(f"ckpt (a): the launcher's run launched no {name}")
+    mgr = CheckpointManager(str(ckdir))
+    if mgr.all_steps() != [CKPT_EVERY, CKPT_STEPS]:
+        fail(f"ckpt (a): checkpoints {mgr.all_steps()}, not "
+             f"{[CKPT_EVERY, CKPT_STEPS]}")
+    state = out["state"]
+    raw = state_bytes(torch, state)
+    on_disk = {s: dir_bytes(ckdir / f"step_{s:08d}") for s in mgr.all_steps()}
+    async_save = next(s for s in clock.saves if not s["blocking"])
+    final_save = next(s for s in clock.saves if s["blocking"])
+    writes = {w["step"]: w["s"] for w in clock.writes}
+    # The step-2 checkpoint has served its purpose (the async path); it
+    # goes now, so the restore check below holds one checkpoint on disk.
+    shutil.rmtree(ckdir / f"step_{CKPT_EVERY:08d}")
+    # Restore step 3 into a fresh state (the run's final state moved to
+    # the host first: three full-width states do not fit the card).
+    final = [(n, leaf.get_state() if isinstance(leaf, torch.Generator)
+              else leaf.detach().cpu() if isinstance(leaf, torch.Tensor)
+              else leaf) for n, leaf in named_leaves(state)]
+    del out, state
+    torch.cuda.empty_cache()
+    args = tlaunch.build_parser().parse_args(argv)
+    _, model, tc, _, _ = tlaunch.build(args)
+    fresh = step_mod.init_state(model, args.seed, tc)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored = mgr.restore(CKPT_STEPS, fresh)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    del fresh
+    torch.cuda.empty_cache()
+    got = named_leaves(restored)
+    if [n for n, _ in got] != [n for n, _ in final]:
+        fail("ckpt (a): the restored state's leaves differ from the run's")
+    diff = [n for (n, a), (_, b) in zip(got, final)
+            if not same_leaf(torch, a, b)]
+    if diff:
+        fail(f"ckpt (a): restored leaves differ from the run's final state: "
+             f"{diff[:6]}")
+    if not all(p.requires_grad for p in
+               (leaf for n, leaf in got if n.startswith(".params"))):
+        fail("ckpt (a): restored parameters lost requires_grad")
+    del final
+    events = [json.loads(line) for line in
+              obs_files["metrics"].read_text().splitlines()]
+    ckpt_events = [e["step"] for e in events if e.get("event") == "checkpoint"]
+    if ckpt_events != [CKPT_EVERY]:
+        fail(f"ckpt (a): checkpoint events {ckpt_events}, not [{CKPT_EVERY}]")
+    rc = validate.main(["--metrics", str(obs_files["metrics_out"]),
+                        "--trace", str(obs_files["trace_out"]),
+                        "--timeline", str(obs_files["timeline_out"]),
+                        "--events", str(obs_files["metrics"]),
+                        "--schemas-dir", str(ROOT / "tests/fixtures/obs")])
+    if rc != 0:
+        fail("ckpt (a): the telemetry files failed obs.validate")
+    timeline = obs_files["timeline_out"].read_text().splitlines()
+    snapshot_s = async_save["s"]
+    report = {
+        "arch": cfg.name, "layers": cfg.n_layers, "policy": "qm",
+        "container": CONTAINER, "batch": B, "seq": TRAIN_SEQ,
+        "steps": CKPT_STEPS, "ckpt_every": CKPT_EVERY,
+        "run_s": run_s, "loss": [e["loss"] for e in events if "event" not in e],
+        "launches": launches, "leaves": len(got),
+        "raw_state_bytes": raw,
+        "bytes_on_disk": {str(s): b for s, b in on_disk.items()},
+        "disk_vs_raw": on_disk[CKPT_STEPS] / raw,
+        "async_save_blocking_s": snapshot_s,
+        "async_write_s": writes[CKPT_EVERY],
+        "async_blocking_share": snapshot_s / (snapshot_s
+                                              + writes[CKPT_EVERY]),
+        "snapshot_gb_per_s": raw / snapshot_s / 1e9,
+        "final_save_s": final_save["s"], "final_write_s": writes[CKPT_STEPS],
+        "write_gb_per_s": raw / writes[CKPT_STEPS] / 1e9,
+        "waits_s": clock.waits, "restore_s": restore_s,
+        "restore_gb_per_s": raw / restore_s / 1e9,
+        "restored_bit_equal": True, "generator_equal": True,
+        "extra": mgr.read_extra(CKPT_STEPS), "events": len(events),
+        "timeline_entries": len(timeline), "obs_validate": "ok"}
+    return report, restored, ckdir
+
+
+def ckpt_gecko(torch, counters, params, work: Path):
+    """(c): the trained parameters through gecko8 on the card: bytes
+    against raw bf16, gecko_pack / gecko_unpack launches, a bit-equal
+    restore; one layer's files byte-equal to the CPU's plain path, and
+    f32 copies of its matrices under compress_bits=4 (bit_exact, the
+    mantissa_quantize kernel) byte-equal too."""
+    from repro_torch.checkpoint import CheckpointManager, named_leaves
+    d = work / "c"
+    leaves = named_leaves(params)
+    raw_bf16 = sum(t.numel() * t.element_size() for _, t in leaves)
+    matrices = sum(1 for _, t in leaves if t.dim() >= 2)
+    for c in counters:
+        c.launches = 0
+    mgr = CheckpointManager(str(d / "card"), compress_codec=GECKO)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.save(CKPT_STEPS, params)
+    save_s = time.perf_counter() - t0
+    packs = launches_of(counters, "gecko_pack")
+    on_disk = dir_bytes(d / "card" / f"step_{CKPT_STEPS:08d}")
+    manifest = json.loads((d / "card" / f"step_{CKPT_STEPS:08d}" /
+                           "manifest.json").read_text())
+    coded = [e for e in manifest["leaves"] if e.get("codec") == GECKO]
+    if len(coded) != matrices or packs != matrices:
+        fail(f"ckpt (c): {len(coded)} leaves coded and {packs} gecko_pack "
+             f"launches for {matrices} bf16 matrices")
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    back = mgr.restore(CKPT_STEPS, params)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    unpacks = launches_of(counters, "gecko_unpack")
+    if unpacks != matrices:
+        fail(f"ckpt (c): {unpacks} gecko_unpack launches for {matrices} "
+             f"matrices")
+    diff = [n for (n, a), (_, b) in zip(named_leaves(back), leaves)
+            if not same_leaf(torch, a, b)]
+    if diff:
+        fail(f"ckpt (c): the gecko8 restore differs: {diff[:6]}")
+    del back
+    # One layer through the card and through the CPU's plain path.
+    layer = params["layers"][0]
+    cpu_layer = {k: {n: t.detach().cpu() for n, t in v.items()}
+                 if isinstance(v, dict) else v.detach().cpu()
+                 for k, v in layer.items()}
+    f32 = {k: {n: t.detach().float() for n, t in v.items() if t.dim() >= 2}
+           for k, v in layer.items() if isinstance(v, dict)}
+    f32_cpu = {k: {n: t.cpu() for n, t in v.items()} for k, v in f32.items()}
+    cases = {}
+    for what, kw, on_card, on_cpu in (
+            ("gecko8 layer 0", dict(compress_codec=GECKO), layer, cpu_layer),
+            ("bit_exact bits 4, layer 0 in f32", dict(compress_bits=4), f32,
+             f32_cpu)):
+        for c in counters:
+            c.launches = 0
+        CheckpointManager(str(d / what / "card"), **kw).save(1, on_card)
+        card_launches = {c.__name__: c.launches for c in counters
+                         if c.launches}
+        CheckpointManager(str(d / what / "cpu"), **kw).save(1, on_cpu)
+        same_manifest, differ = files_equal(d / what / "card/step_00000001",
+                                            d / what / "cpu/step_00000001")
+        if not same_manifest or differ:
+            fail(f"ckpt (c) {what}: card and CPU files differ (manifest "
+                 f"equal {same_manifest}, files {differ[:4]})")
+        cases[what] = {"files": len(list((d / what / "card/step_00000001")
+                                         .glob("*.npy"))),
+                       "byte_equal_to_cpu": True, "launches": card_launches}
+    if not cases["bit_exact bits 4, layer 0 in f32"]["launches"].get(
+            "mantissa_quantize"):
+        fail("ckpt (c): compress_bits=4 launched no mantissa_quantize")
+    return {"matrices": matrices, "raw_bf16_bytes": raw_bf16,
+            "bytes_on_disk": on_disk, "disk_vs_raw_bf16": on_disk / raw_bf16,
+            "save_s": save_s, "restore_s": restore_s,
+            "gecko_pack": packs, "gecko_unpack": unpacks,
+            "restore_bit_equal": True, "card_vs_cpu": cases}
+
+
+def launches_of(counters, name):
+    return next(c.launches for c in counters if c.__name__ == name)
+
+
+def ckpt_serve(torch, cfg, counters, ckdir: Path):
+    """(d): batch serving at full width from the container the checkpoint
+    stamped, through the decode kernel of its geometry."""
+    from repro_torch import codecs
+    from repro_torch.launch import serve as slaunch
+    from repro_torch.serve import precision
+    name = precision.container_from_checkpoint(str(ckdir))
+    fields = codecs.get(name).pack_fields(torch.bfloat16)
+    decode = "packed_flash_decode_dense" if fields.dense else (
+        "packed_flash_decode")
+    pack = "bitplane_pack" if fields.dense else "sfp_pack"
+    args = slaunch.build_parser().parse_args(serve_argv(
+        cfg, "--batch", str(B), "--prompt-len", str(PROMPT), "--max-new",
+        str(CKPT_SERVE_NEW), "--seed", str(SEED), "--policy-ckpt",
+        str(ckdir)))
+    for c in counters:
+        c.launches = 0
+    report = slaunch.run_batch(args)
+    launches = {c.__name__: c.launches for c in counters if c.launches}
+    steps = CKPT_SERVE_NEW - 1
+    if (launches.get(decode) != cfg.n_layers * steps
+            or not launches.get(pack)):
+        fail(f"ckpt (d): serving {name} launched {launches}, not "
+             f"{cfg.n_layers * steps} {decode} and the {pack} kernel")
+    if report["kv"] != name:
+        fail(f"ckpt (d): served {report['kv']}, not {name}")
+    return {"container": name, "payload_bits": fields.payload_bits,
+            "dense": fields.dense, "decode_kernel": decode,
+            "launches": launches, "tok_per_s": report["tok_per_s"],
+            "seconds": report["seconds"]}
+
+
+def ckpt_continue(torch, cfg, counters, work: Path):
+    """(b): restore-and-continue at full width, depth cut to 2 layers: 4
+    steps uninterrupted, 4 with a fault raised once at step 3 and a
+    checkpoint every 2, and 2 + 2 over two loop.run calls (the second
+    resumes from the step-2 checkpoint); steps 2-3 and the final state
+    bit-equal across the three."""
+    from repro_torch.checkpoint import named_leaves
+    from repro_torch.train import loop as loop_mod
+    from repro_torch.data import synthetic
+    from repro_torch.train import step as step_mod
+    argv = train_argv(cfg, "qm", CONTAINER, CKPT_B_STEPS)
+    model, step_fn, _, _, tc = train_setup(torch, argv, CKPT_B_LAYERS)
+    torch.cuda.empty_cache()
+    dcfg = synthetic.SyntheticConfig(vocab=model.cfg.vocab,
+                                     seq_len=TRAIN_SEQ, global_batch=B,
+                                     seed=SEED)
+
+    def batches(start):
+        for b in synthetic.batches(dcfg, start):
+            yield {k: torch.from_numpy(v).long().to(model.device)
+                   for k, v in b.items()}
+
+    def run(total, ckdir=None, fault=None):
+        lc = loop_mod.LoopConfig(total_steps=total, log_every=1,
+                                 ckpt_every=CKPT_EVERY,
+                                 ckpt_dir=None if ckdir is None
+                                 else str(ckdir))
+        return loop_mod.run(step_fn, step_mod.init_state(model, SEED, tc),
+                            batches, lc, fault_hook=fault,
+                            device=model.device)
+
+    def by_step(history):
+        # the last record of each step (a replayed step supersedes)
+        return {h["step"]: h for h in history}
+
+    fired = []
+
+    def fault(step):
+        if step == CKPT_FAULT_STEP and not fired:
+            fired.append(step)
+            raise RuntimeError("injected failure")
+
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    runs = {"uninterrupted": run(CKPT_B_STEPS),
+            "fault": run(CKPT_B_STEPS, work / "b-fault", fault)}
+    first = run(CKPT_EVERY, work / "b-resume")
+    runs["resume"] = run(CKPT_B_STEPS, work / "b-resume")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters if c.launches}
+    keys = ("loss", "grad_norm", "qm_act_mean", "qm_w_mean")
+    hist = {k: by_step(r.history) for k, r in runs.items()}
+    first_hist = by_step(first.history)
+    del first
+    report = {"arch": cfg.name, "layers": CKPT_B_LAYERS, "policy": "qm",
+              "container": CONTAINER, "batch": B, "seq": TRAIN_SEQ,
+              "steps": CKPT_B_STEPS, "ckpt_every": CKPT_EVERY,
+              "fault_step": CKPT_FAULT_STEP, "seconds": seconds,
+              "restarts": {k: r.restarts for k, r in runs.items()},
+              "steps_run": {k: [h["step"] for h in r.history]
+                            for k, r in runs.items()},
+              "launches": launches,
+              **{f"{k}_{key}": [hist[k][s][key] for s in sorted(hist[k])]
+                 for k in runs for key in ("loss", "grad_norm")}}
+    mismatch = []
+    for s in range(CKPT_B_STEPS):
+        ref = hist["uninterrupted"][s]
+        others = {"fault": hist["fault"][s],
+                  "resume": (hist["resume"] if s >= CKPT_EVERY
+                             else first_hist)[s]}
+        mismatch += [(s, k, key) for k, h in others.items() for key in keys
+                     if h[key] != ref[key]]
+    names = [n for n, _ in named_leaves(runs["uninterrupted"].state)]
+    state_diff = {k: [n for (n, a), (_, b) in zip(
+        named_leaves(runs["uninterrupted"].state), named_leaves(r.state))
+        if not same_leaf(torch, a, b)] for k, r in runs.items()
+        if k != "uninterrupted"}
+    report.update(metrics_mismatch=mismatch, final_state_leaves=len(names),
+                  final_state_diff={k: v[:6] for k, v in state_diff.items()})
+    print("ckpt restore-and-continue: " + json.dumps(report))
+    if runs["fault"].restarts != 1 or fired != [CKPT_FAULT_STEP]:
+        fail(f"ckpt (b): the fault run restarted {runs['fault'].restarts} "
+             f"times (fault fired at {fired})")
+    if report["steps_run"]["resume"] != list(range(CKPT_EVERY,
+                                                  CKPT_B_STEPS)):
+        fail(f"ckpt (b): the second loop.run ran steps "
+             f"{report['steps_run']['resume']}, not from the step-"
+             f"{CKPT_EVERY} checkpoint")
+    if mismatch or any(state_diff.values()):
+        fail(f"ckpt (b): restore-and-continue is not bit-equal to the "
+             f"uninterrupted run: metrics {mismatch[:6]}, final state "
+             f"{report['final_state_diff']}")
+    for name in ("sfp_quantize_pack", "sfp_unpack", "flash_attention",
+                 "flash_attention_bwd"):
+        if not launches.get(name):
+            fail(f"ckpt (b): no {name} launch on the restore-and-continue "
+                 f"runs")
+    report["bit_equal"] = True
+    del runs
+    torch.cuda.empty_cache()
+    return report
+
+
+def ckpt_phase(torch, cfg, counters, card):
+    """Slice 13: (a) the launcher's checkpoints and telemetry at full width
+    and depth, (c) gecko8 compression of its trained parameters on the
+    card, (d) serving from the container its checkpoint stamped, then (b)
+    restore-and-continue at 2 layers; all in a temporary directory,
+    removed at the end."""
+    import tempfile
+    need = ckpt_disk_need(cfg)
+    work = Path(tempfile.mkdtemp(prefix="chip-smoke-ckpt-"))
+    try:
+        free = shutil.disk_usage(work).free
+        print(f"ckpt: {free} B free under {work}; the phase needs "
+              f"{need:.0f} B")
+        if free < need:
+            fail(f"ckpt: {free / 1e9:.1f} GB free under {work}, "
+                 f"{need / 1e9:.1f} GB needed: short by "
+                 f"{(need - free) / 1e9:.1f} GB")
+        t0 = time.perf_counter()
+        a, restored, ckdir = ckpt_launcher(torch, cfg, counters, work)
+        a["card"] = card
+        print("ckpt launcher: " + json.dumps(a))
+        params = restored.params
+        del restored  # the AdamW moments go; the parameters stay
+        torch.cuda.empty_cache()
+        c = ckpt_gecko(torch, counters, params, work)
+        c["card"] = card
+        print("ckpt gecko8: " + json.dumps(c))
+        del params
+        torch.cuda.empty_cache()
+        d = ckpt_serve(torch, cfg, counters, ckdir)
+        d["card"] = card
+        print("ckpt serve --policy-ckpt: " + json.dumps(d))
+        for sub in ("a", "c"):
+            shutil.rmtree(work / sub)
+        torch.cuda.empty_cache()
+        b = ckpt_continue(torch, cfg, counters, work)
+        b["card"] = card
+        seconds = time.perf_counter() - t0
+        print(f"ckpt: {seconds:.1f} s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {"launcher": a, "restore_and_continue": b, "gecko8": c,
+            "serve": d, "seconds": seconds}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phase", choices=("all", "gecko", "dense", "sfp",
-                                        "cnn"),
+                                        "cnn", "ckpt"),
                     default="all",
                     help="gecko / dense / sfp: only the Gecko, the dense "
                          "bit-plane or the fixed-lane word kernel checks "
-                         "and timings; cnn: only the CNN phase")
+                         "and timings; cnn: only the CNN phase; ckpt: only "
+                         "the checkpoint phase")
     ap.add_argument("--src", type=Path, default=SRC,
                     help="the directory holding the repro_torch package")
     args = ap.parse_args(argv)
@@ -2759,6 +3273,23 @@ def main(argv=None) -> int:
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
     floor_ms = launch_floor_ms(torch, flush)
     print(f"launch floor (a one-element fill, same timer): {floor_ms:.5f} ms")
+    counters = (sp.sfp_pack, sp.sfp_quantize_pack, sp.sfp_unpack,
+                bp.bitplane_pack, bp.bitplane_quantize_pack,
+                bp.bitplane_unpack, mq.mantissa_quantize,
+                fa.flash_attention, fa.flash_attention_bwd,
+                pfd.packed_flash_decode, pfd.packed_flash_decode_dense,
+                gp.gecko_pack, gp.gecko_unpack,
+                pfd.paged_flash_decode, pfd.paged_flash_decode_dense,
+                DraftCount(pfd.packed_flash_decode),
+                DraftCount(pfd.packed_flash_decode_dense),
+                DraftCount(pfd.paged_flash_decode),
+                DraftCount(pfd.paged_flash_decode_dense))
+    if args.phase == "ckpt":
+        del flush
+        summary = ckpt_phase(torch, cfg, counters, card)
+        print(card)
+        print(json.dumps({"tree": str(src), "card": card, "ckpt": summary}))
+        return 0
     if args.phase != "all":
         phase = {"gecko": gecko_kernels, "dense": dense_kernels,
                  "sfp": sfp_kernels}[args.phase]
@@ -2773,17 +3304,6 @@ def main(argv=None) -> int:
                           "launch_floor_ms": floor_ms,
                           args.phase: timings}))
         return 0
-    counters = (sp.sfp_pack, sp.sfp_quantize_pack, sp.sfp_unpack,
-                bp.bitplane_pack, bp.bitplane_quantize_pack,
-                bp.bitplane_unpack, mq.mantissa_quantize,
-                fa.flash_attention, fa.flash_attention_bwd,
-                pfd.packed_flash_decode, pfd.packed_flash_decode_dense,
-                gp.gecko_pack, gp.gecko_unpack,
-                pfd.paged_flash_decode, pfd.paged_flash_decode_dense,
-                DraftCount(pfd.packed_flash_decode),
-                DraftCount(pfd.packed_flash_decode_dense),
-                DraftCount(pfd.paged_flash_decode),
-                DraftCount(pfd.paged_flash_decode_dense))
     results = {}
     t0 = time.perf_counter()
     serving_kernels(torch, cfg, gen, flush, results)
@@ -2860,6 +3380,8 @@ def main(argv=None) -> int:
     print(f"bit_exact training: {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     cnn_phase(torch, card)
+    torch.cuda.empty_cache()
+    ckpt = ckpt_phase(torch, cfg, counters, card)
 
     kernels = []
     for c in counters:
@@ -2871,7 +3393,9 @@ def main(argv=None) -> int:
                           f"generate on the serving path")
         if name in ("gecko_pack", "gecko_unpack"):
             r["note"] += (f"; {path_launches['serve gecko8'][name]} launches "
-                          f"per generate from a gecko8 KV cache")
+                          f"per generate from a gecko8 KV cache; "
+                          f"{ckpt['gecko8'][name]} per gecko8 checkpoint "
+                          f"(save or restore) of the full-width parameters")
         if name in ("sfp_pack", "bitplane_pack", "gecko_pack"):
             r["note"] += (f"; launch floor {floor_ms:.5f} ms (a one-element "
                           f"fill, same timer)")

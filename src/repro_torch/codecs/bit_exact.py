@@ -28,6 +28,9 @@ class BitExactCodec(base.Codec):
     def unpack(self, packed: base.PackedTensor) -> torch.Tensor:
         return packed.data["payload"]
 
+    def lossless_for(self, dtype) -> bool:
+        return True  # the bits=None pack is the identity
+
     def packed_bits(self, x: torch.Tensor, bits=None) -> float:
         """The paper's variable-length footprint: sign, the kept mantissa
         bits and the Gecko-compressed exponents."""

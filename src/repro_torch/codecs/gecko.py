@@ -26,8 +26,11 @@ mantissa bits live in signman, the exponents are Gecko-lossless.
 
 The exponent planes go through ``ops.gecko_encode`` / ``gecko_decode``:
 the ``gecko_pack`` / ``gecko_unpack`` CUDA kernels on the card, their
-plain versions on the CPU. The host-stream functions take and give numpy
-arrays; ``decode_host`` gives a CPU tensor (numpy has no bf16).
+plain versions on the CPU. ``encode_host`` packs a tensor on its own
+device (a CUDA tensor through the kernel, only the parts crossing to the
+host) and a numpy array on the CPU, into the same bytes; ``decode_host``
+unpacks on the device it is given and returns a tensor (numpy has no
+bf16).
 """
 from __future__ import annotations
 
@@ -56,17 +59,6 @@ def _exponent_groups(e: torch.Tensor) -> torch.Tensor:
     if pad:
         flat = torch.cat([flat, flat[-1:].expand(pad)])
     return flat.reshape(-1, GECKO_GROUP)
-
-
-def _host_tensor(arr) -> torch.Tensor:
-    """A numpy array (bf16 as an ``ml_dtypes`` array, read through its
-    16-bit pattern) or a tensor, as a CPU tensor with the same bits."""
-    if isinstance(arr, torch.Tensor):
-        return arr.cpu()
-    a = np.ascontiguousarray(arr)
-    if a.dtype.name == "bfloat16":
-        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
-    return torch.from_numpy(a.copy())
 
 
 def _host(t) -> np.ndarray:
@@ -115,9 +107,9 @@ class Gecko8Codec(base.Codec):
 
     def encode_host(self, arr, bits: Optional[int] = None
                     ) -> Tuple[np.ndarray, Dict[str, Any]]:
-        """Pack a host array into one uint8 stream (signman, then the
-        compacted exponent stream) and its JSON-able meta."""
-        packed = self.pack(_host_tensor(arr), bits)
+        """Pack an array or a tensor into one uint8 stream (signman, then
+        the compacted exponent stream) and its JSON-able meta."""
+        packed = self.pack(base.as_tensor(arr), bits)
         signman = _host(packed.data["signman"]).reshape(-1)
         gecko_stream = stream_from_parts(*(_host(packed.data[k]) for k in
                                            ("bases", "widths", "planes")))
@@ -128,17 +120,16 @@ class Gecko8Codec(base.Codec):
         return np.concatenate([signman, gecko_stream]), meta
 
     def decode_host(self, stream: np.ndarray, meta: Dict[str, Any],
-                    shape: Tuple[int, ...], dtype: torch.dtype
-                    ) -> torch.Tensor:
-        """Invert ``encode_host``: a CPU tensor of ``shape`` and
-        ``dtype``."""
+                    shape: Tuple[int, ...], dtype: torch.dtype,
+                    device=None) -> torch.Tensor:
+        """Invert ``encode_host``: a tensor of ``shape`` and ``dtype``,
+        unpacked on ``device`` (default the CPU)."""
         n, g = int(meta["n_values"]), int(meta["n_groups"])
         bases, widths, planes = parts_from_stream(stream[n:], g)
+        parts = {"signman": np.array(stream[:n]).reshape(shape),
+                 "bases": bases, "widths": widths, "planes": planes}
         packed = base.PackedTensor(self.name, shape, dtype, {
-            "signman": torch.from_numpy(np.array(stream[:n])).reshape(shape),
-            "bases": torch.from_numpy(bases),
-            "widths": torch.from_numpy(widths),
-            "planes": torch.from_numpy(planes)})
+            k: torch.from_numpy(v).to(device) for k, v in parts.items()})
         return self.unpack(packed)
 
 
@@ -150,7 +141,7 @@ class Gecko8Codec(base.Codec):
 
 def pack_exponent_stream(e) -> Tuple[np.ndarray, int]:
     """uint8 exponent stream -> (byte-aligned packed stream, n_values)."""
-    e = _host_tensor(e) if isinstance(e, np.ndarray) else e
+    e = base.as_tensor(e)
     bases, widths, planes = ops.gecko_encode(_exponent_groups(e))
     return stream_from_parts(_host(bases), _host(widths),
                              _host(planes)), int(e.numel())

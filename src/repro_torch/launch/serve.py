@@ -25,8 +25,9 @@ The fault-tolerance flags are those of the JAX launcher: deadlines
 ``--inject-alloc-p``), the preemption-storm guard (``--storm-guard``) and
 the pressure downshift (``--degraded-container`` with
 ``--pressure-low``/``--pressure-high``); ``--flood`` lands every request
-at once. Only ``--policy-ckpt`` (a container read from a training
-checkpoint) is not ported: it needs the checkpoint manager.
+at once. ``--policy-ckpt`` at a training run's checkpoint directory
+derives the KV container from the decision stamped in its manifest (see
+``serve/precision.py``), overriding ``--kv-container``.
 
 Runs on CUDA; ``--device cpu`` runs the plain PyTorch path on the CPU.
 Weights are random, drawn from ``--seed``.
@@ -56,7 +57,11 @@ def build_model(args):
         cfg = reduced(cfg)
     elif args.preset == "small":
         cfg = reduced(cfg, n_layers=max(2 * len(cfg.period), 4), d_model=256)
-    model = DecoderModel(cfg, kv_container=args.kv_container,
+    container = args.kv_container
+    if args.policy_ckpt:
+        container = precision.container_from_checkpoint(args.policy_ckpt)
+        print(f"policy-aware container from {args.policy_ckpt}: {container}")
+    model = DecoderModel(cfg, kv_container=container,
                          device=resolve_device(args.device))
     return cfg, model, model.init(args.seed)
 
@@ -117,7 +122,7 @@ def run_batch(args) -> dict:
     _sync(model.device)
     dt = time.perf_counter() - t0
     toks = args.batch * args.max_new
-    report = {"arch": cfg.name, "kv": args.kv_container or "raw",
+    report = {"arch": cfg.name, "kv": model.kv_container or "raw",
               "device": str(model.device), "tokens": toks,
               "seconds": dt, "tok_per_s": toks / dt,
               "sample": res.tokens[0].tolist()}
@@ -154,9 +159,10 @@ def make_trace(args, vocab: int):
 
 def run_trace(args) -> dict:
     cfg, model, params = build_model(args)
-    container = args.kv_container
+    container = model.kv_container
     if container is None:
-        raise SystemExit("--trace needs a packed cache: pass --kv-container")
+        raise SystemExit("--trace needs a packed cache: pass --kv-container "
+                         "(or --policy-ckpt)")
     eng = engine.PagedEngine(model, params, max_slots=args.max_slots,
                              max_len=args.max_len,
                              num_blocks=args.num_blocks,
@@ -301,6 +307,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="registry codec for the packed KV cache (sfp8, "
                     "sfp16, a dense geometry such as sfp-m2e4, gecko8 or "
                     "bit_exact); None = raw bf16 cache")
+    ap.add_argument("--policy-ckpt", default=None,
+                    help="checkpoint dir of a trained policy run; the KV "
+                    "container geometry is derived from its stamped "
+                    "PrecisionDecision (overrides --kv-container)")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' runs the plain "
                     "path on the CPU)")

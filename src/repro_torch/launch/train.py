@@ -10,9 +10,17 @@ and exponent bitlengths in one run; the ``--qm-*`` flags reach qm, the
 (sfp8, sfp16, bit_exact, gecko8, or a dense geometry such as sfp-m2e4).
 ``--per-layer-stash`` packs each period's stash in its own dense container
 from the policy's per-layer decisions (``DecoderModel.stash_plan``),
-re-derived every ``--stash-refresh`` steps; the model is rebuilt only when
-the plan changes. Runs on CUDA; ``--device cpu``
-runs the plain PyTorch path on the CPU. Weights are random, drawn from
+re-derived every ``--stash-refresh`` steps (default ``--ckpt-every``); the
+model is rebuilt only when the plan changes. The loop is fault-tolerant:
+with ``--ckpt-dir`` it resumes from the latest checkpoint there, saves
+every ``--ckpt-every`` steps (stamping the policy, the container and the
+policy's current decision into the manifest, which ``launch.serve
+--policy-ckpt`` reads) and restores and continues after a failed step.
+``--metrics`` is the per-step JSONL event stream; ``--metrics-out``,
+``--trace-out`` and ``--timeline-out`` write the Prometheus text, the
+Perfetto trace of ``train_step`` spans and the per-layer precision
+timeline (every ``--timeline-every`` steps). Runs on CUDA; ``--device
+cpu`` runs the plain PyTorch path on the CPU. Weights are random, drawn from
 ``--seed``; batches come from the seeded synthetic Markov corpus. The
 tiny and small presets shrink the config and fix batch 8 and sequence 64
 or 128, as the JAX launcher does. ``--profile-steps N`` brackets
@@ -30,6 +38,7 @@ import json
 import torch
 
 from repro_torch import codecs, configs, policies, resolve_device
+from repro_torch import obs as obs_mod
 from repro_torch.configs.base import reduced
 from repro_torch.data import synthetic
 from repro_torch.launch.args import container_name, policy_name
@@ -40,9 +49,6 @@ from repro_torch.train import loop as loop_mod
 from repro_torch.train import step as step_mod
 
 PROFILE_START = 1  # profile after the first (warm-up) step
-# Steps between per-layer stash plan refreshes (the JAX launcher's default
-# is its --ckpt-every, 100; the port has no checkpointing yet).
-STASH_REFRESH = 100
 REPORT_KEYS = ("step", "loss", "xent", "qm_act_mean", "qm_w_mean",
                "qe_act_mean", "qe_w_mean", "bc_bits", "bw_man_bits",
                "bw_exp_bits", "step_time_s")
@@ -91,7 +97,10 @@ def run_per_layer(model, tc, state, batches, lc, refresh: int,
     """The loop in segments of ``refresh`` steps: at each boundary the
     per-layer stash plan is re-derived from the live policy state, and the
     model and its step are rebuilt only when the plan changed (printing
-    it). The segments append to one metrics file. ``make_step(model, tc)``
+    it). The segments append to one metrics file and share ``lc``'s
+    checkpointing: as in the JAX launcher, each segment's ``loop.run``
+    starts by restoring the latest checkpoint (the one the previous
+    segment's final save wrote). ``make_step(model, tc)``
     builds each plan's step. Returns (the loop's result over all steps,
     the final model, [(step, plan), ...] of every plan put in force)."""
     plan, plans, history, res = None, [], [], None
@@ -147,10 +156,23 @@ def build_parser() -> argparse.ArgumentParser:
                          "(model.stash_plan); the plan is re-derived every "
                          "--stash-refresh steps and the model rebuilt when "
                          "it changes")
-    ap.add_argument("--stash-refresh", type=int, default=STASH_REFRESH,
-                    help="steps between per-layer stash plan refreshes")
+    ap.add_argument("--stash-refresh", type=int, default=None,
+                    help="steps between per-layer stash plan refreshes "
+                         "(default: --ckpt-every)")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=100)
     ap.add_argument("--metrics", default=None,
-                    help="per-step metrics JSONL")
+                    help="per-step metrics JSONL (the obs event stream)")
+    ap.add_argument("--metrics-out", default=None,
+                    help="write Prometheus-text metrics (step-time "
+                         "histogram, failure counters) here at exit")
+    ap.add_argument("--trace-out", default=None,
+                    help="write a Chrome trace_event JSON of train-step "
+                         "spans here at exit (opens in Perfetto)")
+    ap.add_argument("--timeline-out", default=None,
+                    help="stream the per-layer precision timeline "
+                         "(JSONL; one entry per --timeline-every steps)")
+    ap.add_argument("--timeline-every", type=int, default=10)
     ap.add_argument("--profile-steps", type=int, default=None, metavar="N",
                     help=f"bracket torch.profiler around N steps from step "
                          f"{PROFILE_START} and print device time by kernel")
@@ -177,15 +199,38 @@ def main(argv=None) -> dict:
             yield {k: torch.from_numpy(v).long().to(model.device)
                    for k, v in b.items()}
 
+    def ckpt_extra(state):
+        # The policy's current decision beside the run's identity:
+        # policy-aware serving (serve/precision.py) derives the KV pool's
+        # geometry from these bitlengths through read_extra, without
+        # restoring any state.
+        d = model.policy.decision_summary(state.pstate, model.dims)
+        return {"policy": model.policy.name, "container": args.container,
+                "decision": {"man_bits": float(d["man_bits"]),
+                             "exp_bits": float(d["exp_bits"])}}
+
+    obs = obs_mod.Obs(metrics_path=args.metrics_out,
+                      trace_path=args.trace_out,
+                      timeline_path=args.timeline_out)
+
+    def timeline_fn(state):
+        # Late-binds `model`, as the JAX launcher does (the per-layer
+        # segments rebuild it around the same policy and dims).
+        return model.policy.layer_decisions(state.pstate, model.dims)
+
     lc = loop_mod.LoopConfig(
-        total_steps=args.steps, log_every=max(1, args.steps // 50),
-        metrics_file=args.metrics,
+        total_steps=args.steps, ckpt_every=args.ckpt_every,
+        ckpt_dir=args.ckpt_dir, metrics_file=args.metrics,
+        log_every=max(1, args.steps // 50), ckpt_extra=ckpt_extra,
+        obs=obs, timeline_fn=timeline_fn,
+        timeline_every=args.timeline_every,
         profile_steps=(None if args.profile_steps is None
                        else (PROFILE_START, args.profile_steps)))
     plans = None
     if args.per_layer_stash:
+        refresh = max(1, args.stash_refresh or args.ckpt_every)
         res, model, plans = run_per_layer(model, tc, state, batches, lc,
-                                          max(1, args.stash_refresh))
+                                          refresh)
     else:
         res = loop_mod.run(step_mod.make_train_step(model, tc), state,
                            batches, lc, device=model.device)
@@ -197,8 +242,10 @@ def main(argv=None) -> dict:
     fp = policies.modeled_footprint(model.policy, res.state.pstate,
                                     model.dims)
     print("footprint " + json.dumps({k: round(v, 4) for k, v in fp.items()}))
+    obs.close()  # writes --metrics-out / --trace-out, closes the timeline
     return {"history": res.history, "footprint": fp, "state": res.state,
-            "profile": res.profile, "plans": plans}
+            "profile": res.profile, "plans": plans,
+            "restarts": res.restarts}
 
 
 if __name__ == "__main__":

@@ -16,7 +16,7 @@ Hot-path contract: obs mutators are host-side only. Callers record
 boundary (the per-step token download); the registry, tracer and
 timeline take plain Python scalars and never force a device sync
 themselves. A stdlib-only copy of the JAX package's ``obs`` (the port
-imports nothing of it); ``obs/validate.py`` is not copied yet.
+imports nothing of it), ``obs/validate.py`` included.
 """
 from __future__ import annotations
 

@@ -15,6 +15,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core import containers
@@ -117,13 +118,17 @@ class _LearnedBitsPolicy(base.Policy):
                     torch.mean(torch.clamp(state.learn["w"], 0, top)))
 
     def _deployed_mean(self, state, dims) -> float:
-        """Deployment bits: learned fractional bitlengths round up."""
+        """Deployment bits: learned fractional bitlengths round up. The
+        mean is JAX's ``jnp.mean``: the f32 sum times the f32 reciprocal
+        of the count (13 periods of 7 bits give 7.0000005, which
+        ``container_for_decision`` rounds up to 8), on every device."""
         top = float(self._max_bits(dims))
         with torch.no_grad():
             cat = torch.cat([state.learn[k].reshape(-1)
                              for k in ("act", "act_rem")])
-            return float(torch.mean(torch.ceil(
+            total = float(torch.sum(torch.ceil(
                 torch.clamp(cat, self._min_bits(dims), top))))
+        return float(np.float32(total) * np.float32(1.0 / cat.numel()))
 
     def _deployed_per_period(self, state, dims):
         """Per-period deployed act bitlengths (rounded up, host floats)."""

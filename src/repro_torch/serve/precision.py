@@ -2,17 +2,22 @@
 and the pressure controller of graceful degradation.
 
 The paper's deployment round-up (section IV-A4): bitlengths learned in
-training carry over to inference as a *dense* ``sfp-m{K}e{E}`` pool
-geometry holding 1 + exponent + mantissa bits per value
-(``container_for_decision``). Reading the decision back from a
-checkpoint's manifest (the JAX package's ``container_from_checkpoint``
-and ``launch/serve.py --policy-ckpt``) waits for the port's checkpoint
-manager.
+training carry over to inference. Training stamps the policy's current
+``PrecisionDecision`` summary into every checkpoint manifest
+(``CheckpointManager.save(extra=...)`` through the train loop); this
+module reads it back with ``read_extra`` and derives the serving KV
+pool's container from it: a *dense* ``sfp-m{K}e{E}`` geometry holding
+1 + exponent + mantissa bits per value (``container_for_decision``). No
+state is restored, so a serving host can size its pool before it loads
+any weights.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Any, Dict, Optional
+
 from repro_torch import codecs
+from repro_torch.checkpoint.manager import CheckpointManager
 
 
 def container_for_decision(man_bits: float, exp_bits: float) -> str:
@@ -24,6 +29,18 @@ def container_for_decision(man_bits: float, exp_bits: float) -> str:
     when it lands exactly on 8/16 bits).
     """
     return codecs.dense_name(man_bits, exp_bits)
+
+
+def decision_from_extra(extra: Dict[str, Any]) -> Optional[Dict[str, float]]:
+    """The stamped decision of a manifest's ``extra``, or None."""
+    d = extra.get("decision")
+    if not isinstance(d, dict):
+        return None
+    try:
+        return {"man_bits": float(d["man_bits"]),
+                "exp_bits": float(d["exp_bits"])}
+    except (KeyError, TypeError, ValueError):
+        return None
 
 
 @dataclasses.dataclass
@@ -62,3 +79,23 @@ class PressureController:
         elif frac < self.low:
             self.degraded = True
         return self.degraded
+
+
+def container_from_checkpoint(ckpt_dir: str,
+                              step: Optional[int] = None) -> str:
+    """Serving container for a trained run's checkpoint directory.
+
+    Prefers the stamped decision (the policy-learned geometry); falls back
+    to the container the run trained with, then to the registry default.
+    Raises if the directory holds no checkpoint.
+    """
+    mgr = CheckpointManager(ckpt_dir)
+    if step is None:
+        step = mgr.latest_step()
+    if step is None:
+        raise FileNotFoundError(f"no checkpoints under {ckpt_dir!r}")
+    extra = mgr.read_extra(step)
+    decision = decision_from_extra(extra)
+    if decision is not None:
+        return container_for_decision(**decision)
+    return extra.get("container") or codecs.DEFAULT_CONTAINER

@@ -366,3 +366,21 @@ def test_convert_keeps_bits_and_unstacks_periods():
                "rem": {"slot0": {"w": np.float32(99)}}}
     layers = convert.from_jax(stacked, cfg)["layers"]
     assert [float(layer["w"]) for layer in layers] == [0, 1, 10, 11, 99]
+
+
+# The checkpoint slice's modules: among the files whose imports are checked
+# (no jax, ml_dtypes or repro), and obs/validate.py stdlib-only as JAX's is.
+CKPT_SLICE = ("checkpoint/__init__.py", "checkpoint/manager.py",
+              "obs/validate.py", "serve/precision.py", "train/loop.py",
+              "launch/train.py", "launch/serve.py", "codecs/base.py")
+
+
+@pytest.mark.parametrize("rel", CKPT_SLICE)
+def test_checkpoint_slice_imports(rel):
+    path = ROOT / "src" / "repro_torch" / rel
+    assert path in PORT_FILES
+    mods = {m.split(".")[0] for m in _imports(path)}
+    assert not mods & {"jax", "jaxlib", "repro", "ml_dtypes"}, mods
+    if rel == "obs/validate.py":
+        assert mods <= {"__future__", "argparse", "json", "re", "sys",
+                        "pathlib", "typing"}, mods
