@@ -6,10 +6,12 @@
     python3 chip_smoke.py --phase sfp [--src DIR]
     python3 chip_smoke.py --phase cnn [--src DIR]
     python3 chip_smoke.py --phase ckpt [--src DIR]
+    python3 chip_smoke.py --phase gradc [--src DIR]
 
 The other forms run only the Gecko kernel checks and timings of step 5,
 or only the dense bit-plane or the fixed-lane word ones of step 2, or
-only the CNN phase of step 8, or only the checkpoint phase of step 9,
+only the CNN phase of step 8, or only the checkpoint phase of step 9, or
+only the compressed-gradient and AdaptivFloat phase of step 10,
 against the ``repro_torch`` package under DIR (default: this checkout's
 ``src``), so two trees can be timed by the same code on one card.
 
@@ -129,6 +131,22 @@ against the ``repro_torch`` package under DIR (default: this checkout's
    the decode kernel of its geometry; (b) restore-and-continue at 2
    layers: 4 steps uninterrupted, with a fault at step 3, and resumed by a
    second ``loop.run``, bit-equal at steps 2-3 and in the final state.
+10. Compressed gradients and AdaptivFloat, at full width (before the CNN
+   phase): (a) ``launch.train --policy qm --container sfp8
+   --grad-compress-bits 5`` for 4 steps (236 mantissa_quantize launches a
+   step, one a parameter leaf) against the same run without the flag:
+   step ms, peak memory, losses, the residual's norm after each step;
+   (b) one step's gradients and that run's residual through
+   ``compress_grads`` with each wire codec (bit_exact, sfp8, sfp16,
+   sfp-m2e4, gecko8) on the kernels and on the plain versions, group by
+   group: q and the new residual bit-equal, with each codec's launches;
+   (e) mantissa_quantize timed on the f32 embed/table gradient beside its
+   bound, its plain version and ``torch.bitwise_and``; (c) one step each
+   with ``TrainConfig(grad_codec="sfp8")`` and ``"gecko8"`` at 4 layers;
+   (d) ``--policy afloat --container sfp-m2e4`` for 4 steps (QE's bits
+   from 4.5), act_b held at 0 and w_b moved, then one 2-layer step on the
+   card and on the CPU from the same weights and injected draws, losses
+   within 1e-4.
 
 Any failure exits non-zero. The last line is the device JSON.
 """
@@ -329,6 +347,21 @@ CNN_BATCH, CNN_STEPS, CNN_T1_STEPS = 64, 4, 80
 CKPT_STEPS, CKPT_EVERY, CKPT_SERVE_NEW = 3, 2, 16
 CKPT_B_LAYERS, CKPT_B_STEPS, CKPT_FAULT_STEP = 2, 4, 3
 CKPT_DISK_MARGIN = 1.1
+# Compressed gradients and AdaptivFloat (slice 14). (a) The launcher's qm +
+# sfp8 run with --grad-compress-bits 5 (bit_exact wire: one
+# mantissa_quantize a parameter leaf, 26 x 9 + 2 = 236 a step) against the
+# same run without it. (b) Every wire codec at 5 bits, card against plain,
+# on one step's gradients and (a)'s residual. (c) One step each of the
+# sfp8 and gecko8 wires at 4 layers. (d) afloat + sfp-m2e4, 4 steps with
+# QE's bitlengths from 4.5 (e 4 or 5: weights below 2^-14 or 2^-6 flush,
+# so the bias has a gradient; at the launcher's 8 bits it has none), then
+# one step at 2 layers, batch 1 x 128 tokens, on the card and on the CPU
+# from the same weights, draws injected as the ceiling: losses within
+# 1e-4 relative, as the CNN phase's card-against-CPU steps.
+GRADC_BITS, GRADC_LEAVES, GRADC_WIRE_LAYERS = 5, 236, 4
+GRADC_CODECS = ("bit_exact", "sfp8", "sfp16", "sfp-m2e4", "gecko8")
+AF_INIT_BITS, AF_CPU_LAYERS, AF_CPU_BATCH, AF_CPU_SEQ = 4.5, 2, 1, 128
+AF_LOSS_RTOL = 1e-4
 
 
 class DraftCount:
@@ -2585,9 +2618,406 @@ def bit_exact_run(torch, cfg, counters):
              "launches_per_step": expect}, total_launches(records))
 
 
+# -- slice 14: compressed gradients and AdaptivFloat -------------------------
+
+
+def residual_norm(torch, state):
+    """The error-feedback residual's global norm (one host sync)."""
+    from repro_torch.optim import adamw
+    return float(adamw.global_norm(adamw.leaves(state.grad_residual)))
+
+
+def gradc_launcher(torch, cfg, counters):
+    """(a): the launcher's qm + sfp8 run with --grad-compress-bits, 4 steps
+    at full width, and the same run without the flag, in this process.
+    Returns (report, the compressed run's launches, its final state)."""
+    from repro_torch.optim import adamw
+    argv = train_argv(cfg, "qm", CONTAINER, TRAIN_STEPS)
+    n_periods, n_layers = cfg.n_periods, cfg.n_layers
+    expect = {c.__name__: 0 for c in counters}
+    expect.update({"sfp_quantize_pack": n_periods,
+                   "sfp_unpack": 2 * n_periods,
+                   "flash_attention": 2 * n_layers,
+                   "flash_attention_bwd": n_layers})
+    runs = {}
+    for label, extra in (("uncompressed", ()),
+                         ("compressed", ("--grad-compress-bits",
+                                         str(GRADC_BITS)))):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model, step_fn, state, batches, tc = train_setup(
+            torch, argv + list(extra))
+        n_leaves = len(adamw.leaves(state.params))
+        want = dict(expect)
+        if extra:
+            if n_leaves != GRADC_LEAVES:
+                fail(f"gradc (a): {n_leaves} parameter leaves, not "
+                     f"{GRADC_LEAVES}")
+            want["mantissa_quantize"] = n_leaves
+        records, norms = [], []
+        for i, b in enumerate(batches):
+            state, rec = timed_step(torch, step_fn, state, b, counters, i,
+                                    want)
+            records.append(rec)
+            if extra:
+                norms.append(residual_norm(torch, state))
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        runs[label] = (records, norms, peak)
+        if not extra:
+            del model, step_fn, state, batches
+    records, norms, peak = runs["compressed"]
+    ref_records, _, ref_peak = runs["uncompressed"]
+    if not all(math.isfinite(r) and r > 0 for r in norms):
+        fail(f"gradc (a): residual norms {norms}")
+
+    def timed(recs):  # the first step also warms up
+        return statistics.median(r["step_s"] for r in recs[1:]) * 1e3
+    report = {
+        "argv": " ".join(argv + ["--grad-compress-bits", str(GRADC_BITS)]),
+        "step_ms_median_from_step_2": timed(records),
+        "uncompressed_step_ms_median_from_step_2": timed(ref_records),
+        "step_ms_added": timed(records) - timed(ref_records),
+        "peak_mem_gb": peak, "uncompressed_peak_mem_gb": ref_peak,
+        "residual_bytes": 4 * sum(
+            t.numel() for t in adamw.leaves(state.grad_residual)),
+        "loss": [r["loss"] for r in records],
+        "uncompressed_loss": [r["loss"] for r in ref_records],
+        "grad_norm": [r["grad_norm"] for r in records],
+        "uncompressed_grad_norm": [r["grad_norm"] for r in ref_records],
+        "residual_norm": norms,
+        "step_s": [r["step_s"] for r in records],
+        "uncompressed_step_s": [r["step_s"] for r in ref_records],
+        "launches_per_step": records[-1]["launches"]}
+    return report, total_launches(records), (model, step_fn, state, batches)
+
+
+class _Grads(Exception):
+    """Carries a step's accumulated gradients out of ``compress_grads``."""
+
+    def __init__(self, grads, residual):
+        super().__init__("gradients captured")
+        self.grads, self.residual = grads, residual
+
+
+def step_gradients(torch, model, step_fn, state, batch):
+    """One step's real f32 gradients and the state's residual, taken at
+    the point the step would compress them (the step stops there)."""
+    from repro_torch.train import step as step_mod
+
+    def capture(grads, residual, bits, codec):
+        raise _Grads(grads, residual)
+    keep = step_mod.grad_compress.compress_grads
+    step_mod.grad_compress.compress_grads = capture
+    try:
+        step_fn(state, batch)
+    except _Grads as got:
+        return got.grads, got.residual
+    finally:
+        step_mod.grad_compress.compress_grads = keep
+    fail("gradc (b): the step never reached compress_grads")
+
+
+def gradc_codecs(torch, counters, grads, residual):
+    """(b): ``compress_grads`` of the whole model's gradients and residual
+    through each wire codec, once on the kernels and once on the plain
+    versions (``ops.force_backend("plain")``), parameter group by group
+    (the embedding, the final norm, each layer) so the card holds the two
+    results of one group at a time: q and the new residual bit-equal.
+    Each codec's kernel launches and wall seconds over the whole model."""
+    from repro_torch.kernels import ops
+    from repro_torch.train import grad_compress
+    # adamw.leaves order: embed, final_norm, then the layers' 9 leaves each.
+    groups = [[0], [1]] + [list(range(2 + 9 * i, 11 + 9 * i))
+                           for i in range((len(grads) - 2) // 9)]
+    if sum(len(g) for g in groups) != len(grads):
+        fail(f"gradc (b): {len(grads)} leaves do not split into groups")
+    bits = torch.tensor(GRADC_BITS, dtype=torch.int32, device="cuda")
+    out = {}
+    for codec in GRADC_CODECS:
+        secs = {None: 0.0, "plain": 0.0}
+        launches = {c.__name__: 0 for c in counters}
+        mismatched = 0
+        for group in groups:
+            res = {}
+            for backend in (None, "plain"):
+                g = [grads[j].clone() for j in group]
+                r = [residual[j].clone() for j in group]
+                for c in counters:
+                    c.launches = 0
+                ops.force_backend(backend)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                try:
+                    res[backend] = grad_compress.compress_grads(g, r, bits,
+                                                                codec)
+                finally:
+                    ops.force_backend(None)
+                torch.cuda.synchronize()
+                secs[backend] += time.perf_counter() - t0
+                for c in counters:
+                    if backend is None:
+                        launches[c.__name__] += c.launches
+                    elif c.launches:
+                        fail(f"gradc (b) {codec}: the plain round trip "
+                             f"launched {c.__name__}")
+                del g, r
+            for part in (0, 1):
+                for a, b in zip(res[None][part], res["plain"][part]):
+                    if not torch.equal(a.view(torch.int32),
+                                       b.view(torch.int32)):
+                        mismatched += 1
+            del res
+        if mismatched:
+            fail(f"gradc (b) {codec}: {mismatched} leaves of q or the new "
+                 f"residual differ between the kernels and the plain "
+                 f"versions")
+        out[codec] = {"bit_equal_leaves": 2 * len(grads),
+                      "kernel_s": secs[None], "plain_s": secs["plain"],
+                      "launches": {k: v for k, v in launches.items() if v}}
+        torch.cuda.empty_cache()
+    return out
+
+
+def gradc_wire_steps(torch, cfg, counters):
+    """(c): one step at GRADC_WIRE_LAYERS layers with each other wire
+    codec (``TrainConfig(grad_codec=...)``): the stash's sfp8 kernels
+    plus the codec's own, once a leaf."""
+    import dataclasses
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as step_mod
+    argv = train_argv(cfg, "qm", CONTAINER, 1, "--grad-compress-bits",
+                      str(GRADC_BITS))
+    n_periods = GRADC_WIRE_LAYERS // len(cfg.period)
+    out = {}
+    for codec, wire in (("sfp8", {"sfp_quantize_pack": 1, "sfp_unpack": 1}),
+                        ("gecko8", {"gecko_pack": 1, "gecko_unpack": 1})):
+        model, _, state, batches, tc = train_setup(
+            torch, argv, n_layers=GRADC_WIRE_LAYERS)
+        step_fn = step_mod.make_train_step(
+            model, dataclasses.replace(tc, grad_codec=codec))
+        n_leaves = len(adamw.leaves(state.params))
+        expect = {c.__name__: 0 for c in counters}
+        expect.update({"sfp_quantize_pack": n_periods,
+                       "sfp_unpack": 2 * n_periods,
+                       "flash_attention": 2 * GRADC_WIRE_LAYERS,
+                       "flash_attention_bwd": GRADC_WIRE_LAYERS})
+        for name, per_leaf in wire.items():
+            expect[name] += per_leaf * n_leaves
+        state, rec = timed_step(torch, step_fn, state, batches[0], counters,
+                                0, expect)
+        out[codec] = {"layers": GRADC_WIRE_LAYERS, "leaves": n_leaves,
+                      "loss": rec["loss"], "grad_norm": rec["grad_norm"],
+                      "residual_norm": residual_norm(torch, state),
+                      "step_s": rec["step_s"],
+                      "launches": {k: v for k, v in rec["launches"].items()
+                                   if v}}
+        del model, step_fn, state, batches
+        torch.cuda.empty_cache()
+    return out
+
+
+def _ceil_draw(n_float, generator, max_bits, min_bits=0, shape=None):
+    """An injected draw: the ceiling of the clipped bitlength, on any
+    device (the card's and the CPU's generators differ)."""
+    import torch
+    nf = torch.clamp(n_float.detach().float(), float(min_bits),
+                     float(max_bits))
+    n = torch.ceil(nf).to(torch.int32)
+    return n if shape is None else n.expand(tuple(shape)).clone()
+
+
+def afloat_run(torch, cfg, counters):
+    """(d): ``--policy afloat --container sfp-m2e4`` at full width for 4
+    steps, QE's bitlengths from AF_INIT_BITS (the launcher starts them at
+    the full 8-bit field, where the window holds every finite value and
+    neither bias has a gradient); act_b must stay 0, as in JAX, and w_b
+    must move. Then one step at AF_CPU_LAYERS layers on the card and on
+    the CPU's plain path from the same weights and injected draws."""
+    import dataclasses
+    from repro_torch.core import containers
+    from repro_torch.models.model import DecoderModel
+    from repro_torch.policies import PolicyState
+    from repro_torch.train import step as step_mod
+    from repro_torch.train.state import TrainState
+    from repro_torch.optim import adamw
+
+    def policy_fn(pol):
+        return dataclasses.replace(pol, init_bits=AF_INIT_BITS)
+    argv = train_argv(cfg, "afloat", DENSE, TRAIN_STEPS)
+    expect = {c.__name__: 0 for c in counters}
+    expect.update({"bitplane_quantize_pack": cfg.n_periods,
+                   "bitplane_unpack": 2 * cfg.n_periods,
+                   "flash_attention": 2 * cfg.n_layers,
+                   "flash_attention_bwd": cfg.n_layers})
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, step_fn, state, batches, _ = train_setup(torch, argv,
+                                                    policy_fn=policy_fn)
+    records, metrics = [], []
+    for i, b in enumerate(batches):
+        for c in counters:
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step_fn(state, b)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = {c.__name__: c.launches for c in counters}
+        if got != expect:
+            fail(f"afloat step {i}: launches {got} != {expect}")
+        rec = {k: float(v) for k, v in met.items()}
+        if not all(math.isfinite(v) for v in rec.values()):
+            fail(f"afloat step {i}: {rec}")
+        records.append(dict(rec, step_s=dt))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    learn = state.pstate.learn
+    act_b = learn["act_b"].detach().cpu()
+    w_b = learn["w_b"].detach().cpu()
+    if bool(act_b.any()):
+        fail(f"afloat: act_b moved ({act_b.tolist()}); JAX's stays at 0")
+    if not bool(w_b.any()):
+        fail("afloat: no w_b moved")
+    report = {
+        "argv": " ".join(argv), "qe_init_bits": AF_INIT_BITS,
+        "step_ms_median_from_step_2": statistics.median(
+            r["step_s"] for r in records[1:]) * 1e3,
+        "peak_mem_gb": peak,
+        **{k: [r[k] for r in records] for k in (
+            "loss", "grad_norm", "af_act_e_mean", "af_w_e_mean",
+            "af_act_bias_mean", "af_w_bias_mean")},
+        "act_b": act_b.tolist(), "w_b": w_b.tolist(),
+        "w_b_moved": int((w_b != 0).sum()),
+        "step_s": [r["step_s"] for r in records],
+        "launches_per_step": expect}
+    del model, step_fn, state, batches
+    torch.cuda.empty_cache()
+
+    # One step at AF_CPU_LAYERS layers: card against the CPU's plain path.
+    keep = containers.stochastic_bitlength
+    containers.stochastic_bitlength = _ceil_draw
+    try:
+        losses = {}
+        card_model, card_step, card_state, batches, tc = train_setup(
+            torch, argv, n_layers=AF_CPU_LAYERS, policy_fn=policy_fn)
+        batch = {k: v[:AF_CPU_BATCH, :AF_CPU_SEQ].cpu()
+                 for k, v in batches[0].items()}
+        del batches
+        for where in ("cpu", "cuda"):
+            if where == "cuda":
+                model, step_fn, st = card_model, card_step, card_state
+            else:
+                model = DecoderModel(card_model.cfg, card_model.policy,
+                                     device="cpu")
+                step_fn = step_mod.make_train_step(model, tc)
+                params = _to(card_state.params, "cpu")
+                for p in adamw.leaves(params):
+                    p.requires_grad_(True)
+                st = TrainState(
+                    params=params, opt=adamw.init(params),
+                    pstate=PolicyState(
+                        learn={k: v.detach().cpu().requires_grad_()
+                               for k, v in card_state.pstate.learn.items()},
+                        ctrl={}),
+                    step=card_state.step,
+                    gen=torch.Generator().manual_seed(SEED))
+            t0 = time.perf_counter()
+            _, met = step_fn(st, {k: v.to(where) for k, v in batch.items()})
+            losses[where] = {k: float(met[k]) for k in (
+                "loss", "grad_norm", "af_w_bias_mean", "af_w_e_mean")}
+            losses[where]["step_s"] = time.perf_counter() - t0
+            del model, step_fn, st
+        del card_model, card_step, card_state
+    finally:
+        containers.stochastic_bitlength = keep
+    torch.cuda.empty_cache()
+    lc, lg = losses["cpu"]["loss"], losses["cuda"]["loss"]
+    gap = abs(lg - lc) / abs(lc)
+    report["card_vs_cpu"] = {"layers": AF_CPU_LAYERS, "batch": AF_CPU_BATCH,
+                             "seq": AF_CPU_SEQ, "loss_rel": gap,
+                             "cpu": losses["cpu"], "card": losses["cuda"]}
+    if not (math.isfinite(lg) and gap <= AF_LOSS_RTOL):
+        fail(f"afloat card vs cpu: loss {lg} vs {lc} ({gap:.3e} > "
+             f"{AF_LOSS_RTOL})")
+    return report
+
+
+def gradc_row7(torch, flush, g):
+    """(e): mantissa_quantize on the f32 embed/table gradient against its
+    plain version and torch.bitwise_and on the int32 view."""
+    from repro_torch.kernels import mantissa_quant as mq
+    n = torch.tensor(GRADC_BITS, dtype=torch.int32, device=g.device)
+    keep = (0xFF800000 | (((1 << GRADC_BITS) - 1) << (23 - GRADC_BITS)))
+    mask = torch.tensor(keep - (1 << 32), dtype=torch.int32, device=g.device)
+    got = mq.mantissa_quantize(g, n)
+    if not (torch.equal(got.view(torch.int32), mq.plain(g, n).view(
+            torch.int32)) and torch.equal(got.view(torch.int32),
+                                          torch.bitwise_and(
+                                              g.view(torch.int32), mask))):
+        fail("mantissa_quantize at the gradient shape: kernel, plain "
+             "version and bitwise_and differ")
+    del got
+    ms = time_ms(torch, lambda: mq.mantissa_quantize(g, n), reps=10,
+                 flush=flush)
+    plain_ms = time_ms(torch, lambda: mq.plain(g, n), reps=5, flush=flush)
+    lib_ms = time_ms(torch, lambda: torch.bitwise_and(g.view(torch.int32),
+                                                      mask), reps=10,
+                     flush=flush)
+    bound_ms, by = bound(0, 2 * 4 * g.numel())
+    return {"shape": list(g.shape), "values": g.numel(), "ms": ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bound_ms, "bound_by": by,
+            "share_of_bound": bound_ms / ms,
+            "gb_per_s": 2 * 4 * g.numel() / ms / 1e6}
+
+
+def gradc_phase(torch, cfg, counters, card):
+    """Slice 14: compressed gradients with error feedback and AdaptivFloat
+    at full width: (a) the launcher with --grad-compress-bits against the
+    same run without it, (b) every wire codec's kernels against their plain
+    versions on one step's gradients and a nonzero residual, (e) row 7 at
+    the embedding gradient's shape, (c) one step with the sfp8 and gecko8
+    wires, (d) afloat at full width and card against CPU. Returns (report,
+    (a)'s launches, (e)'s timing)."""
+    t0 = time.perf_counter()
+    a, launches, (model, step_fn, state, batches) = gradc_launcher(
+        torch, cfg, counters)
+    a["card"] = card
+    print("gradc (a) launcher: " + json.dumps(a))
+    # (b) from (a)'s final state: its residual after 4 steps, the
+    # gradients of a fifth batch; the AdamW moments go first.
+    state = state._replace(opt=None)
+    torch.cuda.empty_cache()
+    grads, residual = step_gradients(torch, model, step_fn, state,
+                                     batches[0])
+    del model, step_fn, state, batches
+    torch.cuda.empty_cache()
+    b = gradc_codecs(torch, counters, grads, residual)
+    print("gradc (b) card vs plain: " + json.dumps({"card": card, **b}))
+    del residual, grads[1:]
+    torch.cuda.empty_cache()
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    e = gradc_row7(torch, flush, grads[0].detach())
+    e["card"] = card
+    print("gradc (e) mantissa_quantize at the gradient shape: "
+          + json.dumps(e))
+    del grads, flush
+    torch.cuda.empty_cache()
+    c = gradc_wire_steps(torch, cfg, counters)
+    print("gradc (c) wire codecs: " + json.dumps({"card": card, **c}))
+    d = afloat_run(torch, cfg, counters)
+    d["card"] = card
+    print("gradc (d) afloat: " + json.dumps(d))
+    seconds = time.perf_counter() - t0
+    print(f"gradc: {seconds:.1f} s")
+    return ({"launcher": a, "codecs": b, "wire_steps": c, "afloat": d,
+             "row7": e, "seconds": seconds}, launches, e)
+
+
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
     return tree.to(dev)
 
 
@@ -3223,12 +3653,13 @@ def ckpt_phase(torch, cfg, counters, card):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phase", choices=("all", "gecko", "dense", "sfp",
-                                        "cnn", "ckpt"),
+                                        "cnn", "ckpt", "gradc"),
                     default="all",
                     help="gecko / dense / sfp: only the Gecko, the dense "
                          "bit-plane or the fixed-lane word kernel checks "
                          "and timings; cnn: only the CNN phase; ckpt: only "
-                         "the checkpoint phase")
+                         "the checkpoint phase; gradc: only the compressed "
+                         "gradients and AdaptivFloat phase")
     ap.add_argument("--src", type=Path, default=SRC,
                     help="the directory holding the repro_torch package")
     args = ap.parse_args(argv)
@@ -3284,11 +3715,15 @@ def main(argv=None) -> int:
                 DraftCount(pfd.packed_flash_decode_dense),
                 DraftCount(pfd.paged_flash_decode),
                 DraftCount(pfd.paged_flash_decode_dense))
-    if args.phase == "ckpt":
+    if args.phase in ("ckpt", "gradc"):
         del flush
-        summary = ckpt_phase(torch, cfg, counters, card)
+        phase = {"ckpt": ckpt_phase, "gradc": gradc_phase}[args.phase]
+        summary = phase(torch, cfg, counters, card)
+        if args.phase == "gradc":
+            summary = summary[0]
         print(card)
-        print(json.dumps({"tree": str(src), "card": card, "ckpt": summary}))
+        print(json.dumps({"tree": str(src), "card": card,
+                          args.phase: summary}))
         return 0
     if args.phase != "all":
         phase = {"gecko": gecko_kernels, "dense": dense_kernels,
@@ -3379,6 +3814,9 @@ def main(argv=None) -> int:
     print("train bit_exact: " + json.dumps(be_e2e))
     print(f"bit_exact training: {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
+    _, path_launches["train gradc"], row7 = gradc_phase(torch, cfg, counters,
+                                                        card)
+    torch.cuda.empty_cache()
     cnn_phase(torch, card)
     torch.cuda.empty_cache()
     ckpt = ckpt_phase(torch, cfg, counters, card)
@@ -3396,6 +3834,21 @@ def main(argv=None) -> int:
                           f"per generate from a gecko8 KV cache; "
                           f"{ckpt['gecko8'][name]} per gecko8 checkpoint "
                           f"(save or restore) of the full-width parameters")
+        if name == "mantissa_quantize":
+            # The compressed gradients (236 launches a step) are the row's
+            # main path: its numbers are the f32 embed/table gradient's,
+            # the stash shape's go to the note.
+            r["note"] = (
+                f"f32 gradient {row7['shape']}, {row7['gb_per_s']:.1f} "
+                f"GB/s; stash shape (B, S, d) bf16: {r['ms']:.5f} ms, "
+                f"bound {r['bound_ms']:.5f}, plain {r['plain_ms']:.5f}, "
+                f"bitwise_and {r['library_ms']:.5f}, "
+                f"{path_launches['train bit_exact'][name]} launches over "
+                f"the {BIT_EXACT_STEPS} bit_exact stash steps at "
+                f"{BIT_EXACT_LAYERS} layers")
+            r.update(path="train gradc", **{k: row7[k] for k in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+            path = r["path"]
         if name in ("sfp_pack", "bitplane_pack", "gecko_pack"):
             r["note"] += (f"; launch floor {floor_ms:.5f} ms (a one-element "
                           f"fill, same timer)")

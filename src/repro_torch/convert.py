@@ -91,10 +91,12 @@ def cnn_params_from_jax(params: Dict[str, Any], device="cpu"
 def state_from_jax(state, cfg, device="cpu", seed: int = 0) -> TrainState:
     """A JAX ``TrainState`` (its leaves as numpy arrays) -> the port's:
     parameters (requiring grad), AdamW m/v/count, the learned bitlengths
-    (nested per sub-policy for a composite such as "qm+qe") and the step.
-    The JAX key has no torch counterpart; the port's generator is seeded
-    with ``seed``. Controller state keeps its nesting, BitChop and BitWave
-    registers as the port's state NamedTuples of 0-d tensors."""
+    (nested per sub-policy for a composite such as "qm+qe"), the step and
+    the error-feedback residual (stacked by period like the parameters;
+    None stays None). The JAX key has no torch counterpart; the port's
+    generator is seeded with ``seed``. Controller state keeps its
+    nesting, BitChop and BitWave registers as the port's state
+    NamedTuples of 0-d tensors."""
     params = from_jax(state.params, cfg, device)
     for p in adamw.leaves(params):
         p.requires_grad_(True)
@@ -106,6 +108,9 @@ def state_from_jax(state, cfg, device="cpu", seed: int = 0) -> TrainState:
     ctrl = _ctrl(state.pstate.ctrl, device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
+    residual = getattr(state, "grad_residual", None)
     return TrainState(params=params, opt=opt,
                       pstate=PolicyState(learn=learn, ctrl=ctrl),
-                      step=int(np.asarray(state.step)), gen=gen)
+                      step=int(np.asarray(state.step)), gen=gen,
+                      grad_residual=(None if residual is None
+                                     else from_jax(residual, cfg, device)))

@@ -153,7 +153,7 @@ def exponent_range(e, spec: FloatSpec, device=None):
     return lo, hi
 
 
-def truncate_exponent(x: torch.Tensor, e) -> torch.Tensor:
+def truncate_exponent(x: torch.Tensor, e, bias_offset=0) -> torch.Tensor:
     """Clamp ``x`` to the exponent range of an ``e``-bit container.
 
     Values below the e-bit normal range flush to signed zero (as do the
@@ -161,12 +161,23 @@ def truncate_exponent(x: torch.Tensor, e) -> torch.Tensor:
     largest in-range binade (exponent clamped, mantissa kept), inf/nan
     pass through. ``e`` is an int or an integer tensor (a 0-d tensor keeps
     a draw on the device), clipped to [MIN_EXP_BITS, spec.exp_bits]; at
-    e == exp_bits only source subnormals flush. Not differentiable: see
-    ``core.quantum_exponent.qe_quantize``. (The JAX package's
-    ``bias_offset`` belongs to AdaptivFloat, which is not ported.)"""
+    e == exp_bits only source subnormals flush.
+
+    ``bias_offset`` shifts the window by that many binades (AdaptivFloat's
+    per-tensor exponent bias: positive spends the e-bit range on larger
+    magnitudes, negative on smaller), clipped to the source's own normal
+    range. It is an int or a 0-d integer tensor on x's device, so a
+    learned offset never syncs with the host; an int 0 leaves the window
+    where it is. Not differentiable: see ``core.quantum_exponent.
+    qe_quantize`` and ``policies/afloat.py``."""
     spec = spec_for(x)
     sign, exp, man = split_fields(x)
     lo, hi = exponent_range(e, spec, x.device)
+    if not (isinstance(bias_offset, int) and bias_offset == 0):
+        b = torch.as_tensor(bias_offset, device=x.device).to(torch.int32)
+        src_lo, src_hi = 1 - spec.bias, (spec.exp_mask - 1) - spec.bias
+        lo = torch.clamp(lo + b, src_lo, src_hi)
+        hi = torch.clamp(hi + b, src_lo, src_hi)
     unb = exp - spec.bias
     special = exp == spec.exp_mask          # inf / nan: keep verbatim
     underflow = (~special) & (unb < lo)     # incl. exp == 0

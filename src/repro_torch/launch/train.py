@@ -4,10 +4,14 @@
       --policy qm --container sfp8 --batch 4 --seq 1024 --steps 4
 
 ``--policy`` takes a registered precision policy (none, static, qm, qe,
-bitchop, bitwave) or a '+'-composition such as ``qm+qe`` (learn mantissa
-and exponent bitlengths in one run; the ``--qm-*`` flags reach qm, the
-``--qe-*`` flags qe) or ``qm+bitchop``; ``--container`` the stash codec
-(sfp8, sfp16, bit_exact, gecko8, or a dense geometry such as sfp-m2e4).
+afloat, bitchop, bitwave) or a '+'-composition such as ``qm+qe`` (learn
+mantissa and exponent bitlengths in one run; the ``--qm-*`` flags reach
+qm, the ``--qe-*`` flags qe), ``qm+afloat`` or ``qm+bitchop``;
+``--container`` the stash codec (sfp8, sfp16, bit_exact, gecko8, or a
+dense geometry such as sfp-m2e4). ``--grad-compress-bits N`` sends the
+gradients through a ``bit_exact`` round trip at N mantissa bits with an
+error-feedback residual in the state (``train/grad_compress.py``; the
+other wire codecs through ``TrainConfig.grad_codec``).
 ``--per-layer-stash`` packs each period's stash in its own dense container
 from the policy's per-layer decisions (``DecoderModel.stash_plan``),
 re-derived every ``--stash-refresh`` steps (default ``--ckpt-every``); the
@@ -88,7 +92,8 @@ def build(args):
         schedule=Schedule(kind="cosine", base_lr=args.lr,
                           warmup_steps=min(50, args.steps // 10),
                           total_steps=args.steps),
-        num_microbatches=args.microbatches)
+        num_microbatches=args.microbatches,
+        grad_compress_bits=args.grad_compress_bits)
     return cfg, model, tc, batch, seq
 
 
@@ -150,6 +155,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="QE footprint-penalty strength")
     ap.add_argument("--qe-lr", type=float, default=0.05)
     ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--grad-compress-bits", type=int, default=None,
+                    help="compress the gradients to this many mantissa bits "
+                         "(bit_exact wire) with error feedback")
     ap.add_argument("--per-layer-stash", action="store_true",
                     help="pack each period's stash in its own dense "
                          "container from the policy's per-layer decisions "

@@ -39,16 +39,19 @@ def leaves(tree) -> List[torch.Tensor]:
     return [t for _, t in float_leaves(tree)]
 
 
-def _zeros_like(tree):
+def zeros_like(tree):
+    """f32 zeros shaped like every tensor of a nest of dicts/lists, on its
+    device (the moments; the error-feedback residual of
+    ``train/grad_compress.py``)."""
     if isinstance(tree, dict):
-        return {k: _zeros_like(v) for k, v in tree.items()}
+        return {k: zeros_like(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [_zeros_like(v) for v in tree]
+        return [zeros_like(v) for v in tree]
     return torch.zeros(tree.shape, dtype=torch.float32, device=tree.device)
 
 
 def init(params) -> AdamWState:
-    return AdamWState(m=_zeros_like(params), v=_zeros_like(params), count=0)
+    return AdamWState(m=zeros_like(params), v=zeros_like(params), count=0)
 
 
 def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:

@@ -11,9 +11,10 @@ name and every consumer resolves them through ``get()``.
 Random draws come from an explicit ``torch.Generator`` and are taken
 before a period runs (``act_decision``, ``weight_draws``), so the stash's
 recompute in the backward pass replays them, as the JAX package replays
-its keys. Ported: ``none``, ``static``, ``qm``, ``qe``, ``bitchop``,
-``bitwave`` and '+'-compositions of them (``"qm+qe"``, ``"qm+bitchop"``:
-``policies/composite.py``); ``afloat`` raises a "not yet ported" error.
+its keys. Ported: every policy of the JAX package (``none``, ``static``,
+``qm``, ``qe``, ``afloat``, ``bitchop``, ``bitwave``) and '+'-compositions
+of them (``"qm+qe"``, ``"qm+afloat"``, ``"qm+bitchop"``:
+``policies/composite.py``).
 """
 from __future__ import annotations
 
@@ -26,8 +27,9 @@ import torch
 from repro_torch import NotYetPorted
 from repro_torch.core import containers
 
-# Registered in the JAX package, still to be ported here.
-NOT_YET_PORTED = ("afloat",)
+# Registered in the JAX package, still to be ported here (validate_name
+# and get raise NotYetPorted for these): none left.
+NOT_YET_PORTED: Tuple[str, ...] = ()
 
 
 class PrecisionDecision(NamedTuple):

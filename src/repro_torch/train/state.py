@@ -16,3 +16,6 @@ class TrainState(NamedTuple):
     pstate: PolicyState
     step: int
     gen: torch.Generator     # every draw of the step comes from here
+    # Error-feedback residual of compressed gradients (f32, shaped like the
+    # parameters; None without TrainConfig.grad_compress_bits).
+    grad_residual: Any = None

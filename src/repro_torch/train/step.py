@@ -9,21 +9,28 @@
     and stash-estimator gradients plus the eq. 7 footprint penalty, then
     the policy's own SGD step; a controller policy observes the
     (pre-penalty) loss once per step.
+  * optional gradient compression with error feedback
+    (``train/grad_compress.py``): with ``grad_compress_bits`` the
+    accumulated parameter gradients go through ``grad_codec``'s round trip
+    once per step, before AdamW (so ``grad_norm`` is the compressed
+    gradients' norm), and the residual rides in the state.
 
-Gradient compression and parameter shardings are not ported yet.
+Parameter shardings are not ported (the port runs on one device).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.core.stash import float_leaves, substitute
+from repro_torch.kernels.sfp_pack import device_bits
 from repro_torch.models.model import DecoderModel, RunState
 from repro_torch.optim import adamw
 from repro_torch.optim.schedule import Schedule
 from repro_torch.policies import PolicyState
+from repro_torch.train import grad_compress
 from repro_torch.train.state import TrainState
 
 
@@ -32,13 +39,15 @@ class TrainConfig:
     opt: adamw.AdamWConfig = adamw.AdamWConfig()
     schedule: Schedule = Schedule()
     num_microbatches: int = 1
+    grad_compress_bits: Optional[int] = None  # e.g. 4: a 4-bit mantissa wire
+    grad_codec: str = "bit_exact"  # registry codec realizing the wire format
 
 
 def init_state(model: DecoderModel, seed: int, tc: TrainConfig
                ) -> TrainState:
     """Parameters from ``seed``; the step's generator from ``seed`` too
-    (a separate stream object)."""
-    del tc
+    (a separate stream object); an f32 zero residual when gradients are
+    compressed."""
     params = model.init(seed)
     for p in adamw.leaves(params):
         p.requires_grad_(True)
@@ -47,7 +56,9 @@ def init_state(model: DecoderModel, seed: int, tc: TrainConfig
     return TrainState(params=params, opt=adamw.init(params),
                       pstate=model.policy.init_state(model.dims,
                                                      model.device),
-                      step=0, gen=gen)
+                      step=0, gen=gen,
+                      grad_residual=(grad_compress.init_residual(params)
+                                     if tc.grad_compress_bits else None))
 
 
 def _scope_lambdas(model: DecoderModel, batch_shape: Tuple[int, int]
@@ -75,6 +86,9 @@ def _scope_lambdas(model: DecoderModel, batch_shape: Tuple[int, int]
 
 def make_train_step(model: DecoderModel, tc: TrainConfig):
     policy, dims = model.policy, model.dims
+    # The wire's bitlength goes to the device once, not once per leaf.
+    wire_bits = (None if tc.grad_compress_bits is None else
+                 device_bits(tc.grad_compress_bits, model.device))
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
@@ -115,8 +129,17 @@ def make_train_step(model: DecoderModel, tc: TrainConfig):
             pen_acc = pen_acc + penalty.detach() / nm
 
         n_p = len(p_leaves)
+        grads, residual = acc[:n_p], state.grad_residual
+        if wire_bits is not None:
+            if residual is None:
+                raise ValueError("grad_compress_bits is set but the state "
+                                 "has no grad_residual (init_state with "
+                                 "this TrainConfig)")
+            # Error feedback, in place over the gradients and the residual.
+            grads, _ = grad_compress.compress_grads(
+                grads, adamw.leaves(residual), wire_bits, tc.grad_codec)
         new_params, new_opt, gnorm = adamw.update(
-            acc[:n_p], state.opt, state.params, tc.opt, lr)
+            grads, state.opt, state.params, tc.opt, lr)
         new_learn = policy.update_learn(
             learn, substitute(learn, dict(zip(paths, acc[n_p:]))), dims)
         new_ctrl = policy.observe(state.pstate.ctrl, xent_acc,
@@ -126,6 +149,7 @@ def make_train_step(model: DecoderModel, tc: TrainConfig):
                    "grad_norm": gnorm, "policy_penalty": pen_acc,
                    **policy.metrics(new_pstate, dims)}
         return TrainState(params=new_params, opt=new_opt, pstate=new_pstate,
-                          step=state.step + 1, gen=state.gen), metrics
+                          step=state.step + 1, gen=state.gen,
+                          grad_residual=residual), metrics
 
     return train_step

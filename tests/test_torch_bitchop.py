@@ -346,15 +346,17 @@ def test_ste_helpers_match_jax():
 
 
 def test_registry_names_and_validation():
-    assert set(tpolicies.names()) == set(jpolicies.names()) - {"afloat"}
+    assert tpolicies.names() == jpolicies.names()
     for name in tpolicies.names():
         assert tpolicies.get(name).name == name
-    for name in ("qm+bitchop", "qm+qe", "static", "bitwave"):
+    for name in ("qm+bitchop", "qm+qe", "static", "bitwave", "qm+afloat"):
         assert tpolicies.validate_name(name) == jpolicies.validate_name(name)
-    with pytest.raises(ValueError, match="not yet ported"):
-        tpolicies.validate_name("qm+afloat")
-    with pytest.raises(NotYetPorted):
-        tpolicies.get("afloat")
+    # afloat is ported: it resolves, and no policy name is left to raise
+    # NotYetPorted.
+    assert isinstance(tpolicies.get("afloat"), tpolicies.AFloatPolicy)
+    assert tpolicies.get("qm+afloat").name == "qm+afloat"
+    assert tpolicies.base.NOT_YET_PORTED == ()
+    assert issubclass(NotYetPorted, NotImplementedError)
     with pytest.raises(ValueError, match="did you mean 'bitchop'"):
         tpolicies.validate_name("bitchip")
     with pytest.raises(TypeError):

@@ -613,3 +613,35 @@ def test_per_layer_step_launches_follow_plan(dev):
                    "bitplane_quantize_pack": 1, "bitplane_unpack": 2,
                    "flash_attention": 2 * cfg.n_layers,
                    "flash_attention_bwd": cfg.n_layers}
+
+
+@pytest.mark.parametrize("codec", ["bit_exact", "sfp8", "sfp16", "sfp-m2e4",
+                                   "gecko8"])
+def test_compress_grads_kernel_vs_plain(dev, codec):
+    """Error feedback through each wire codec's kernels against the same
+    round trip on the plain versions, over f32 leaves on and off the
+    128-lane group: q and the new residual bit-equal."""
+    from repro_torch.train import grad_compress
+    gen = torch.Generator(device=dev).manual_seed(0)
+    shapes = {"w": (384, 256), "odd": (7, 200), "vec": (37,)}
+    grads = {k: torch.randn(s, generator=gen, device=dev)
+             * torch.exp2(torch.randint(-20, 20, s, generator=gen,
+                                        device=dev).float())
+             for k, s in shapes.items()}
+    residual = {k: 1e-3 * torch.randn(s, generator=gen, device=dev)
+                for k, s in shapes.items()}
+    out = {}
+    for backend in (None, "plain"):
+        ops.force_backend(backend)
+        try:
+            out[backend] = grad_compress.compress_grads(
+                {k: v.clone() for k, v in grads.items()},
+                {k: v.clone() for k, v in residual.items()}, 5, codec)
+        finally:
+            ops.force_backend(None)
+    torch.cuda.synchronize()
+    for part in (0, 1):
+        for k in shapes:
+            assert torch.equal(out[None][part][k].view(torch.int32),
+                               out["plain"][part][k].view(torch.int32)), \
+                (codec, part, k)

@@ -322,12 +322,14 @@ def test_codec_names_and_validation():
 
 
 def test_policy_names_and_validation():
-    assert tpolicies.names() == ("bitchop", "bitwave", "none", "qe", "qm",
-                                 "static")
-    # The controller and static policies' modules are among the files
-    # whose imports are checked (no jax, no repro).
+    assert tpolicies.names() == ("afloat", "bitchop", "bitwave", "none",
+                                 "qe", "qm", "static")
+    # The controller, static and afloat policies' modules and gradient
+    # compression are among the files whose imports are checked (no jax,
+    # no repro).
     for rel in ("core/bitchop.py", "policies/bitwave.py",
-                "policies/static.py"):
+                "policies/static.py", "policies/afloat.py",
+                "train/grad_compress.py"):
         assert ROOT / "src" / "repro_torch" / rel in PORT_FILES, rel
     assert tpolicies.coerce(None).name == "none"
     assert tpolicies.get("qm", container="sfp8", gamma=0.2).gamma == 0.2
@@ -340,10 +342,8 @@ def test_policy_names_and_validation():
     assert tpolicies.validate_name("qm+qe") == ("qm", "qe")
     assert tpolicies.validate_name("qm+bitchop") == ("qm", "bitchop")
     for name in ("afloat", "qm+afloat"):
-        with pytest.raises(ValueError, match="not yet ported"):
-            tpolicies.validate_name(name)
-        with pytest.raises(tpolicies.NotYetPorted):
-            tpolicies.get(name)
+        assert tpolicies.validate_name(name) == tuple(name.split("+"))
+        assert tpolicies.get(name, container="sfp-m2e4").name == name
     with pytest.raises(ValueError, match="duplicate"):
         tpolicies.validate_name("qm+qm")
     with pytest.raises(TypeError):
