@@ -6,3 +6,4 @@ from repro_torch.configs.base import (  # noqa: F401
     ArchConfig, GLOBAL, LOCAL, get, reduced, register,
 )
 from repro_torch.configs.gemma2_2b import GEMMA2_2B  # noqa: F401
+from repro_torch.configs.gemma3_12b import GEMMA3_12B  # noqa: F401

@@ -1,11 +1,15 @@
 // Tensor-core building blocks of the attention kernels (flash_attention.cu,
 // flash_attention_bwd.cu) for Hopper (sm_90a), in inline PTX:
-//   - tiles of a (B, S, H, D) bf16 tensor staged into shared memory by
+//   - tiles of a (B, S, H, DH) bf16 tensor staged into shared memory by
 //     16-byte cp.async, rows past S zero-filled, in the 64-byte swizzled
-//     layout that wgmma reads: the D columns cut into panels of 32 (64
-//     bytes, the swizzle atom, which divides every head dim the kernels
-//     are built for), each panel R rows x 64 bytes, 16-byte chunk c of row
-//     r stored at chunk c ^ ((r >> 1) & 3). One layout serves as a K-major
+//     layout that wgmma reads: the columns cut into panels of 32 (64
+//     bytes, the swizzle atom), each panel R rows x 64 bytes, 16-byte
+//     chunk c of row r stored at chunk c ^ ((r >> 1) & 3). A head dim
+//     DH = 16 (mod 32) (144, 240) fills its last panel half: the tile is
+//     D = pad32(DH) columns wide and columns DH .. D - 1 are zero-filled
+//     (no bytes read). The kernels' reduction over the head dim stops at
+//     DH / 16 k-steps, and output columns past DH (products with the
+//     zero columns) are never stored. One layout serves as a K-major
 //     operand (a row per M or N index, D the reduction: Q K^T) and as an
 //     MN-major one (a row per reduction index, D the N columns: P V);
 //   - wgmma.mma_async m64nNk16 (bf16 in, f32 accumulators) with both
@@ -36,6 +40,9 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ uint32_t sw64(uint32_t off) {
   return off ^ ((off >> 3) & 0x30u);
 }
+
+// The tile width of a head dim: whole 32-column panels.
+__host__ __device__ constexpr int pad32(int d) { return (d + 31) / 32 * 32; }
 
 // Bytes of an R-row tile of D bf16 columns, and the stride between its
 // 32-column panels.
@@ -70,19 +77,22 @@ __device__ __forceinline__ void cp_async_land() {
   __syncthreads();
 }
 
-// Rows [row0, row0 + R) of one head of a (B, S, H, D) bf16 tensor (src
-// points at row 0 of that head; rows are H * D apart) into the swizzled
-// panel layout at dst; rows at or past S are zeros. NT threads share it.
-template <int R, int D, int NT>
+// Rows [row0, row0 + R) of one head of a (B, S, H, DH) bf16 tensor (src
+// points at row 0 of that head; rows are H * DH apart) into the swizzled
+// panel layout of a D-column tile at dst; rows at or past S, and columns
+// DH .. D - 1, are zeros. NT threads share it.
+template <int R, int D, int NT, int DH = D>
 __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src,
                                           int row_stride, int row0, int S,
                                           int tid) {
+  static_assert(DH % 16 == 0 && DH <= D && D - DH < 32, "head dim");
   constexpr int C = D / 8;  // 16-byte chunks a row
 #pragma unroll 4
   for (int idx = tid; idx < R * C; idx += NT) {
     const int r = idx / C, c = idx - r * C;
-    const bool ok = row0 + r < S;
-    const bf16* g = src + (size_t)(ok ? row0 + r : 0) * row_stride + c * 8;
+    const bool ok = row0 + r < S && c < DH / 8;
+    const bf16* g = src + (size_t)(ok ? row0 + r : 0) * row_stride
+                    + (ok ? c * 8 : 0);
     const uint32_t off = (c >> 2) * Tile<R, D>::kPanel + r * 64 + (c & 3) * 16;
     cp_async16(dst + sw64(off), g, ok);
   }

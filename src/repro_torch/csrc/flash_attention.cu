@@ -46,6 +46,11 @@
 // launched longest first (the last rows of a causal sequence see every
 // key). kernels/flash_attention.py:tile_plan lists the same tiles, and
 // plain_tiled runs the same recurrence on the CPU.
+// Head dims 144 and 240 (= 16 mod 32) run in tiles of D = 160 and 256
+// columns whose last 16 are zero-filled in shared memory (attention_tc.cuh:
+// no bytes read, none written): S takes DH / 16 k-steps, P V runs the
+// whole last panel and drops its zero half, 1/10 (144) and 1/16 (240) more
+// tensor-core work than the head needs in P V alone.
 // Shared memory at D = 288: Q 128 x 288 (73,728 B) + 2 stages of K and V
 // 32 x 288 (73,728 B) = 147,456 B (+1 KB to align the swizzle atoms).
 // Registers a thread: O 9 x 16 f32; then S 3 x 16 f32, or P 3 x 8 x 32-bit
@@ -85,13 +90,14 @@ __device__ __forceinline__ void panel_pv(
   attn::wgmma_commit();
 }
 
-template <int D>
+template <int DH>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, bf16* __restrict__ out,
                        float* __restrict__ lse, int Sq, int Sk, int H,
                        int q_rep, int causal, int window, float softcap,
                        float scale) {
+  constexpr int D = attn::pad32(DH);  // the tile's columns
   constexpr int kPanels = D / 32;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (attn::smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -104,10 +110,10 @@ flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H;
   const int r0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest tiles first
-  const int rs = H * D;
-  const bf16* qb = q + ((size_t)b * Sq * H + h) * D;
-  const bf16* kb = k + ((size_t)b * Sk * H + h) * D;
-  const bf16* vb = v + ((size_t)b * Sk * H + h) * D;
+  const int rs = H * DH;
+  const bf16* qb = q + ((size_t)b * Sq * H + h) * DH;
+  const bf16* kb = k + ((size_t)b * Sk * H + h) * DH;
+  const bf16* vb = v + ((size_t)b * Sk * H + h) * DH;
 
   // Key tiles any row of this CTA can see.
   const int r_last = min(r0 + BQ, Sq) - 1;
@@ -116,10 +122,10 @@ flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int k_begin = window > 0 ? max(0, q_lo - window + 1) : 0;
   const int t_begin = k_begin / BK, t_end = (k_end + BK - 1) / BK;
 
-  attn::load_tile<BQ, D, kThreads>(sQ, qb, rs, r0, Sq, tid);
+  attn::load_tile<BQ, D, kThreads, DH>(sQ, qb, rs, r0, Sq, tid);
   if (t_begin < t_end) {
-    attn::load_tile<BK, D, kThreads>(sK0, kb, rs, t_begin * BK, Sk, tid);
-    attn::load_tile<BK, D, kThreads>(sV0, vb, rs, t_begin * BK, Sk, tid);
+    attn::load_tile<BK, D, kThreads, DH>(sK0, kb, rs, t_begin * BK, Sk, tid);
+    attn::load_tile<BK, D, kThreads, DH>(sV0, vb, rs, t_begin * BK, Sk, tid);
   }
   attn::cp_async_commit();
 
@@ -143,16 +149,17 @@ flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (t + 1 < t_end) {
       const uint32_t nK = sK0 + (st ^ 1) * Smem<D>::kKV;
       const uint32_t nV = sV0 + (st ^ 1) * Smem<D>::kKV;
-      attn::load_tile<BK, D, kThreads>(nK, kb, rs, (t + 1) * BK, Sk, tid);
-      attn::load_tile<BK, D, kThreads>(nV, vb, rs, (t + 1) * BK, Sk, tid);
+      attn::load_tile<BK, D, kThreads, DH>(nK, kb, rs, (t + 1) * BK, Sk, tid);
+      attn::load_tile<BK, D, kThreads, DH>(nV, vb, rs, (t + 1) * BK, Sk, tid);
     }
     attn::cp_async_commit();
 
-    // S over D / 16 k-steps, step kk into partial sum kk % 3, added in f32.
+    // S over DH / 16 k-steps, step kk into partial sum kk % 3, added in
+    // f32.
     float s[BK / 2] = {}, s1[BK / 2] = {}, s2[BK / 2] = {};
     attn::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < DH / 16; ++kk) {
       const uint64_t da = attn::kmajor<BQ>(sQ, q_rows, kk);
       const uint64_t db = attn::kmajor<BK>(sK, 0, kk);
       if (kk % 3 == 0) attn::wgmma_ss(s, da, db, kk >= 3);
@@ -230,11 +237,12 @@ flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const float den = fmaxf(l[rr], 1e-30f), inv = 1.f / den;
     if (lse != nullptr && (lane & 3) == 0)
       lse[(size_t)bh * Sq + r] = m[rr] + logf(den);
-    bf16* orow = out + (((size_t)b * Sq + r) * H + h) * D + col0;
+    bf16* orow = out + (((size_t)b * Sq + r) * H + h) * DH + col0;
 #pragma unroll
     for (int c = 0; c < kPanels; ++c)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
+        if (c * 32 + 8 * j >= DH) continue;  // the zero columns
         const int i = 4 * j + 2 * rr;
         *reinterpret_cast<__nv_bfloat162*>(orow + c * 32 + 8 * j) =
             __floats2bfloat162_rn(o[c][i] * inv, o[c][i + 1] * inv);
@@ -242,18 +250,19 @@ flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D>
+template <int DH>
 int launch(const bf16* q, const bf16* k, const bf16* v, bf16* out,
            float* lse, int B, int Sq, int Sk, int H, int q_rep, int causal,
            int window, int q_tiles, float softcap, float scale,
            cudaStream_t stream) {
+  constexpr int D = attn::pad32(DH);
   static int granted[attn::kMaxDevices];
   if (q_tiles != (Sq + BQ - 1) / BQ) return (int)cudaErrorInvalidValue;
-  const int err = attn::grant_smem(flash_attention_kernel<D>,
+  const int err = attn::grant_smem(flash_attention_kernel<DH>,
                                    Smem<D>::kBytes, granted);
   if (err != 0) return err;
-  flash_attention_kernel<D><<<dim3(B * H, q_tiles), kThreads,
-                              Smem<D>::kBytes, stream>>>(
+  flash_attention_kernel<DH><<<dim3(B * H, q_tiles), kThreads,
+                               Smem<D>::kBytes, stream>>>(
       q, k, v, out, lse, Sq, Sk, H, q_rep, causal, window, softcap, scale);
   return (int)cudaGetLastError();
 }
@@ -279,7 +288,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   switch (D) {
     case 64: return FA_FWD(64);
     case 128: return FA_FWD(128);
+    case 144: return FA_FWD(144);
     case 192: return FA_FWD(192);
+    case 240: return FA_FWD(240);
     case 256: return FA_FWD(256);
     case 288: return FA_FWD(288);
     default: return (int)cudaErrorInvalidValue;

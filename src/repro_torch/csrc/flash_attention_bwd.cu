@@ -43,6 +43,10 @@
 //     dQ += dS K (dS from registers, K MN-major). Registers: dQ 144 f32,
 //     S and dP 16 each, dS 8. Shared memory at D = 288: Q and dO 128 x 288
 //     (147,456 B) + 2 stages of K and V 32 x 288 (73,728 B) = 221,184 B.
+// Head dims 144 and 240 (= 16 mod 32) run in tiles of D = 160 and 256
+// columns, the last 16 zero-filled in shared memory (attention_tc.cuh):
+// S and dP take DH / 16 k-steps; dV, dK and dQ run whole chunks and store
+// only their first DH columns (the rest are products with zeros).
 // P and dS enter their products (dV, dK, dQ) as bf16, a 2^-9 relative
 // rounding of each term that the gradients' 2^-6 gate absorbs (the
 // forward's output, which the stash estimators amplify, takes P as three
@@ -66,10 +70,11 @@ constexpr int Q_BQ = 128, Q_BK = 32;   // dQ pass: rows a CTA, keys a tile
 
 // The N-chunks of the D output columns of dV, dK and dQ: wgmma takes N <=
 // 256, and each chunk is a whole number of 32-column panels (64 -> 64,
-// 128 -> 128, 192 -> 2 x 96, 256 -> 2 x 128, 288 -> 3 x 96).
+// 128 -> 128, 160 -> 5 x 32, 192 -> 2 x 96, 256 -> 2 x 128, 288 -> 3 x 96).
 template <int D>
 struct Chunks {
-  static constexpr int N = D == 64 ? 64 : (D % 128 == 0 ? 128 : 96);
+  static constexpr int N = D == 64 ? 64
+      : (D % 128 == 0 ? 128 : (D % 96 == 0 ? 96 : 32));
   static constexpr int kCount = D / N;
   static constexpr int kPanels = N / 32;
   static_assert(D % N == 0, "head dim not a whole number of chunks");
@@ -110,7 +115,7 @@ struct KVSmem {
   static constexpr int kBytes = 2 * kKey + 2 * kStage + kG + 1024;
 };
 
-template <int D>
+template <int DH>
 __global__ void __launch_bounds__(kThreads, 1)
 bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -118,6 +123,7 @@ bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Sk,
                 int H, int q_rep, int causal, int window, float softcap,
                 float scale) {
+  constexpr int D = attn::pad32(DH);  // the tiles' columns
   using CH = Chunks<D>;
   using SM = KVSmem<D>;
   extern __shared__ unsigned char smem_raw[];
@@ -134,11 +140,11 @@ bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H;
   const int k0 = blockIdx.y * KV_BK;  // the first key tiles see the most rows
-  const int rs = H * D;
-  const bf16* qb = q + ((size_t)b * Sq * H + h) * D;
-  const bf16* ob = dout + ((size_t)b * Sq * H + h) * D;
-  const bf16* kb = k + ((size_t)b * Sk * H + h) * D;
-  const bf16* vb = v + ((size_t)b * Sk * H + h) * D;
+  const int rs = H * DH;
+  const bf16* qb = q + ((size_t)b * Sq * H + h) * DH;
+  const bf16* ob = dout + ((size_t)b * Sq * H + h) * DH;
+  const bf16* kb = k + ((size_t)b * Sk * H + h) * DH;
+  const bf16* vb = v + ((size_t)b * Sk * H + h) * DH;
   const float* lse_b = lse + (size_t)bh * Sq;
   const float* delta_b = delta + (size_t)bh * Sq;
 
@@ -151,15 +157,16 @@ bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   auto stage_of = [&](int st) { return sStage + st * SM::kStage; };
   auto load_rows = [&](int st, int r0) {
     const uint32_t s0 = stage_of(st);
-    attn::load_tile<KV_BQ, D, kThreads>(s0, qb, rs, r0, Sq, tid);
-    attn::load_tile<KV_BQ, D, kThreads>(s0 + SM::kRow, ob, rs, r0, Sq, tid);
+    attn::load_tile<KV_BQ, D, kThreads, DH>(s0, qb, rs, r0, Sq, tid);
+    attn::load_tile<KV_BQ, D, kThreads, DH>(s0 + SM::kRow, ob, rs, r0, Sq,
+                                            tid);
     attn::load_vec(s0 + 2 * SM::kRow, lse_b, r0, KV_BQ, Sq, tid);
     attn::load_vec(s0 + 2 * SM::kRow + KV_BQ * 4, delta_b, r0, KV_BQ, Sq,
                    tid - KV_BQ);
   };
 
-  attn::load_tile<KV_BK, D, kThreads>(sK, kb, rs, k0, Sk, tid);
-  attn::load_tile<KV_BK, D, kThreads>(sV, vb, rs, k0, Sk, tid);
+  attn::load_tile<KV_BK, D, kThreads, DH>(sK, kb, rs, k0, Sk, tid);
+  attn::load_tile<KV_BK, D, kThreads, DH>(sV, vb, rs, k0, Sk, tid);
   if (i_begin < i_end) load_rows(0, i_begin * KV_BQ);
   attn::cp_async_commit();
 
@@ -192,7 +199,7 @@ bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (wg == 0) {
       attn::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
+      for (int kk = 0; kk < DH / 16; ++kk)
         attn::wgmma_ss(s, attn::kmajor<KV_BK>(sK, 0, kk),
                        attn::kmajor<KV_BQ>(sQ, 0, kk), kk > 0);
       attn::wgmma_commit();
@@ -229,7 +236,7 @@ bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     } else {
       attn::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
+      for (int kk = 0; kk < DH / 16; ++kk)
         attn::wgmma_ss(s, attn::kmajor<KV_BK>(sV, 0, kk),
                        attn::kmajor<KV_BQ>(sdO, 0, kk), kk > 0);
       attn::wgmma_commit();
@@ -264,11 +271,12 @@ bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int rr = 0; rr < 2; ++rr) {
     const int kk = key_a + 8 * rr;
     if (kk >= Sk) continue;
-    bf16* row = dst + (((size_t)b * Sk + kk) * H + h) * D + col0;
+    bf16* row = dst + (((size_t)b * Sk + kk) * H + h) * DH + col0;
 #pragma unroll
     for (int c = 0; c < CH::kCount; ++c)
 #pragma unroll
       for (int j = 0; j < CH::N / 8; ++j) {
+        if (c * CH::N + 8 * j >= DH) continue;  // the zero columns
         const int i = 4 * j + 2 * rr;
         *reinterpret_cast<__nv_bfloat162*>(row + c * CH::N + 8 * j) =
             __floats2bfloat162_rn(acc[c][i] * mul, acc[c][i + 1] * mul);
@@ -283,13 +291,14 @@ struct QSmem {
   static constexpr int kBytes = 2 * kRow + 4 * kKey + 1024;
 };
 
-template <int D>
+template <int DH>
 __global__ void __launch_bounds__(kThreads, 1)
 bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
               const bf16* __restrict__ v, const bf16* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
               bf16* __restrict__ dq, int Sq, int Sk, int H, int q_rep,
               int causal, int window, float softcap, float scale) {
+  constexpr int D = attn::pad32(DH);  // the tiles' columns
   using CH = Chunks<D>;
   using SM = QSmem<D>;
   extern __shared__ unsigned char smem_raw[];
@@ -302,11 +311,11 @@ bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H;
   const int r0 = (gridDim.y - 1 - blockIdx.y) * Q_BQ;  // longest tiles first
-  const int rs = H * D;
-  const bf16* qb = q + ((size_t)b * Sq * H + h) * D;
-  const bf16* ob = dout + ((size_t)b * Sq * H + h) * D;
-  const bf16* kb = k + ((size_t)b * Sk * H + h) * D;
-  const bf16* vb = v + ((size_t)b * Sk * H + h) * D;
+  const int rs = H * DH;
+  const bf16* qb = q + ((size_t)b * Sq * H + h) * DH;
+  const bf16* ob = dout + ((size_t)b * Sq * H + h) * DH;
+  const bf16* kb = k + ((size_t)b * Sk * H + h) * DH;
+  const bf16* vb = v + ((size_t)b * Sk * H + h) * DH;
 
   // Key tiles any row of this CTA can see (as in the forward).
   const int r_last = min(r0 + Q_BQ, Sq) - 1;
@@ -315,11 +324,13 @@ bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int k_begin = window > 0 ? max(0, q_lo - window + 1) : 0;
   const int t_begin = k_begin / Q_BK, t_end = (k_end + Q_BK - 1) / Q_BK;
 
-  attn::load_tile<Q_BQ, D, kThreads>(sQ, qb, rs, r0, Sq, tid);
-  attn::load_tile<Q_BQ, D, kThreads>(sdO, ob, rs, r0, Sq, tid);
+  attn::load_tile<Q_BQ, D, kThreads, DH>(sQ, qb, rs, r0, Sq, tid);
+  attn::load_tile<Q_BQ, D, kThreads, DH>(sdO, ob, rs, r0, Sq, tid);
   if (t_begin < t_end) {
-    attn::load_tile<Q_BK, D, kThreads>(sK0, kb, rs, t_begin * Q_BK, Sk, tid);
-    attn::load_tile<Q_BK, D, kThreads>(sV0, vb, rs, t_begin * Q_BK, Sk, tid);
+    attn::load_tile<Q_BK, D, kThreads, DH>(sK0, kb, rs, t_begin * Q_BK, Sk,
+                                           tid);
+    attn::load_tile<Q_BK, D, kThreads, DH>(sV0, vb, rs, t_begin * Q_BK, Sk,
+                                           tid);
   }
   attn::cp_async_commit();
 
@@ -349,19 +360,21 @@ bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (t + 1 < t_end) {
       const uint32_t nK = sK0 + (st ^ 1) * SM::kKey;
       const uint32_t nV = sV0 + (st ^ 1) * SM::kKey;
-      attn::load_tile<Q_BK, D, kThreads>(nK, kb, rs, (t + 1) * Q_BK, Sk, tid);
-      attn::load_tile<Q_BK, D, kThreads>(nV, vb, rs, (t + 1) * Q_BK, Sk, tid);
+      attn::load_tile<Q_BK, D, kThreads, DH>(nK, kb, rs, (t + 1) * Q_BK, Sk,
+                                             tid);
+      attn::load_tile<Q_BK, D, kThreads, DH>(nV, vb, rs, (t + 1) * Q_BK, Sk,
+                                             tid);
     }
     attn::cp_async_commit();
 
     float s[Q_BK / 2] = {}, dp[Q_BK / 2] = {};
     attn::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
+    for (int kk = 0; kk < DH / 16; ++kk)
       attn::wgmma_ss(s, attn::kmajor<Q_BQ>(sQ, q_rows, kk),
                      attn::kmajor<Q_BK>(sK, 0, kk), kk > 0);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
+    for (int kk = 0; kk < DH / 16; ++kk)
       attn::wgmma_ss(dp, attn::kmajor<Q_BQ>(sdO, q_rows, kk),
                      attn::kmajor<Q_BK>(sV, 0, kk), kk > 0);
     attn::wgmma_commit();
@@ -412,11 +425,12 @@ bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int rr = 0; rr < 2; ++rr) {
     const int r = row_a + 8 * rr;
     if (r >= Sq) continue;
-    bf16* row = dq + (((size_t)b * Sq + r) * H + h) * D + col0;
+    bf16* row = dq + (((size_t)b * Sq + r) * H + h) * DH + col0;
 #pragma unroll
     for (int c = 0; c < CH::kCount; ++c)
 #pragma unroll
       for (int j = 0; j < CH::N / 8; ++j) {
+        if (c * CH::N + 8 * j >= DH) continue;  // the zero columns
         const int i = 4 * j + 2 * rr;
         *reinterpret_cast<__nv_bfloat162*>(row + c * CH::N + 8 * j) =
             __floats2bfloat162_rn(acc[c][i] * scale, acc[c][i + 1] * scale);
@@ -424,35 +438,36 @@ bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D>
+template <int DH>
 int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
            const bf16* dout, const float* lse, float* delta, bf16* dq,
            bf16* dk, bf16* dv, int B, int Sq, int Sk, int H, int q_rep,
            int causal, int window, int kv_tiles, int q_tiles, float softcap,
            float scale, cudaStream_t stream) {
+  constexpr int D = attn::pad32(DH);
   static int granted_kv[attn::kMaxDevices], granted_q[attn::kMaxDevices];
   if (kv_tiles != (Sk + KV_BK - 1) / KV_BK
       || q_tiles != (Sq + Q_BQ - 1) / Q_BQ)
     return (int)cudaErrorInvalidValue;
-  int err = attn::grant_smem(bwd_dkdv_kernel<D>, KVSmem<D>::kBytes,
+  int err = attn::grant_smem(bwd_dkdv_kernel<DH>, KVSmem<D>::kBytes,
                              granted_kv);
   if (err == 0)
-    err = attn::grant_smem(bwd_dq_kernel<D>, QSmem<D>::kBytes, granted_q);
+    err = attn::grant_smem(bwd_dq_kernel<DH>, QSmem<D>::kBytes, granted_q);
   if (err != 0) return err;
 
   const int rows = B * Sq * H;
   const int warps = kThreads / 32;
   bwd_delta_kernel<<<(rows + warps - 1) / warps, kThreads, 0, stream>>>(
-      o, dout, delta, rows, Sq, H, D);
+      o, dout, delta, rows, Sq, H, DH);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  bwd_dkdv_kernel<D><<<dim3(B * H, kv_tiles), kThreads, KVSmem<D>::kBytes,
-                       stream>>>(q, k, v, dout, lse, delta, dk, dv, Sq, Sk,
+  bwd_dkdv_kernel<DH><<<dim3(B * H, kv_tiles), kThreads, KVSmem<D>::kBytes,
+                        stream>>>(q, k, v, dout, lse, delta, dk, dv, Sq, Sk,
                                  H, q_rep, causal, window, softcap, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  bwd_dq_kernel<D><<<dim3(B * H, q_tiles), kThreads, QSmem<D>::kBytes,
-                     stream>>>(q, k, v, dout, lse, delta, dq, Sq, Sk, H,
+  bwd_dq_kernel<DH><<<dim3(B * H, q_tiles), kThreads, QSmem<D>::kBytes,
+                      stream>>>(q, k, v, dout, lse, delta, dq, Sq, Sk, H,
                                q_rep, causal, window, softcap, scale);
   return (int)cudaGetLastError();
 }
@@ -481,7 +496,9 @@ extern "C" int flash_attention_bwd_launch(
   switch (D) {
     case 64: return FA_BWD(64);
     case 128: return FA_BWD(128);
+    case 144: return FA_BWD(144);
     case 192: return FA_BWD(192);
+    case 240: return FA_BWD(240);
     case 256: return FA_BWD(256);
     case 288: return FA_BWD(288);
     default: return (int)cudaErrorInvalidValue;

@@ -9,7 +9,9 @@
 // KH*hd) uint8/uint16, or as dense bit planes (B, L, G*P*16) uint8 ordered
 // (group, plane, 16 bytes) per slot, plus one uint8 base per 128-lane
 // group (B, L, G = KH*hd/128). Groups run along the flattened KH*hd axis
-// and may straddle heads (hd = 288: 9 groups over 4 heads). Per-row decode
+// and may straddle heads (hd = 288: 9 groups over 4 heads), and a head may
+// start 16 lanes past a 32-lane boundary (hd = 240 or 144: every odd
+// head). Per-row decode
 // positions; a window > 0 means an L-slot ring buffer (floor mod, as the
 // JAX mask). The function is the JAX kernel's: per block_l-slot tile,
 // scores in f32, softcap, -1e30 on masked slots, softmax, p . v.
@@ -41,16 +43,25 @@
 //    aligned.
 // 3. Dense planes by a register SWAR transpose (transpose8 in swar.cuh:
 //    the JAX package's _reg_transpose8, Hacker's Delight delta-swaps): a
-//    32-feature chunk of one slot is uint32 c % 4 of each plane row of
-//    group c / 4; one thread turns its P' (<= 8) plane words into 32
+//    32-lane chunk C of one slot (on the absolute grid of the flattened
+//    axis, item 4) is uint32 C % 4 of each plane row of group C / 4; one
+//    thread turns its P' (<= 8) plane words into 32
 //    payload bytes with 12 masked swaps, and P' > 8 takes a second transpose for the high bytes. A
 //    draft loads only planes P - P' .. P - 1 as rows 0 .. P' - 1, which
 //    are the P'-bit words of the narrow geometry: fewer bytes read.
-// 4. Balanced math: hd threads (hd % 32 == 0), warp c owning 32-feature
-//    chunk c of the head. Scores: lane l decodes slot l's 32 words of its
-//    chunk against q read as a warp broadcast; partial sums over chunks
-//    are added in chunk order. p . v: thread d owns feature d and walks
-//    the sub-tile's slots. Every K and V element is decoded once per CTA,
+// 4. Balanced math: chunks of 32 lanes counted on the absolute grid of the
+//    flattened KH*hd axis, so that each lies in one 128-lane group (one
+//    base) and one uint32 of each plane row. A head starting o = (h * hd)
+//    % 32 lanes into its first chunk (0, or 16 when hd = 16 mod 32)
+//    covers nch = ceil(hd / 32) chunks, whatever o is; with o = 16 its
+//    first chunk's low half is the previous head's, with hd = 16 (mod 32)
+//    and o = 0 its last chunk's high half is the next head's. 32 nch
+//    threads (hd % 16 == 0), warp c owning chunk c of the head. Scores:
+//    lane l decodes slot l's words of its chunk that belong to the head
+//    (16-byte word runs: a half chunk is whole runs) against q read as a
+//    warp broadcast; partial sums over chunks are added in chunk order.
+//    p . v: thread d < hd owns feature d and walks the sub-tile's slots.
+//    Every K and V element is decoded once per CTA,
 //    by one multiply where the group's base allows it (fast_decode, exact)
 //    and by sfp_decode_word elsewhere. Register arrays are sized by rep
 //    rounded up to a power of two (a template parameter).
@@ -76,7 +87,7 @@ namespace {
 constexpr int kSub = 32;       // slots per sub-tile: one per lane
 constexpr int kStages = 4;     // shared ring depth: 3 sub-tiles in flight
 constexpr int kMaxRep = 8;
-constexpr int kMaxHd = 512;    // hd threads a CTA
+constexpr int kMaxHd = 512;    // features a head (threads a CTA)
 constexpr int kMaxSub = 32;    // sub-tiles a split (block_l <= 1024)
 constexpr int kMaxPlanes = 16;
 constexpr int kMaxDevices = 64;
@@ -208,14 +219,16 @@ __host__ __device__ inline Layout make_layout(const DecodeArgs& a,
   int ngr = 1;  // groups a head touches, at most
   for (int h = 0; h < a.KH; ++h)
     ngr = max(ngr, ((h * a.hd + a.hd - 1) >> 7) - ((h * a.hd) >> 7) + 1);
-  y.word_stride = odd_units(a.hd * wbytes);
+  const int nch = (a.hd + 31) >> 5;  // 32-lane chunks a head covers
+  // Dense: the word tile holds the head's nch whole chunks.
+  y.word_stride = odd_units((dense ? 32 * nch : a.hd) * wbytes);
   y.stage_stride = dense ? odd_units(ngr * a.Pr * 16) : y.word_stride;
   int off = 0;
   y.stage = off; off += kStages * kSub * y.stage_stride;
   y.words = off; off += dense ? kSub * y.word_stride : 0;
   y.qs = off;    off += 4 * rep * a.hd;
   y.st = off;    off += 4 * ((rep * a.SL + 3) / 4 * 4);
-  y.red = off;   off += 4 * (a.hd / 32) * rep * kSub;
+  y.red = off;   off += 4 * nch * rep * kSub;
   y.ml = off;    off += 4 * 2 * kMaxRep;
   y.flags = off; off += 4 * (kMaxSub + 4);
   y.scales = off; off += 4 * 2 * ((a.SL * a.G + 3) / 4 * 4);
@@ -277,6 +290,7 @@ __device__ void ticket_merge(const DecodeArgs& a, int b, int h,
   // addresses past the last split clamped and their terms dropped (a
   // wider batch spills under the register cap). Summed in split order.
   const size_t stride = (size_t)rep * hd;
+  if (tid >= hd) return;  // a thread a feature
   for (int g = 0; g < rep; ++g) {
     const float* pa = part_acc + (p0 * rep + g) * hd + tid;
     const float* wg = ww + g * ns;
@@ -313,7 +327,7 @@ template <typename W, bool DENSE, int REP>
 __global__ void decode_split_kernel(const DecodeArgs a) {
   const int s = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, c = tid >> 5;
-  const int hd = a.hd, nthr = hd, nch = hd >> 5;
+  const int hd = a.hd, nthr = blockDim.x, nch = nthr >> 5;
   const int rep = a.H / a.KH, SL = a.SL, G = a.G;  // rep <= REP
   const int nsub = (SL + kSub - 1) / kSub;
   const int pos = a.pos[b];
@@ -366,6 +380,11 @@ __global__ void decode_split_kernel(const DecodeArgs a) {
       ? (size_t)a.tables[(size_t)b * (a.L / BL) + s0 / BL] * BL + s0 % BL
       : (size_t)b * a.L + s0;
   const int g0 = (h * hd) >> 7;  // first group of the head
+  const int C0 = (h * hd) >> 5;  // first chunk of the head
+  const int o = (h * hd) & 31;   // the head's first lane in chunk C0
+  // Tile word of feature 0: the dense word tile starts at chunk C0, the
+  // staged words at the head.
+  const int woff = DENSE ? o : 0;
 
   // The split's bases (SL * G contiguous bytes) in 16-byte copies from
   // the aligned byte at or below the first one.
@@ -458,7 +477,7 @@ __global__ void decode_split_kernel(const DecodeArgs a) {
       // Lane l rebuilds slot l's 32 words of chunk c from its plane rows.
       unsigned char* wtile = smem + lay.words;
       if (lane < n) {
-        const int C = (h * hd >> 5) + c;  // flat chunk index
+        const int C = C0 + c;  // flat chunk index
         const uint32_t* rows = reinterpret_cast<const uint32_t*>(
             stage + lane * lay.stage_stride + ((C >> 2) - g0) * a.Pr * 16)
             + (C & 3);
@@ -494,16 +513,20 @@ __global__ void decode_split_kernel(const DecodeArgs a) {
     }
 
     if (!is_v) {
-      // Scores: lane l takes slot l, warp c the head's chunk c.
+      // Scores: lane l takes slot l, warp c the head's chunk c: the uint4s
+      // of words [k0w, k1w) of it belong to the head.
       if (lane < n) {
-        const uint4* src = reinterpret_cast<const uint4*>(
-            wt + lane * wstride + c * 32 * sizeof(W));
         constexpr int NV = 2 * sizeof(W);   // uint4s per 32 words
         constexpr int PER = 32 / NV;        // words per uint4
-        const int bi = (l0 + lane) * G + ((h * hd + c * 32) >> 7);
+        const int f0 = 32 * c - o;          // the chunk's first feature
+        const int k0w = max(0, -f0) / PER;
+        const int k1w = min(32, hd - f0) / PER;
+        const uint4* src = reinterpret_cast<const uint4*>(
+            wt + lane * wstride + (f0 + woff) * (int)sizeof(W));
+        const int bi = (l0 + lane) * G + ((C0 + c) >> 2);
         const float scale = ksc[bi];
         const int base = kbase[bi];
-        const float* qc = qs + c * 32;
+        const float* qc = qs + f0;
         float part[REP];
 #pragma unroll
         for (int g = 0; g < REP; ++g) part[g] = 0.f;
@@ -513,7 +536,7 @@ __global__ void decode_split_kernel(const DecodeArgs a) {
         auto scores = [&](auto fast) {
           constexpr bool FAST = decltype(fast)::value;
 #pragma unroll 1
-          for (int k = 0; k < NV; ++k) {
+          for (int k = k0w; k < k1w; ++k) {
             const uint4 t = src[k];
             const uint32_t u[4] = {t.x, t.y, t.z, t.w};
 #pragma unroll
@@ -591,10 +614,10 @@ __global__ void decode_split_kernel(const DecodeArgs a) {
     }
 
     // acc += p . v: thread d owns feature d, walks the sub-tile's slots.
-    {
+    if (tid < hd) {
       const int d = tid;
       const int gi = (h * hd + d) >> 7;
-      const W* col = reinterpret_cast<const W*>(wt) + d;
+      const W* col = reinterpret_cast<const W*>(wt) + d + woff;
       const int ws = wstride / (int)sizeof(W);
       const bool vec = (SL & 3) == 0;  // p rows 16-byte aligned
       for (int l = 0; l < n; l += 4) {
@@ -643,7 +666,7 @@ __global__ void decode_split_kernel(const DecodeArgs a) {
 
 #pragma unroll
   for (int g = 0; g < REP; ++g)
-    if (g < rep) part_acc[(pidx * rep + g) * hd + tid] = acc[g];
+    if (g < rep && tid < hd) part_acc[(pidx * rep + g) * hd + tid] = acc[g];
   if (tid < rep) {
     part_m[pidx * rep + tid] = ms[tid];
     part_l[pidx * rep + tid] = ls[tid];
@@ -680,8 +703,9 @@ int launch_rep(const DecodeArgs& a, cudaStream_t stream) {
   const int limit = smem_limit<W, DENSE, REP>();
   if (limit < 0) return -limit;
   if (lay.total > limit) return (int)cudaErrorInvalidValue;
-  decode_split_kernel<W, DENSE, REP><<<dim3(a.nsplit, a.KH, a.B), a.hd,
-                                       lay.total, stream>>>(a);
+  decode_split_kernel<W, DENSE, REP><<<dim3(a.nsplit, a.KH, a.B),
+                                       32 * ((a.hd + 31) / 32), lay.total,
+                                       stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -712,7 +736,7 @@ extern "C" int packed_flash_decode_launch(
     int payload_bits, int dense, int prefix_planes, float softcap,
     float scale, void* stream) {
   if (B == 0 || KH == 0) return 0;
-  if (H % KH != 0 || H / KH > kMaxRep || hd > kMaxHd || hd % 32 != 0
+  if (H % KH != 0 || H / KH > kMaxRep || hd > kMaxHd || hd % 16 != 0
       || KH * hd != G * SFP_GROUP || block_l <= 0
       || split_l <= 0 || split_l > kSub * kMaxSub || block_l % split_l != 0
       || L % block_l != 0

@@ -35,7 +35,10 @@ from repro_torch.kernels import _lib
 from repro_torch.kernels import ref
 from repro_torch.kernels.ref import NEG_INF
 
-HEAD_DIMS = (64, 128, 192, 256, 288)  # head widths the kernels are built for
+# Head widths the kernels are built for. 144 and 240 (16 mod 32) run in
+# tiles of 160 and 256 columns whose last 16 are zeros in shared memory
+# (csrc/attention_tc.cuh): same function, no padded copy in memory.
+HEAD_DIMS = (64, 128, 144, 192, 240, 256, 288)
 # (query rows, keys) of a tile: the forward's CTA, the dK/dV pass's query
 # tile and CTA, the dQ pass's CTA and key tile (csrc/flash_attention*.cu).
 FWD_TILE, DKDV_TILE, DQ_TILE = (128, 32), (32, 64), (128, 32)

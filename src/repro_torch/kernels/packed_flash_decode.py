@@ -52,7 +52,7 @@ class SplitPlan(NamedTuple):
     split_l: int   # slots a split, a divisor of the tile
     splits: int    # splits a row, L / split_l
     ctas: int      # CTAs of the split kernel, B * KH * splits
-    threads: int   # threads a CTA: hd
+    threads: int   # threads a CTA: 32 a chunk of ``ref.head_chunks``
 
 
 def split_plan(B: int, KH: int, hd: int, L: int,
@@ -67,7 +67,24 @@ def split_plan(B: int, KH: int, hd: int, L: int,
     sl = min(SPLIT_L, bl)
     while bl % sl:
         sl -= 1
-    return SplitPlan(bl, sl, L // sl, B * KH * (L // sl), hd)
+    return SplitPlan(bl, sl, L // sl, B * KH * (L // sl), 32 * -(-hd // 32))
+
+
+def chunk_scores(qf: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """(B, KH, rep, hd) f32 queries against (B, L, KH, hd) keys: each
+    head's chunks of ``ref.head_chunks`` as partial dot products, added in
+    chunk order (the kernel's score sum; its sums within a chunk run in
+    another order). Returns (B, KH, rep, L)."""
+    KH, hd = k.shape[2], k.shape[3]
+    out = []
+    for h in range(KH):
+        total = None
+        for ch in ref.head_chunks(h, hd):
+            part = torch.einsum("bgd,bld->bgl", qf[:, h, :, ch.lo:ch.hi],
+                                k[:, :, h, ch.lo:ch.hi])
+            total = part if total is None else total + part
+        out.append(total)
+    return torch.stack(out, 1)
 
 
 def split_decode_plain(q, k_payload, k_bases, v_payload, v_bases, pos,
@@ -78,8 +95,10 @@ def split_decode_plain(q, k_payload, k_bases, v_payload, v_bases, pos,
                        tables: Optional[torch.Tensor] = None
                        ) -> torch.Tensor:
     """The kernel's split recurrence in plain PyTorch: per split of
-    ``split_plan``, the softmax over its 32-slot sub-tiles that any slot
-    may see, from scratch (m, l, acc); then the splits merged in split
+    ``split_plan``, the scores as the sum of their ``ref.head_chunks`` partial
+    products (``chunk_scores``), the softmax over its 32-slot sub-tiles
+    that any slot may see, from scratch (m, l, acc); then the splits
+    merged in split
     order with weights exp(m_s - max m), a split with no visible slot
     (or a weight that underflows to 0) adding nothing. With ``tables``
     the payloads are a pool, read as ``paged_flash_decode`` reads it. For
@@ -117,7 +136,7 @@ def split_decode_plain(q, k_payload, k_bases, v_payload, v_bases, pos,
         n_sub = int(ss[-1]) + 1
         vis = torch.stack([vs[:, ss == j].any(1) for j in range(n_sub)], 1)
         seen = vis[:, ss][:, None, None, :]          # (B, 1, 1, n)
-        sc = torch.einsum("bhgd,blhd->bhgl", qf, k[:, sl]) * scale
+        sc = chunk_scores(qf, k[:, sl]) * scale
         if softcap is not None:
             sc = softcap * torch.tanh(sc / softcap)
         sc = torch.where(vs[:, None, None, :], sc, NEG_INF)
@@ -233,12 +252,13 @@ def _launch(name: str, q: torch.Tensor, k_payload: torch.Tensor,
             ("v_bases", v_bases, torch.uint8, (*lead, G)),
             ("pos", pos, torch.int32, (B,))):
         _check(name, part, t, dt, shape, q.device)
-    if hd % 32 or hd > 512 or H // KH > 8:
+    if hd % 16 or hd > 512 or H // KH > 8:
         raise ValueError(f"{name}: hd={hd}, rep={H // KH} not supported "
-                         f"(hd % 32 == 0, hd <= 512, rep <= 8)")
+                         f"(hd % 16 == 0, hd <= 512, rep <= 8)")
     plan = split_plan(B, KH, hd, L, bl, paged=True)   # bl is the tile
-    # 16-byte copies: every payload row and head row starts 16-byte aligned
-    # (hd % 32 == 0 gives the rows), and so must each tensor.
+    # 16-byte copies: every payload row starts 16-byte aligned (whole
+    # 128-lane groups), and so does every head's run of words (hd % 16 ==
+    # 0; planes are staged by whole groups), when each tensor does.
     for part, t in (("k_payload", k_payload), ("k_bases", k_bases),
                     ("v_payload", v_payload), ("v_bases", v_bases)):
         if t.data_ptr() % 16:

@@ -306,6 +306,34 @@ def _swar_transpose8(x):
     return x
 
 
+def _swar_words32(u: torch.Tensor, Pr: int) -> torch.Tensor:
+    """One 32-lane chunk: (..., Pr) int64 uint32s (the chunk's uint32 of
+    each plane row read, LSB plane first) -> (..., 32) int64 words by the
+    register SWAR transpose, 8 planes a transpose."""
+    zero = torch.zeros_like(u[..., 0])
+    words = torch.zeros((*u.shape[:-1], 32), dtype=torch.int64)
+    for lo in range(0, Pr, 8):
+        y = _swar_transpose8([u[..., lo + r] if lo + r < Pr else zero
+                              for r in range(8)])
+        # byte i of y[j] is the byte of lane 8i + j
+        byt = torch.stack([torch.stack([(yj >> (8 * i)) & 0xFF for yj in y],
+                                       dim=-1) for i in range(4)], dim=-2)
+        words |= byt.reshape(*u.shape[:-1], 32) << lo
+    return words
+
+
+def _plane_uint32s(planes: torch.Tensor, payload_bits: int,
+                   prefix_planes: Optional[int]):
+    """(..., G*P*16) uint8 planes -> (..., G, Pr, 4) int64: uint32 k of
+    plane row p of each group, rows P - Pr .. P - 1 (the draft's) only."""
+    P = payload_bits
+    Pr = P if prefix_planes is None else int(prefix_planes)
+    lead = planes.shape[:-1]
+    b = planes.reshape(*lead, -1, P, 4, 4)[..., P - Pr:, :, :].to(
+        torch.int64)
+    return b[..., 0] | (b[..., 1] << 8) | (b[..., 2] << 16) | (b[..., 3] << 24)
+
+
 def plane_words_swar(planes: torch.Tensor, payload_bits: int,
                      prefix_planes: Optional[int] = None) -> torch.Tensor:
     """The decode kernel's plane expansion: (..., P*16) uint8 planes ->
@@ -314,21 +342,54 @@ def plane_words_swar(planes: torch.Tensor, payload_bits: int,
     ``prefix_planes`` P' only planes P - P' .. P - 1 are read, as rows
     0 .. P' - 1: the P'-bit words of the draft geometry. Equal to
     ``plane_unpack_words`` (of ``prefix_plane_view``); for the tests."""
-    P = payload_bits
-    Pr = P if prefix_planes is None else int(prefix_planes)
-    lead = planes.shape[:-1]
-    b = planes.reshape(*lead, P, 4, 4)[..., P - Pr:, :, :].to(torch.int64)
-    u = b[..., 0] | (b[..., 1] << 8) | (b[..., 2] << 16) | (b[..., 3] << 24)
-    zero = torch.zeros_like(u[..., 0, :])
-    words = torch.zeros((*lead, 4, 32), dtype=torch.int64)
-    for lo in range(0, Pr, 8):
-        y = _swar_transpose8([u[..., lo + r, :] if lo + r < Pr else zero
-                              for r in range(8)])
-        # byte i of y[j][..., k] is the byte of lane 32k + 8i + j
-        byt = torch.stack([torch.stack([(yj >> (8 * i)) & 0xFF for yj in y],
-                                       dim=-1) for i in range(4)], dim=-2)
-        words |= byt.reshape(*lead, 4, 32) << lo
-    return words.reshape(*lead, GROUP).to(torch.int32)
+    Pr = payload_bits if prefix_planes is None else int(prefix_planes)
+    u = _plane_uint32s(planes, payload_bits, prefix_planes)[..., 0, :, :]
+    words = torch.stack([_swar_words32(u[..., k], Pr) for k in range(4)],
+                        dim=-2)
+    return words.reshape(*planes.shape[:-1], GROUP).to(torch.int32)
+
+
+class Chunk(NamedTuple):
+    """One 32-lane chunk of a head, on the absolute grid of the flattened
+    KH*hd axis: flat chunk ``index`` (uint32 ``index % 4`` of each plane
+    row of group ``index // 4``), and the head's features ``[lo, hi)`` in
+    it, at chunk lanes ``[lo + offset, hi + offset)``."""
+    index: int
+    lo: int
+    hi: int
+    offset: int
+
+
+def head_chunks(h: int, hd: int) -> Tuple[Chunk, ...]:
+    """The chunks head ``h`` covers (``csrc/packed_flash_decode.cu``: warp
+    c owns chunk c), in the order the kernel adds their partial scores:
+    ceil(hd / 32) of them, each in one 128-lane group. A head starting 16
+    lanes into a chunk (hd = 16 mod 32, odd h) has its first chunk's low
+    half from the previous head; one ending 16 lanes into a chunk its last
+    chunk's high half from the next."""
+    if hd % 16:
+        raise ValueError(f"head dim {hd} is not a multiple of 16")
+    C0, o = divmod(h * hd, 32)
+    return tuple(Chunk(C0 + c, max(0, 32 * c - o), min(hd, 32 * c - o + 32),
+                       o - 32 * c) for c in range(-(-hd // 32)))
+
+
+def head_words_swar(planes: torch.Tensor, payload_bits: int, h: int,
+                    hd: int, prefix_planes: Optional[int] = None
+                    ) -> torch.Tensor:
+    """The decode kernel's plane expansion for one head: (..., G*P*16)
+    uint8 planes of the flattened KH*hd axis -> (..., hd) int32 words of
+    head ``h``, chunk by chunk of ``head_chunks`` (each chunk's uint32 of
+    each plane row of its group, transposed whole; the lanes outside the
+    head are dropped). Equal to the head's slice of
+    ``plane_unpack_words``; for the tests."""
+    Pr = payload_bits if prefix_planes is None else int(prefix_planes)
+    u = _plane_uint32s(planes, payload_bits, prefix_planes)
+    parts = []
+    for ch in head_chunks(h, hd):
+        w = _swar_words32(u[..., ch.index // 4, :, ch.index % 4], Pr)
+        parts.append(w[..., ch.lo + ch.offset:ch.hi + ch.offset])
+    return torch.cat(parts, -1).to(torch.int32)
 
 
 def unpack_planes(planes: torch.Tensor, bases: torch.Tensor,

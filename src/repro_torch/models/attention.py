@@ -21,12 +21,16 @@ NEG_INF = -1e30
 def attn_init(cfg: ArchConfig, gen, device, dtype):
     d, hd = cfg.d_model, cfg.head_dim_
     H, KH = cfg.n_heads, cfg.n_kv_heads
-    return {
+    params = {
         "wq": common.normal_init((d, H * hd), gen, device, dtype),
         "wk": common.normal_init((d, KH * hd), gen, device, dtype),
         "wv": common.normal_init((d, KH * hd), gen, device, dtype),
         "wo": common.normal_init((H * hd, d), gen, device, dtype),
     }
+    if cfg.qk_norm:
+        params["q_norm"] = common.rmsnorm_init(hd, device, dtype)
+        params["k_norm"] = common.rmsnorm_init(hd, device, dtype)
+    return params
 
 
 def _project_qkv(params, h: torch.Tensor, cfg: ArchConfig,
@@ -36,6 +40,9 @@ def _project_qkv(params, h: torch.Tensor, cfg: ArchConfig,
     q = (h @ params["wq"]).reshape(B, S, H, hd)
     k = (h @ params["wk"]).reshape(B, S, KH, hd)
     v = (h @ params["wv"]).reshape(B, S, KH, hd)
+    if cfg.qk_norm:  # Gemma-style RMSNorms over the head dim, before RoPE
+        q = common.rmsnorm(params["q_norm"], q)
+        k = common.rmsnorm(params["k_norm"], k)
     q = common.rope(q, positions, cfg.rope_theta)
     k = common.rope(k, positions, cfg.rope_theta)
     return q, k, v

@@ -80,10 +80,12 @@ class DecoderModel:
         own compress/decompress pair in ``sfp_scan``, so a new plan needs
         only a new model."""
         bad = set(cfg.period) - {GLOBAL, LOCAL}
-        if bad or cfg.is_moe or not cfg.tie_embeddings or cfg.qk_norm:
+        if bad or cfg.is_moe or not cfg.tie_embeddings:
             raise NotImplementedError(
                 f"{cfg.name}: only dense GLOBAL/LOCAL attention models with "
-                f"tied embeddings are ported (got period {cfg.period})")
+                f"tied embeddings are ported (got period {cfg.period}, "
+                f"{cfg.n_experts} experts, tie_embeddings="
+                f"{cfg.tie_embeddings})")
         self.cfg = cfg
         self.policy = policies.coerce(policy)
         if self.policy.enabled and cfg.remainder:
@@ -284,10 +286,13 @@ class DecoderModel:
 
     def layer_param_count(self) -> int:
         """Parameters of one layer (every GLOBAL/LOCAL layer has the same:
-        two norms, the four attention projections and the MLP)."""
+        two norms, the four attention projections, the q/k norms with
+        ``qk_norm``, and the MLP)."""
         cfg = self.cfg
         d, hd = cfg.d_model, cfg.head_dim_
         attn = 2 * d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd
+        if cfg.qk_norm:
+            attn += 2 * hd
         mlp = (3 if cfg.glu else 2) * d * cfg.d_ff
         return 2 * d + attn + mlp
 

@@ -156,14 +156,20 @@ def run(mode: str, steps: int = 80, seed: int = 0,
         ) -> Dict[str, Any]:
     """Train ``cfg`` for ``steps`` steps of ``batch`` synthetic images
     under ``mode``; returns the per-step history (loss, acc, mean QM bits,
-    BitChop bits), the final parameters and the final bitlengths."""
+    BitChop bits), the final parameters and the final bitlengths. The
+    weights and images are drawn on the CPU and moved to ``device``, so a
+    seed names the same run on every device (a CUDA generator draws other
+    numbers); QM's draws come from the device's generator."""
     dev = resolve_device(device)
-    model = cnn_mod.CNN(cfg, policies.get(mode, container="bit_exact"), dev)
-    state = init_state(model, seed)
+    pol = policies.get(mode, container="bit_exact")
+    model = cnn_mod.CNN(cfg, pol, dev)
+    params = _moved(cnn_mod.CNN(cfg, pol, "cpu").init(seed), dev)
+    state = init_state(model, seed, params=params)
     step = make_step(model, mode)
     hist: List[Dict[str, float]] = []
     for i in range(steps):
-        state, m = step(state, batch_at(cfg, seed, i, batch, dev))
+        state, m = step(state, _moved(batch_at(cfg, seed, i, batch, "cpu"),
+                                      dev))
         hist.append({"loss": float(m["loss"]), "acc": float(m["acc"]),
                      "qm_bits": float(m["qm_bits"]),
                      "bc_bits": int(m["bc_bits"])})
@@ -175,6 +181,12 @@ def run(mode: str, steps: int = 80, seed: int = 0,
             "final_bc_bits": int(state.bc.n)}
 
 
+def _moved(tree, device):
+    if isinstance(tree, dict):
+        return {k: _moved(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
 def _detached(tree):
     if isinstance(tree, dict):
         return {k: _detached(v) for k, v in tree.items()}
@@ -183,14 +195,16 @@ def _detached(tree):
 
 def stash(params, mode: str, act_bits=None,
           device: Optional[Union[str, torch.device]] = None) -> List[Dict]:
-    """The stash of a ResNet-8 forward over 8 images (seed 7, draws seed 8)
-    with ``params`` (e.g. ``run(...)["params"]``): QM quantizes at ``act_bits``
-    (None, a number or ``{site: bits}``); every other mode stashes full
-    precision, and BitChop's bits are priced by ``stash_footprint``."""
+    """The stash of a ResNet-8 forward over 8 images (seed 7 on the CPU,
+    draws seed 8 on the device) with ``params`` (e.g.
+    ``run(...)["params"]``): QM quantizes at ``act_bits`` (None, a number
+    or ``{site: bits}``); every other mode stashes full precision, and
+    BitChop's bits are priced by ``stash_footprint``."""
     dev = resolve_device(device)
     cfg = cnn_mod.RESNET8
     model = cnn_mod.CNN(cfg, "qm" if mode == "qm" else "none", dev)
-    images = cnn_mod.synthetic_images(_generator(dev, 7), 8, cfg, dev)
+    images = _moved(cnn_mod.synthetic_images(_generator("cpu", 7), 8, cfg,
+                                             "cpu"), dev)
     if isinstance(act_bits, dict):
         bits = {k: torch.tensor(v, dtype=torch.float32, device=dev)
                 for k, v in act_bits.items()}

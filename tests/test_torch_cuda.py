@@ -645,3 +645,99 @@ def test_compress_grads_kernel_vs_plain(dev, codec):
             assert torch.equal(out[None][part][k].view(torch.int32),
                                out["plain"][part][k].view(torch.int32)), \
                 (codec, part, k)
+
+
+# Head dims of 16 (mod 32): gemma3-12b's 240 (16 q / 8 KV heads) and
+# gemma2-27b's 144 (32 / 16). The attention kernels run them in tiles of
+# 256 and 160 columns with the last 16 zero-filled; the decode counts
+# 32-lane chunks on the cache's absolute grid, so odd heads start 16 lanes
+# into a chunk. No softcap, as these configs have none.
+HD16 = [(240, 16, 8), (144, 32, 16)]
+
+
+@pytest.mark.parametrize("hd,H,KH", HD16)
+@pytest.mark.parametrize("window", [None, 24])
+def test_flash_attention_hd16_no_softcap(dev, hd, H, KH, window):
+    """Forward within one bf16 ulp of plain with its log-sum-exp, backward
+    within 2^-6; bit-equal twice and row by row against the batch."""
+    B, S, rep = 2, 129, H // KH
+    q, k, v, do = _attention_inputs(dev, 17, B, S, KH, hd, rep)
+    kw = dict(causal=True, window=window, softcap=None, q_rep=rep)
+
+    def run(sl):
+        a, b_, c, g = (t[sl].contiguous() for t in (q, k, v, do))
+        o, lse = fa._forward(a, b_, c, True, window, None, rep,
+                             with_lse=True)
+        return (o, lse, *fa.flash_attention_bwd(a, b_, c, o, g, lse, **kw))
+
+    full = run(slice(None))
+    _close(full[0], fa.plain(q, k, v, **kw))
+    torch.testing.assert_close(full[1], _plain_lse(q, k, hd, rep, window,
+                                                   None),
+                               atol=1e-4, rtol=1e-5)
+    for a, b in zip(full[2:], fa.plain_bwd(q, k, v, do, **kw)):
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= 2 ** -6 * b.float().abs().max().item(), err
+    for x, y in zip(full, run(slice(None))):
+        assert torch.equal(x, y)
+    for r in range(B):
+        for i, (x, y) in enumerate(zip(run(slice(r, r + 1)), full)):
+            want = y[r * KH:(r + 1) * KH] if i == 1 else y[r:r + 1]
+            assert torch.equal(x, want), (r, i)
+
+
+@pytest.mark.parametrize("hd,H,KH", HD16)
+@pytest.mark.parametrize("container,draft", [("sfp8", None), ("sfp8", 7),
+                                             ("sfp-m2e4", None),
+                                             ("sfp-m2e4", 6),
+                                             ("sfp16", None)])
+@pytest.mark.parametrize("window,pos", [(None, [1151, 0, 128, 700]),
+                                        (512, [3000, 511, 1500, 77])])
+def test_decode_hd16(dev, hd, H, KH, container, draft, window, pos):
+    """Contiguous and ring reads: within one bf16 ulp of plain, each row
+    alone bit-equal to the batch, two launches bit-equal."""
+    g = torch.Generator(device=dev).manual_seed(18)
+    B, L = len(pos), 1152 if window is None else window
+    f = fields_for(container, torch.bfloat16)
+    kp, vp = (ops.sfp_compress_nd(_moderate(dev, g, (B, L, KH * hd)), f)
+              for _ in range(2))
+    q = (torch.randn((B, 1, H, hd), generator=g, device=dev) * 3
+         ).to(torch.bfloat16)
+    decode, _ = _decoders(f)
+    p = torch.tensor(pos, dtype=torch.int32, device=dev)
+    parts = (kp.payload, kp.bases, vp.payload, vp.bases)
+    kw = dict(window=window, softcap=None, prefix_planes=draft)
+    got = decode(q, *parts, p, f, **kw)
+    assert torch.equal(got, decode(q, *parts, p, f, **kw))
+    for r in range(B):
+        one = decode(q[r:r + 1].contiguous(),
+                     *(t[r:r + 1].contiguous() for t in parts),
+                     p[r:r + 1].contiguous(), f, **kw)
+        assert torch.equal(one, got[r:r + 1]), r
+    _close(got, pfd.plain(q, *parts, p, f, **kw))
+
+
+@pytest.mark.parametrize("hd,H,KH", HD16)
+@pytest.mark.parametrize("container,draft", [("sfp8", None), ("sfp8", 7),
+                                             ("sfp-m2e4", None),
+                                             ("sfp-m2e4", 6)])
+def test_paged_hd16_vs_contiguous(dev, hd, H, KH, container, draft):
+    """The paged read over trash-block rows: bit-equal to the contiguous
+    kernel over the gathered cache, within one bf16 ulp of plain."""
+    g = torch.Generator(device=dev).manual_seed(19)
+    n_phys, bl = 12, 128
+    f = fields_for(container, torch.bfloat16)
+    kp, vp = (ops.sfp_compress_nd(_moderate(dev, g, (n_phys, bl, KH * hd)),
+                                  f) for _ in range(2))
+    q = (torch.randn((4, 1, H, hd), generator=g, device=dev) * 3
+         ).to(torch.bfloat16)
+    tables = torch.tensor([[3, 7, 1, 5], [8, 2, 0, 0], [4, 0, 0, 0],
+                           [0, 0, 0, 0]], dtype=torch.int32, device=dev)
+    pos = torch.tensor([511, 140, 127, 0], dtype=torch.int32, device=dev)
+    decode, paged = _decoders(f)
+    pool = (kp.payload, kp.bases, vp.payload, vp.bases)
+    kw = dict(softcap=None, prefix_planes=draft)
+    got = paged(q, *pool, tables, pos, f, **kw)
+    gathered = [ref.paged_gather(t, tables).contiguous() for t in pool]
+    assert torch.equal(got, decode(q, *gathered, pos, f, block_l=bl, **kw))
+    _close(got, pfd.plain_paged(q, *pool, tables, pos, f, **kw))

@@ -384,3 +384,39 @@ def test_checkpoint_slice_imports(rel):
     if rel == "obs/validate.py":
         assert mods <= {"__future__", "argparse", "json", "re", "sys",
                         "pathlib", "typing"}, mods
+
+
+@pytest.mark.parametrize("cut", [None, dict(), dict(n_layers=12,
+                                                    d_model=256)])
+def test_gemma3_12b_config_matches_jax(cut):
+    """The port's registry has gemma3-12b, field for field JAX's (head dim
+    240, QK norm, no softcaps, a 5:1 period), also as the launchers' tiny
+    and small presets cut it."""
+    assert "gemma3-12b" in tconfigs.base._REGISTRY
+    jc, tc = jconfigs.get("gemma3-12b"), tconfigs.get("gemma3-12b")
+    if cut is not None:
+        jc, tc = jreduced(jc, **cut), treduced(tc, **cut)
+    _same_fields(jc, tc)
+    assert tc.layer_kinds() == tuple(
+        jc.period[i % len(jc.period)] for i in range(jc.n_layers))
+    assert not tc.remainder
+
+
+@pytest.mark.parametrize("container", ["sfp8", "sfp-m2e4"])
+def test_gemma3_launchers_run_on_cpu_when_asked(monkeypatch, container):
+    """``launch.serve`` and ``launch.train --preset tiny`` take
+    ``--arch gemma3-12b`` as they take gemma2-2b."""
+    _no_gpu(monkeypatch)
+    rep = tserve.run_batch(tserve.build_parser().parse_args(
+        ["--arch", "gemma3-12b", "--preset", "tiny", "--batch", "2",
+         "--prompt-len", "40", "--max-new", "3", "--kv-container",
+         container, "--device", "cpu"]))
+    assert rep["tokens"] == 6 and len(rep["sample"]) == 3
+    policy = "qm" if container == "sfp8" else "qm+qe"
+    out = ttrain.main(["--arch", "gemma3-12b", "--preset", "tiny",
+                       "--policy", policy, "--container", container,
+                       "--steps", "1", "--device", "cpu"])
+    assert len(out["history"]) == 1
+    assert np.isfinite(out["history"][0]["loss"])
+    assert out["state"].params["layers"][0]["attn"]["q_norm"][
+        "scale"].shape == (32,)
