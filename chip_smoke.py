@@ -8,12 +8,14 @@
     python3 chip_smoke.py --phase ckpt [--src DIR]
     python3 chip_smoke.py --phase gradc [--src DIR]
     python3 chip_smoke.py --phase gemma3 [--src DIR]
+    python3 chip_smoke.py --phase gemma2_27b [--src DIR]
+    python3 chip_smoke.py --phase mistral [--src DIR]
 
 The other forms run only the Gecko kernel checks and timings of step 5,
 or only the dense bit-plane or the fixed-lane word ones of step 2, or
 only the CNN phase of step 8, or only the checkpoint phase of step 9, or
 only the compressed-gradient and AdaptivFloat phase of step 10, or only
-the gemma3-12b phase of step 11,
+the gemma3-12b, gemma2-27b or mistral-large-123b phase of steps 11-13,
 against the ``repro_torch`` package under DIR (default: this checkout's
 ``src``), so two trees can be timed by the same code on one card.
 
@@ -170,6 +172,33 @@ against the ``repro_torch`` package under DIR (default: this checkout's
    held to a prefill with attention in f64, E2E_MAX); (c) training at full widths, one 6-layer period, B 2, S
    2048: 4 steps of qm + sfp8 and of qm+qe + sfp-m2e4 (with the
    attention-plain witness) against the plain path.
+12. gemma2-27b (32 q / 16 KV heads of 144, softcaps 50 / 30, window
+   4096; after step 11): (a) the attention forward and backward with the
+   softcap at its training shape (B 2, S 2048, windows None and 1024),
+   held, counted and timed (no library call has a softcap), and at the
+   serving prefill's (B 1, S 4224, windows None and 4096), held; the
+   decode reads at head dim 144 with the softcap (words and planes, full
+   width and draft, the 4352-slot global cache and the 4096-slot ring),
+   held and timed as in step 2; (b) serving all 46 layers (55.1 GB of
+   bf16 weights), batch 2, 4224-token prompts (past the window: the
+   local layers mask in prefill and their rings wrap), 64 new tokens,
+   from an sfp8 cache, against the plain path (which, in every serving
+   run, prefills one request at a time and decodes as one batch);
+   (c) training at full widths over 4 layers (two periods), B 2, S 2048,
+   4 steps of qm + sfp8 against the plain path.
+13. mistral-large-123b (96 q / 8 KV heads of 128, GQA rep 12, an untied
+   head, no softcaps): (a) the attention forward and backward at its
+   training shape (B 2, S 2048) held, counted and timed beside
+   scaled_dot_product_attention on its flash backend; every decode read
+   at rep 12 (words and planes, full width and draft, contiguous 2176
+   slots, a 1024-slot ring, paged on the 8 x 1280 pool) held and timed as
+   in step 2, and rep 17 refused; (b) serving 16 of 88 layers (45.9 GB
+   with embed and head), batch 4, 2048-token prompts, 64 new tokens,
+   from an sfp8 and an sfp-m2e4 cache, against the plain path (no final
+   softcap: the prefill logits are also held to an f64-attention
+   prefill); (c) training at full widths over 2
+   layers, B 2, S 2048: 4 steps of qm + sfp8 and of qm+qe + sfp-m2e4
+   (with the attention-plain witness) against the plain path.
 
 Any failure exits non-zero. The last line is the device JSON.
 """
@@ -1374,11 +1403,12 @@ def stream_agreement(torch, toks, ref, what):
     difference per row, share of equal tokens)."""
     margins = ref.margins.cpu()
     diff = (toks != ref.tokens).cpu()
+    rows, new = toks.shape
     agree = []
-    for b in range(B):
+    for b in range(rows):
         idx = torch.nonzero(diff[b]).flatten()
-        t = int(idx[0]) if len(idx) else MAX_NEW
-        if t < MAX_NEW and margins[b, t] >= 2 * E2E_MAX:
+        t = int(idx[0]) if len(idx) else new
+        if t < new and margins[b, t] >= 2 * E2E_MAX:
             fail(f"row {b}: token {t} differs from the {what} run with "
                  f"margin {margins[b, t].item():.3f}")
         agree.append(t)
@@ -1434,12 +1464,53 @@ def raw_cache_check(torch, cfg, model, params, prompt, toks):
             "token_agreement_vs_raw_cache": same}
 
 
-def serve_run(torch, cfg, gen, counters, container, prompt_len=PROMPT):
+def cat_rows(torch, parts):
+    """The batch rows of several caches (tensors, packed tensors and
+    NamedTuples of them, batch first) concatenated."""
+    from repro_torch.codecs.base import PackedTensor
+    x = parts[0]
+    if isinstance(x, torch.Tensor):
+        return torch.cat(parts)
+    if isinstance(x, PackedTensor):
+        return PackedTensor(x.codec, (sum(p.shape[0] for p in parts),
+                                      *x.shape[1:]), x.dtype,
+                            {k: torch.cat([p.data[k] for p in parts])
+                             for k in x.data})
+    return type(x)(*(cat_rows(torch, list(f)) for f in zip(*parts)))
+
+
+@contextlib.contextmanager
+def prefill_by_rows(torch, model):
+    """Within the block, ``model.prefill`` runs one request at a time and
+    returns the rows' logits and caches concatenated: the plain path's
+    attention materializes B x H x S^2 f32 scores, which beside a large
+    model's weights fit the card one request at a time. The decode steps
+    still run as one batch (each row's stream is independent of the
+    others)."""
+    prefill = model.prefill
+
+    def rows(params, tokens, max_len):
+        outs = [prefill(params, tokens[r:r + 1], max_len)
+                for r in range(tokens.shape[0])]
+        layers = [cat_rows(torch, [o[1]["layers"][i] for o in outs])
+                  for i in range(len(outs[0][1]["layers"]))]
+        return torch.cat([o[0] for o in outs]), {"layers": layers}
+    model.prefill = rows
+    try:
+        yield
+    finally:
+        del model.prefill
+
+
+def serve_run(torch, cfg, gen, counters, container, prompt_len=PROMPT,
+              batch=B):
     """``cfg`` at full width through engine.generate from a ``container``
-    KV cache, batch B, ``prompt_len``-token prompts; returns the e2e
-    record and the serving kernels' launches. A codec without a
+    KV cache, ``batch`` rows of ``prompt_len``-token prompts; returns the
+    e2e record and the serving kernels' launches. A codec without a
     fixed-width payload (gecko8) takes the unpack fallback and is also
-    held to a raw bf16 cache (``raw_cache_check``)."""
+    held to a raw bf16 cache (``raw_cache_check``). The plain path (and
+    the f64-attention prefill) prefills one request at a time
+    (``prefill_by_rows``)."""
     from repro_torch import codecs
     from repro_torch.kernels import ops
     from repro_torch.models.model import DecoderModel
@@ -1448,7 +1519,7 @@ def serve_run(torch, cfg, gen, counters, container, prompt_len=PROMPT):
     fields = codecs.get(container).pack_fields(cfg.compute_dtype)
     model = DecoderModel(cfg, kv_container=container, device=dev)
     params = model.init(SEED)
-    prompt = torch.randint(0, cfg.vocab, (B, prompt_len), generator=gen,
+    prompt = torch.randint(0, cfg.vocab, (batch, prompt_len), generator=gen,
                            device=dev)
     engine.generate(model, params, prompt[:, :64], 2)      # warm-up
     for c in counters:
@@ -1474,7 +1545,7 @@ def serve_run(torch, cfg, gen, counters, container, prompt_len=PROMPT):
     if launches != expect:
         fail(f"serving launch counts {launches} != expected {expect}")
     toks = res.tokens
-    if toks.shape != (B, MAX_NEW) or not bool(
+    if toks.shape != (batch, MAX_NEW) or not bool(
             ((toks >= 0) & (toks < cfg.vocab)).all()):
         fail(f"bad tokens {tuple(toks.shape)}")
     if not torch.isfinite(res.prefill_logits).all():
@@ -1497,7 +1568,8 @@ def serve_run(torch, cfg, gen, counters, container, prompt_len=PROMPT):
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        plain_res = engine.generate(model, params, prompt, MAX_NEW)
+        with prefill_by_rows(torch, model):
+            plain_res = engine.generate(model, params, prompt, MAX_NEW)
         torch.cuda.synchronize()
         plain_s = time.perf_counter() - t0
     finally:
@@ -1507,8 +1579,10 @@ def serve_run(torch, cfg, gen, counters, container, prompt_len=PROMPT):
     d = (res.prefill_logits - plain_res.prefill_logits).abs()
     lim_max, lim_mean, exact = E2E_MAX, E2E_MEAN, {}
     if cfg.final_softcap is None:
-        dx = (exact_prefill(torch, model, params, prompt, prompt_len
-                            + MAX_NEW) - plain_res.prefill_logits).abs()
+        with prefill_by_rows(torch, model):
+            dx = (exact_prefill(torch, model, params, prompt,
+                                prompt_len + MAX_NEW)
+                  - plain_res.prefill_logits).abs()
         lim_max = max(lim_max, 2 * dx.max().item())
         lim_mean = max(lim_mean, 2 * dx.mean().item())
         exact = {"exact_attention_prefill_logit_max_diff": dx.max().item(),
@@ -1518,17 +1592,20 @@ def serve_run(torch, cfg, gen, counters, container, prompt_len=PROMPT):
         fail(f"prefill logits: max {d.max().item():.4f} mean "
              f"{d.mean().item():.4f} over {lim_max:.4f}/{lim_mean:.4f}")
     agree, same = stream_agreement(torch, toks, plain_res, "plain")
-    e2e = {"arch": cfg.name, "layers": cfg.n_layers, "batch": B,
+    e2e = {"arch": cfg.name, "layers": cfg.n_layers, "batch": batch,
            "prompt": prompt_len, "max_new": MAX_NEW, "kv": container,
            "total_s": total_s, "prefill_ms": prefill_ms,
            "decode_ms_per_step": decode_ms,
-           "tok_per_s": B * MAX_NEW / total_s, "plain_total_s": plain_s,
+           "tok_per_s": batch * MAX_NEW / total_s, "plain_total_s": plain_s,
            "prefill_logit_max_diff": d.max().item(),
            "prefill_logit_mean_diff": d.mean().item(),
            "prefill_logit_limits": [lim_max, lim_mean], **exact,
            "plain_prefill_logit_max_abs": plain_res.prefill_logits[
                :, :cfg.vocab].abs().max().item(),
            "tokens_equal_before_first_difference": agree,
+           "plain_margin_at_first_difference": [
+               plain_res.margins[b, t].item() if t < MAX_NEW else None
+               for b, t in enumerate(agree)],
            "token_agreement": same, "launches": launches,
            "peak_mem_gb": peak_gb}
     if fields is None:
@@ -1963,34 +2040,45 @@ def sdpa_flash(torch, q, k, v, rep):
     return call, (qs, ks, vs), out, folded
 
 
-def gemma3_attention(torch, cfg, gen):
-    """Row 8 at gemma3-12b's training shape (B 2, S 2048; windows None and
-    1024) and at gemma2-27b's heads (B 2, S 1024), held and timed; the
-    global layer's shape is also timed on SDPA's flash backend."""
+def attention_timed(torch, gen, label, what, Bt, S, H, KH, hd, windows,
+                    softcap=None):
+    """Row 8 at (Bt, S, H, KH, hd), folded as ops.attention folds GQA:
+    held for each window (``attention_at``); the window None forward's
+    outputs that round away from plain's bf16 and from the f64
+    function's counted; forward and backward timed beside plain and,
+    without a softcap, SDPA's flash backend with ``enable_gqa`` (the same
+    function; SDPA has no softcap, so with one ``library_ms`` is None).
+    Returns {"flash_attention": ..., "flash_attention_bwd": ...}."""
     from repro_torch.kernels import flash_attention as fa
-    H, KH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
-    rep, Bt, S = H // KH, G3_TRAIN_B, G3_TRAIN_SEQ
+    rep = H // KH
     (q, k, v, do), (o, lse), errs = attention_at(
-        torch, gen, f"gemma3 hd {hd}", Bt, S, H, KH, hd, (None, cfg.window))
-    kw = dict(causal=True, window=None, softcap=None, q_rep=rep)
+        torch, gen, what, Bt, S, H, KH, hd, windows, softcap)
+    kw = dict(causal=True, window=None, softcap=softcap, q_rep=rep)
     want = fa.plain(q, k, v, **kw)
-    exact = attention_f64(torch, q, k, v, rep, None).to(torch.bfloat16)
+    exact = attention_f64(torch, q, k, v, rep, softcap).to(torch.bfloat16)
     flips = ((o != want).sum().item(), (o != exact).sum().item(),
              (want != exact).sum().item())
     del exact
-    print(f"  flash_attention gemma3 window=None: {flips[0]} of {o.numel()} "
-          f"outputs round to another bf16 than the plain version's; "
-          f"against the f64 function rounded once, kernel {flips[1]}, "
-          f"plain {flips[2]}")
-    # The yardstick must compute the same function: held loosely (its P
-    # enters P V as one bf16 term, 2^-9 relative).
-    call, leaves, so, folded = sdpa_flash(torch, q, k, v, rep)
-    sdpa_err = (folded.float() - want.float()).abs().max().item()
-    if not sdpa_err <= SDPA_TOL * want.float().abs().max().item():
-        fail(f"scaled_dot_product_attention (flash) is {sdpa_err:.3e} off "
-             f"the plain version: not the kernels' function")
+    print(f"  flash_attention {what} window=None: {flips[0]} of "
+          f"{o.numel()} outputs round to another bf16 than the plain "
+          f"version's; against the f64 function rounded once, kernel "
+          f"{flips[1]}, plain {flips[2]}")
+    fwd_lib = bwd_lib = sdpa_err = None
+    if softcap is None:
+        # The yardstick must compute the same function: held loosely (its
+        # P enters P V as one bf16 term, 2^-9 relative).
+        call, leaves, so, folded = sdpa_flash(torch, q, k, v, rep)
+        sdpa_err = (folded.float() - want.float()).abs().max().item()
+        if not sdpa_err <= SDPA_TOL * want.float().abs().max().item():
+            fail(f"scaled_dot_product_attention (flash) is {sdpa_err:.3e} "
+                 f"off the plain version: not the kernels' function")
+        del folded
+        gs = torch.randn_like(so)
+        fwd_lib = time_ms(torch, call, reps=10)
+        bwd_lib = time_ms(torch, lambda: torch.autograd.grad(
+            so, leaves, gs, retain_graph=True), reps=5)
+        del so, leaves, gs
     del want
-    gs = torch.randn_like(so)
     pairs = S * (S + 1) // 2
     flops_f, flops_b = 2 * 2 * Bt * H * hd * pairs, 2 * 5 * Bt * H * hd * pairs
     out = {}
@@ -1998,8 +2086,8 @@ def gemma3_attention(torch, cfg, gen):
                           reps=10),
                plain_ms=time_ms(torch, lambda: fa.plain(q, k, v, **kw),
                                 reps=2),
-               library_ms=time_ms(torch, call, reps=10),
-               max_abs_err=errs[0], sdpa_max_abs_err_vs_plain=sdpa_err,
+               library_ms=fwd_lib, max_abs_err=errs[0],
+               sdpa_max_abs_err_vs_plain=sdpa_err,
                flips_vs_plain_kernel_vs_f64_plain_vs_f64=flips)
     fwd["bound_ms"], fwd["bound_by"] = bound(
         flops_f, 2 * (2 * q.numel() + k.numel() + v.numel()))
@@ -2007,23 +2095,35 @@ def gemma3_attention(torch, cfg, gen):
                    q, k, v, o, do, lse, **kw), reps=5),
                plain_ms=time_ms(torch, lambda: fa.plain_bwd(
                    q, k, v, do, **kw), reps=2),
-               library_ms=time_ms(torch, lambda: torch.autograd.grad(
-                   so, leaves, gs, retain_graph=True), reps=5),
-               max_abs_err=errs[1])
+               library_ms=bwd_lib, max_abs_err=errs[1])
     bwd["bound_ms"], bwd["bound_by"] = bound(
         flops_b, 2 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel()
                       + o.numel() + do.numel()) + 4 * lse.numel())
+    cap = "no softcap" if softcap is None else f"softcap {softcap:g}"
     for name, r, flops in (("flash_attention", fwd, flops_f),
                            ("flash_attention_bwd", bwd, flops_b)):
-        r["shape"] = (f"gemma3-12b global layer: B {Bt}, S {S}, {H} q / {KH} "
-                      f"KV heads of {hd}, causal, no softcap")
+        r["shape"] = (f"{label}: B {Bt}, S {S}, {H} q / {KH} KV heads of "
+                      f"{hd}, causal, {cap}")
         r["tflops"] = flops / r["ms"] / 1e9
         r["share_of_bound"] = r["bound_ms"] / r["ms"]
-        print(f"  {name} gemma3: {r['ms']:.4f} ms, bound {r['bound_ms']:.4f}"
-              f", SDPA flash {r['library_ms']:.4f}, plain "
+        lib = ("none (softcap)" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f}")
+        print(f"  {name} {what}: {r['ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f}, SDPA flash {lib}, plain "
               f"{r['plain_ms']:.3f} ({r['tflops']:.1f} TFLOP/s)")
         out[name] = r
-    del q, k, v, do, o, lse, so, leaves, gs
+    return out
+
+
+def gemma3_attention(torch, cfg, gen):
+    """Row 8 at gemma3-12b's training shape (B 2, S 2048; windows None and
+    1024), held and timed (``attention_timed``), and at gemma2-27b's heads
+    (B 2, S 1024) without a softcap, held."""
+    H, KH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    out = attention_timed(torch, gen, "gemma3-12b global layer",
+                          f"gemma3 hd {hd}", G3_TRAIN_B, G3_TRAIN_SEQ, H, KH,
+                          hd, (None, cfg.window))
+    torch.cuda.empty_cache()
     H27, KH27, hd27 = G27_HEADS
     _, _, errs27 = attention_at(torch, gen, f"gemma2-27b hd {hd27}", 2,
                                 G27_SEQ, H27, KH27, hd27, (None, 512))
@@ -2040,9 +2140,10 @@ def decode_cache(torch, gen, f, Bc, L, D):
             for _ in range(2)]
 
 
-def decode_reads(torch, gen, flush, what, H, KH, hd, reads, containers):
+def decode_reads(torch, gen, flush, what, H, KH, hd, reads, containers,
+                 softcap=None):
     """The contiguous decode (words and planes; full width, draft, and
-    P' = P against full width) at head dim ``hd``, no softcap, for each
+    P' = P against full width) at head dim ``hd`` and ``softcap``, for each
     (label, L, window, positions) of ``reads``: within one bf16 ulp of
     plain, bit-equal over two launches and row by row against the batch;
     each full and draft read timed with its byte bound. Returns the
@@ -2068,7 +2169,7 @@ def decode_reads(torch, gen, flush, what, H, KH, hd, reads, containers):
             pos = torch.tensor(positions, dtype=torch.int32, device=dev)
             full = None
             for pp in (None, draft, f.payload_bits):
-                kw = dict(window=window, softcap=None, prefix_planes=pp)
+                kw = dict(window=window, softcap=softcap, prefix_planes=pp)
                 tag = f"{fn.__name__} {what} {label} prefix_planes={pp}"
                 got = fn(*args, pos, f, **kw)
                 err = check_close(torch, tag, got,
@@ -2104,7 +2205,7 @@ def decode_reads(torch, gen, flush, what, H, KH, hd, reads, containers):
     return out
 
 
-def paged_reads(torch, gen, flush, H, KH, hd):
+def paged_reads(torch, gen, flush, H, KH, hd, what=None):
     """The paged decode (words, planes; full width and draft) at head dim
     ``hd`` on the paged phase's 8 x 1280-slot pool with trash-block rows:
     bit-equal to the contiguous kernel over the gathered cache, within
@@ -2131,7 +2232,8 @@ def paged_reads(torch, gen, flush, H, KH, hd):
         paged = getattr(pfd, "paged_flash_decode" + suffix)
         for pp in (None, draft):
             kw = dict(softcap=None, prefix_planes=pp)
-            tag = f"paged_flash_decode{suffix} hd {hd} prefix_planes={pp}"
+            tag = (f"paged_flash_decode{suffix} {what or f'hd {hd}'} "
+                   f"prefix_planes={pp}")
             got = paged(q, *pool, tables, pos, f, **kw)
             if not torch.equal(got, contiguous(q, *gathered, pos, f,
                                                block_l=bl, **kw)):
@@ -2215,6 +2317,151 @@ def gemma3_phase(torch, counters, card, gen, flush):
             torch, cfg, counters, policy=policy, container=container,
             steps=TRAIN_STEPS, bits={"qm": QM_INIT_BITS}, witness=witness,
             batch=G3_TRAIN_B, seq=G3_TRAIN_SEQ, depth=G3_TRAIN_LAYERS)
+        e2e["card"] = card
+        print(f"{path}: " + json.dumps(e2e))
+        print(f"{path}: {time.perf_counter() - t0:.1f} s")
+        summary[path] = e2e
+        torch.cuda.empty_cache()
+    return summary, launches
+
+
+# The last dense configs. gemma2-27b (32 q / 16 KV heads of 144,
+# softcaps 50 / 30, window 4096, tied embeddings) is served whole: its 46
+# layers are 55.1 GB of bf16 weights, batch 2, from 4224-token prompts,
+# past the window, so the local layers mask in prefill and their rings
+# wrap in decode. It trains at full widths over 4 of its 46 layers (two
+# LOCAL/GLOBAL periods; 46 layers and AdamW's moments need ~330 GB).
+# mistral-large-123b (96 q / 8 KV heads of 128, GQA rep 12, an untied
+# head, no softcaps) is served at 16 of its 88 layers (45.9 GB with embed
+# and head; 88 layers are 245 GB), batch 4, 2048-token prompts, and
+# trained at 2.
+G27_ARCH, G27_SERVE_B, G27_PROMPT = "gemma2-27b", 2, 4224
+G27_TRAIN_B, G27_TRAIN_SEQ, G27_TRAIN_LAYERS = 2, 2048, 4
+G27_GLOBAL_POS = (4351, 4287, 4223, 900)
+G27_RING_POS = (5000, 4287, 4095, 2000)
+MI_ARCH, MI_SERVE_LAYERS, MI_SERVE_B, MI_PROMPT = (
+    "mistral-large-123b", 16, 4, 2048)
+MI_TRAIN_B, MI_TRAIN_SEQ, MI_TRAIN_LAYERS = 2, 2048, 2
+
+
+def gemma2_27b_kernels(torch, cfg, gen, flush):
+    """Row 8 at gemma2-27b's heads with its softcap of 50: the training
+    shape (B 2, S 2048; windows None and 1024) held and timed, the
+    serving prefill's (B 1, S 4224; windows None and 4096) held; rows 9
+    words and planes at head dim 144 with the softcap, over the global
+    cache and the 4096-slot ring."""
+    from repro_torch.configs.base import GLOBAL, LOCAL
+    from repro_torch.serve import kvcache
+    H, KH, hd, cap = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_,
+                      cfg.attn_softcap)
+    t0 = time.perf_counter()
+    what = f"gemma2-27b hd {hd} softcap {cap:g}"
+    out = {"attention": attention_timed(
+        torch, gen, "gemma2-27b layer", what, G27_TRAIN_B, G27_TRAIN_SEQ, H,
+        KH, hd, (None, 1024), cap)}
+    torch.cuda.empty_cache()
+    _, _, out["prefill_max_abs_err"] = attention_at(
+        torch, gen, f"{what} prefill", 1, G27_PROMPT, H, KH, hd,
+        (None, cfg.window), cap)
+    torch.cuda.empty_cache()
+    max_len = G27_PROMPT + MAX_NEW
+    out["decode"] = decode_reads(
+        torch, gen, flush, what, H, KH, hd,
+        (("global", kvcache.cache_len(cfg, GLOBAL, max_len), None,
+          G27_GLOBAL_POS),
+         ("ring", kvcache.cache_len(cfg, LOCAL, max_len), cfg.window,
+          G27_RING_POS)), (CONTAINER, DENSE), softcap=cap)
+    torch.cuda.empty_cache()
+    print(f"gemma2-27b kernel checks: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def mistral_kernels(torch, cfg, gen, flush):
+    """Rows 8-10 at mistral-large-123b's heads (96 q / 8 KV heads of 128,
+    GQA rep 12): the attention forward and backward at its training shape
+    (B 2, S 2048) held and timed beside SDPA; every decode read (words
+    and planes, full width and draft, contiguous 2176 slots, a 1024-slot
+    ring, paged on the 8 x 1280 pool) held and timed; a rep past the
+    kernels' 16 raises."""
+    from repro_torch.codecs import fields_for
+    from repro_torch.configs.base import GLOBAL
+    from repro_torch.kernels import packed_flash_decode as pfd
+    from repro_torch.serve import kvcache
+    H, KH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    rep = H // KH
+    t0 = time.perf_counter()
+    what = f"mistral hd {hd} rep {rep}"
+    out = {"attention": attention_timed(
+        torch, gen, "mistral-large-123b layer", what, MI_TRAIN_B,
+        MI_TRAIN_SEQ, H, KH, hd, (None,))}
+    torch.cuda.empty_cache()
+    L = kvcache.cache_len(cfg, GLOBAL, MI_PROMPT + MAX_NEW)       # 2176
+    out["decode"] = decode_reads(
+        torch, gen, flush, what, H, KH, hd,
+        (("global", L, None, G3_GLOBAL_POS),
+         ("ring", 1024, 1024, G3_RING_POS)), (CONTAINER, DENSE))
+    out["paged"] = paged_reads(torch, gen, flush, H, KH, hd, what=what)
+    f = fields_for(CONTAINER, torch.bfloat16)
+    kp, vp = decode_cache(torch, gen, f, 1, 128, KH * hd)
+    q = torch.zeros((1, 1, (pfd.MAX_REP + 1) * KH, hd), dtype=torch.bfloat16,
+                    device="cuda")
+    pos = torch.zeros(1, dtype=torch.int32, device="cuda")
+    try:
+        pfd.packed_flash_decode(q, kp.payload, kp.bases, vp.payload,
+                                vp.bases, pos, f)
+    except ValueError as e:
+        print(f"  rep {pfd.MAX_REP + 1} raises as it should: {e}")
+    else:
+        fail(f"packed_flash_decode took rep {pfd.MAX_REP + 1}, past its "
+             f"{pfd.MAX_REP}")
+    torch.cuda.empty_cache()
+    print(f"mistral kernel checks: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def dense_config_phase(torch, counters, card, gen, flush, which):
+    """The gemma2-27b (``which`` "gemma2_27b") or mistral-large-123b
+    ("mistral") phase: the kernel checks, then serving and training
+    against the plain path. Returns (its summary, the launches of each of
+    its paths)."""
+    import dataclasses
+    from repro_torch import configs
+    if which == "gemma2_27b":
+        cfg, tag = configs.get(G27_ARCH), "gemma2-27b"
+        kernels = gemma2_27b_kernels(torch, cfg, gen, flush)
+        serving = ((cfg, CONTAINER, ""),)
+        serve_kw = dict(prompt_len=G27_PROMPT, batch=G27_SERVE_B)
+        training = (("qm", CONTAINER, False, ""),)
+        train_kw = dict(batch=G27_TRAIN_B, seq=G27_TRAIN_SEQ,
+                        depth=G27_TRAIN_LAYERS)
+    else:
+        cfg, tag = configs.get(MI_ARCH), "mistral"
+        kernels = mistral_kernels(torch, cfg, gen, flush)
+        cut = dataclasses.replace(cfg, n_layers=MI_SERVE_LAYERS)
+        serving = ((cut, CONTAINER, ""), (cut, DENSE, " dense"))
+        serve_kw = dict(prompt_len=MI_PROMPT, batch=MI_SERVE_B)
+        training = (("qm", CONTAINER, False, ""),
+                    ("qm+qe", DENSE, True, " dense"))
+        train_kw = dict(batch=MI_TRAIN_B, seq=MI_TRAIN_SEQ,
+                        depth=MI_TRAIN_LAYERS)
+    summary, launches = {"kernels": kernels}, {}
+    for scfg, container, suffix in serving:
+        path = f"serve {tag}{suffix}"
+        t0 = time.perf_counter()
+        e2e, launches[path] = serve_run(torch, scfg, gen, counters,
+                                        container, **serve_kw)
+        e2e["card"] = card
+        print(f"e2e {tag} ({container}): " + json.dumps(e2e))
+        print(f"{path}: {time.perf_counter() - t0:.1f} s")
+        summary[path] = e2e
+        torch.cuda.empty_cache()
+    for policy, container, witness, suffix in training:
+        path = f"train {tag}{suffix}"
+        t0 = time.perf_counter()
+        e2e, launches[path] = train_run(
+            torch, cfg, counters, policy=policy, container=container,
+            steps=TRAIN_STEPS, bits={"qm": QM_INIT_BITS}, witness=witness,
+            **train_kw)
         e2e["card"] = card
         print(f"{path}: " + json.dumps(e2e))
         print(f"{path}: {time.perf_counter() - t0:.1f} s")
@@ -4157,23 +4404,26 @@ def ckpt_runs(torch, cfg, counters, card):
             "serve": d, "seconds": seconds}
 
 
+# Each decode entry of the kernels JSON and the read of the later phases'
+# kernel checks (group, container, prefix_planes, label) it adds to its
+# note.
+DECODE_READS = {
+    "packed_flash_decode": ("decode", "sfp8", None, "global"),
+    "packed_flash_decode_dense": ("decode", "sfp-m2e4", None, "global"),
+    "packed_flash_decode_draft": ("decode", "sfp8", 7, "ring"),
+    "packed_flash_decode_dense_draft": ("decode", "sfp-m2e4", 6, "ring"),
+    "paged_flash_decode": ("paged", "sfp8", None, "paged"),
+    "paged_flash_decode_dense": ("paged", "sfp-m2e4", None, "paged"),
+    "paged_flash_decode_draft": ("paged", "sfp8", 7, "paged"),
+    "paged_flash_decode_dense_draft": ("paged", "sfp-m2e4", 6, "paged")}
+
+
 def gemma3_entry(name, r, path, g3, path_launches):
     """Fold the gemma3 phase into a kernel's entry: rows 8 report the
     gemma3-12b global layer (no softcap, so scaled_dot_product_attention
     computes the same function and fills library_ms; the gemma2-2b numbers
     go to the note), rows 9-10 add their hd 240 reads and launches to the
     note. Returns the entry's path."""
-    dec = {"packed_flash_decode": ("decode", "sfp8", None, "global"),
-           "packed_flash_decode_dense": ("decode", "sfp-m2e4", None,
-                                         "global"),
-           "packed_flash_decode_draft": ("decode", "sfp8", 7, "ring"),
-           "packed_flash_decode_dense_draft": ("decode", "sfp-m2e4", 6,
-                                               "ring"),
-           "paged_flash_decode": ("paged", "sfp8", None, "paged"),
-           "paged_flash_decode_dense": ("paged", "sfp-m2e4", None, "paged"),
-           "paged_flash_decode_draft": ("paged", "sfp8", 7, "paged"),
-           "paged_flash_decode_dense_draft": ("paged", "sfp-m2e4", 6,
-                                              "paged")}
     if name in ("flash_attention", "flash_attention_bwd"):
         g = g3["kernels"]["attention"][name]
         r["note"] = (f"gemma2-2b (hd 288, softcap 50, B 4, S 1024): "
@@ -4192,8 +4442,8 @@ def gemma3_entry(name, r, path, g3, path_launches):
         r.update({k: g[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                     "library_ms", "max_abs_err")})
         return "train gemma3"
-    if name in dec:
-        group, container, pp, label = dec[name]
+    if name in DECODE_READS:
+        group, container, pp, label = DECODE_READS[name]
         key = f"{container} {label} prefix_planes={pp}"
         g = g3["kernels"][group][key]
         gen_launches = path_launches[
@@ -4206,17 +4456,62 @@ def gemma3_entry(name, r, path, g3, path_launches):
     return path
 
 
+def dense_configs_entry(name, r, dc, path_launches):
+    """Add the gemma2-27b and mistral phases to a kernel's note: rows 8
+    their attention timings (mistral's beside SDPA; gemma2-27b's softcap
+    has no library call) and launches per generate and step, rows 9-10
+    their rep-12 reads (and gemma2-27b's hd-144 softcap reads) and the
+    launches per generate."""
+    notes = []
+    if name in ("flash_attention", "flash_attention_bwd"):
+        for tag, layers in (("gemma2-27b", G27_TRAIN_LAYERS),
+                            ("mistral", MI_TRAIN_LAYERS)):
+            g = dc[tag]["kernels"]["attention"][name]
+            lib = ("none (softcap)" if g["library_ms"] is None
+                   else f"SDPA flash {g['library_ms']:.5f}")
+            serve = path_launches.get(f"serve {tag}", {}).get(name, 0)
+            notes.append(
+                f"{g['shape']}: {g['ms']:.5f} ms, bound {g['bound_ms']:.5f}"
+                f" ({g['bound_by']}), plain {g['plain_ms']:.4f}, {lib}, "
+                f"{g['tflops']:.1f} TFLOP/s, max |d| {g['max_abs_err']:.3g};"
+                f" {serve} launches per {tag} generate, "
+                f"{path_launches[f'train {tag}'][name] // TRAIN_STEPS} per "
+                f"{layers}-layer step")
+    elif name in DECODE_READS:
+        group, container, pp, label = DECODE_READS[name]
+        key = f"{container} {label} prefix_planes={pp}"
+        g = dc["mistral"]["kernels"][group][key]
+        serve = path_launches.get(
+            "serve mistral" if container == CONTAINER
+            else "serve mistral dense", {}).get(name, 0)
+        notes.append(f"mistral rep 12 hd 128 ({key}): {g['ms']:.5f} ms, "
+                     f"bound {g['bound_ms']:.6f}, plain {g['plain_ms']:.4f};"
+                     f" {g['note']}; {serve} launches per mistral generate "
+                     f"(16 layers)")
+        g27 = dc["gemma2-27b"]["kernels"]["decode"].get(key)
+        if g27 is not None:
+            serve = path_launches["serve gemma2-27b"].get(name, 0)
+            notes.append(f"gemma2-27b hd 144 softcap 50 ({key}): "
+                         f"{g27['ms']:.5f} ms, bound "
+                         f"{g27['bound_ms']:.6f}, plain "
+                         f"{g27['plain_ms']:.4f}; {serve} launches per "
+                         f"gemma2-27b generate")
+    if notes:
+        r["note"] += "; " + "; ".join(notes)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phase", choices=("all", "gecko", "dense", "sfp",
-                                        "cnn", "ckpt", "gradc", "gemma3"),
+                                        "cnn", "ckpt", "gradc", "gemma3",
+                                        "gemma2_27b", "mistral"),
                     default="all",
                     help="gecko / dense / sfp: only the Gecko, the dense "
                          "bit-plane or the fixed-lane word kernel checks "
                          "and timings; cnn: only the CNN phase; ckpt: only "
                          "the checkpoint phase; gradc: only the compressed "
-                         "gradients and AdaptivFloat phase; gemma3: only "
-                         "the gemma3-12b phase")
+                         "gradients and AdaptivFloat phase; gemma3, "
+                         "gemma2_27b, mistral: only that model's phase")
     ap.add_argument("--src", type=Path, default=SRC,
                     help="the directory holding the repro_torch package")
     args = ap.parse_args(argv)
@@ -4278,6 +4573,13 @@ def main(argv=None) -> int:
         print(json.dumps({"tree": str(src), "card": card,
                           "gemma3": summary["kernels"]}))
         return 0
+    if args.phase in ("gemma2_27b", "mistral"):
+        summary, _ = dense_config_phase(torch, counters, card, gen, flush,
+                                        args.phase)
+        print(card)
+        print(json.dumps({"tree": str(src), "card": card,
+                          args.phase: summary["kernels"]}))
+        return 0
     if args.phase in ("ckpt", "gradc"):
         del flush
         phase = {"ckpt": ckpt_phase, "gradc": gradc_phase}[args.phase]
@@ -4312,6 +4614,15 @@ def main(argv=None) -> int:
     paged_kernels(torch, cfg, gen, flush, results)
     print(f"kernel checks: {time.perf_counter() - t0:.1f} s")
     g3, g3_launches = gemma3_phase(torch, counters, card, gen, flush)
+    torch.cuda.empty_cache()
+    dc, dc_launches = {}, {}
+    for which, tag in (("gemma2_27b", "gemma2-27b"), ("mistral", "mistral")):
+        t0 = time.perf_counter()
+        dc[tag], launches = dense_config_phase(torch, counters, card, gen,
+                                               flush, which)
+        dc_launches.update(launches)
+        print(f"{tag} phase: {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
     del flush
     torch.cuda.empty_cache()
 
@@ -4385,6 +4696,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     ckpt = ckpt_phase(torch, cfg, counters, card)
     path_launches.update(g3_launches)
+    path_launches.update(dc_launches)
 
     kernels = []
     for c in counters:
@@ -4419,6 +4731,7 @@ def main(argv=None) -> int:
             r["note"] += (f"; launch floor {floor_ms:.5f} ms (a one-element "
                           f"fill, same timer)")
         path = gemma3_entry(name, r, path, g3, path_launches)
+        dense_configs_entry(name, r, dc, path_launches)
         kernels.append(dict(name=name, route="cuda", source=r["source"],
                             replaces=r["replaces"],
                             launches=path_launches[path][name], path=path,

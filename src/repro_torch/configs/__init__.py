@@ -7,3 +7,7 @@ from repro_torch.configs.base import (  # noqa: F401
 )
 from repro_torch.configs.gemma2_2b import GEMMA2_2B  # noqa: F401
 from repro_torch.configs.gemma3_12b import GEMMA3_12B  # noqa: F401
+from repro_torch.configs.gemma2_27b import GEMMA2_27B  # noqa: F401
+from repro_torch.configs.mistral_large_123b import (  # noqa: F401
+    MISTRAL_LARGE_123B,
+)

@@ -60,7 +60,9 @@ def _index(tree, i: int):
 
 def from_jax(params: Dict[str, Any], cfg, device="cpu") -> Dict[str, Any]:
     """JAX ``DecoderModel`` params (nested dicts of numpy arrays) -> the
-    port's ``{"embed", "final_norm", "layers": [...]}``."""
+    port's ``{"embed", "final_norm", "layers": [...]}``, with ``"head"``
+    when the model's unembedding is untied. Also converts trees shaped
+    like the params (AdamW's moments, the error-feedback residual)."""
     conv = lambda t: _tree(t, lambda a: to_tensor(np.asarray(a), device))
     layers = []
     for p in range(cfg.n_periods):
@@ -69,9 +71,12 @@ def from_jax(params: Dict[str, Any], cfg, device="cpu") -> Dict[str, Any]:
             layers.append(conv(period[f"slot{i}"]))
     for i in range(len(cfg.remainder)):
         layers.append(conv(params["rem"][f"slot{i}"]))
-    return {"embed": conv(params["embed"]),
-            "final_norm": conv(params["final_norm"]),
-            "layers": layers}
+    out = {"embed": conv(params["embed"]),
+           "final_norm": conv(params["final_norm"]),
+           "layers": layers}
+    if "head" in params:    # an untied unembedding
+        out["head"] = conv(params["head"])
+    return out
 
 
 def cnn_params_from_jax(params: Dict[str, Any], device="cpu"

@@ -64,7 +64,9 @@
 //    Every K and V element is decoded once per CTA,
 //    by one multiply where the group's base allows it (fast_decode, exact)
 //    and by sfp_decode_word elsewhere. Register arrays are sized by rep
-//    rounded up to a power of two (a template parameter).
+//    rounded up to a power of two (a template parameter, up to 16); the
+//    16-wide instances run as a kernel of their own with a larger
+//    register budget.
 //
 // What bounds it in practice (H100, PERF.md): the decode arithmetic and
 // the per-CTA latency chain, not bytes: ~35-45 us at the smoke shapes
@@ -86,7 +88,7 @@ namespace {
 
 constexpr int kSub = 32;       // slots per sub-tile: one per lane
 constexpr int kStages = 4;     // shared ring depth: 3 sub-tiles in flight
-constexpr int kMaxRep = 8;
+constexpr int kMaxRep = 16;   // query heads a KV head
 constexpr int kMaxHd = 512;    // features a head (threads a CTA)
 constexpr int kMaxSub = 32;    // sub-tiles a split (block_l <= 1024)
 constexpr int kMaxPlanes = 16;
@@ -324,7 +326,7 @@ __device__ void ticket_merge(const DecodeArgs& a, int b, int h,
 }
 
 template <typename W, bool DENSE, int REP>
-__global__ void decode_split_kernel(const DecodeArgs a) {
+__device__ __forceinline__ void decode_split(const DecodeArgs a) {
   const int s = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, c = tid >> 5;
   const int hd = a.hd, nthr = blockDim.x, nch = nthr >> 5;
@@ -674,6 +676,27 @@ __global__ void decode_split_kernel(const DecodeArgs a) {
   ticket_merge(a, b, h, mbuf, last);
 }
 
+template <typename W, bool DENSE, int REP>
+__global__ void decode_split_kernel(const DecodeArgs a) {
+  decode_split<W, DENSE, REP>(a);
+}
+
+// REP 16 holds 16 heads' partial scores, p and acc a thread, which spill
+// heavily under the file's 72-register cap (-maxrregcount, set for three
+// 288-thread CTAs an SM). Its kernel declares one CTA of up to kMaxHd
+// threads an SM instead, which allows 65536 / 512 = 128 registers.
+template <typename W, bool DENSE>
+__global__ void __launch_bounds__(kMaxHd, 1)
+    decode_split_kernel_wide(const DecodeArgs a) {
+  decode_split<W, DENSE, 16>(a);
+}
+
+template <typename W, bool DENSE, int REP>
+void (*decode_kernel())(DecodeArgs) {
+  if constexpr (REP > 8) return decode_split_kernel_wide<W, DENSE>;
+  else return decode_split_kernel<W, DENSE, REP>;
+}
+
 // The largest dynamic shared memory a block may take, granted to the
 // kernel once per device (not on every launch).
 template <typename W, bool DENSE, int REP>
@@ -688,7 +711,7 @@ int smem_limit() {
     err = cudaDeviceGetAttribute(
         &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(decode_split_kernel<W, DENSE, REP>,
+      err = cudaFuncSetAttribute(decode_kernel<W, DENSE, REP>(),
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  optin);
     if (err != cudaSuccess) return -(int)err;
@@ -703,21 +726,25 @@ int launch_rep(const DecodeArgs& a, cudaStream_t stream) {
   const int limit = smem_limit<W, DENSE, REP>();
   if (limit < 0) return -limit;
   if (lay.total > limit) return (int)cudaErrorInvalidValue;
-  decode_split_kernel<W, DENSE, REP><<<dim3(a.nsplit, a.KH, a.B),
-                                       32 * ((a.hd + 31) / 32), lay.total,
-                                       stream>>>(a);
-  return (int)cudaGetLastError();
+  DecodeArgs args = a;
+  void* params[] = {&args};
+  return (int)cudaLaunchKernel(decode_kernel<W, DENSE, REP>(),
+                               dim3(a.nsplit, a.KH, a.B),
+                               dim3(32 * ((a.hd + 31) / 32)), params,
+                               lay.total, stream);
 }
 
 // Query heads a KV head, rounded up to a power of two: the register
-// arrays' length (the loops still stop at rep).
+// arrays' length (the loops still stop at rep). REP 16 takes rep 9-16
+// (mistral-large's 12, recurrentgemma's 16).
 template <typename W, bool DENSE>
 int launch(const DecodeArgs& a, cudaStream_t stream) {
   const int rep = a.H / a.KH;
   if (rep <= 1) return launch_rep<W, DENSE, 1>(a, stream);
   if (rep <= 2) return launch_rep<W, DENSE, 2>(a, stream);
   if (rep <= 4) return launch_rep<W, DENSE, 4>(a, stream);
-  return launch_rep<W, DENSE, 8>(a, stream);
+  if (rep <= 8) return launch_rep<W, DENSE, 8>(a, stream);
+  return launch_rep<W, DENSE, 16>(a, stream);
 }
 
 }  // namespace

@@ -36,6 +36,7 @@ from repro_torch.kernels.ref import GROUP, NEG_INF, PackFields
 DEFAULT_BLOCK_L = 128
 SPLIT_L = 64    # slots a split at most
 SUB_TILE = 32   # slots a staged sub-tile (one per lane)
+MAX_REP = 16    # query heads a KV head (the kernel's kMaxRep)
 
 
 def block_len(L: int, block_l: int = DEFAULT_BLOCK_L) -> int:
@@ -252,9 +253,9 @@ def _launch(name: str, q: torch.Tensor, k_payload: torch.Tensor,
             ("v_bases", v_bases, torch.uint8, (*lead, G)),
             ("pos", pos, torch.int32, (B,))):
         _check(name, part, t, dt, shape, q.device)
-    if hd % 16 or hd > 512 or H // KH > 8:
+    if hd % 16 or hd > 512 or H // KH > MAX_REP:
         raise ValueError(f"{name}: hd={hd}, rep={H // KH} not supported "
-                         f"(hd % 16 == 0, hd <= 512, rep <= 8)")
+                         f"(hd % 16 == 0, hd <= 512, rep <= {MAX_REP})")
     plan = split_plan(B, KH, hd, L, bl, paged=True)   # bl is the tile
     # 16-byte copies: every payload row starts 16-byte aligned (whole
     # 128-lane groups), and so does every head's run of words (hd % 16 ==

@@ -28,7 +28,9 @@ cpu`` runs the plain PyTorch path on the CPU. Weights are random, drawn from
 ``--seed``; batches come from the seeded synthetic Markov corpus. The
 tiny and small presets shrink the config and fix batch 8 and sequence 64
 or 128, as the JAX launcher does. ``--profile-steps N`` brackets
-``torch.profiler`` around steps 1..N and prints device time by kernel.
+``torch.profiler`` around N steps from ``--profile-start`` (default 1,
+after the warm-up step), prints device time by kernel and writes the
+window's Chrome trace under ``--profile-dir``.
 The final report is the last step's metrics (with the controllers'
 bitlengths ``bc_bits``, ``bw_man_bits``, ``bw_exp_bits``) and the modeled
 stash footprint under the learned decisions.
@@ -52,7 +54,6 @@ from repro_torch.optim.schedule import Schedule
 from repro_torch.train import loop as loop_mod
 from repro_torch.train import step as step_mod
 
-PROFILE_START = 1  # profile after the first (warm-up) step
 REPORT_KEYS = ("step", "loss", "xent", "qm_act_mean", "qm_w_mean",
                "qe_act_mean", "qe_w_mean", "bc_bits", "bw_man_bits",
                "bw_exp_bits", "step_time_s")
@@ -182,8 +183,11 @@ def build_parser() -> argparse.ArgumentParser:
                          "(JSONL; one entry per --timeline-every steps)")
     ap.add_argument("--timeline-every", type=int, default=10)
     ap.add_argument("--profile-steps", type=int, default=None, metavar="N",
-                    help=f"bracket torch.profiler around N steps from step "
-                         f"{PROFILE_START} and print device time by kernel")
+                    help="bracket torch.profiler around N steps (starting at "
+                         "--profile-start), print device time by kernel and "
+                         "write a Chrome trace under --profile-dir")
+    ap.add_argument("--profile-start", type=int, default=1)
+    ap.add_argument("--profile-dir", default="experiments/traces/train")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' runs the plain "
@@ -233,7 +237,8 @@ def main(argv=None) -> dict:
         obs=obs, timeline_fn=timeline_fn,
         timeline_every=args.timeline_every,
         profile_steps=(None if args.profile_steps is None
-                       else (PROFILE_START, args.profile_steps)))
+                       else (args.profile_start, args.profile_steps)),
+        profile_dir=args.profile_dir)
     plans = None
     if args.per_layer_stash:
         refresh = max(1, args.stash_refresh or args.ckpt_every)

@@ -67,11 +67,17 @@ def embed(params, tokens: torch.Tensor, scale: Optional[float] = None
     return h
 
 
-def unembed(params, h: torch.Tensor, *, softcap: Optional[float] = None,
+def unembed(params, h: torch.Tensor, *, tied: bool,
+            softcap: Optional[float] = None,
             valid_vocab: Optional[int] = None) -> torch.Tensor:
-    """Tied unembedding in the activation dtype, then f32 softcap, then
-    -1e30 on the padded vocab."""
-    logits = (h @ params["embed"]["table"].T).to(torch.float32)
+    """Unembedding in the activation dtype: through the embedding table
+    when ``tied``, else through ``params["head"]`` (d_model, padded
+    vocab); then f32 softcap, then -1e30 on the padded vocab."""
+    if tied:
+        logits = h @ params["embed"]["table"].T
+    else:
+        logits = h @ params["head"]
+    logits = logits.to(torch.float32)
     if softcap is not None:
         logits = softcap * torch.tanh(logits / softcap)
     if valid_vocab is not None and valid_vocab < logits.shape[-1]:

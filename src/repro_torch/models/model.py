@@ -2,7 +2,8 @@
 
 Parameters are a plain dict: ``embed``, ``final_norm`` and ``layers``, one
 dict per layer in order (the JAX package stacks each period's layers and
-scans over them; ``repro_torch.convert`` unstacks that tree). Training
+scans over them; ``repro_torch.convert`` unstacks that tree), and an
+untied model's ``head``. Training
 runs ``loss`` / ``forward``: the periods go through ``core.stash.sfp_scan``
 with the policy's container as the cross-pass activation stash (or, with
 ``stash_containers``, each period's own container: the per-layer plan of
@@ -80,12 +81,10 @@ class DecoderModel:
         own compress/decompress pair in ``sfp_scan``, so a new plan needs
         only a new model."""
         bad = set(cfg.period) - {GLOBAL, LOCAL}
-        if bad or cfg.is_moe or not cfg.tie_embeddings:
+        if bad or cfg.is_moe:
             raise NotImplementedError(
-                f"{cfg.name}: only dense GLOBAL/LOCAL attention models with "
-                f"tied embeddings are ported (got period {cfg.period}, "
-                f"{cfg.n_experts} experts, tie_embeddings="
-                f"{cfg.tie_embeddings})")
+                f"{cfg.name}: only dense GLOBAL/LOCAL attention models are "
+                f"ported (got period {cfg.period}, {cfg.n_experts} experts)")
         self.cfg = cfg
         self.policy = policies.coerce(policy)
         if self.policy.enabled and cfg.remainder:
@@ -114,7 +113,8 @@ class DecoderModel:
 
     def init(self, seed: int = 0) -> Dict[str, Any]:
         """Random weights from a ``torch.Generator`` seeded with ``seed``
-        (normal, fan_in ** -0.5; embeddings unit scale; norms zero)."""
+        (normal, fan_in ** -0.5; embeddings unit scale; norms zero; an
+        untied ``head`` of (d_model, padded vocab) last)."""
         cfg, dev, dt = self.cfg, self.device, self.cfg.compute_dtype
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
@@ -132,6 +132,11 @@ class DecoderModel:
                 "mlp": common.mlp_init(cfg.d_model, cfg.d_ff, cfg.glu, gen,
                                        dev, dt),
             })
+        if not cfg.tie_embeddings:
+            # Drawn after every other leaf, so a tied model's weights do
+            # not depend on this branch.
+            params["head"] = common.normal_init(
+                (cfg.d_model, cfg.padded_vocab), gen, dev, dt)
         return params
 
     def _emb_scale(self):
@@ -273,7 +278,8 @@ class DecoderModel:
                             cfg.remainder):
             h = self._apply_slot(lp, h, kind, positions=positions)
         h = common.rmsnorm(params["final_norm"], h)
-        return common.unembed(params, h, softcap=cfg.final_softcap,
+        return common.unembed(params, h, tied=cfg.tie_embeddings,
+                              softcap=cfg.final_softcap,
                               valid_vocab=cfg.vocab)
 
     def loss(self, params, batch: Dict[str, torch.Tensor], run: RunState
@@ -345,7 +351,9 @@ class DecoderModel:
             hm = common.rmsnorm(lp["mlp_norm"], h)
             h = h + common.mlp(lp["mlp"], hm, cfg.act, cfg.glu)
         h = common.rmsnorm(params["final_norm"], h)
-        logits = common.unembed(params, h[:, -1:], softcap=cfg.final_softcap,
+        logits = common.unembed(params, h[:, -1:],
+                                tied=cfg.tie_embeddings,
+                                softcap=cfg.final_softcap,
                                 valid_vocab=cfg.vocab)
         return logits, {"layers": caches}
 
@@ -393,7 +401,8 @@ class DecoderModel:
             hm = common.rmsnorm(lp["mlp_norm"], h)
             h = h + common.mlp(lp["mlp"], hm, cfg.act, cfg.glu)
         h = common.rmsnorm(params["final_norm"], h)
-        logits = common.unembed(params, h, softcap=cfg.final_softcap,
+        logits = common.unembed(params, h, tied=cfg.tie_embeddings,
+                                softcap=cfg.final_softcap,
                                 valid_vocab=cfg.vocab)
         return logits, cache
 

@@ -55,8 +55,10 @@ class LoopConfig:
     obs: Optional[Obs] = None
     timeline_fn: Optional[Callable[[Any], Any]] = None
     timeline_every: int = 10
-    # (start, n): bracket torch.profiler around steps [start, start + n)
+    # (start, n): bracket torch.profiler around steps [start, start + n);
+    # its Chrome trace is written under profile_dir
     profile_steps: Optional[Tuple[int, int]] = None
+    profile_dir: str = "experiments/traces/train"
 
 
 @dataclasses.dataclass
@@ -85,11 +87,14 @@ def _sync(device) -> None:
 
 class _Profiler:
     """torch.profiler over steps [start, start + n): device time by kernel
-    against the wall time of those steps (CUDA only; the profiler slows
-    the host, so compare the busy time with an unprofiled step too)."""
+    against the wall time of those steps (the profiler slows the host, so
+    compare the busy time with an unprofiled step too), and the window's
+    Chrome trace (host ops, and the kernels on CUDA) written to
+    ``profile_dir/train_steps_{start}-{start + n - 1}.json``."""
 
     def __init__(self, cfg: LoopConfig, device):
         self.span, self.device = cfg.profile_steps, device
+        self.dir = cfg.profile_dir
         self.prof = None
         self.summary = None
 
@@ -100,8 +105,10 @@ class _Profiler:
         if self.prof is None and self.summary is None and step == start:
             from torch.profiler import ProfilerActivity, profile
             _sync(self.device)
-            self.prof = profile(activities=[ProfilerActivity.CPU,
-                                            ProfilerActivity.CUDA])
+            acts = [ProfilerActivity.CPU]
+            if torch.device(self.device).type == "cuda":
+                acts.append(ProfilerActivity.CUDA)
+            self.prof = profile(activities=acts)
             self.prof.__enter__()
             self.t0 = time.perf_counter()
         elif self.prof is not None and step >= start + n:
@@ -113,6 +120,10 @@ class _Profiler:
         _sync(self.device)
         wall = time.perf_counter() - self.t0
         self.prof.__exit__(None, None, None)
+        start, n = self.span
+        trace = Path(self.dir) / f"train_steps_{start}-{start + n - 1}.json"
+        trace.parent.mkdir(parents=True, exist_ok=True)
+        self.prof.export_chrome_trace(str(trace))
         # Device-side entries only: the CPU ops that launched the kernels
         # report the same device time again.
         from torch.autograd import DeviceType
@@ -124,7 +135,7 @@ class _Profiler:
         busy = sum(r[1] for r in rows) / 1e3
         rows.sort(key=lambda r: -r[1])
         self.summary = {
-            "steps": self.span[1], "wall_ms": wall * 1e3,
+            "steps": n, "trace": str(trace), "wall_ms": wall * 1e3,
             "device_busy_ms": busy,
             "device_busy_share": busy / (wall * 1e3),
             "top_kernels": [{"name": k[:80], "device_ms": t / 1e3,

@@ -655,25 +655,23 @@ def test_compress_grads_kernel_vs_plain(dev, codec):
 HD16 = [(240, 16, 8), (144, 32, 16)]
 
 
-@pytest.mark.parametrize("hd,H,KH", HD16)
-@pytest.mark.parametrize("window", [None, 24])
-def test_flash_attention_hd16_no_softcap(dev, hd, H, KH, window):
+def _check_attention(dev, seed, hd, H, KH, window, softcap):
     """Forward within one bf16 ulp of plain with its log-sum-exp, backward
     within 2^-6; bit-equal twice and row by row against the batch."""
     B, S, rep = 2, 129, H // KH
-    q, k, v, do = _attention_inputs(dev, 17, B, S, KH, hd, rep)
-    kw = dict(causal=True, window=window, softcap=None, q_rep=rep)
+    q, k, v, do = _attention_inputs(dev, seed, B, S, KH, hd, rep)
+    kw = dict(causal=True, window=window, softcap=softcap, q_rep=rep)
 
     def run(sl):
         a, b_, c, g = (t[sl].contiguous() for t in (q, k, v, do))
-        o, lse = fa._forward(a, b_, c, True, window, None, rep,
+        o, lse = fa._forward(a, b_, c, True, window, softcap, rep,
                              with_lse=True)
         return (o, lse, *fa.flash_attention_bwd(a, b_, c, o, g, lse, **kw))
 
     full = run(slice(None))
     _close(full[0], fa.plain(q, k, v, **kw))
     torch.testing.assert_close(full[1], _plain_lse(q, k, hd, rep, window,
-                                                   None),
+                                                   softcap),
                                atol=1e-4, rtol=1e-5)
     for a, b in zip(full[2:], fa.plain_bwd(q, k, v, do, **kw)):
         err = (a.float() - b.float()).abs().max().item()
@@ -687,16 +685,16 @@ def test_flash_attention_hd16_no_softcap(dev, hd, H, KH, window):
 
 
 @pytest.mark.parametrize("hd,H,KH", HD16)
-@pytest.mark.parametrize("container,draft", [("sfp8", None), ("sfp8", 7),
-                                             ("sfp-m2e4", None),
-                                             ("sfp-m2e4", 6),
-                                             ("sfp16", None)])
-@pytest.mark.parametrize("window,pos", [(None, [1151, 0, 128, 700]),
-                                        (512, [3000, 511, 1500, 77])])
-def test_decode_hd16(dev, hd, H, KH, container, draft, window, pos):
+@pytest.mark.parametrize("window", [None, 24])
+def test_flash_attention_hd16_no_softcap(dev, hd, H, KH, window):
+    _check_attention(dev, 17, hd, H, KH, window, None)
+
+
+def _check_decode(dev, seed, hd, H, KH, container, draft, window, pos,
+                  softcap=None):
     """Contiguous and ring reads: within one bf16 ulp of plain, each row
     alone bit-equal to the batch, two launches bit-equal."""
-    g = torch.Generator(device=dev).manual_seed(18)
+    g = torch.Generator(device=dev).manual_seed(seed)
     B, L = len(pos), 1152 if window is None else window
     f = fields_for(container, torch.bfloat16)
     kp, vp = (ops.sfp_compress_nd(_moderate(dev, g, (B, L, KH * hd)), f)
@@ -706,7 +704,7 @@ def test_decode_hd16(dev, hd, H, KH, container, draft, window, pos):
     decode, _ = _decoders(f)
     p = torch.tensor(pos, dtype=torch.int32, device=dev)
     parts = (kp.payload, kp.bases, vp.payload, vp.bases)
-    kw = dict(window=window, softcap=None, prefix_planes=draft)
+    kw = dict(window=window, softcap=softcap, prefix_planes=draft)
     got = decode(q, *parts, p, f, **kw)
     assert torch.equal(got, decode(q, *parts, p, f, **kw))
     for r in range(B):
@@ -720,11 +718,18 @@ def test_decode_hd16(dev, hd, H, KH, container, draft, window, pos):
 @pytest.mark.parametrize("hd,H,KH", HD16)
 @pytest.mark.parametrize("container,draft", [("sfp8", None), ("sfp8", 7),
                                              ("sfp-m2e4", None),
-                                             ("sfp-m2e4", 6)])
-def test_paged_hd16_vs_contiguous(dev, hd, H, KH, container, draft):
+                                             ("sfp-m2e4", 6),
+                                             ("sfp16", None)])
+@pytest.mark.parametrize("window,pos", [(None, [1151, 0, 128, 700]),
+                                        (512, [3000, 511, 1500, 77])])
+def test_decode_hd16(dev, hd, H, KH, container, draft, window, pos):
+    _check_decode(dev, 18, hd, H, KH, container, draft, window, pos)
+
+
+def _check_paged(dev, seed, hd, H, KH, container, draft):
     """The paged read over trash-block rows: bit-equal to the contiguous
     kernel over the gathered cache, within one bf16 ulp of plain."""
-    g = torch.Generator(device=dev).manual_seed(19)
+    g = torch.Generator(device=dev).manual_seed(seed)
     n_phys, bl = 12, 128
     f = fields_for(container, torch.bfloat16)
     kp, vp = (ops.sfp_compress_nd(_moderate(dev, g, (n_phys, bl, KH * hd)),
@@ -741,3 +746,70 @@ def test_paged_hd16_vs_contiguous(dev, hd, H, KH, container, draft):
     gathered = [ref.paged_gather(t, tables).contiguous() for t in pool]
     assert torch.equal(got, decode(q, *gathered, pos, f, block_l=bl, **kw))
     _close(got, pfd.plain_paged(q, *pool, tables, pos, f, **kw))
+
+
+@pytest.mark.parametrize("hd,H,KH", HD16)
+@pytest.mark.parametrize("container,draft", [("sfp8", None), ("sfp8", 7),
+                                             ("sfp-m2e4", None),
+                                             ("sfp-m2e4", 6)])
+def test_paged_hd16_vs_contiguous(dev, hd, H, KH, container, draft):
+    _check_paged(dev, 19, hd, H, KH, container, draft)
+
+
+# GQA reps past 8: mistral-large-123b's 12 (96 q / 8 KV heads of 128), 9,
+# and 16 (recurrentgemma's; one KV head of 256). The decode kernel sizes
+# its per-thread arrays by rep rounded up to a power of two: REP 16 takes
+# rep 9-16, and rep 17 raises.
+REPS = [(128, 96, 8), (64, 18, 2), (256, 16, 1)]
+
+
+@pytest.mark.parametrize("hd,H,KH", REPS)
+@pytest.mark.parametrize("container,draft", [("sfp8", None), ("sfp8", 7),
+                                             ("sfp-m2e4", None),
+                                             ("sfp-m2e4", 6)])
+@pytest.mark.parametrize("window,pos", [(None, [1151, 0, 128, 700]),
+                                        (512, [3000, 511, 1500, 77])])
+def test_decode_rep_past_8(dev, hd, H, KH, container, draft, window, pos):
+    _check_decode(dev, 20, hd, H, KH, container, draft, window, pos)
+
+
+@pytest.mark.parametrize("hd,H,KH", REPS)
+@pytest.mark.parametrize("container,draft", [("sfp8", None), ("sfp8", 7),
+                                             ("sfp-m2e4", None),
+                                             ("sfp-m2e4", 6)])
+def test_paged_rep_past_8_vs_contiguous(dev, hd, H, KH, container, draft):
+    _check_paged(dev, 21, hd, H, KH, container, draft)
+
+
+@pytest.mark.parametrize("decode", [pfd.packed_flash_decode,
+                                    pfd.packed_flash_decode_dense])
+def test_decode_rejects_rep_past_16(dev, decode):
+    f = fields_for("sfp-m2e4" if "dense" in decode.__name__ else "sfp8",
+                   torch.bfloat16)
+    kp, vp = (ops.sfp_compress_nd(torch.zeros((1, 128, 128), device=dev,
+                                              dtype=torch.bfloat16), f)
+              for _ in range(2))
+    q = torch.zeros((1, 1, 17, 128), device=dev, dtype=torch.bfloat16)
+    pos = torch.zeros(1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="rep=17"):
+        decode(q, kp.payload, kp.bases, vp.payload, vp.bases, pos, f)
+
+
+@pytest.mark.parametrize("window", [None, 24])
+def test_flash_attention_rep12(dev, window):
+    _check_attention(dev, 22, 128, 24, 2, window, None)
+
+
+# gemma2-27b's attention: head dim 144 (16 mod 32) with its softcap of 50.
+@pytest.mark.parametrize("window", [None, 24])
+def test_flash_attention_hd144_softcap(dev, window):
+    _check_attention(dev, 23, 144, 32, 16, window, 50.0)
+
+
+@pytest.mark.parametrize("container,draft", [("sfp8", None), ("sfp8", 7),
+                                             ("sfp-m2e4", None)])
+@pytest.mark.parametrize("window,pos", [(None, [1151, 0, 128, 700]),
+                                        (512, [3000, 511, 1500, 77])])
+def test_decode_hd144_softcap(dev, container, draft, window, pos):
+    _check_decode(dev, 24, 144, 32, 16, container, draft, window, pos,
+                  softcap=50.0)

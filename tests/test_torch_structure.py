@@ -2,6 +2,7 @@
 rules, kernel wrappers that never fall back, codec coverage, conversion."""
 import ast
 import dataclasses
+import json
 from pathlib import Path
 
 import numpy as np
@@ -420,3 +421,70 @@ def test_gemma3_launchers_run_on_cpu_when_asked(monkeypatch, container):
     assert np.isfinite(out["history"][0]["loss"])
     assert out["state"].params["layers"][0]["attn"]["q_norm"][
         "scale"].shape == (32,)
+
+
+DENSE_CONFIGS = ("gemma2-27b", "mistral-large-123b")
+
+
+@pytest.mark.parametrize("arch", DENSE_CONFIGS)
+@pytest.mark.parametrize("cut", [None, dict(), dict(n_layers=4,
+                                                    d_model=256)])
+def test_dense_config_matches_jax(arch, cut):
+    """The port's registry has gemma2-27b (head dim 144, softcaps 50 / 30)
+    and mistral-large-123b (GQA rep 12, an untied head), field for field
+    JAX's, also as the launchers' tiny and small presets cut them; both
+    build, and only the untied one has a head."""
+    assert arch in tconfigs.base._REGISTRY
+    jc, tc = jconfigs.get(arch), tconfigs.get(arch)
+    if cut is not None:
+        jc, tc = jreduced(jc, **cut), treduced(tc, **cut)
+    _same_fields(jc, tc)
+    assert tc.layer_kinds() == tuple(
+        jc.period[i % len(jc.period)] for i in range(jc.n_layers))
+    assert not tc.remainder
+    if cut is not None:
+        params = DecoderModel(tc, device="cpu").init(0)
+        assert ("head" in params) == (not tc.tie_embeddings)
+
+
+@pytest.mark.parametrize("arch,container", [
+    ("gemma2-27b", "sfp8"), ("mistral-large-123b", "sfp8"),
+    ("mistral-large-123b", "sfp-m2e4")])
+def test_dense_config_launchers_run_on_cpu_when_asked(monkeypatch, arch,
+                                                      container):
+    """``launch.serve`` and ``launch.train --preset tiny`` take
+    ``--arch gemma2-27b`` and ``--arch mistral-large-123b``."""
+    _no_gpu(monkeypatch)
+    rep = tserve.run_batch(tserve.build_parser().parse_args(
+        ["--arch", arch, "--preset", "tiny", "--batch", "2",
+         "--prompt-len", "40", "--max-new", "3", "--kv-container",
+         container, "--device", "cpu"]))
+    assert rep["tokens"] == 6 and len(rep["sample"]) == 3
+    policy = "qm" if container == "sfp8" else "qm+qe"
+    out = ttrain.main(["--arch", arch, "--preset", "tiny", "--policy",
+                       policy, "--container", container, "--steps", "1",
+                       "--device", "cpu"])
+    assert len(out["history"]) == 1
+    assert np.isfinite(out["history"][0]["loss"])
+    cfg = treduced(tconfigs.get(arch))
+    assert ("head" in out["state"].params) == (not cfg.tie_embeddings)
+
+
+def test_train_profile_writes_a_trace(monkeypatch, tmp_path):
+    """``launch.train --profile-steps N --profile-start S --profile-dir D``
+    (JAX's flags and defaults) writes the window's Chrome trace under D,
+    on the CPU too, beside the printed kernel table."""
+    _no_gpu(monkeypatch)
+    args = ttrain.build_parser().parse_args(["--arch", "gemma2-2b"])
+    assert (args.profile_start, args.profile_dir) == (
+        1, "experiments/traces/train")
+    out = ttrain.main(["--arch", "gemma2-2b", "--preset", "tiny",
+                       "--policy", "qm", "--container", "sfp8", "--steps",
+                       "3", "--profile-steps", "1", "--profile-start", "2",
+                       "--profile-dir", str(tmp_path / "traces"),
+                       "--device", "cpu"])
+    trace = tmp_path / "traces" / "train_steps_2-2.json"
+    assert out["profile"]["trace"] == str(trace)
+    assert out["profile"]["steps"] == 1
+    events = json.loads(trace.read_text())["traceEvents"]
+    assert any(e.get("ph") == "X" for e in events)
