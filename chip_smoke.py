@@ -10,12 +10,15 @@
     python3 chip_smoke.py --phase gemma3 [--src DIR]
     python3 chip_smoke.py --phase gemma2_27b [--src DIR]
     python3 chip_smoke.py --phase mistral [--src DIR]
+    python3 chip_smoke.py --phase paligemma [--src DIR]
+    python3 chip_smoke.py --phase musicgen [--src DIR]
 
 The other forms run only the Gecko kernel checks and timings of step 5,
 or only the dense bit-plane or the fixed-lane word ones of step 2, or
 only the CNN phase of step 8, or only the checkpoint phase of step 9, or
 only the compressed-gradient and AdaptivFloat phase of step 10, or only
-the gemma3-12b, gemma2-27b or mistral-large-123b phase of steps 11-13,
+the gemma3-12b, gemma2-27b, mistral-large-123b, paligemma-3b or
+musicgen-large phase of steps 11-14,
 against the ``repro_torch`` package under DIR (default: this checkout's
 ``src``), so two trees can be timed by the same code on one card.
 
@@ -70,7 +73,8 @@ against the ``repro_torch`` package under DIR (default: this checkout's
    --container gecko8`` on the kernel path, the plain path and a witness
    with only attention plain, then one step from low bits, printing the
    realized gecko8 stash footprint and the Gecko exponent ratio of each
-   run's stash; serves from a gecko8 cache (the unpack fallback), kernel path
+   run's stash; serves from a gecko8 cache over 8 layers (GECKO_SERVE_LAYERS;
+   the unpack fallback), kernel path
    against plain path and against a raw bf16 cache, whose K/V the
    unpacked gecko8 cache must equal bit for bit after every decode step.
 6. Paged serving (continuous batching): holds the paged decode kernel
@@ -81,13 +85,14 @@ against the ``repro_torch`` package under DIR (default: this checkout's
    pool of 8 rows x 1280 slots with trash-block rows; then serves a
    seeded 12-request trace (prompts 256-1024, 16-48 new tokens, staggered
    arrivals) through ``launch.serve``'s ``make_trace``, ``Scheduler`` and
-   ``PagedEngine`` on a pool of 23 blocks (of 80 for full residency), so
+   ``PagedEngine`` over 8 layers (PAGED_LAYERS) on a pool of 23 blocks
+   (of 80 for full residency), so
    admission waits for blocks and running requests are preempted: sfp8
    with --burst 1 and with --speculate 4 (token-identical), and sfp-m2e4
    with --speculate 4 (the dense draft read). Every finished stream must
    equal contiguous ``generate`` of its prompt up to a near tie, the pool
-   must pass its invariants, and each run's launches must be 13 paged and
-   13 ring decodes per model step. Prints decode ms per scheduler step,
+   must pass its invariants, and each run's launches must be 4 paged and
+   4 ring decodes per model step. Prints decode ms per scheduler step,
    tok/s, the acceptance rate and the speculative round ms.
 7. BitChop, BitWave, static and per-layer stash containers, at full width
    (before step 6): 6 steps each of ``--policy bitchop --container sfp8``
@@ -125,7 +130,7 @@ against the ``repro_torch`` package under DIR (default: this checkout's
    differs within 1e-4.
 9. Checkpoints, in a temporary directory (free disk printed and checked
    first, removed at the end): (a) ``launch.train --preset full --policy
-   qm --container sfp8`` at 8 layers (CKPT_LAYERS) for 3 steps with
+   qm --container sfp8`` at 4 layers (CKPT_LAYERS) for 3 steps with
    ``--ckpt-dir``, ``--ckpt-every
    2`` and every telemetry file, printing the async save's blocking share
    (the host snapshot), the write seconds and the bytes on disk against
@@ -166,8 +171,9 @@ against the ``repro_torch`` package under DIR (default: this checkout's
    function there; every decode read at head dim 240 (words and planes,
    full width and draft, contiguous over 2176 slots, the 1024-slot ring,
    paged on the 8 x 1280 pool) and words and planes at 144, held and
-   timed as in step 2; (b) serving at full width (48 layers), batch 4,
-   2048-token prompts, 64 new tokens, from an sfp8 and an sfp-m2e4 cache,
+   timed as in step 2; (b) serving at full width over 24 of its 48
+   layers, batch 4, 2048-token prompts, 64 new tokens, from an sfp8 and an
+   sfp-m2e4 cache,
    against the plain path (no final softcap: the prefill logits are also
    held to a prefill with attention in f64, E2E_MAX); (c) training at full widths, one 6-layer period, B 2, S
    2048: 4 steps of qm + sfp8 and of qm+qe + sfp-m2e4 (with the
@@ -179,8 +185,8 @@ against the ``repro_torch`` package under DIR (default: this checkout's
    serving prefill's (B 1, S 4224, windows None and 4096), held; the
    decode reads at head dim 144 with the softcap (words and planes, full
    width and draft, the 4352-slot global cache and the 4096-slot ring),
-   held and timed as in step 2; (b) serving all 46 layers (55.1 GB of
-   bf16 weights), batch 2, 4224-token prompts (past the window: the
+   held and timed as in step 2; (b) serving 24 of its 46 layers (29.9 GB
+   of bf16 weights), batch 2, 4224-token prompts (past the window: the
    local layers mask in prefill and their rings wrap), 64 new tokens,
    from an sfp8 cache, against the plain path (which, in every serving
    run, prefills one request at a time and decodes as one batch);
@@ -192,13 +198,33 @@ against the ``repro_torch`` package under DIR (default: this checkout's
    scaled_dot_product_attention on its flash backend; every decode read
    at rep 12 (words and planes, full width and draft, contiguous 2176
    slots, a 1024-slot ring, paged on the 8 x 1280 pool) held and timed as
-   in step 2, and rep 17 refused; (b) serving 16 of 88 layers (45.9 GB
+   in step 2, and rep 17 refused; (b) serving 8 of 88 layers (23.7 GB
    with embed and head), batch 4, 2048-token prompts, 64 new tokens,
    from an sfp8 and an sfp-m2e4 cache, against the plain path (no final
    softcap: the prefill logits are also held to an f64-attention
    prefill); (c) training at full widths over 2
    layers, B 2, S 2048: 4 steps of qm + sfp8 and of qm+qe + sfp-m2e4
    (with the attention-plain witness) against the plain path.
+14. The prefix-LMs, whole (after step 13): paligemma-3b (8 q / 1 KV head
+   of 256, GQA rep 8, P 256) and musicgen-large (32 / 32 heads of 64, no
+   GLU, an untied head, P 64), each reading P seeded random conditioning
+   embeddings (drawn on the CPU) before its tokens as a prefix every
+   position sees: (a) the attention forward and backward at the training
+   shape (B 4, S_tot 1280 and 1088) with the prefix and without it, held,
+   bit-equal twice and row by row, the outputs that round away counted,
+   the prefix's timed beside its bound and beside
+   scaled_dot_product_attention with the same boolean mask and
+   ``enable_gqa`` (the backend that takes a mask is named); every
+   decode read (words and planes, full width and draft) over the
+   contiguous 1408- and 1152-slot caches and the 8 x 1280 paged pool,
+   held and timed; (b) serving all layers, batch 4,
+   1024-token prompts after the prefix, 64 new tokens, from sfp8 and
+   sfp-m2e4 caches (paligemma) and sfp8 (musicgen), against the plain path
+   and an f64-attention prefill (no final softcap), and a second random
+   prefix must move the prefill logits further on average than the
+   kernels' rounding moves them from the plain path's; (c) 4 training
+   steps at B 4, S 1024 after the prefix: paligemma qm + sfp8, musicgen
+   qm+qe + sfp-m2e4 with the attention-plain witness.
 
 Any failure exits non-zero. The last line is the device JSON.
 """
@@ -206,6 +232,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import math
 import shutil
@@ -372,8 +399,16 @@ PER_LAYER_QE = (3.5, 4.5, 3.5, 4.5, 7.5, 3.5, 5.5, 5.5, 6.5, 4.5, 3.5, 7.5,
 # at seed 0, 4 arrivals per virtual second, on a 23-block pool (full
 # residency is 80), which the seeded trace outgrows: admission waits and
 # running requests are preempted (checked on the host scheduler before
-# any chip run; the phase fails without a preemption).
+# any chip run; the phase fails without a preemption). The traces run
+# gemma2-2b at full width over 8 of its 26 layers (four LOCAL/GLOBAL
+# periods), to keep the whole smoke inside its time limit: the pool,
+# scheduler and kernels do the same work a layer, and the same trace
+# outgrows the same pool.
 PAGED_SLOTS, PAGED_MAX_LEN, PAGED_BLOCKS, SPEC_K = 8, 1280, 23, 4
+PAGED_LAYERS = 8
+# The gecko8 cache, which every decode step unpacks whole and holds bit
+# for bit to a raw bf16 cache, is served over 8 of the 26 layers too.
+GECKO_SERVE_LAYERS = 8
 PAGED_POS = (1279, 1100, 777, 640, 300, 127, 5, 0)
 PAGED_TRACE = ["--requests", "12", "--prompt-len-min", "256",
                "--prompt-len-max", "1024", "--max-new-min", "16",
@@ -400,20 +435,22 @@ PAGED_TRACE = ["--requests", "12", "--prompt-len-min", "256",
 CNN_LOSS_RTOL, CNN_BITS_ATOL = 1e-4, 1e-3
 CNN_BC_BITS = 7
 CNN_BATCH, CNN_STEPS, CNN_T1_STEPS = 64, 4, 80
-# Checkpointing (slice 13). (a) The launcher at full width, depth cut to 8
+# Checkpointing (slice 13). (a) The launcher at full width, depth cut to 4
 # layers, qm + sfp8, 3 steps with --ckpt-every 2: an async save at step 2
-# and the final blocking save at step 3, each 12.3 GB (2.4 GB of bf16
-# parameters, 9.9 GB of f32 AdamW moments); step 3 restored into a fresh
+# and the final blocking save at step 3, each 9.1 GB (1.8 GB of bf16
+# parameters, 7.3 GB of f32 AdamW moments); step 3 restored into a fresh
 # state bit for bit, generator included. At the full 26 layers two saves
 # hold 53.2 GB at once, past the 45 GiB that the chip machine's host lets
-# its disk grow to (it ended such a run). (b) Restore-and-continue at full
-# width, depth cut to 2 layers for time: 4 steps uninterrupted, with a
-# fault at step 3, and resumed by a second loop.run; bit-equal; each run's
-# checkpoints removed when it is done. (c) The trained parameters (57
-# bf16 matrices) through gecko8 on the card. (d) Batch serving (16 new
-# tokens) from the container the checkpoint stamped. The phase needs two
-# raw checkpoints and the gecko8 copy on disk, with a margin.
-CKPT_LAYERS, CKPT_STEPS, CKPT_EVERY, CKPT_SERVE_NEW = 8, 3, 2, 16
+# its disk grow to (it ended such a run), and 8 layers (12.3 GB a save)
+# took too large a share of the whole smoke's time limit. (b)
+# Restore-and-continue at full width, depth cut to 2 layers for time: 4
+# steps uninterrupted, with a fault at step 3, and resumed by a second
+# loop.run; bit-equal; each run's checkpoints removed when it is done.
+# (c) The trained parameters (29 bf16 matrices) through gecko8 on the
+# card. (d) Batch serving (16 new tokens) from the container the
+# checkpoint stamped. The phase needs two raw checkpoints and the gecko8
+# copy on disk, with a margin.
+CKPT_LAYERS, CKPT_STEPS, CKPT_EVERY, CKPT_SERVE_NEW = 4, 3, 2, 16
 CKPT_B_LAYERS, CKPT_B_STEPS, CKPT_FAULT_STEP = 2, 4, 3
 CKPT_DISK_MARGIN = 1.1
 # Compressed gradients and AdaptivFloat (slice 14). (a) The launcher's qm +
@@ -619,16 +656,18 @@ def attention_note(plan, heads, flops, r):
             f"{100 * r['bound_ms'] / r['ms']:.1f}% of the bound")
 
 
-def attention_f64(torch, q, k, v, rep, softcap):
-    """Causal attention over folded rows (B, S*rep, KH, D) in float64: the
-    exact function, to be rounded to bf16 once."""
+def attention_f64(torch, q, k, v, rep, softcap, prefix_len=0):
+    """Causal attention over folded rows (B, S*rep, KH, D) in float64, the
+    first ``prefix_len`` keys visible to every row: the exact function, to
+    be rounded to bf16 once."""
     from repro_torch.kernels import flash_attention as fa
     Sq, hd = q.shape[1], q.shape[3]
     qh, kh, vh = (t.double().permute(0, 2, 1, 3) for t in (q, k, v))
     logits = qh @ kh.transpose(-1, -2) / hd ** 0.5
     if softcap is not None:
         logits = softcap * torch.tanh(logits / softcap)
-    vis = fa.visible_mask(Sq, k.shape[1], rep, True, None, q.device)
+    vis = fa.visible_mask(Sq, k.shape[1], rep, True, None, q.device,
+                          prefix_len=prefix_len)
     p = torch.softmax(torch.where(vis, logits, -1e30), -1)
     return (p @ vh).permute(0, 2, 1, 3)
 
@@ -1358,7 +1397,7 @@ def gecko_kernels(torch, cfg, gen, flush, results):
 
 
 def attention_exact(q, k, v, *, causal=True, window=None, softcap=None,
-                    q_rep=1):
+                    prefix_len=0, q_offset=0, q_rep=1):
     """``ref.attention`` in f64, rounded to q's dtype once: the function
     the kernels and the plain version round differently."""
     import torch
@@ -1369,26 +1408,30 @@ def attention_exact(q, k, v, *, causal=True, window=None, softcap=None,
     logits = torch.einsum("bqhd,bkhd->bhqk", q.double(), kq) / D ** 0.5
     if softcap is not None:
         logits = softcap * torch.tanh(logits / softcap)
-    q_pos = (torch.arange(Sq, device=q.device) // q_rep)[:, None]
+    q_pos = q_offset + (torch.arange(Sq, device=q.device) // q_rep)[:, None]
     k_pos = torch.arange(Sk, device=q.device)[None, :]
     mask = k_pos <= q_pos if causal else torch.ones_like(k_pos <= q_pos)
     if window is not None:
         mask = mask & (k_pos > q_pos - window)
+    if prefix_len > 0:
+        mask = mask | (k_pos < prefix_len)
     logits = torch.where(mask[None, None], logits, -1e30)
     out = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(logits, -1), vq)
     return out.to(q.dtype)
 
 
-def exact_prefill(torch, model, params, prompt, max_len):
+def exact_prefill(torch, model, params, prompt, max_len, cond=None):
     """The plain path's prefill logits with attention in f64
-    (``attention_exact``)."""
+    (``attention_exact``), after the conditioning embeddings ``cond`` of a
+    prefix-LM when given."""
     from repro_torch.kernels import ops, ref
     plain_attention = ref.attention
     ops.force_backend("plain")
     ref.attention = attention_exact
     try:
         with torch.inference_mode():
-            logits, _ = model.prefill(params, prompt, max_len)
+            logits, _ = model.prefill(params, prompt, max_len,
+                                      cond_embeddings=cond)
     finally:
         ref.attention = plain_attention
         ops.force_backend(None)
@@ -1489,8 +1532,10 @@ def prefill_by_rows(torch, model):
     others)."""
     prefill = model.prefill
 
-    def rows(params, tokens, max_len):
-        outs = [prefill(params, tokens[r:r + 1], max_len)
+    def rows(params, tokens, max_len, cond_embeddings=None):
+        outs = [prefill(params, tokens[r:r + 1], max_len,
+                        cond_embeddings=None if cond_embeddings is None
+                        else cond_embeddings[r:r + 1])
                 for r in range(tokens.shape[0])]
         layers = [cat_rows(torch, [o[1]["layers"][i] for o in outs])
                   for i in range(len(outs[0][1]["layers"]))]
@@ -1502,11 +1547,29 @@ def prefill_by_rows(torch, model):
         del model.prefill
 
 
+def prefix_embeddings(torch, cfg, batch, seed):
+    """A prefix-LM's conditioning embeddings (batch, P, d_model), seeded
+    normal values drawn on the CPU and moved to the card in the compute
+    dtype (the launchers' zeros would stay zero through every layer and
+    hide the prefix mask), at the scale of the model's own token
+    embeddings: a unit-normal table, times sqrt(d_model) under
+    ``emb_scale``. (At unit scale beside paligemma's tokens, scaled by
+    sqrt(2048) ~ 45, a second prefix moved its last position's logits by
+    at most 1.59 on the H100, inside the 2.0 its kernel-vs-plain gate
+    allows: the gate could not tell a read prefix from an ignored one.)"""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    scale = cfg.d_model ** 0.5 if cfg.emb_scale else 1.0
+    x = torch.randn((batch, cfg.prefix_tokens, cfg.d_model), generator=g)
+    return (x * scale).to("cuda", cfg.compute_dtype)
+
+
 def serve_run(torch, cfg, gen, counters, container, prompt_len=PROMPT,
-              batch=B):
+              batch=B, prefix=False):
     """``cfg`` at full width through engine.generate from a ``container``
-    KV cache, ``batch`` rows of ``prompt_len``-token prompts; returns the
-    e2e record and the serving kernels' launches. A codec without a
+    KV cache, ``batch`` rows of ``prompt_len``-token prompts (after P
+    random conditioning embeddings with ``prefix``, a prefix-LM's, which
+    then must change the prefill logits when redrawn); returns the e2e
+    record and the serving kernels' launches. A codec without a
     fixed-width payload (gecko8) takes the unpack fallback and is also
     held to a raw bf16 cache (``raw_cache_check``). The plain path (and
     the f64-attention prefill) prefills one request at a time
@@ -1521,13 +1584,18 @@ def serve_run(torch, cfg, gen, counters, container, prompt_len=PROMPT,
     params = model.init(SEED)
     prompt = torch.randint(0, cfg.vocab, (batch, prompt_len), generator=gen,
                            device=dev)
-    engine.generate(model, params, prompt[:, :64], 2)      # warm-up
+    cond = prefix_embeddings(torch, cfg, batch, SEED + 1) if prefix else None
+    P = cfg.prefix_tokens if prefix else 0
+    max_len = P + prompt_len + MAX_NEW
+    engine.generate(model, params, prompt[:, :64], 2,      # warm-up
+                    cond_embeddings=cond)
     for c in counters:
         c.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    res = engine.generate(model, params, prompt, MAX_NEW)
+    res = engine.generate(model, params, prompt, MAX_NEW,
+                          cond_embeddings=cond)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
     launches = {c.__name__: c.launches for c in counters}
@@ -1555,12 +1623,21 @@ def serve_run(torch, cfg, gen, counters, container, prompt_len=PROMPT,
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         with torch.inference_mode():
-            model.prefill(params, prompt, prompt_len + MAX_NEW)
+            model.prefill(params, prompt, max_len, cond_embeddings=cond)
         torch.cuda.synchronize()
         pre.append(time.perf_counter() - t1)
     prefill_ms = sorted(pre)[1] * 1e3
     decode_ms = (total_s * 1e3 - prefill_ms) / steps
     peak_gb = torch.cuda.max_memory_allocated() / 1e9  # the kernel path's
+    moved = None
+    if prefix:   # the same prompt after a second random prefix
+        with torch.inference_mode():
+            other, _ = model.prefill(params, prompt, max_len,
+                                     cond_embeddings=prefix_embeddings(
+                                         torch, cfg, batch, SEED + 2))
+        moved = (other[:, -1] - res.prefill_logits).abs()
+        moved = (moved.max().item(), moved.mean().item())
+        del other
     for c in counters:  # the timing prefills above are not the main path
         c.launches = 0
 
@@ -1569,7 +1646,8 @@ def serve_run(torch, cfg, gen, counters, container, prompt_len=PROMPT,
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with prefill_by_rows(torch, model):
-            plain_res = engine.generate(model, params, prompt, MAX_NEW)
+            plain_res = engine.generate(model, params, prompt, MAX_NEW,
+                                        cond_embeddings=cond)
         torch.cuda.synchronize()
         plain_s = time.perf_counter() - t0
     finally:
@@ -1580,8 +1658,7 @@ def serve_run(torch, cfg, gen, counters, container, prompt_len=PROMPT,
     lim_max, lim_mean, exact = E2E_MAX, E2E_MEAN, {}
     if cfg.final_softcap is None:
         with prefill_by_rows(torch, model):
-            dx = (exact_prefill(torch, model, params, prompt,
-                                prompt_len + MAX_NEW)
+            dx = (exact_prefill(torch, model, params, prompt, max_len, cond)
                   - plain_res.prefill_logits).abs()
         lim_max = max(lim_max, 2 * dx.max().item())
         lim_mean = max(lim_mean, 2 * dx.mean().item())
@@ -1591,9 +1668,23 @@ def serve_run(torch, cfg, gen, counters, container, prompt_len=PROMPT,
     if d.max().item() > lim_max or d.mean().item() > lim_mean:
         fail(f"prefill logits: max {d.max().item():.4f} mean "
              f"{d.mean().item():.4f} over {lim_max:.4f}/{lim_mean:.4f}")
+    if prefix:
+        # The prefix must move the logits further on average than the
+        # kernels' rounding moves them from the plain path's. (Not at
+        # most: paligemma's bf16 logits, scaled tokens over random
+        # weights, move by one bf16 step at most either way.)
+        exact["second_prefix_prefill_logit_max_mean_diff"] = moved
+        print(f"  a second random prefix moves the prefill logits by max "
+              f"{moved[0]:.4f}, mean {moved[1]:.4f}; the kernel path lies "
+              f"max {d.max().item():.4f}, mean {d.mean().item():.4f} from "
+              f"the plain path")
+        if not moved[1] > d.mean().item():
+            fail("a second random prefix moves the prefill logits less "
+                 "than the kernels' rounding does: the prefix is not read")
     agree, same = stream_agreement(torch, toks, plain_res, "plain")
     e2e = {"arch": cfg.name, "layers": cfg.n_layers, "batch": batch,
-           "prompt": prompt_len, "max_new": MAX_NEW, "kv": container,
+           "prefix": P, "prompt": prompt_len, "max_new": MAX_NEW,
+           "kv": container,
            "total_s": total_s, "prefill_ms": prefill_ms,
            "decode_ms_per_step": decode_ms,
            "tok_per_s": batch * MAX_NEW / total_s, "plain_total_s": plain_s,
@@ -1935,13 +2026,15 @@ def paged_serving(torch, cfg, counters, card, path_launches):
 # q / 16 KV heads of 144), so the kernel design is not specific to 240.
 # The attention is timed at the global layer's training shape, beside
 # scaled_dot_product_attention, which computes the same function there.
-# (b) Serving at full width, batch 4, 2048-token prompts (past the window:
-# prefill masks it, and decode wraps the 1024-slot local rings), 64 new
+# (b) Serving at full width and half its depth, 24 of 48 layers (four
+# periods; the whole model fits the card, but not the whole smoke's time
+# limit beside the later phases), batch 4, 2048-token prompts (past the
+# window: prefill masks it, and decode wraps the 1024-slot local rings), 64 new
 # tokens, from an sfp8 and an sfp-m2e4 cache. (c) Training at full widths
 # and one period of depth, 6 layers (48 do not fit beside AdamW's f32
 # moments on 80 GB; the launcher has no depth flag, so the smoke cuts the
 # config), B 2, S 2048 (the window masks).
-G3_ARCH, G3_PROMPT = "gemma3-12b", 2048
+G3_ARCH, G3_PROMPT, G3_SERVE_LAYERS = "gemma3-12b", 2048, 24
 G3_TRAIN_B, G3_TRAIN_SEQ, G3_TRAIN_LAYERS = 2, 2048, 6
 G27_HEADS = (32, 16, 144)   # gemma2-27b: q heads, KV heads, head dim
 G27_SEQ = 1024
@@ -1968,12 +2061,13 @@ def grad_check(torch, what, got, want):
 
 
 def attention_at(torch, gen, what, batch, S, H, KH, hd, windows,
-                 softcap=None):
+                 softcap=None, prefix_len=0):
     """The attention forward and backward at (batch, S, H, KH, hd), folded
-    as ops.attention folds GQA: held to the plain versions (one bf16 ulp,
-    GRAD_TOL), bit-equal over two launches and row by row against the
-    batch, for each window. Returns the inputs, the window None forward's
-    (o, lse) and the largest errors."""
+    as ops.attention folds GQA, the first ``prefix_len`` keys visible to
+    every row: held to the plain versions (one bf16 ulp, GRAD_TOL),
+    bit-equal over two launches and row by row against the batch, for each
+    window. Returns the inputs, the window None forward's (o, lse) and the
+    largest errors."""
     from repro_torch.kernels import flash_attention as fa
     dev = torch.device("cuda")
     rep = H // KH
@@ -1988,9 +2082,10 @@ def attention_at(torch, gen, what, batch, S, H, KH, hd, windows,
 
     errs, kept = [0.0, 0.0], None
     for window in windows:
-        kw = dict(causal=True, window=window, softcap=softcap, q_rep=rep)
+        kw = dict(causal=True, window=window, softcap=softcap, q_rep=rep,
+                  prefix_len=prefix_len)
         o, lse = fa._forward(q, k, v, True, window, softcap, rep,
-                             with_lse=True)
+                             with_lse=True, prefix_len=prefix_len)
         errs[0] = max(errs[0], check_close(
             torch, f"flash_attention {what} window={window}", o,
             fa.plain(q, k, v, **kw)))
@@ -2002,7 +2097,8 @@ def attention_at(torch, gen, what, batch, S, H, KH, hd, windows,
             torch, f"flash_attention {what} window={window}",
             lambda r: fa._forward(*(t[rows(r)].contiguous()
                                     for t in (q, k, v)), True, window,
-                                  softcap, rep, with_lse=True), batch, KH)
+                                  softcap, rep, with_lse=True,
+                                  prefix_len=prefix_len), batch, KH)
         bitwise_properties(
             torch, f"flash_attention_bwd {what} window={window}",
             lambda r: fa.flash_attention_bwd(
@@ -2012,50 +2108,71 @@ def attention_at(torch, gen, what, batch, S, H, KH, hd, windows,
         if window is None:
             kept = (o, lse)
     print(f"  flash_attention forward and backward {what} (softcap "
-          f"{softcap}): within the gates, bit-equal over two launches and "
-          f"row by row against the batch, windows {list(windows)}")
+          f"{softcap}, prefix {prefix_len}): within the gates, bit-equal "
+          f"over two launches and row by row against the batch, windows "
+          f"{list(windows)}")
     return (q, k, v, do), kept, errs
 
 
-def sdpa_flash(torch, q, k, v, rep):
-    """scaled_dot_product_attention on its flash backend over the folded
-    (B, S*rep, KH, hd) q and (B, S, KH, hd) k/v, causal, GQA by
-    ``enable_gqa``: the library's call of the kernels' function without a
-    softcap. Returns (the call, its leaves, its output folded back)."""
+def sdpa(torch, q, k, v, rep, prefix_len=0):
+    """scaled_dot_product_attention over the folded (B, S*rep, KH, hd) q
+    and (B, S, KH, hd) k/v, GQA by ``enable_gqa``: the library's call of
+    the kernels' function without a softcap. Causal on its flash backend;
+    with a prefix, the boolean causal-or-prefix mask, which the flash
+    backend does not take, on the first backend that takes the call
+    (memory efficient, cuDNN, then math). Returns (the call, its leaves,
+    its output, that output folded back, the backend's name)."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels import flash_attention as fa
     B_, Sr, KH, hd = q.shape
     S = Sr // rep
     qs = q.reshape(B_, S, rep, KH, hd).transpose(2, 3).reshape(
         B_, S, KH * rep, hd).transpose(1, 2).detach().requires_grad_()
     ks, vs = (t.transpose(1, 2).detach().requires_grad_() for t in (k, v))
-
-    def call():
-        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
-            return torch.nn.functional.scaled_dot_product_attention(
-                qs, ks, vs, is_causal=True, enable_gqa=True)
-
-    out = call()
-    folded = out.detach().transpose(1, 2).reshape(
-        B_, S, KH, rep, hd).transpose(2, 3).reshape(B_, Sr, KH, hd)
-    return call, (qs, ks, vs), out, folded
+    if prefix_len:
+        kw = dict(attn_mask=fa.visible_mask(S, S, 1, True, None, q.device,
+                                            prefix_len=prefix_len))
+        names = ("EFFICIENT_ATTENTION", "CUDNN_ATTENTION", "MATH")
+    else:
+        kw, names = dict(is_causal=True), ("FLASH_ATTENTION",)
+    for name in names:
+        def call(backend=getattr(SDPBackend, name)):
+            with sdpa_kernel(backend):
+                return torch.nn.functional.scaled_dot_product_attention(
+                    qs, ks, vs, enable_gqa=True, **kw)
+        try:
+            out = call()
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            print(f"  SDPA {name.lower()} refuses the call: "
+                  f"{str(e).splitlines()[0][:120]}")
+            continue
+        folded = out.detach().transpose(1, 2).reshape(
+            B_, S, KH, rep, hd).transpose(2, 3).reshape(B_, Sr, KH, hd)
+        return call, (qs, ks, vs), out, folded, name.lower()
+    fail(f"no SDPA backend takes the call (prefix {prefix_len})")
 
 
 def attention_timed(torch, gen, label, what, Bt, S, H, KH, hd, windows,
-                    softcap=None):
-    """Row 8 at (Bt, S, H, KH, hd), folded as ops.attention folds GQA:
-    held for each window (``attention_at``); the window None forward's
-    outputs that round away from plain's bf16 and from the f64
-    function's counted; forward and backward timed beside plain and,
-    without a softcap, SDPA's flash backend with ``enable_gqa`` (the same
-    function; SDPA has no softcap, so with one ``library_ms`` is None).
-    Returns {"flash_attention": ..., "flash_attention_bwd": ...}."""
+                    softcap=None, prefix_len=0):
+    """Row 8 at (Bt, S, H, KH, hd), folded as ops.attention folds GQA, the
+    first ``prefix_len`` keys visible to every row: held for each window
+    (``attention_at``); the window None forward's outputs that round away
+    from plain's bf16 and from the f64 function's counted; forward and
+    backward timed beside plain and, without a softcap, SDPA with
+    ``enable_gqa`` (the same function; its flash backend, or with a prefix
+    the first backend that takes the boolean mask; SDPA has no softcap, so
+    with one ``library_ms`` is None). Returns {"flash_attention": ...,
+    "flash_attention_bwd": ...}."""
     from repro_torch.kernels import flash_attention as fa
     rep = H // KH
     (q, k, v, do), (o, lse), errs = attention_at(
-        torch, gen, what, Bt, S, H, KH, hd, windows, softcap)
-    kw = dict(causal=True, window=None, softcap=softcap, q_rep=rep)
+        torch, gen, what, Bt, S, H, KH, hd, windows, softcap, prefix_len)
+    kw = dict(causal=True, window=None, softcap=softcap, q_rep=rep,
+              prefix_len=prefix_len)
     want = fa.plain(q, k, v, **kw)
-    exact = attention_f64(torch, q, k, v, rep, softcap).to(torch.bfloat16)
+    exact = attention_f64(torch, q, k, v, rep, softcap, prefix_len).to(
+        torch.bfloat16)
     flips = ((o != want).sum().item(), (o != exact).sum().item(),
              (want != exact).sum().item())
     del exact
@@ -2064,14 +2181,17 @@ def attention_timed(torch, gen, label, what, Bt, S, H, KH, hd, windows,
           f"version's; against the f64 function rounded once, kernel "
           f"{flips[1]}, plain {flips[2]}")
     fwd_lib = bwd_lib = sdpa_err = None
+    backend = "flash_attention"
     if softcap is None:
         # The yardstick must compute the same function: held loosely (its
         # P enters P V as one bf16 term, 2^-9 relative).
-        call, leaves, so, folded = sdpa_flash(torch, q, k, v, rep)
+        call, leaves, so, folded, backend = sdpa(torch, q, k, v, rep,
+                                                 prefix_len)
         sdpa_err = (folded.float() - want.float()).abs().max().item()
         if not sdpa_err <= SDPA_TOL * want.float().abs().max().item():
-            fail(f"scaled_dot_product_attention (flash) is {sdpa_err:.3e} "
-                 f"off the plain version: not the kernels' function")
+            fail(f"scaled_dot_product_attention ({backend}) is "
+                 f"{sdpa_err:.3e} off the plain version: not the kernels' "
+                 f"function")
         del folded
         gs = torch.randn_like(so)
         fwd_lib = time_ms(torch, call, reps=10)
@@ -2079,15 +2199,17 @@ def attention_timed(torch, gen, label, what, Bt, S, H, KH, hd, windows,
             so, leaves, gs, retain_graph=True), reps=5)
         del so, leaves, gs
     del want
-    pairs = S * (S + 1) // 2
+    # Visible (query, key) pairs a head: position i sees max(i + 1, P).
+    pairs = sum(max(i + 1, prefix_len) for i in range(S))
     flops_f, flops_b = 2 * 2 * Bt * H * hd * pairs, 2 * 5 * Bt * H * hd * pairs
     out = {}
     fwd = dict(ms=time_ms(torch, lambda: fa.flash_attention(q, k, v, **kw),
                           reps=10),
                plain_ms=time_ms(torch, lambda: fa.plain(q, k, v, **kw),
                                 reps=2),
-               library_ms=fwd_lib, max_abs_err=errs[0],
-               sdpa_max_abs_err_vs_plain=sdpa_err,
+               library_ms=fwd_lib, library=f"SDPA {backend}",
+               max_abs_err=errs[0], sdpa_max_abs_err_vs_plain=sdpa_err,
+               visible_pairs_per_head=pairs,
                flips_vs_plain_kernel_vs_f64_plain_vs_f64=flips)
     fwd["bound_ms"], fwd["bound_by"] = bound(
         flops_f, 2 * (2 * q.numel() + k.numel() + v.numel()))
@@ -2095,21 +2217,23 @@ def attention_timed(torch, gen, label, what, Bt, S, H, KH, hd, windows,
                    q, k, v, o, do, lse, **kw), reps=5),
                plain_ms=time_ms(torch, lambda: fa.plain_bwd(
                    q, k, v, do, **kw), reps=2),
-               library_ms=bwd_lib, max_abs_err=errs[1])
+               library_ms=bwd_lib, library=f"SDPA {backend}",
+               max_abs_err=errs[1])
     bwd["bound_ms"], bwd["bound_by"] = bound(
         flops_b, 2 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel()
                       + o.numel() + do.numel()) + 4 * lse.numel())
     cap = "no softcap" if softcap is None else f"softcap {softcap:g}"
+    mask = f"causal, prefix {prefix_len}" if prefix_len else "causal"
     for name, r, flops in (("flash_attention", fwd, flops_f),
                            ("flash_attention_bwd", bwd, flops_b)):
         r["shape"] = (f"{label}: B {Bt}, S {S}, {H} q / {KH} KV heads of "
-                      f"{hd}, causal, {cap}")
+                      f"{hd}, {mask}, {cap}")
         r["tflops"] = flops / r["ms"] / 1e9
         r["share_of_bound"] = r["bound_ms"] / r["ms"]
         lib = ("none (softcap)" if r["library_ms"] is None
                else f"{r['library_ms']:.4f}")
         print(f"  {name} {what}: {r['ms']:.4f} ms, bound "
-              f"{r['bound_ms']:.4f}, SDPA flash {lib}, plain "
+              f"{r['bound_ms']:.4f}, SDPA {backend} {lib}, plain "
               f"{r['plain_ms']:.3f} ({r['tflops']:.1f} TFLOP/s)")
         out[name] = r
     return out
@@ -2299,11 +2423,12 @@ def gemma3_phase(torch, counters, card, gen, flush):
     cfg = configs.get(G3_ARCH)
     summary = {"kernels": gemma3_kernels(torch, cfg, gen, flush)}
     launches = {}
+    served = dataclasses.replace(cfg, n_layers=G3_SERVE_LAYERS)
     for path, container in (("serve gemma3", CONTAINER),
                             ("serve gemma3 dense", DENSE)):
         t0 = time.perf_counter()
-        e2e, launches[path] = serve_run(torch, cfg, gen, counters, container,
-                                        prompt_len=G3_PROMPT)
+        e2e, launches[path] = serve_run(torch, served, gen, counters,
+                                        container, prompt_len=G3_PROMPT)
         e2e["card"] = card
         print(f"e2e gemma3 ({container}): " + json.dumps(e2e))
         print(f"{path}: {time.perf_counter() - t0:.1f} s")
@@ -2326,21 +2451,23 @@ def gemma3_phase(torch, counters, card, gen, flush):
 
 
 # The last dense configs. gemma2-27b (32 q / 16 KV heads of 144,
-# softcaps 50 / 30, window 4096, tied embeddings) is served whole: its 46
-# layers are 55.1 GB of bf16 weights, batch 2, from 4224-token prompts,
-# past the window, so the local layers mask in prefill and their rings
-# wrap in decode. It trains at full widths over 4 of its 46 layers (two
-# LOCAL/GLOBAL periods; 46 layers and AdamW's moments need ~330 GB).
-# mistral-large-123b (96 q / 8 KV heads of 128, GQA rep 12, an untied
-# head, no softcaps) is served at 16 of its 88 layers (45.9 GB with embed
-# and head; 88 layers are 245 GB), batch 4, 2048-token prompts, and
-# trained at 2.
-G27_ARCH, G27_SERVE_B, G27_PROMPT = "gemma2-27b", 2, 4224
+# softcaps 50 / 30, window 4096, tied embeddings) is served at 24 of its
+# 46 layers (29.9 GB of bf16 weights; all 46, 55.1 GB, fit the card but
+# not the whole smoke's time limit beside the later phases), batch 2,
+# from 4224-token prompts, past the window, so the local
+# layers mask in prefill and their rings wrap in decode. It trains at full
+# widths over 4 of its 46 layers (two LOCAL/GLOBAL periods; 46 layers and
+# AdamW's moments need ~330 GB). mistral-large-123b (96 q / 8 KV heads of
+# 128, GQA rep 12, an untied head, no softcaps) is served at 8 of its 88
+# layers (23.7 GB with embed and head; 88 layers are 245 GB), batch 4,
+# 2048-token prompts, and trained at 2.
+G27_ARCH, G27_SERVE_B, G27_PROMPT, G27_SERVE_LAYERS = (
+    "gemma2-27b", 2, 4224, 24)
 G27_TRAIN_B, G27_TRAIN_SEQ, G27_TRAIN_LAYERS = 2, 2048, 4
 G27_GLOBAL_POS = (4351, 4287, 4223, 900)
 G27_RING_POS = (5000, 4287, 4095, 2000)
 MI_ARCH, MI_SERVE_LAYERS, MI_SERVE_B, MI_PROMPT = (
-    "mistral-large-123b", 16, 4, 2048)
+    "mistral-large-123b", 8, 4, 2048)
 MI_TRAIN_B, MI_TRAIN_SEQ, MI_TRAIN_LAYERS = 2, 2048, 2
 
 
@@ -2429,7 +2556,8 @@ def dense_config_phase(torch, counters, card, gen, flush, which):
     if which == "gemma2_27b":
         cfg, tag = configs.get(G27_ARCH), "gemma2-27b"
         kernels = gemma2_27b_kernels(torch, cfg, gen, flush)
-        serving = ((cfg, CONTAINER, ""),)
+        serving = ((dataclasses.replace(cfg, n_layers=G27_SERVE_LAYERS),
+                    CONTAINER, ""),)
         serve_kw = dict(prompt_len=G27_PROMPT, batch=G27_SERVE_B)
         training = (("qm", CONTAINER, False, ""),)
         train_kw = dict(batch=G27_TRAIN_B, seq=G27_TRAIN_SEQ,
@@ -2470,11 +2598,102 @@ def dense_config_phase(torch, counters, card, gen, flush, which):
     return summary, launches
 
 
-def train_setup(torch, argv, n_layers=None, policy_fn=None, state_fn=None):
+# The prefix-LMs (slice 17), served and trained whole: paligemma-3b (18
+# layers, d_model 2048, 8 q / 1 KV head of 256, GQA rep 8, GLU-GELU d_ff
+# 16384, a tied 257,216-word vocabulary with emb_scale, P 256) and
+# musicgen-large (48 layers, 32 q / 32 KV heads of 64, a GELU MLP without
+# GLU, d_ff 8192, an untied 2048-word head, P 64), 2.51 B and 2.42 B
+# parameters. Each reads P seeded random conditioning embeddings (drawn on
+# the CPU) before 1024 tokens, so its attention runs over S_tot 1280 and
+# 1088 positions (the latter off the 128-row tile), batch 4; the decode
+# caches hold 1408 and 1152 slots.
+PG_ARCH, MG_ARCH = "paligemma-3b", "musicgen-large"
+PREFIX_B, PREFIX_SEQ = 4, 1024
+PREFIX_POS = {PG_ARCH: (1407, 1343, 1279, 600),
+              MG_ARCH: (1151, 1087, 1023, 300)}
+
+
+def prefix_kernels(torch, cfg, gen, flush, tag):
+    """Rows 8-10 at a prefix-LM's heads: the attention forward and
+    backward at its training shape (B 4, S_tot P + 1024) with the prefix,
+    held, counted and timed beside SDPA with the same boolean mask, and
+    without it, held; every decode read (words and planes, full width and
+    draft) over its contiguous cache, and paged on the 8 x 1280 pool (the
+    paged engine does not serve prefix-LMs: a kernel-level check), held
+    and timed."""
+    from repro_torch.configs.base import GLOBAL
+    from repro_torch.serve import kvcache
+    H, KH, hd, P = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_, \
+        cfg.prefix_tokens
+    t0 = time.perf_counter()
+    S_tot = P + PREFIX_SEQ
+    what = f"{tag} hd {hd} rep {H // KH}"
+    out = {"attention": attention_timed(
+        torch, gen, f"{cfg.name} layer", f"{what} prefix {P}", PREFIX_B,
+        S_tot, H, KH, hd, (None,), prefix_len=P)}
+    torch.cuda.empty_cache()
+    _, _, out["no_prefix_max_abs_err"] = attention_at(
+        torch, gen, f"{what} prefix 0", PREFIX_B, S_tot, H, KH, hd, (None,))
+    torch.cuda.empty_cache()
+    L = kvcache.cache_len(cfg, GLOBAL, S_tot + MAX_NEW)
+    out["decode"] = decode_reads(
+        torch, gen, flush, what, H, KH, hd,
+        (("global", L, None, PREFIX_POS[cfg.name]),), (CONTAINER, DENSE))
+    out["paged"] = paged_reads(torch, gen, flush, H, KH, hd, what=what)
+    torch.cuda.empty_cache()
+    print(f"{tag} kernel checks: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def prefix_phase(torch, counters, card, gen, flush, which):
+    """The paligemma-3b (``which`` "paligemma") or musicgen-large
+    ("musicgen") phase: the kernel checks, then serving and training with
+    random conditioning embeddings against the plain path. Returns (its
+    summary, the launches of each of its paths)."""
+    from repro_torch import configs
+    if which == "paligemma":
+        cfg = configs.get(PG_ARCH)
+        serving = ((CONTAINER, ""), (DENSE, " dense"))
+        training = (("qm", CONTAINER, False, ""),)
+    else:
+        cfg = configs.get(MG_ARCH)
+        serving = ((CONTAINER, ""),)
+        training = (("qm+qe", DENSE, True, " dense"),)
+    summary = {"kernels": prefix_kernels(torch, cfg, gen, flush, which)}
+    launches = {}
+    for container, suffix in serving:
+        path = f"serve {which}{suffix}"
+        t0 = time.perf_counter()
+        e2e, launches[path] = serve_run(torch, cfg, gen, counters,
+                                        container, prompt_len=PREFIX_SEQ,
+                                        batch=PREFIX_B, prefix=True)
+        e2e["card"] = card
+        print(f"e2e {which} ({container}): " + json.dumps(e2e))
+        print(f"{path}: {time.perf_counter() - t0:.1f} s")
+        summary[path] = e2e
+        torch.cuda.empty_cache()
+    for policy, container, witness, suffix in training:
+        path = f"train {which}{suffix}"
+        t0 = time.perf_counter()
+        e2e, launches[path] = train_run(
+            torch, cfg, counters, policy=policy, container=container,
+            steps=TRAIN_STEPS, bits={"qm": QM_INIT_BITS}, witness=witness,
+            batch=PREFIX_B, seq=PREFIX_SEQ, prefix=True)
+        e2e["card"] = card
+        print(f"{path}: " + json.dumps(e2e))
+        print(f"{path}: {time.perf_counter() - t0:.1f} s")
+        summary[path] = e2e
+        torch.cuda.empty_cache()
+    return summary, launches
+
+
+def train_setup(torch, argv, n_layers=None, policy_fn=None, state_fn=None,
+                prefix=False):
     """The launcher's model, train step, initial state and batches for
     ``argv`` (cut to ``n_layers`` when given; the policy replaced by
     ``policy_fn(policy)`` and the initial state by ``state_fn(state)`` when
-    given)."""
+    given; with ``prefix``, each batch carries seeded random conditioning
+    embeddings, a prefix-LM's, where the launcher feeds zeros)."""
     import dataclasses
     from repro_torch.data import synthetic
     from repro_torch.launch import train as tlaunch
@@ -2496,6 +2715,10 @@ def train_setup(torch, argv, n_layers=None, policy_fn=None, state_fn=None):
     batches = [{k: torch.from_numpy(v).long().to(model.device)
                 for k, v in corpus.batch(i).items()}
                for i in range(args.steps)]
+    if prefix:
+        for i, b in enumerate(batches):
+            b["cond_embeddings"] = prefix_embeddings(torch, cfg, batch,
+                                                     SEED + 10 + i)
     return model, step_mod.make_train_step(model, tc), state, batches, tc
 
 
@@ -2525,7 +2748,7 @@ def timed_step(torch, step_fn, state, b, counters, i, expect=None):
 
 def train_steps(torch, argv, counters, expect_per_step=None, n_layers=None,
                 policy_fn=None, count_truncation=False, record_stash=False,
-                state_fn=None):
+                state_fn=None, prefix=False):
     """Run the launcher's steps for ``argv`` one by one through
     train.step, checking the launch counts of every step. Returns
     (per-step records, final state, the stash exponent truncation's
@@ -2535,7 +2758,8 @@ def train_steps(torch, argv, counters, expect_per_step=None, n_layers=None,
     codec's ``pack`` returns, no copy and no sync."""
     from repro_torch import codecs
     model, step_fn, state, batches, _ = train_setup(torch, argv, n_layers,
-                                                    policy_fn, state_fn)
+                                                    policy_fn, state_fn,
+                                                    prefix)
     if count_truncation:
         model.truncation_count = {}
     stash = [] if record_stash else None
@@ -2653,13 +2877,15 @@ def compare_runs(run, ref, subs, init):
 
 
 def train_run(torch, cfg, counters, *, policy, container, steps, bits,
-              witness=False, batch=B, seq=TRAIN_SEQ, depth=None):
+              witness=False, batch=B, seq=TRAIN_SEQ, depth=None,
+              prefix=False):
     """``steps`` training steps at full width on the kernel path, then the
     same steps from the same seed on the plain path, held to the TRAIN_*
     limits. ``bits`` gives each sub-policy's initial bitlengths (qm's via
     ``--qm-init-bits``; JAX has no QE flag, so qe's through the policy).
-    ``batch`` x ``seq`` tokens a step; ``depth`` cuts the layers (the
-    launcher has no depth flag).
+    ``batch`` x ``seq`` tokens a step (after P random conditioning
+    embeddings with ``prefix``, a prefix-LM's); ``depth`` cuts the layers
+    (the launcher has no depth flag).
 
     With ``witness`` the steps run a third time with only attention on its
     plain version (``ops.force_backend("plain attention")``; every other
@@ -2695,6 +2921,7 @@ def train_run(torch, cfg, counters, *, policy, container, steps, bits,
                 dataclasses.replace(p, init_bits=bits["qe"])
                 if p.name == "qe" else p for p in pol.policies))
     n_periods, n_layers = cfg.n_periods, cfg.n_layers
+    s_tot = seq + (cfg.prefix_tokens if prefix else 0)  # stashed positions
     expect = {c.__name__: 0 for c in counters}
     expect.update({pack: n_periods, unpack: 2 * n_periods,
                    "flash_attention": 2 * n_layers,
@@ -2711,7 +2938,7 @@ def train_run(torch, cfg, counters, *, policy, container, steps, bits,
             records, state, counts, stash = train_steps(
                 torch, argv, counters, expect_per_step, n_layers=depth,
                 policy_fn=policy_fn, count_truncation=counting,
-                record_stash=measure)
+                record_stash=measure, prefix=prefix)
         finally:
             ops.force_backend(None)
         acts = {s: _act_bits(state, s, composite) for s in subs}
@@ -2747,7 +2974,7 @@ def train_run(torch, cfg, counters, *, policy, container, steps, bits,
         print(f"stash footprint ({policy}, {container}, init bits {init}, "
               f"last step): " + json.dumps(footprint))
     else:
-        h = torch.empty((batch, seq, cfg.d_model), dtype=torch.bfloat16,
+        h = torch.empty((batch, s_tot, cfg.d_model), dtype=torch.bfloat16,
                         device="meta")
         stash_bytes = codecs.get(container).packed_bits(h) / 8 * n_periods
 
@@ -2801,12 +3028,12 @@ def train_run(torch, cfg, counters, *, policy, container, steps, bits,
            "init_bits": {s: init[s] for s in subs},
            "kernel_vs_plain_gated": ("step 1 (from one state)" if witness
                                      else "every step"),
-           "batch": batch, "seq": seq, "steps": steps,
-           "step_ms_median_from_step_2": step_ms,
+           "batch": batch, "seq": seq, "prefix": s_tot - seq,
+           "steps": steps, "step_ms_median_from_step_2": step_ms,
            "tokens_per_s": batch * seq / step_ms * 1e3,
            "peak_mem_gb": peak_gb,
            "stash_bytes_per_step": stash_bytes,
-           "stash_bytes_bf16": 2 * batch * seq * cfg.d_model * n_periods,
+           "stash_bytes_bf16": 2 * batch * s_tot * cfg.d_model * n_periods,
            "loss": [r["loss"] for r in records],
            "plain_loss": [r["loss"] for r in plain_records],
            "grad_norm": [r["grad_norm"] for r in records],
@@ -4468,7 +4695,7 @@ def dense_configs_entry(name, r, dc, path_launches):
                             ("mistral", MI_TRAIN_LAYERS)):
             g = dc[tag]["kernels"]["attention"][name]
             lib = ("none (softcap)" if g["library_ms"] is None
-                   else f"SDPA flash {g['library_ms']:.5f}")
+                   else f"{g['library']} {g['library_ms']:.5f}")
             serve = path_launches.get(f"serve {tag}", {}).get(name, 0)
             notes.append(
                 f"{g['shape']}: {g['ms']:.5f} ms, bound {g['bound_ms']:.5f}"
@@ -4487,7 +4714,7 @@ def dense_configs_entry(name, r, dc, path_launches):
         notes.append(f"mistral rep 12 hd 128 ({key}): {g['ms']:.5f} ms, "
                      f"bound {g['bound_ms']:.6f}, plain {g['plain_ms']:.4f};"
                      f" {g['note']}; {serve} launches per mistral generate "
-                     f"(16 layers)")
+                     f"({MI_SERVE_LAYERS} layers)")
         g27 = dc["gemma2-27b"]["kernels"]["decode"].get(key)
         if g27 is not None:
             serve = path_launches["serve gemma2-27b"].get(name, 0)
@@ -4500,18 +4727,58 @@ def dense_configs_entry(name, r, dc, path_launches):
         r["note"] += "; " + "; ".join(notes)
 
 
+def prefix_entry(name, r, pf, path_launches):
+    """Add the prefix-LM phases to a kernel's note: rows 8 their attention
+    timings with the prefix (beside SDPA with the same mask) and launches
+    per generate and step, rows 9-10 their reads (paligemma: one KV head
+    of 256 at rep 8; musicgen: 32 heads of 64, two a 128-lane group) and
+    launches per generate."""
+    notes = []
+    for tag in ("paligemma", "musicgen"):
+        if tag not in pf:
+            continue
+        if name in ("flash_attention", "flash_attention_bwd"):
+            g = pf[tag]["kernels"]["attention"][name]
+            train = next(p for p in path_launches
+                         if p.startswith(f"train {tag}"))
+            notes.append(
+                f"{g['shape']}: {g['ms']:.5f} ms, bound {g['bound_ms']:.5f}"
+                f" ({g['bound_by']}), plain {g['plain_ms']:.4f}, "
+                f"{g['library']} {g['library_ms']:.5f}, "
+                f"{g['tflops']:.1f} TFLOP/s, max |d| {g['max_abs_err']:.3g};"
+                f" {path_launches[f'serve {tag}'].get(name, 0)} launches per "
+                f"{tag} generate, "
+                f"{path_launches[train][name] // TRAIN_STEPS} per step")
+        elif name in DECODE_READS:
+            group, container, pp, label = DECODE_READS[name]
+            key = (f"{container} {'paged' if group == 'paged' else 'global'}"
+                   f" prefix_planes={pp}")
+            g = pf[tag]["kernels"][group][key]
+            serve = path_launches.get(
+                f"serve {tag}" if container == CONTAINER
+                else f"serve {tag} dense", {}).get(name, 0)
+            notes.append(f"{tag} ({key}, {g['live_slots']} live slots): "
+                         f"{g['ms']:.5f} ms, bound {g['bound_ms']:.6f}, "
+                         f"plain {g['plain_ms']:.4f}; {g['note']}; {serve} "
+                         f"launches per {tag} generate")
+    if notes:
+        r["note"] += "; " + "; ".join(notes)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phase", choices=("all", "gecko", "dense", "sfp",
                                         "cnn", "ckpt", "gradc", "gemma3",
-                                        "gemma2_27b", "mistral"),
+                                        "gemma2_27b", "mistral",
+                                        "paligemma", "musicgen"),
                     default="all",
                     help="gecko / dense / sfp: only the Gecko, the dense "
                          "bit-plane or the fixed-lane word kernel checks "
                          "and timings; cnn: only the CNN phase; ckpt: only "
                          "the checkpoint phase; gradc: only the compressed "
                          "gradients and AdaptivFloat phase; gemma3, "
-                         "gemma2_27b, mistral: only that model's phase")
+                         "gemma2_27b, mistral, paligemma, musicgen: only "
+                         "that model's phase")
     ap.add_argument("--src", type=Path, default=SRC,
                     help="the directory holding the repro_torch package")
     args = ap.parse_args(argv)
@@ -4573,9 +4840,10 @@ def main(argv=None) -> int:
         print(json.dumps({"tree": str(src), "card": card,
                           "gemma3": summary["kernels"]}))
         return 0
-    if args.phase in ("gemma2_27b", "mistral"):
-        summary, _ = dense_config_phase(torch, counters, card, gen, flush,
-                                        args.phase)
+    if args.phase in ("gemma2_27b", "mistral", "paligemma", "musicgen"):
+        phase = (prefix_phase if args.phase in ("paligemma", "musicgen")
+                 else dense_config_phase)
+        summary, _ = phase(torch, counters, card, gen, flush, args.phase)
         print(card)
         print(json.dumps({"tree": str(src), "card": card,
                           args.phase: summary["kernels"]}))
@@ -4623,14 +4891,24 @@ def main(argv=None) -> int:
         dc_launches.update(launches)
         print(f"{tag} phase: {time.perf_counter() - t0:.1f} s")
         torch.cuda.empty_cache()
+    pf = {}
+    for which in ("paligemma", "musicgen"):
+        t0 = time.perf_counter()
+        pf[which], launches = prefix_phase(torch, counters, card, gen, flush,
+                                           which)
+        dc_launches.update(launches)
+        print(f"{which} phase: {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
     del flush
     torch.cuda.empty_cache()
 
     path_launches = {}
-    for path, container in (("serve", CONTAINER), ("serve dense", DENSE),
-                            ("serve gecko8", GECKO)):
+    gecko_cfg = dataclasses.replace(cfg, n_layers=GECKO_SERVE_LAYERS)
+    for path, scfg, container in (("serve", cfg, CONTAINER),
+                                  ("serve dense", cfg, DENSE),
+                                  ("serve gecko8", gecko_cfg, GECKO)):
         t0 = time.perf_counter()
-        e2e, path_launches[path] = serve_run(torch, cfg, gen, counters,
+        e2e, path_launches[path] = serve_run(torch, scfg, gen, counters,
                                              container)
         e2e["card"] = card
         print(f"e2e ({container}): " + json.dumps(e2e))
@@ -4682,7 +4960,8 @@ def main(argv=None) -> int:
         e2e["card"] = card
         print(f"{path}: " + json.dumps(e2e))
         print(f"{path}: {time.perf_counter() - t0:.1f} s")
-    paged_serving(torch, cfg, counters, card, path_launches)
+    paged_serving(torch, dataclasses.replace(cfg, n_layers=PAGED_LAYERS),
+                  counters, card, path_launches)
     t0 = time.perf_counter()
     be_e2e, path_launches["train bit_exact"] = bit_exact_run(torch, cfg,
                                                              counters)
@@ -4732,6 +5011,7 @@ def main(argv=None) -> int:
                           f"fill, same timer)")
         path = gemma3_entry(name, r, path, g3, path_launches)
         dense_configs_entry(name, r, dc, path_launches)
+        prefix_entry(name, r, pf, path_launches)
         kernels.append(dict(name=name, route="cuda", source=r["source"],
                             replaces=r["replaces"],
                             launches=path_launches[path][name], path=path,

@@ -64,6 +64,23 @@ class Codec(abc.ABC):
         del dtype
         return None
 
+    def packed_spec(self, shape: Tuple[int, ...], dtype: torch.dtype
+                    ) -> PackedTensor:
+        """The skeleton of ``pack``'s output for a ``shape`` / ``dtype``
+        tensor, for cache, buffer and checkpoint planning: a
+        ``PackedTensor`` whose parts are meta tensors (their shapes and
+        dtypes, no memory). The plain versions pack a fake CPU tensor,
+        which propagates shapes without data (the JAX package's
+        ``eval_shape`` of a pack)."""
+        from torch._subclasses.fake_tensor import FakeTensorMode
+        with FakeTensorMode():
+            packed = self.pack(torch.empty(tuple(shape), dtype=dtype))
+            parts = {k: (tuple(v.shape), v.dtype)
+                     for k, v in packed.data.items()}
+        return PackedTensor(packed.codec, packed.shape, packed.dtype, {
+            k: torch.empty(s, dtype=dt, device="meta")
+            for k, (s, dt) in parts.items()})
+
     def roundtrip(self, x: torch.Tensor, bits=None) -> torch.Tensor:
         """pack -> unpack: the fake-quant view of the realized container."""
         return self.unpack(self.pack(x, bits))

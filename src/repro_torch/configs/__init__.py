@@ -11,3 +11,5 @@ from repro_torch.configs.gemma2_27b import GEMMA2_27B  # noqa: F401
 from repro_torch.configs.mistral_large_123b import (  # noqa: F401
     MISTRAL_LARGE_123B,
 )
+from repro_torch.configs.paligemma_3b import PALIGEMMA_3B  # noqa: F401
+from repro_torch.configs.musicgen_large import MUSICGEN_LARGE  # noqa: F401

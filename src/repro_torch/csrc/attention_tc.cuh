@@ -207,21 +207,41 @@ __device__ __forceinline__ void to_a_terms(const float (&s)[N],
 }
 
 // Whether every (row, key) pair of folded rows [r_lo, r_hi] and keys
-// [k_lo, k_hi] is visible: then the tile skips the mask arithmetic.
+// [k_lo, k_hi] is visible: then the tile skips the mask arithmetic. Keys
+// below prefix_len (a prefix-LM's conditioning) are visible to every row.
 // kernels/flash_attention.py:tile_plan computes the same predicate.
 __device__ __forceinline__ bool tile_open(int r_lo, int r_hi, int k_lo,
                                           int k_hi, int Sk, int q_rep,
-                                          int causal, int window) {
+                                          int causal, int window,
+                                          int prefix_len) {
   if (k_hi >= Sk) return false;
+  if (k_hi < prefix_len) return true;
   if (causal && k_hi > r_lo / q_rep) return false;
   if (window > 0 && k_lo <= r_hi / q_rep - window) return false;
   return true;
 }
 
+// The JAX package's mask: (causal & window) | key < prefix_len.
 __device__ __forceinline__ bool visible(int qpos, int kpos, int Sk,
-                                        int causal, int window) {
-  return kpos < Sk && (!causal || kpos <= qpos)
-         && (window <= 0 || kpos > qpos - window);
+                                        int causal, int window,
+                                        int prefix_len) {
+  return kpos < Sk && (kpos < prefix_len
+                       || ((!causal || kpos <= qpos)
+                           && (window <= 0 || kpos > qpos - window)));
+}
+
+// The key range [begin, end) a query block of positions [q_lo, q_hi] can
+// see: causal and window bounds, widened to take the prefix's keys.
+__device__ __forceinline__ void key_range(int q_lo, int q_hi, int Sk,
+                                          int causal, int window,
+                                          int prefix_len, int& begin,
+                                          int& end) {
+  end = causal ? min(Sk, q_hi + 1) : Sk;
+  begin = window > 0 ? max(0, q_lo - window + 1) : 0;
+  if (prefix_len > 0) {
+    begin = 0;
+    end = max(end, min(Sk, prefix_len));
+  }
 }
 
 // The largest dynamic shared memory each kernel instance needs, granted

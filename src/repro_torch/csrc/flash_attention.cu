@@ -5,7 +5,10 @@
 // (B, Sk, H, D) bf16 with the same head count: GQA callers fold the query
 // head group into the rows (q_rep), so folded row r sits at causal position
 // r / q_rep. Masks: causal, a sliding window (k > q - window) and keys past
-// Sk; masked logits are -1e30 (not -inf), as in the JAX kernel. Logit
+// Sk, then the first prefix_len keys made visible to every row (a
+// prefix-LM's conditioning, the mask of the JAX package's ref.attention,
+// which its Pallas kernel never receives); masked logits are -1e30 (not
+// -inf), as in the JAX kernel. Logit
 // softcap c: s = c * tanh(s / c). Scores, softmax and the output
 // accumulator are f32; the output is bf16. An optional f32 output holds
 // each row's log-sum-exp (m + log l, shape (B*H, Sq)), which the backward
@@ -95,8 +98,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, bf16* __restrict__ out,
                        float* __restrict__ lse, int Sq, int Sk, int H,
-                       int q_rep, int causal, int window, float softcap,
-                       float scale) {
+                       int q_rep, int causal, int window, int prefix_len,
+                       float softcap, float scale) {
   constexpr int D = attn::pad32(DH);  // the tile's columns
   constexpr int kPanels = D / 32;
   extern __shared__ unsigned char smem_raw[];
@@ -115,11 +118,13 @@ flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* kb = k + ((size_t)b * Sk * H + h) * DH;
   const bf16* vb = v + ((size_t)b * Sk * H + h) * DH;
 
-  // Key tiles any row of this CTA can see.
+  // Key tiles any row of this CTA can see. With a prefix and a window,
+  // the tiles between them are visited and masked whole: an exact no-op,
+  // since the prefix's first tile has set every row's running max.
   const int r_last = min(r0 + BQ, Sq) - 1;
-  const int q_lo = r0 / q_rep, q_hi = r_last / q_rep;
-  const int k_end = causal ? min(Sk, q_hi + 1) : Sk;
-  const int k_begin = window > 0 ? max(0, q_lo - window + 1) : 0;
+  int k_begin, k_end;
+  attn::key_range(r0 / q_rep, r_last / q_rep, Sk, causal, window,
+                  prefix_len, k_begin, k_end);
   const int t_begin = k_begin / BK, t_end = (k_end + BK - 1) / BK;
 
   attn::load_tile<BQ, D, kThreads, DH>(sQ, qb, rs, r0, Sq, tid);
@@ -176,7 +181,7 @@ flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     const int k0 = t * BK;
     const bool open = attn::tile_open(r0, r_last, k0, k0 + BK - 1, Sk, q_rep,
-                                      causal, window);
+                                      causal, window, prefix_len);
     float mx[2] = {m[0], m[1]};
 #pragma unroll
     for (int i = 0; i < BK / 2; ++i) {
@@ -185,7 +190,8 @@ flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       if (softcap > 0.f) x = softcap * tanhf(x / softcap);
       if (!open) {
         const int kp = k0 + (i >> 2) * 8 + col0 + (i & 1);
-        if (!attn::visible(qpos[rr], kp, Sk, causal, window)) x = SFP_NEG_INF;
+        if (!attn::visible(qpos[rr], kp, Sk, causal, window, prefix_len))
+          x = SFP_NEG_INF;
       }
       s[i] = x;
       mx[rr] = fmaxf(mx[rr], x);
@@ -253,8 +259,8 @@ flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int DH>
 int launch(const bf16* q, const bf16* k, const bf16* v, bf16* out,
            float* lse, int B, int Sq, int Sk, int H, int q_rep, int causal,
-           int window, int q_tiles, float softcap, float scale,
-           cudaStream_t stream) {
+           int window, int prefix_len, int q_tiles, float softcap,
+           float scale, cudaStream_t stream) {
   constexpr int D = attn::pad32(DH);
   static int granted[attn::kMaxDevices];
   if (q_tiles != (Sq + BQ - 1) / BQ) return (int)cudaErrorInvalidValue;
@@ -263,7 +269,8 @@ int launch(const bf16* q, const bf16* k, const bf16* v, bf16* out,
   if (err != 0) return err;
   flash_attention_kernel<DH><<<dim3(B * H, q_tiles), kThreads,
                                Smem<D>::kBytes, stream>>>(
-      q, k, v, out, lse, Sq, Sk, H, q_rep, causal, window, softcap, scale);
+      q, k, v, out, lse, Sq, Sk, H, q_rep, causal, window, prefix_len,
+      softcap, scale);
   return (int)cudaGetLastError();
 }
 
@@ -273,7 +280,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, void* lse,
                                       int B, int Sq, int Sk, int H, int D,
                                       int q_rep, int causal, int window,
-                                      int q_tiles, float softcap, float scale,
+                                      int prefix_len, int q_tiles,
+                                      float softcap, float scale,
                                       void* stream) {
   if (B * H == 0 || Sq == 0) return 0;
   if (!attn::aligned16(q) || !attn::aligned16(k) || !attn::aligned16(v)
@@ -284,7 +292,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
 #define FA_FWD(DIM)                                                        \
   launch<DIM>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),    \
               static_cast<const bf16*>(v), static_cast<bf16*>(out), l, B,  \
-              Sq, Sk, H, q_rep, causal, window, q_tiles, softcap, scale, s)
+              Sq, Sk, H, q_rep, causal, window, prefix_len, q_tiles,     \
+              softcap, scale, s)
   switch (D) {
     case 64: return FA_FWD(64);
     case 128: return FA_FWD(128);

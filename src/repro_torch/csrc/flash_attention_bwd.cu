@@ -5,7 +5,8 @@
 // flash_attention.py:flash_attention, and JAX cannot differentiate that
 // Pallas call; it trains through the dense oracle ref.attention. This is
 // the gradient of that same function (causal / sliding-window masks with
-// the folded-row position r / q_rep, -1e30 masking, logit softcap
+// the folded-row position r / q_rep, the first prefix_len keys visible to
+// every row, -1e30 masking, logit softcap
 // c * tanh(x / c)), computed FA2-style from q, k, v, the forward output o,
 // dO and the forward's per-row log-sum-exp, in three launches:
 //   1. delta_r = sum_d dO[r, d] * O[r, d]       (one warp per row, bf16 O)
@@ -121,8 +122,8 @@ bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
                 const float* __restrict__ lse, const float* __restrict__ delta,
                 bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Sk,
-                int H, int q_rep, int causal, int window, float softcap,
-                float scale) {
+                int H, int q_rep, int causal, int window, int prefix_len,
+                float softcap, float scale) {
   constexpr int D = attn::pad32(DH);  // the tiles' columns
   using CH = Chunks<D>;
   using SM = KVSmem<D>;
@@ -148,10 +149,13 @@ bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const float* lse_b = lse + (size_t)bh * Sq;
   const float* delta_b = delta + (size_t)bh * Sq;
 
-  // Query tiles with a row that can see a key of this tile.
-  const int r_begin = causal ? k0 * q_rep : 0;
-  const int r_end =
-      window > 0 ? min(Sq, (k0 + KV_BK - 1 + window) * q_rep) : Sq;
+  // Query tiles with a row that can see a key of this tile: every row,
+  // when the tile starts inside the prefix.
+  const bool in_prefix = k0 < prefix_len;
+  const int r_begin = causal && !in_prefix ? k0 * q_rep : 0;
+  const int r_end = window > 0 && !in_prefix
+                        ? min(Sq, (k0 + KV_BK - 1 + window) * q_rep)
+                        : Sq;
   const int i_begin = r_begin / KV_BQ, i_end = (r_end + KV_BQ - 1) / KV_BQ;
 
   auto stage_of = [&](int st) { return sStage + st * SM::kStage; };
@@ -193,7 +197,7 @@ bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int r0 = it * KV_BQ;
     const bool open = attn::tile_open(r0, min(r0 + KV_BQ, Sq) - 1, k0,
                                       k0 + KV_BK - 1, Sk, q_rep, causal,
-                                      window);
+                                      window, prefix_len);
     float s[KV_BQ / 2] = {}, unused[2] = {};
     uint32_t pa[1][KV_BQ / 16][4];
     if (wg == 0) {
@@ -217,7 +221,8 @@ bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         float p = expf(x - rowdata[col]);
         if (!open) {
           const int r = r0 + col;
-          if (r >= Sq || !attn::visible(r / q_rep, kp, Sk, causal, window))
+          if (r >= Sq || !attn::visible(r / q_rep, kp, Sk, causal, window,
+                                        prefix_len))
             p = 0.f;
         }
         g_tile[i * 128 + wtid] = softcap > 0.f ? p * (1.f - t * t) : p;
@@ -297,7 +302,8 @@ bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
               const bf16* __restrict__ v, const bf16* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
               bf16* __restrict__ dq, int Sq, int Sk, int H, int q_rep,
-              int causal, int window, float softcap, float scale) {
+              int causal, int window, int prefix_len, float softcap,
+              float scale) {
   constexpr int D = attn::pad32(DH);  // the tiles' columns
   using CH = Chunks<D>;
   using SM = QSmem<D>;
@@ -319,9 +325,9 @@ bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   // Key tiles any row of this CTA can see (as in the forward).
   const int r_last = min(r0 + Q_BQ, Sq) - 1;
-  const int q_lo = r0 / q_rep, q_hi = r_last / q_rep;
-  const int k_end = causal ? min(Sk, q_hi + 1) : Sk;
-  const int k_begin = window > 0 ? max(0, q_lo - window + 1) : 0;
+  int k_begin, k_end;
+  attn::key_range(r0 / q_rep, r_last / q_rep, Sk, causal, window,
+                  prefix_len, k_begin, k_end);
   const int t_begin = k_begin / Q_BK, t_end = (k_end + Q_BK - 1) / Q_BK;
 
   attn::load_tile<Q_BQ, D, kThreads, DH>(sQ, qb, rs, r0, Sq, tid);
@@ -384,7 +390,7 @@ bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     const int k0 = t * Q_BK;
     const bool open = attn::tile_open(r0, r_last, k0, k0 + Q_BK - 1, Sk,
-                                      q_rep, causal, window);
+                                      q_rep, causal, window, prefix_len);
 #pragma unroll
     for (int i = 0; i < Q_BK / 2; ++i) {
       const int rr = (i >> 1) & 1;
@@ -397,7 +403,8 @@ bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       float p = expf(x - lse_r[rr]);
       if (!open) {
         const int kp = k0 + (i >> 2) * 8 + col0 + (i & 1);
-        if (!attn::visible(qpos[rr], kp, Sk, causal, window)) p = 0.f;
+        if (!attn::visible(qpos[rr], kp, Sk, causal, window, prefix_len))
+          p = 0.f;
       }
       float d = p * (dp[i] - delta_r[rr]);
       if (softcap > 0.f) d *= 1.f - t2;
@@ -442,8 +449,8 @@ template <int DH>
 int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
            const bf16* dout, const float* lse, float* delta, bf16* dq,
            bf16* dk, bf16* dv, int B, int Sq, int Sk, int H, int q_rep,
-           int causal, int window, int kv_tiles, int q_tiles, float softcap,
-           float scale, cudaStream_t stream) {
+           int causal, int window, int prefix_len, int kv_tiles,
+           int q_tiles, float softcap, float scale, cudaStream_t stream) {
   constexpr int D = attn::pad32(DH);
   static int granted_kv[attn::kMaxDevices], granted_q[attn::kMaxDevices];
   if (kv_tiles != (Sk + KV_BK - 1) / KV_BK
@@ -463,12 +470,14 @@ int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
   if (e != cudaSuccess) return (int)e;
   bwd_dkdv_kernel<DH><<<dim3(B * H, kv_tiles), kThreads, KVSmem<D>::kBytes,
                         stream>>>(q, k, v, dout, lse, delta, dk, dv, Sq, Sk,
-                                 H, q_rep, causal, window, softcap, scale);
+                                 H, q_rep, causal, window, prefix_len,
+                                 softcap, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   bwd_dq_kernel<DH><<<dim3(B * H, q_tiles), kThreads, QSmem<D>::kBytes,
                       stream>>>(q, k, v, dout, lse, delta, dq, Sq, Sk, H,
-                               q_rep, causal, window, softcap, scale);
+                               q_rep, causal, window, prefix_len, softcap,
+                               scale);
   return (int)cudaGetLastError();
 }
 
@@ -478,8 +487,8 @@ extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* delta, void* dq, void* dk,
     void* dv, int B, int Sq, int Sk, int H, int D, int q_rep, int causal,
-    int window, int kv_tiles, int q_tiles, float softcap, float scale,
-    void* stream) {
+    int window, int prefix_len, int kv_tiles, int q_tiles, float softcap,
+    float scale, void* stream) {
   if (B * H == 0 || Sq == 0 || Sk == 0) return 0;
   if (!attn::aligned16(q) || !attn::aligned16(k) || !attn::aligned16(v)
       || !attn::aligned16(dout) || !attn::aligned16(dq)
@@ -492,7 +501,8 @@ extern "C" int flash_attention_bwd_launch(
               static_cast<const bf16*>(dout), static_cast<const float*>(lse),\
               static_cast<float*>(delta), static_cast<bf16*>(dq),            \
               static_cast<bf16*>(dk), static_cast<bf16*>(dv), B, Sq, Sk, H,  \
-              q_rep, causal, window, kv_tiles, q_tiles, softcap, scale, s)
+              q_rep, causal, window, prefix_len, kv_tiles, q_tiles,        \
+              softcap, scale, s)
   switch (D) {
     case 64: return FA_BWD(64);
     case 128: return FA_BWD(128);

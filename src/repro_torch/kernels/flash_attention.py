@@ -45,27 +45,30 @@ FWD_TILE, DKDV_TILE, DQ_TILE = (128, 32), (32, 64), (128, 32)
 
 
 def plain(q, k, v, *, causal: bool = True, window: Optional[int] = None,
-          softcap: Optional[float] = None, q_rep: int = 1) -> torch.Tensor:
+          softcap: Optional[float] = None, prefix_len: int = 0,
+          q_rep: int = 1) -> torch.Tensor:
     """The kernel's function in plain PyTorch: dense f32 attention with
-    the folded-row causal position r // q_rep."""
+    the folded-row causal position r // q_rep, the first ``prefix_len``
+    keys visible to every row."""
     return ref.attention(q, k, v, causal=causal, window=window,
-                         softcap=softcap, q_rep=q_rep)
+                         softcap=softcap, prefix_len=prefix_len, q_rep=q_rep)
 
 
 def plain_bwd(q, k, v, do, *, causal: bool = True,
               window: Optional[int] = None, softcap: Optional[float] = None,
-              q_rep: int = 1):
+              prefix_len: int = 0, q_rep: int = 1):
     """The backward kernel's function in plain PyTorch: (dq, dk, dv) by
     autograd through ``plain``."""
     with torch.enable_grad():
         leaves = [t.detach().requires_grad_() for t in (q, k, v)]
         o = plain(*leaves, causal=causal, window=window, softcap=softcap,
-                  q_rep=q_rep)
+                  prefix_len=prefix_len, q_rep=q_rep)
         return torch.autograd.grad(o, leaves, do)
 
 
 def visible_mask(Sq: int, Sk: int, q_rep: int, causal: bool,
-                 window: Optional[int], device=None) -> torch.Tensor:
+                 window: Optional[int], device=None,
+                 prefix_len: int = 0) -> torch.Tensor:
     """(Sq, Sk) bool: which (folded row, key) pairs attention sees."""
     q_pos = (torch.arange(Sq, device=device) // q_rep)[:, None]
     k_pos = torch.arange(Sk, device=device)[None, :]
@@ -74,6 +77,8 @@ def visible_mask(Sq: int, Sk: int, q_rep: int, causal: bool,
         mask = k_pos <= q_pos
     if window is not None and window > 0:
         mask = mask & (k_pos > q_pos - window)
+    if prefix_len > 0:
+        mask = mask | (k_pos < prefix_len)
     return mask
 
 
@@ -105,19 +110,30 @@ class TilePlan:
 
 @functools.lru_cache(maxsize=256)
 def tile_plan(Sq: int, Sk: int, q_rep: int, causal: bool,
-              window: Optional[int], bq: int, bk: int) -> TilePlan:
+              window: Optional[int], bq: int, bk: int,
+              prefix_len: int = 0) -> TilePlan:
     """The kernels' tile schedule, by the same integer arithmetic as
     ``csrc/flash_attention*.cu``: a query tile visits the key tiles that
     hold a key some row of it can see; a key tile (backward) the query
     tiles that hold such a row; a visited tile skips the mask when every
-    pair in it is visible (``tile_open`` in ``attention_tc.cuh``)."""
+    pair in it is visible (``tile_open`` in ``attention_tc.cuh``). The
+    first ``prefix_len`` keys are visible to every row: a query tile's
+    keys start at 0 and end no earlier than the prefix, a key tile that
+    starts inside the prefix visits every query tile (with a window, the
+    tiles between the prefix and the window are visited and masked whole,
+    a no-op of the recurrence), and a tile wholly inside it is open."""
     w = window if window is not None and window > 0 else 0
+    P = max(int(prefix_len), 0)
     q_tiles, k_tiles = -(-Sq // bq), -(-Sk // bk)
 
     def open_(r0, k0):
         r_hi = min(r0 + bq, Sq) - 1
         k_hi = k0 + bk - 1
-        if k_hi >= Sk or (causal and k_hi > r0 // q_rep):
+        if k_hi >= Sk:
+            return False
+        if k_hi < P:
+            return True
+        if causal and k_hi > r0 // q_rep:
             return False
         return not (w and k0 <= r_hi // q_rep - w)
 
@@ -127,6 +143,8 @@ def tile_plan(Sq: int, Sk: int, q_rep: int, causal: bool,
         q_lo, q_hi = r0 // q_rep, (min(r0 + bq, Sq) - 1) // q_rep
         k_end = min(Sk, q_hi + 1) if causal else Sk
         k_begin = max(0, q_lo - w + 1) if w else 0
+        if P:
+            k_begin, k_end = 0, max(k_end, min(Sk, P))
         keys = tuple(range(k_begin // bk, -(-k_end // bk)))
         q_keys.append(keys)
         q_masked.append(frozenset(j for j in keys if not open_(r0, j * bk)))
@@ -135,6 +153,8 @@ def tile_plan(Sq: int, Sk: int, q_rep: int, causal: bool,
         k0 = j * bk
         r_begin = k0 * q_rep if causal else 0
         r_end = min(Sq, (k0 + bk - 1 + w) * q_rep) if w else Sq
+        if k0 < P:
+            r_begin, r_end = 0, Sq
         rows = tuple(range(r_begin // bq, -(-r_end // bq)))
         k_rows.append(rows)
         k_masked.append(frozenset(i for i in rows if not open_(i * bq, k0)))
@@ -181,7 +201,7 @@ def _bf16_terms(x, n):
 
 def plain_tiled(q, k, v, *, causal: bool = True,
                 window: Optional[int] = None, softcap: Optional[float] = None,
-                q_rep: int = 1):
+                prefix_len: int = 0, q_rep: int = 1):
     """The forward kernel's recurrence on the CPU: (out in q's dtype, the
     (B*H, Sq) f32 log-sum-exp). The tiles of ``tile_plan`` at
     ``FWD_TILE``, the online softmax in f32, P split into three bf16 terms
@@ -194,11 +214,12 @@ def plain_tiled(q, k, v, *, causal: bool = True,
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
     bq, bk = FWD_TILE
-    plan = tile_plan(Sq, Sk, q_rep, causal, window, bq, bk)
+    plan = tile_plan(Sq, Sk, q_rep, causal, window, bq, bk, prefix_len)
     scale = 1.0 / (D ** 0.5)
     Sk_pad = -(-Sk // bk) * bk
     qf, kf, vf = _heads(q), _heads(k, Sk_pad), _heads(v, Sk_pad)
-    vis = visible_mask(Sq, Sk_pad, q_rep, causal, window)
+    vis = visible_mask(Sq, Sk_pad, q_rep, causal, window,
+                       prefix_len=prefix_len)
     vis[:, Sk:] = False
     out = torch.zeros_like(qf)
     lse = torch.empty((B * H, Sq), dtype=torch.float32)
@@ -228,7 +249,8 @@ def plain_tiled(q, k, v, *, causal: bool = True,
 
 def plain_bwd_tiled(q, k, v, o, do, lse, *, causal: bool = True,
                     window: Optional[int] = None,
-                    softcap: Optional[float] = None, q_rep: int = 1):
+                    softcap: Optional[float] = None, prefix_len: int = 0,
+                    q_rep: int = 1):
     """The backward kernels' recurrences on the CPU: (dq, dk, dv) in q's
     dtype from the forward's output ``o`` and (B*H, Sq) log-sum-exp.
     delta = rowsum(dO * bf16(O)); the dK/dV pass over the tiles of
@@ -245,7 +267,8 @@ def plain_bwd_tiled(q, k, v, o, do, lse, *, causal: bool = True,
     kf, vf = _heads(k, Sk_pad), _heads(v, Sk_pad)
     delta = (dof * _bf16(_heads(o))).sum(-1)
     lse = lse.float()
-    vis = visible_mask(Sq, Sk_pad, q_rep, causal, window)
+    vis = visible_mask(Sq, Sk_pad, q_rep, causal, window,
+                       prefix_len=prefix_len)
     vis[:, Sk:] = False
 
     def tile(rows, cols):
@@ -257,7 +280,7 @@ def plain_bwd_tiled(q, k, v, o, do, lse, *, causal: bool = True,
 
     dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
     bq, bk = DKDV_TILE
-    plan = tile_plan(Sq, Sk, q_rep, causal, window, bq, bk)
+    plan = tile_plan(Sq, Sk, q_rep, causal, window, bq, bk, prefix_len)
     for j, row_tiles in enumerate(plan.k_rows):
         cols = slice(j * bk, (j + 1) * bk)
         for i in row_tiles:
@@ -272,7 +295,7 @@ def plain_bwd_tiled(q, k, v, o, do, lse, *, causal: bool = True,
             dk[:, cols] += ds.transpose(1, 2) @ qf[:, rows]
     dq = torch.zeros_like(qf)
     bq, bk = DQ_TILE
-    plan = tile_plan(Sq, Sk, q_rep, causal, window, bq, bk)
+    plan = tile_plan(Sq, Sk, q_rep, causal, window, bq, bk, prefix_len)
     for i, keys in enumerate(plan.q_keys):
         rows = slice(i * bq, min((i + 1) * bq, Sq))
         for j in keys:
@@ -311,24 +334,29 @@ def _check(q, k, v, q_rep: int, **more):
                          f"q_rep={q_rep}")
 
 
-def _scalars(causal, window, softcap, D):
+def _scalars(causal, window, softcap, prefix_len, D):
+    if prefix_len < 0:
+        raise ValueError(f"flash_attention: prefix_len {prefix_len} < 0")
     return (int(causal), -1 if window is None else int(window),
-            0.0 if softcap is None else float(softcap), 1.0 / (D ** 0.5))
+            int(prefix_len), 0.0 if softcap is None else float(softcap),
+            1.0 / (D ** 0.5))
 
 
-def _forward(q, k, v, causal, window, softcap, q_rep, with_lse: bool):
+def _forward(q, k, v, causal, window, softcap, q_rep, with_lse: bool,
+             prefix_len: int = 0):
     lib = _lib.load()
     _check(q, k, v, q_rep)
     B, Sq, H, D = q.shape
+    c, w, p, cap, scale = _scalars(causal, window, softcap, prefix_len, D)
     out = torch.empty_like(q)
     lse = (torch.empty((B * H, Sq), dtype=torch.float32, device=q.device)
            if with_lse else None)
-    c, w, cap, scale = _scalars(causal, window, softcap, D)
-    plan = tile_plan(Sq, k.shape[1], q_rep, bool(causal), window, *FWD_TILE)
+    plan = tile_plan(Sq, k.shape[1], q_rep, bool(causal), window, *FWD_TILE,
+                     p)
     err = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(), B, Sq, k.shape[1], H, D,
-        q_rep, c, w, plan.q_tiles, cap, scale, _lib.stream_ptr(q))
+        q_rep, c, w, p, plan.q_tiles, cap, scale, _lib.stream_ptr(q))
     _lib.check(err, "flash_attention")
     flash_attention.launches += 1
     return out, lse
@@ -339,12 +367,12 @@ class _FlashAttentionFn(torch.autograd.Function):
     the backward kernel."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, softcap, q_rep):
+    def forward(ctx, q, k, v, causal, window, softcap, q_rep, prefix_len):
         out, lse = _forward(q, k, v, causal, window, softcap, q_rep,
-                            with_lse=True)
+                            with_lse=True, prefix_len=prefix_len)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.kw = dict(causal=causal, window=window, softcap=softcap,
-                      q_rep=q_rep)
+                      prefix_len=prefix_len, q_rep=q_rep)
         return out
 
     @staticmethod
@@ -352,38 +380,41 @@ class _FlashAttentionFn(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, do.contiguous(), lse,
                                          **ctx.kw)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
-                    softcap: Optional[float] = None,
+                    softcap: Optional[float] = None, prefix_len: int = 0,
                     q_rep: int = 1) -> torch.Tensor:
     """Attention over q (B, Sq, H, D) and k/v (B, Sk, H, D) with the same
-    head count; returns (B, Sq, H, D) in q's dtype. A CPU tensor takes the
+    head count; returns (B, Sq, H, D) in q's dtype. The first
+    ``prefix_len`` keys are visible to every row. A CPU tensor takes the
     plain version (differentiable by autograd); any other tensor launches
     the kernel or raises, through the autograd Function when a gradient is
     needed."""
     if q.device.type == "cpu":
         return plain(q, k, v, causal=causal, window=window, softcap=softcap,
-                     q_rep=q_rep)
+                     prefix_len=prefix_len, q_rep=q_rep)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _FlashAttentionFn.apply(q, k, v, causal, window, softcap,
-                                       q_rep)
+                                       q_rep, prefix_len)
     return _forward(q, k, v, causal, window, softcap, q_rep,
-                    with_lse=False)[0]
+                    with_lse=False, prefix_len=prefix_len)[0]
 
 
 def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
                         window: Optional[int] = None,
-                        softcap: Optional[float] = None, q_rep: int = 1):
+                        softcap: Optional[float] = None, prefix_len: int = 0,
+                        q_rep: int = 1):
     """(dq, dk, dv) of ``flash_attention`` from its inputs, its output
     ``o``, the output gradient ``do`` and the forward's (B*H, Sq) f32
     log-sum-exp. A CPU tensor takes the plain version (``o`` and ``lse``
     unused); any other tensor launches the kernel or raises."""
     if q.device.type == "cpu":
         return plain_bwd(q, k, v, do, causal=causal, window=window,
-                         softcap=softcap, q_rep=q_rep)
+                         softcap=softcap, prefix_len=prefix_len,
+                         q_rep=q_rep)
     lib = _lib.load()
     _check(q, k, v, q_rep, o=o, do=do)
     B, Sq, H, D = q.shape
@@ -394,13 +425,13 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     delta = torch.empty((B * H, Sq), dtype=torch.float32, device=q.device)
     Sk = k.shape[1]
-    c, w, cap, scale = _scalars(causal, window, softcap, D)
-    kv_plan = tile_plan(Sq, Sk, q_rep, bool(causal), window, *DKDV_TILE)
-    q_plan = tile_plan(Sq, Sk, q_rep, bool(causal), window, *DQ_TILE)
+    c, w, p, cap, scale = _scalars(causal, window, softcap, prefix_len, D)
+    kv_plan = tile_plan(Sq, Sk, q_rep, bool(causal), window, *DKDV_TILE, p)
+    q_plan = tile_plan(Sq, Sk, q_rep, bool(causal), window, *DQ_TILE, p)
     err = lib.flash_attention_bwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, H, D, q_rep, c, w,
+        dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, H, D, q_rep, c, w, p,
         kv_plan.k_tiles, q_plan.q_tiles, cap, scale, _lib.stream_ptr(q))
     _lib.check(err, "flash_attention_bwd")
     flash_attention_bwd.launches += 1

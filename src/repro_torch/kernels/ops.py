@@ -179,28 +179,38 @@ def gecko_decode(bases: torch.Tensor, planes: torch.Tensor) -> torch.Tensor:
 
 
 def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
-              softcap: Optional[float] = None) -> torch.Tensor:
+              softcap: Optional[float] = None, prefix_len: int = 0,
+              q_offset: int = 0) -> torch.Tensor:
     """GQA attention, q (B, Sq, H, D), k/v (B, Sk, KH, D); differentiable
     on both routes (autograd through the plain version, or the backward
-    kernel).
+    kernel). The first ``prefix_len`` keys are visible to every query (a
+    prefix-LM); ``q_offset`` is the absolute position of q's first row,
+    taken by the plain version only (no path of the model uses it, so on
+    the kernel route it raises).
 
     On the kernel route the query head group is folded into the rows
     (row r of the folded axis is position r // rep, group member r % rep),
     so the KH-headed K/V are read once per group and never repeated."""
     if not _kernel(q, attention=True):
         return _ref.attention(q, k, v, causal=causal, window=window,
-                              softcap=softcap)
+                              softcap=softcap, prefix_len=prefix_len,
+                              q_offset=q_offset)
+    if q_offset:
+        raise ValueError(f"attention: the kernels take q_offset 0 only, got "
+                         f"{q_offset}")
     B, Sq, H, D = q.shape
     KH = k.shape[2]
     rep = H // KH
     k, v = k.contiguous(), v.contiguous()
     if rep == 1:
         return _fa.flash_attention(q.contiguous(), k, v, causal=causal,
-                                   window=window, softcap=softcap)
+                                   window=window, softcap=softcap,
+                                   prefix_len=prefix_len)
     qg = q.reshape(B, Sq, KH, rep, D).transpose(2, 3)
     qg = qg.reshape(B, Sq * rep, KH, D).contiguous()
     o = _fa.flash_attention(qg, k, v, causal=causal, window=window,
-                            softcap=softcap, q_rep=rep)
+                            softcap=softcap, prefix_len=prefix_len,
+                            q_rep=rep)
     o = o.reshape(B, Sq, rep, KH, D).transpose(2, 3)
     return o.reshape(B, Sq, H, D)
 

@@ -1106,14 +1106,17 @@ def paged_flash_decode(q: torch.Tensor, k_payload: torch.Tensor,
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: Optional[int] = None,
-              softcap: Optional[float] = None, q_rep: int = 1
-              ) -> torch.Tensor:
+              softcap: Optional[float] = None, prefix_len: int = 0,
+              q_offset: int = 0, q_rep: int = 1) -> torch.Tensor:
     """Dense GQA attention in f32, O(Sq*Sk). q (B, Sq, H, D), k/v
     (B, Sk, KH, D); q head h reads kv head h // (H // KH).
 
+    The mask is the JAX package's: causal and window terms, then the first
+    ``prefix_len`` keys visible to every query (a prefix-LM's
+    conditioning). ``q_offset`` is the absolute position of q's first row.
     ``q_rep`` > 1 is the folded layout of the flash kernel: q is
     (B, S*q_rep, KH, D), rows ordered (seq, group member), so the causal
-    position of query row r is r // q_rep."""
+    position of query row r is q_offset + r // q_rep."""
     B, Sq, H, D = q.shape
     Sk, KH = k.shape[1], k.shape[2]
     rep = H // KH
@@ -1124,13 +1127,15 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                           kq.to(torch.float32)) * scale.to(q.device)
     if softcap is not None:
         logits = softcap * torch.tanh(logits / softcap)
-    q_pos = (torch.arange(Sq, device=q.device) // q_rep)[:, None]
+    q_pos = q_offset + (torch.arange(Sq, device=q.device) // q_rep)[:, None]
     k_pos = torch.arange(Sk, device=q.device)[None, :]
     mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
     if causal:
         mask = k_pos <= q_pos
     if window is not None:
         mask = mask & (k_pos > q_pos - window)
+    if prefix_len > 0:
+        mask = mask | (k_pos < prefix_len)
     logits = torch.where(mask[None, None], logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", probs, vq.to(torch.float32))

@@ -45,7 +45,7 @@ import torch
 from repro_torch import configs, resolve_device
 from repro_torch import obs as obs_mod
 from repro_torch.configs.base import reduced
-from repro_torch.launch.args import container_name
+from repro_torch.launch.args import container_name, prefix_zeros
 from repro_torch.models.model import DecoderModel
 from repro_torch.serve import engine, faults, precision
 from repro_torch.serve.scheduler import Request, Scheduler
@@ -96,12 +96,14 @@ def _profiler():
         activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
 
 
-def profile(model, params, prompt, max_new: int, top: int) -> dict:
+def profile(model, params, prompt, max_new: int, top: int,
+            cond=None) -> dict:
     """Run ``generate`` under torch.profiler (one device, CUDA only)."""
     _sync(model.device)
     t0 = time.perf_counter()
     with _profiler() as prof:
-        engine.generate(model, params, prompt, max_new=max_new)
+        engine.generate(model, params, prompt, max_new=max_new,
+                        cond_embeddings=cond)
         _sync(model.device)
     return profile_summary(prof, time.perf_counter() - t0, top)
 
@@ -112,13 +114,16 @@ def run_batch(args) -> dict:
     gen.manual_seed(args.seed + 1)
     prompt = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
                            generator=gen, device=model.device)
+    cond = prefix_zeros(cfg, args.batch, model.device)
     if args.profile:
-        engine.generate(model, params, prompt, max_new=2)    # warm-up
+        engine.generate(model, params, prompt, max_new=2,     # warm-up
+                        cond_embeddings=cond)
         print(json.dumps(profile(model, params, prompt, args.max_new,
-                                 args.profile)))
+                                 args.profile, cond)))
     _sync(model.device)
     t0 = time.perf_counter()
-    res = engine.generate(model, params, prompt, max_new=args.max_new)
+    res = engine.generate(model, params, prompt, max_new=args.max_new,
+                          cond_embeddings=cond)
     _sync(model.device)
     dt = time.perf_counter() - t0
     toks = args.batch * args.max_new
@@ -163,6 +168,10 @@ def run_trace(args) -> dict:
     if container is None:
         raise SystemExit("--trace needs a packed cache: pass --kv-container "
                          "(or --policy-ckpt)")
+    if cfg.prefix_tokens:
+        raise SystemExit(f"--trace: {cfg.name} is a prefix-LM, which the "
+                         f"paged engine does not serve (as in the JAX "
+                         f"package); use batch mode")
     eng = engine.PagedEngine(model, params, max_slots=args.max_slots,
                              max_len=args.max_len,
                              num_blocks=args.num_blocks,

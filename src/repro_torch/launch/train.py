@@ -47,7 +47,8 @@ from repro_torch import codecs, configs, policies, resolve_device
 from repro_torch import obs as obs_mod
 from repro_torch.configs.base import reduced
 from repro_torch.data import synthetic
-from repro_torch.launch.args import container_name, policy_name
+from repro_torch.launch.args import (container_name, policy_name,
+                                     prefix_zeros)
 from repro_torch.models.model import DecoderModel
 from repro_torch.optim import adamw
 from repro_torch.optim.schedule import Schedule
@@ -206,10 +207,15 @@ def main(argv=None) -> dict:
     dcfg = synthetic.SyntheticConfig(vocab=cfg.vocab, seq_len=seq,
                                      global_batch=batch, seed=args.seed)
 
+    cond = prefix_zeros(cfg, batch, model.device)
+
     def batches(start):
         for b in synthetic.batches(dcfg, start):
-            yield {k: torch.from_numpy(v).long().to(model.device)
+            out = {k: torch.from_numpy(v).long().to(model.device)
                    for k, v in b.items()}
+            if cond is not None:    # a prefix-LM's stub frontend: zeros
+                out["cond_embeddings"] = cond
+            yield out
 
     def ckpt_extra(state):
         # The policy's current decision beside the run's identity:

@@ -60,14 +60,23 @@ def ring_pack_kv(k: torch.Tensor, v: torch.Tensor, L: int):
 
 
 def attention_train(params, h: torch.Tensor, cfg: ArchConfig, *, kind: str,
-                    positions: torch.Tensor, return_kv: bool = False):
-    """Full-sequence causal attention (prefill). h: (B, S, d)."""
+                    positions: torch.Tensor, prefix_len: int = 0,
+                    return_kv: bool = False):
+    """Full-sequence causal attention (training and prefill). h: (B, S, d);
+    the first ``prefix_len`` positions (a prefix-LM's conditioning) are
+    visible to every query.
+
+    At every length this is ``ref.attention(prefix_len=)``. The JAX
+    package's chunked route (``src/repro/models/attention.py``, taken for
+    S > 1024 with prefix_len <= 512) drops the prefix mask from its
+    global branch and attends causally there; the port does not follow it
+    (ROADMAP §C)."""
     B, S, _ = h.shape
     hd, H = cfg.head_dim_, cfg.n_heads
     window = cfg.window if kind == LOCAL else None
     q, k, v = _project_qkv(params, h, cfg, positions)
     out = ops.attention(q, k, v, causal=True, window=window,
-                        softcap=cfg.attn_softcap)
+                        softcap=cfg.attn_softcap, prefix_len=prefix_len)
     out = out.reshape(B, S, H * hd) @ params["wo"]
     if return_kv:
         return out, (k, v)

@@ -166,11 +166,12 @@ class DecoderModel:
 
         return quant(slot_params)
 
-    def _apply_slot(self, slot_params, h, kind, *, positions):
+    def _apply_slot(self, slot_params, h, kind, *, positions, prefix_len):
         cfg = self.cfg
         hn = common.rmsnorm(slot_params["pre_norm"], h)
         h = h + attention.attention_train(slot_params["attn"], hn, cfg,
-                                          kind=kind, positions=positions)
+                                          kind=kind, positions=positions,
+                                          prefix_len=prefix_len)
         hm = common.rmsnorm(slot_params["mlp_norm"], h)
         return h + common.mlp(slot_params["mlp"], hm, cfg.act, cfg.glu)
 
@@ -251,14 +252,36 @@ class DecoderModel:
             xs.append(x)
         return xs
 
-    def forward(self, params, tokens: torch.Tensor, run: RunState
-                ) -> torch.Tensor:
-        """Full-sequence training forward: logits (B, S, V) f32. (The JAX
-        model also returns MoE metrics; this dense family has none.)"""
-        cfg, pol = self.cfg, self.policy
-        S = tokens.shape[1]
+    def _embed(self, params, tokens: torch.Tensor,
+               cond_embeddings: Optional[torch.Tensor]):
+        """The token embeddings, after a prefix-LM's ``cond_embeddings``
+        (B, P, d_model) when given (P = ``cfg.prefix_tokens``; the frontend
+        that makes them is a stub in both packages), in the compute dtype:
+        (h (B, P + S, d), P)."""
+        cfg = self.cfg
         h = common.embed(params["embed"], tokens, self._emb_scale())
-        positions = torch.arange(S, device=tokens.device)
+        if cond_embeddings is None:
+            return h, 0
+        P = cfg.prefix_tokens
+        want = (tokens.shape[0], P, cfg.d_model)
+        if not P or tuple(cond_embeddings.shape) != want:
+            raise ValueError(
+                f"{cfg.name}: cond_embeddings must be {want} (prefix_tokens "
+                f"{P}), got {tuple(cond_embeddings.shape)}")
+        cond = cond_embeddings.to(device=h.device, dtype=h.dtype)
+        return torch.cat([cond, h], dim=1), P
+
+    def forward(self, params, tokens: torch.Tensor, run: RunState,
+                cond_embeddings: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        """Full-sequence training forward: logits (B, S, V) f32 over the
+        token positions. A prefix-LM's ``cond_embeddings`` (B, P, d_model)
+        go in front of the tokens as a prefix every position sees; the
+        stash then holds all P + S positions. (The JAX model also returns
+        MoE metrics; this dense family has none.)"""
+        cfg, pol = self.cfg, self.policy
+        h, P = self._embed(params, tokens, cond_embeddings)
+        positions = torch.arange(h.shape[1], device=tokens.device)
         compress, decompress, stash_grad = self._codec_fns()
 
         def period_fn(h, x):
@@ -268,7 +291,8 @@ class DecoderModel:
                 if pol.quantizes_weights:
                     sp = self._quantize_weights(sp, x["pol"],
                                                 draws["w"][i])
-                h = self._apply_slot(sp, h, kind, positions=positions)
+                h = self._apply_slot(sp, h, kind, positions=positions,
+                                     prefix_len=P)
             return h
 
         h = stash.sfp_scan(period_fn, compress, decompress, h,
@@ -276,8 +300,11 @@ class DecoderModel:
         n_rem = len(cfg.remainder)
         for lp, kind in zip(params["layers"][len(self.kinds) - n_rem:],
                             cfg.remainder):
-            h = self._apply_slot(lp, h, kind, positions=positions)
+            h = self._apply_slot(lp, h, kind, positions=positions,
+                                 prefix_len=P)
         h = common.rmsnorm(params["final_norm"], h)
+        if P:
+            h = h[:, P:]
         return common.unembed(params, h, tied=cfg.tie_embeddings,
                               softcap=cfg.final_softcap,
                               valid_vocab=cfg.vocab)
@@ -285,9 +312,11 @@ class DecoderModel:
     def loss(self, params, batch: Dict[str, torch.Tensor], run: RunState
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(mean cross-entropy, metrics); the loss is the cross-entropy,
-        there being no MoE auxiliary loss in this family."""
-        xent = common.softmax_xent(self.forward(params, batch["tokens"], run),
-                                   batch["labels"])
+        there being no MoE auxiliary loss in this family. A prefix-LM's
+        batch carries ``cond_embeddings``."""
+        logits = self.forward(params, batch["tokens"], run,
+                              cond_embeddings=batch.get("cond_embeddings"))
+        xent = common.softmax_xent(logits, batch["labels"])
         return xent, {"xent": xent}
 
     def layer_param_count(self) -> int:
@@ -321,21 +350,24 @@ class DecoderModel:
                       for kind in self.kinds]
         return {"layers": layers}
 
-    def prefill(self, params, tokens: torch.Tensor, max_len: int
+    def prefill(self, params, tokens: torch.Tensor, max_len: int,
+                cond_embeddings: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-        """Process a prompt (B, S): (last-position logits (B, 1, V) f32,
-        cache sized for ``max_len`` positions)."""
+        """Process a prompt (B, S), after a prefix-LM's ``cond_embeddings``
+        (B, P, d_model) when given: (last-position logits (B, 1, V) f32,
+        cache sized for ``max_len`` positions, at least P + S; decoding
+        continues at position P + S)."""
         cfg = self.cfg
-        B, S = tokens.shape
+        h, P = self._embed(params, tokens, cond_embeddings)
+        S = h.shape[1]
         max_len = max(max_len, S)
-        h = common.embed(params["embed"], tokens, self._emb_scale())
         positions = torch.arange(S, device=tokens.device)
         caches = []
         for lp, kind in zip(params["layers"], self.kinds):
             hn = common.rmsnorm(lp["pre_norm"], h)
             out, (k, v) = attention.attention_train(
                 lp["attn"], hn, cfg, kind=kind, positions=positions,
-                return_kv=True)
+                prefix_len=P, return_kv=True)
             h = h + out
             L = self._cache_len(kind, max_len)
             if kind == LOCAL:

@@ -46,19 +46,24 @@ def _greedy(logits: torch.Tensor):
 
 @torch.inference_mode()
 def generate(model: DecoderModel, params, prompt: torch.Tensor, max_new: int,
-             max_len: Optional[int] = None) -> GenerationResult:
+             max_len: Optional[int] = None,
+             cond_embeddings: Optional[torch.Tensor] = None
+             ) -> GenerationResult:
     """Greedy batched generation of ``max_new`` tokens after ``prompt``
     (B, S), on the model's device (CUDA unless the model was built with
-    ``device="cpu"``)."""
+    ``device="cpu"``). A prefix-LM's ``cond_embeddings`` (B, P, d_model)
+    go before the prompt; decoding then starts at position P + S."""
     dev = resolve_device(model.device)
     prompt = prompt.to(dev)
     B, S = prompt.shape
-    max_len = max_len or (S + max_new)
-    prefill_logits, cache = model.prefill(params, prompt, max_len)
+    P = model.cfg.prefix_tokens if cond_embeddings is not None else 0
+    max_len = max_len or (P + S + max_new)
+    prefill_logits, cache = model.prefill(params, prompt, max_len,
+                                          cond_embeddings=cond_embeddings)
     tok, margin = _greedy(prefill_logits)
     toks, margins = [tok], [margin]
     for i in range(max_new - 1):
-        logits, cache = model.decode_step(params, cache, tok, S + i)
+        logits, cache = model.decode_step(params, cache, tok, P + S + i)
         tok, margin = _greedy(logits)
         toks.append(tok)
         margins.append(margin)

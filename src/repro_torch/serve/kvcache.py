@@ -161,6 +161,9 @@ def pack_prefill_cache(cache_kv: attention.KVCache,
     """Compress a prefill-produced bf16 cache in one shot."""
     codec = _codec(container)
     B, L, KH, hd = cache_kv.k.shape
+    if (KH * hd) % GROUP:
+        raise ValueError(f"KV feature dim {KH * hd} must align to {GROUP} "
+                         f"lanes")
     return PackedKV(
         k=_seq_major(codec.pack(cache_kv.k.reshape(B, L, KH * hd))),
         v=_seq_major(codec.pack(cache_kv.v.reshape(B, L, KH * hd))))

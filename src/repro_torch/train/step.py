@@ -64,13 +64,15 @@ def init_state(model: DecoderModel, seed: int, tc: TrainConfig
 def _scope_lambdas(model: DecoderModel, batch_shape: Tuple[int, int]
                    ) -> Dict[str, torch.Tensor]:
     """Footprint weights (eq. 7): each scope's share of the total stash
-    and weight footprint. Activation stash per period: B * S * d values;
-    weights per period: the parameter count of its layers."""
+    and weight footprint. Activation stash per period: B * (S + P) * d
+    values, P a prefix-LM's prefix (``cfg.prefix_tokens``, counted as the
+    JAX package counts it, whether or not the batch carries one); weights
+    per period: the parameter count of its layers."""
     cfg = model.cfg
     B, S = batch_shape
     per_layer = model.layer_param_count()
     per_period = len(cfg.period) * per_layer
-    act = float(B * S * cfg.d_model)
+    act = float(B * (S + cfg.prefix_tokens) * cfg.d_model)
     n_rem = len(cfg.remainder)
     rem_w = float(per_layer) if n_rem else 0.0
     total = (act + per_period) * cfg.n_periods + (act + rem_w) * n_rem
