@@ -12,13 +12,15 @@
     python3 chip_smoke.py --phase mistral [--src DIR]
     python3 chip_smoke.py --phase paligemma [--src DIR]
     python3 chip_smoke.py --phase musicgen [--src DIR]
+    python3 chip_smoke.py --phase olmoe [--src DIR]
+    python3 chip_smoke.py --phase phi35_moe [--src DIR]
 
 The other forms run only the Gecko kernel checks and timings of step 5,
 or only the dense bit-plane or the fixed-lane word ones of step 2, or
 only the CNN phase of step 8, or only the checkpoint phase of step 9, or
 only the compressed-gradient and AdaptivFloat phase of step 10, or only
-the gemma3-12b, gemma2-27b, mistral-large-123b, paligemma-3b or
-musicgen-large phase of steps 11-14,
+the gemma3-12b, gemma2-27b, mistral-large-123b, paligemma-3b,
+musicgen-large, olmoe-1b-7b or phi3.5-moe-42b-a6.6b phase of steps 11-15,
 against the ``repro_torch`` package under DIR (default: this checkout's
 ``src``), so two trees can be timed by the same code on one card.
 
@@ -73,7 +75,7 @@ against the ``repro_torch`` package under DIR (default: this checkout's
    --container gecko8`` on the kernel path, the plain path and a witness
    with only attention plain, then one step from low bits, printing the
    realized gecko8 stash footprint and the Gecko exponent ratio of each
-   run's stash; serves from a gecko8 cache over 8 layers (GECKO_SERVE_LAYERS;
+   run's stash; serves from a gecko8 cache over 4 layers (GECKO_SERVE_LAYERS;
    the unpack fallback), kernel path
    against plain path and against a raw bf16 cache, whose K/V the
    unpacked gecko8 cache must equal bit for bit after every decode step.
@@ -85,14 +87,14 @@ against the ``repro_torch`` package under DIR (default: this checkout's
    pool of 8 rows x 1280 slots with trash-block rows; then serves a
    seeded 12-request trace (prompts 256-1024, 16-48 new tokens, staggered
    arrivals) through ``launch.serve``'s ``make_trace``, ``Scheduler`` and
-   ``PagedEngine`` over 8 layers (PAGED_LAYERS) on a pool of 23 blocks
+   ``PagedEngine`` over 4 layers (PAGED_LAYERS) on a pool of 23 blocks
    (of 80 for full residency), so
    admission waits for blocks and running requests are preempted: sfp8
    with --burst 1 and with --speculate 4 (token-identical), and sfp-m2e4
    with --speculate 4 (the dense draft read). Every finished stream must
    equal contiguous ``generate`` of its prompt up to a near tie, the pool
-   must pass its invariants, and each run's launches must be 4 paged and
-   4 ring decodes per model step. Prints decode ms per scheduler step,
+   must pass its invariants, and each run's launches must be 2 paged and
+   2 ring decodes per model step. Prints decode ms per scheduler step,
    tok/s, the acceptance rate and the speculative round ms.
 7. BitChop, BitWave, static and per-layer stash containers, at full width
    (before step 6): 6 steps each of ``--policy bitchop --container sfp8``
@@ -171,9 +173,9 @@ against the ``repro_torch`` package under DIR (default: this checkout's
    function there; every decode read at head dim 240 (words and planes,
    full width and draft, contiguous over 2176 slots, the 1024-slot ring,
    paged on the 8 x 1280 pool) and words and planes at 144, held and
-   timed as in step 2; (b) serving at full width over 24 of its 48
-   layers, batch 4, 2048-token prompts, 64 new tokens, from an sfp8 and an
-   sfp-m2e4 cache,
+   timed as in step 2; (b) serving at full width over 6 of its 48
+   layers (one period), batch 4, 2048-token prompts, 64 new tokens, from an sfp8 and
+   an sfp-m2e4 cache,
    against the plain path (no final softcap: the prefill logits are also
    held to a prefill with attention in f64, E2E_MAX); (c) training at full widths, one 6-layer period, B 2, S
    2048: 4 steps of qm + sfp8 and of qm+qe + sfp-m2e4 (with the
@@ -185,7 +187,7 @@ against the ``repro_torch`` package under DIR (default: this checkout's
    serving prefill's (B 1, S 4224, windows None and 4096), held; the
    decode reads at head dim 144 with the softcap (words and planes, full
    width and draft, the 4352-slot global cache and the 4096-slot ring),
-   held and timed as in step 2; (b) serving 24 of its 46 layers (29.9 GB
+   held and timed as in step 2; (b) serving 6 of its 46 layers (9.2 GB
    of bf16 weights), batch 2, 4224-token prompts (past the window: the
    local layers mask in prefill and their rings wrap), 64 new tokens,
    from an sfp8 cache, against the plain path (which, in every serving
@@ -198,14 +200,14 @@ against the ``repro_torch`` package under DIR (default: this checkout's
    scaled_dot_product_attention on its flash backend; every decode read
    at rep 12 (words and planes, full width and draft, contiguous 2176
    slots, a 1024-slot ring, paged on the 8 x 1280 pool) held and timed as
-   in step 2, and rep 17 refused; (b) serving 8 of 88 layers (23.7 GB
-   with embed and head), batch 4, 2048-token prompts, 64 new tokens,
+   in step 2, and rep 17 refused; (b) serving 2 of 88 layers, batch 4, 2048-token prompts, 64 new tokens,
    from an sfp8 and an sfp-m2e4 cache, against the plain path (no final
    softcap: the prefill logits are also held to an f64-attention
    prefill); (c) training at full widths over 2
    layers, B 2, S 2048: 4 steps of qm + sfp8 and of qm+qe + sfp-m2e4
    (with the attention-plain witness) against the plain path.
-14. The prefix-LMs, whole (after step 13): paligemma-3b (8 q / 1 KV head
+14. The prefix-LMs (after step 13; musicgen at 12 of its 48 layers,
+   paligemma at 9 of 18): paligemma-3b (8 q / 1 KV head
    of 256, GQA rep 8, P 256) and musicgen-large (32 / 32 heads of 64, no
    GLU, an untied head, P 64), each reading P seeded random conditioning
    embeddings (drawn on the CPU) before its tokens as a prefix every
@@ -217,7 +219,7 @@ against the ``repro_torch`` package under DIR (default: this checkout's
    ``enable_gqa`` (the backend that takes a mask is named); every
    decode read (words and planes, full width and draft) over the
    contiguous 1408- and 1152-slot caches and the 8 x 1280 paged pool,
-   held and timed; (b) serving all layers, batch 4,
+   held and timed; (b) serving, batch 4,
    1024-token prompts after the prefix, 64 new tokens, from sfp8 and
    sfp-m2e4 caches (paligemma) and sfp8 (musicgen), against the plain path
    and an f64-attention prefill (no final softcap), and a second random
@@ -225,6 +227,26 @@ against the ``repro_torch`` package under DIR (default: this checkout's
    kernels' rounding moves them from the plain path's; (c) 4 training
    steps at B 4, S 1024 after the prefix: paligemma qm + sfp8, musicgen
    qm+qe + sfp-m2e4 with the attention-plain witness.
+15. Mixture-of-Experts (after step 14): olmoe-1b-7b (16 q / 16 KV heads
+   of 128, 64 experts, top-8) and phi3.5-moe-42b-a6.6b (32 q / 8 KV
+   heads of 128, GQA rep 4, 16 experts, top-2, an untied head): (a) the
+   attention forward and backward at the training shape (B 4 and B 2, S
+   2048) held, counted and timed beside scaled_dot_product_attention on
+   its flash backend; every decode read over the 2176-slot contiguous
+   cache and on the 8 x 1280 paged pool, held and timed; (b) serving
+   olmoe whole (16 layers) from sfp8 and sfp-m2e4 caches and phi3.5-moe
+   at 8 of 32 layers from sfp8, batch 4, 2048-token prompts, 64 new
+   tokens, against the plain path: the prefill logits with the plain and
+   an f64-attention prefill routed as the kernel path routed (no final
+   softcap), printing how many (token, expert) prefill assignments the
+   two paths route differently; the experts' random weights at their own
+   fan-in; (c) 4 training steps at full widths,
+   olmoe over 4 layers (B 4, S 2048; qm + sfp8 and qm+qe + sfp-m2e4, both
+   with the attention-plain witness) and phi3.5-moe over 2 (B 2; qm + sfp8),
+   printing ``moe_lb_loss`` and ``moe_drop_frac`` a step; one olmoe qm +
+   sfp8 step under torch.profiler, its device time by router, scatter and
+   gather, expert matmuls, attention and stash; (d) the seeded paged
+   trace over olmoe at 4 layers (sfp8, --burst 1).
 
 Any failure exits non-zero. The last line is the device JSON.
 """
@@ -400,15 +422,15 @@ PER_LAYER_QE = (3.5, 4.5, 3.5, 4.5, 7.5, 3.5, 5.5, 5.5, 6.5, 4.5, 3.5, 7.5,
 # residency is 80), which the seeded trace outgrows: admission waits and
 # running requests are preempted (checked on the host scheduler before
 # any chip run; the phase fails without a preemption). The traces run
-# gemma2-2b at full width over 8 of its 26 layers (four LOCAL/GLOBAL
+# gemma2-2b at full width over 4 of its 26 layers (two LOCAL/GLOBAL
 # periods), to keep the whole smoke inside its time limit: the pool,
 # scheduler and kernels do the same work a layer, and the same trace
 # outgrows the same pool.
 PAGED_SLOTS, PAGED_MAX_LEN, PAGED_BLOCKS, SPEC_K = 8, 1280, 23, 4
-PAGED_LAYERS = 8
+PAGED_LAYERS = 4
 # The gecko8 cache, which every decode step unpacks whole and holds bit
-# for bit to a raw bf16 cache, is served over 8 of the 26 layers too.
-GECKO_SERVE_LAYERS = 8
+# for bit to a raw bf16 cache, is served over 4 of the 26 layers too.
+GECKO_SERVE_LAYERS = 4
 PAGED_POS = (1279, 1100, 777, 640, 300, 127, 5, 0)
 PAGED_TRACE = ["--requests", "12", "--prompt-len-min", "256",
                "--prompt-len-max", "1024", "--max-new-min", "16",
@@ -1589,13 +1611,21 @@ def serve_run(torch, cfg, gen, counters, container, prompt_len=PROMPT,
     max_len = P + prompt_len + MAX_NEW
     engine.generate(model, params, prompt[:, :64], 2,      # warm-up
                     cond_embeddings=cond)
+    # An MoE model's prefill routings on both paths, to count the
+    # (token, expert) assignments the kernels' rounding moves.
+    routes = {"kernel": [], "plain": []}
+
+    def recorded(which):
+        return (record_routes(P + prompt_len, routes[which]) if cfg.is_moe
+                else contextlib.nullcontext())
     for c in counters:
         c.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    res = engine.generate(model, params, prompt, MAX_NEW,
-                          cond_embeddings=cond)
+    with recorded("kernel"):
+        res = engine.generate(model, params, prompt, MAX_NEW,
+                              cond_embeddings=cond)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
     launches = {c.__name__: c.launches for c in counters}
@@ -1645,7 +1675,7 @@ def serve_run(torch, cfg, gen, counters, container, prompt_len=PROMPT,
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with prefill_by_rows(torch, model):
+        with prefill_by_rows(torch, model), recorded("plain"):
             plain_res = engine.generate(model, params, prompt, MAX_NEW,
                                         cond_embeddings=cond)
         torch.cuda.synchronize()
@@ -1665,9 +1695,50 @@ def serve_run(torch, cfg, gen, counters, container, prompt_len=PROMPT,
         exact = {"exact_attention_prefill_logit_max_diff": dx.max().item(),
                  "exact_attention_prefill_logit_mean_diff":
                      dx.mean().item()}
-    if d.max().item() > lim_max or d.mean().item() > lim_mean:
-        fail(f"prefill logits: max {d.max().item():.4f} mean "
-             f"{d.mean().item():.4f} over {lim_max:.4f}/{lim_mean:.4f}")
+    gated, g_max, g_mean = d, lim_max, lim_mean
+    if cfg.is_moe:
+        # Which experts a token takes is a discrete choice that the two
+        # paths make differently where its K-th and K+1-th router logits
+        # nearly tie; a last position that flips moves its row's logits
+        # by a whole expert's output, on the f64 path as well, but not on
+        # the same rows. So the kernels are held with the plain and f64
+        # prefills routed as the kernel path routed, to twice the f64
+        # prefill's distance plus one spacing of the compute dtype at the
+        # largest logit: the unembedding's product rounds every path's
+        # logits to bf16 after all that the f64 prefill measures, and at
+        # olmoe's logits (up to ~900) one spacing is 4.
+        with prefill_by_rows(torch, model):
+            ops.force_backend("plain")
+            try:
+                with torch.inference_mode(), forced_routes(
+                        torch, P + prompt_len, routes["kernel"]):
+                    fp, _ = model.prefill(params, prompt, max_len,
+                                          cond_embeddings=cond)
+            finally:
+                ops.force_backend(None)
+            with forced_routes(torch, P + prompt_len, routes["kernel"]):
+                fx = exact_prefill(torch, model, params, prompt, max_len,
+                                   cond)
+        fp = fp[:, -1]
+        gated, dxf = (res.prefill_logits - fp).abs(), (fx - fp).abs()
+        top = fp[:, :cfg.vocab].abs().max().item()
+        spacing = torch.finfo(cfg.compute_dtype).eps * 2.0 ** math.floor(
+            math.log2(top))
+        g_max = max(E2E_MAX, 2 * dxf.max().item() + spacing)
+        g_mean = max(E2E_MEAN, 2 * dxf.mean().item())
+        exact.update({
+            "same_routes_prefill_logit_max_diff": gated.max().item(),
+            "same_routes_prefill_logit_mean_diff": gated.mean().item(),
+            "same_routes_exact_attention_prefill_logit_max_diff":
+                dxf.max().item(),
+            "same_routes_exact_attention_prefill_logit_mean_diff":
+                dxf.mean().item(),
+            "logit_spacing_at_max": spacing,
+            "same_routes_prefill_logit_limits": [g_max, g_mean]})
+        del fp, fx
+    if gated.max().item() > g_max or gated.mean().item() > g_mean:
+        fail(f"prefill logits: max {gated.max().item():.4f} mean "
+             f"{gated.mean().item():.4f} over {g_max:.4f}/{g_mean:.4f}")
     if prefix:
         # The prefix must move the logits further on average than the
         # kernels' rounding moves them from the plain path's. (Not at
@@ -1699,6 +1770,13 @@ def serve_run(torch, cfg, gen, counters, container, prompt_len=PROMPT,
                for b, t in enumerate(agree)],
            "token_agreement": same, "launches": launches,
            "peak_mem_gb": peak_gb}
+    if cfg.is_moe:
+        n, total = route_flips(torch, routes["kernel"], routes["plain"],
+                               cfg.n_experts)
+        e2e.update(prefill_route_flips_vs_plain=n,
+                   prefill_route_assignments=total)
+        print(f"  {n} of {total} (token, expert) prefill assignments differ "
+              f"between the kernel and the plain path")
     if fields is None:
         e2e.update(raw_cache_check(torch, cfg, model, params, prompt, toks))
     return e2e, launches
@@ -2026,15 +2104,15 @@ def paged_serving(torch, cfg, counters, card, path_launches):
 # q / 16 KV heads of 144), so the kernel design is not specific to 240.
 # The attention is timed at the global layer's training shape, beside
 # scaled_dot_product_attention, which computes the same function there.
-# (b) Serving at full width and half its depth, 24 of 48 layers (four
-# periods; the whole model fits the card, but not the whole smoke's time
-# limit beside the later phases), batch 4, 2048-token prompts (past the
+# (b) Serving at full width and one period of depth, 6 of 48 layers
+# (five local and one global; the whole model fits the card, but not the whole smoke's
+# time limit beside the later phases), batch 4, 2048-token prompts (past the
 # window: prefill masks it, and decode wraps the 1024-slot local rings), 64 new
 # tokens, from an sfp8 and an sfp-m2e4 cache. (c) Training at full widths
 # and one period of depth, 6 layers (48 do not fit beside AdamW's f32
 # moments on 80 GB; the launcher has no depth flag, so the smoke cuts the
 # config), B 2, S 2048 (the window masks).
-G3_ARCH, G3_PROMPT, G3_SERVE_LAYERS = "gemma3-12b", 2048, 24
+G3_ARCH, G3_PROMPT, G3_SERVE_LAYERS = "gemma3-12b", 2048, 6
 G3_TRAIN_B, G3_TRAIN_SEQ, G3_TRAIN_LAYERS = 2, 2048, 6
 G27_HEADS = (32, 16, 144)   # gemma2-27b: q heads, KV heads, head dim
 G27_SEQ = 1024
@@ -2451,23 +2529,24 @@ def gemma3_phase(torch, counters, card, gen, flush):
 
 
 # The last dense configs. gemma2-27b (32 q / 16 KV heads of 144,
-# softcaps 50 / 30, window 4096, tied embeddings) is served at 24 of its
-# 46 layers (29.9 GB of bf16 weights; all 46, 55.1 GB, fit the card but
-# not the whole smoke's time limit beside the later phases), batch 2,
-# from 4224-token prompts, past the window, so the local
+# softcaps 50 / 30, window 4096, tied embeddings) is served at 6 of its
+# 46 layers (9.2 GB of bf16 weights; all
+# 46, 55.1 GB, fit the card but not the whole smoke's time limit beside
+# the later phases), batch 2, from 4224-token prompts, past the window,
+# so the local
 # layers mask in prefill and their rings wrap in decode. It trains at full
 # widths over 4 of its 46 layers (two LOCAL/GLOBAL periods; 46 layers and
 # AdamW's moments need ~330 GB). mistral-large-123b (96 q / 8 KV heads of
-# 128, GQA rep 12, an untied head, no softcaps) is served at 8 of its 88
-# layers (23.7 GB with embed and head; 88 layers are 245 GB), batch 4,
+# 128, GQA rep 12, an untied head, no softcaps) is served at 2 of its 88
+# layers (88 layers are 245 GB), batch 4,
 # 2048-token prompts, and trained at 2.
 G27_ARCH, G27_SERVE_B, G27_PROMPT, G27_SERVE_LAYERS = (
-    "gemma2-27b", 2, 4224, 24)
+    "gemma2-27b", 2, 4224, 6)
 G27_TRAIN_B, G27_TRAIN_SEQ, G27_TRAIN_LAYERS = 2, 2048, 4
 G27_GLOBAL_POS = (4351, 4287, 4223, 900)
 G27_RING_POS = (5000, 4287, 4095, 2000)
 MI_ARCH, MI_SERVE_LAYERS, MI_SERVE_B, MI_PROMPT = (
-    "mistral-large-123b", 8, 4, 2048)
+    "mistral-large-123b", 2, 4, 2048)
 MI_TRAIN_B, MI_TRAIN_SEQ, MI_TRAIN_LAYERS = 2, 2048, 2
 
 
@@ -2598,17 +2677,17 @@ def dense_config_phase(torch, counters, card, gen, flush, which):
     return summary, launches
 
 
-# The prefix-LMs (slice 17), served and trained whole: paligemma-3b (18
-# layers, d_model 2048, 8 q / 1 KV head of 256, GQA rep 8, GLU-GELU d_ff
+# The prefix-LMs (slice 17): paligemma-3b, served and trained over 9 of
+# its 18 layers (d_model 2048, 8 q / 1 KV head of 256, GQA rep 8, GLU-GELU d_ff
 # 16384, a tied 257,216-word vocabulary with emb_scale, P 256) and
 # musicgen-large (48 layers, 32 q / 32 KV heads of 64, a GELU MLP without
-# GLU, d_ff 8192, an untied 2048-word head, P 64), 2.51 B and 2.42 B
-# parameters. Each reads P seeded random conditioning embeddings (drawn on
+# GLU, d_ff 8192, an untied 2048-word head, P 64), served and trained over
+# 12 of its 48 layers (the smoke's time limit), 2.51 B and 2.42 B parameters. Each reads P seeded random conditioning embeddings (drawn on
 # the CPU) before 1024 tokens, so its attention runs over S_tot 1280 and
 # 1088 positions (the latter off the 128-row tile), batch 4; the decode
 # caches hold 1408 and 1152 slots.
 PG_ARCH, MG_ARCH = "paligemma-3b", "musicgen-large"
-PREFIX_B, PREFIX_SEQ = 4, 1024
+PREFIX_B, PREFIX_SEQ, PG_LAYERS, MG_LAYERS = 4, 1024, 9, 12
 PREFIX_POS = {PG_ARCH: (1407, 1343, 1279, 600),
               MG_ARCH: (1151, 1087, 1023, 300)}
 
@@ -2652,19 +2731,21 @@ def prefix_phase(torch, counters, card, gen, flush, which):
     summary, the launches of each of its paths)."""
     from repro_torch import configs
     if which == "paligemma":
-        cfg = configs.get(PG_ARCH)
+        cfg, depth = configs.get(PG_ARCH), PG_LAYERS
         serving = ((CONTAINER, ""), (DENSE, " dense"))
         training = (("qm", CONTAINER, False, ""),)
     else:
-        cfg = configs.get(MG_ARCH)
+        cfg, depth = configs.get(MG_ARCH), MG_LAYERS
         serving = ((CONTAINER, ""),)
         training = (("qm+qe", DENSE, True, " dense"),)
     summary = {"kernels": prefix_kernels(torch, cfg, gen, flush, which)}
+    served = cfg if depth is None else dataclasses.replace(cfg,
+                                                           n_layers=depth)
     launches = {}
     for container, suffix in serving:
         path = f"serve {which}{suffix}"
         t0 = time.perf_counter()
-        e2e, launches[path] = serve_run(torch, cfg, gen, counters,
+        e2e, launches[path] = serve_run(torch, served, gen, counters,
                                         container, prompt_len=PREFIX_SEQ,
                                         batch=PREFIX_B, prefix=True)
         e2e["card"] = card
@@ -2678,11 +2759,308 @@ def prefix_phase(torch, counters, card, gen, flush, which):
         e2e, launches[path] = train_run(
             torch, cfg, counters, policy=policy, container=container,
             steps=TRAIN_STEPS, bits={"qm": QM_INIT_BITS}, witness=witness,
-            batch=PREFIX_B, seq=PREFIX_SEQ, prefix=True)
+            batch=PREFIX_B, seq=PREFIX_SEQ, depth=depth, prefix=True)
         e2e["card"] = card
         print(f"{path}: " + json.dumps(e2e))
         print(f"{path}: {time.perf_counter() - t0:.1f} s")
         summary[path] = e2e
+        torch.cuda.empty_cache()
+    return summary, launches
+
+
+# Mixture-of-Experts (slice 18). olmoe-1b-7b: 16 layers, d_model 2048, 16
+# q / 16 KV heads of 128 (rep 1), 64 experts of 1024 (GLU-SiLU), top-8, a
+# tied 50,304-word vocabulary; 6.82 B parameters (13.6 GB of bf16), served
+# whole: batch 4, 2048-token prompts, 64 new tokens, sfp8 and sfp-m2e4
+# caches; trained at full widths over 4 of its 16 layers (B 4, S 2048);
+# one paged trace (the seeded 12-request trace, sfp8, --burst 1) at 4
+# layers. phi3.5-moe-42b-a6.6b: 32 layers, d_model 4096, 32 q / 8 KV
+# heads of 128 (rep 4), 16 experts of 6400, top-2, an untied 32,064-word
+# head; 41.87 B parameters (84 GB of bf16), served at 8 of its 32 layers
+# (batch 4, 2048-token prompts, sfp8) and trained at full widths over 2
+# (B 2, S 2048; the weights, AdamW's f32 moments and the activations of
+# more layers pass 80 GB). The weights are drawn as the port's moe_init
+# draws them, JAX's, and the experts then scaled to their own fan-in
+# (``fan_in_experts``): at JAX's E ** -0.5 the MoE output swamps the
+# random model's residual stream (on the H100 olmoe's logits reached 196,
+# the kernel and plain paths routed 6.4% of the prefill's assignments
+# otherwise and its logits lay up to 156 apart), and no gate could tell a
+# fault from a routing flip. Neither config has a final softcap, so
+# serving holds the prefill logits to twice an f64-attention prefill's
+# distance as well. A token whose K-th and K+1-th router logits nearly
+# tie takes another expert on either path when the attention rounds
+# otherwise; the f64 prefill flips such tokens too, but not the same
+# ones, and a flip at a row's last position moves its logits by a whole
+# expert's output (on the H100 phi3.5's kernel path once lay 1.21 from
+# plain where its f64 path, without such a flip, lay under 0.5). So the
+# logits are held with the plain and f64 prefills routed as the kernel
+# path routed (``forced_routes``), and the unforced distances are
+# printed; the streams keep the common near tie. phi3.5's qm + sfp8
+# training is held to the plain path at every step. olmoe's runs the
+# attention-plain witness, as every 2-bit stash does: without it, on the
+# H100, the same flips fed back through AdamW put its qm + sfp8 kernel
+# path's grad norm 4.5% from plain at step 3 (limit 1%; loss 0.21%)
+# and its QM weight bits 9.3e-5 apart (limit 6.0e-5). The MoE's einsums
+# and scatter run outside any TPU kernel in the JAX package, so the
+# port's expert products are PyTorch matmuls and the phases hold rows
+# 1-10 at the new layouts.
+OL_ARCH, PHI_ARCH = "olmoe-1b-7b", "phi3.5-moe-42b-a6.6b"
+MOE_PROMPT, MOE_SERVE_B = 2048, 4
+OL_TRAIN_B, OL_TRAIN_SEQ, OL_TRAIN_LAYERS, OL_PAGED_LAYERS = 4, 2048, 4, 4
+PHI_SERVE_LAYERS, PHI_TRAIN_B, PHI_TRAIN_SEQ, PHI_TRAIN_LAYERS = (
+    8, 2, 2048, 2)
+MOE_POS = (2111, 2047, 1500, 0)
+
+
+@contextlib.contextmanager
+def record_routes(positions, store):
+    """Within the block, every MoE routing of a (rows, ``positions``, d)
+    input (a prefill's; decode routes (1, batch, d)) appends its expert
+    indices (rows, positions, K) to ``store``, in layer order."""
+    from repro_torch.models import moe
+    route = moe.route
+
+    def recording(params, h, cfg):
+        out = route(params, h, cfg)
+        if h.shape[1] == positions:
+            store.append(out[3])
+        return out
+    moe.route = recording
+    try:
+        yield
+    finally:
+        moe.route = route
+
+
+@contextlib.contextmanager
+def forced_routes(torch, positions, routes):
+    """Within the block, every MoE routing of a prefill (rows,
+    ``positions``, d) takes its experts from ``routes`` (one (B, S, K)
+    index tensor a layer, as ``record_routes`` keeps them; a one-row
+    prefill takes its own row, calls in ``prefill_by_rows`` order), with
+    gates, positions and capacity as ``moe.route`` derives them from
+    its own probabilities and those indices."""
+    from repro_torch.models import moe
+    route, calls, layers = moe.route, [0], len(routes)
+
+    def forced(params, h, cfg):
+        if h.shape[1] != positions:
+            return route(params, h, cfg)
+        logits, probs, _, _ = moe.select(params, h, cfg)
+        n = calls[0]
+        calls[0] += 1
+        idx = routes[n % layers]
+        if h.shape[0] != idx.shape[0]:
+            idx = idx[n // layers:n // layers + 1]
+        return (logits, probs, moe.gates(probs, idx), idx) + moe.place(
+            idx, cfg)
+    moe.route = forced
+    try:
+        yield
+    finally:
+        moe.route = route
+
+
+@contextlib.contextmanager
+def fan_in_experts(torch):
+    """Within the block, ``moe.moe_init`` draws as the JAX package does
+    and then scales each expert matrix to its own fan-in (``w_in`` and
+    ``w_gate`` to d ** -0.5, ``w_out`` to ffe ** -0.5, from E ** -0.5)."""
+    from repro_torch.models import moe
+    init = moe.moe_init
+
+    def scaled(cfg, gen, device, dtype):
+        params = init(cfg, gen, device, dtype)
+        E = cfg.n_experts
+        for name, fan_in in (("w_in", cfg.d_model), ("w_gate", cfg.d_model),
+                             ("w_out", cfg.d_ff_expert)):
+            if name in params:
+                params[name].mul_((E / fan_in) ** 0.5)
+        return params
+    moe.moe_init = scaled
+    try:
+        yield
+    finally:
+        moe.moe_init = init
+
+
+def route_flips(torch, kernel, plain, experts):
+    """The (token, expert) assignments that differ between two prefills'
+    routings (``kernel``: one (rows, S, K) index tensor a layer; ``plain``,
+    prefilled one row at a time: row 0's layers, then row 1's, ...): half
+    the symmetric difference of the chosen sets, summed over tokens and
+    layers; and the assignments compared."""
+    layers = len(kernel)
+    rows = len(plain) // layers
+    n = total = 0
+    for i, a in enumerate(kernel):
+        b = torch.cat([plain[r * layers + i] for r in range(rows)])
+        oa = torch.nn.functional.one_hot(a, experts).sum(-2)
+        ob = torch.nn.functional.one_hot(b, experts).sum(-2)
+        n += int((oa != ob).sum()) // 2
+        total += a.numel()
+    return n, total
+
+
+def moe_kernels(torch, cfg, gen, flush, tag, batch):
+    """Rows 8-10 at an MoE config's heads: the attention forward and
+    backward at its training shape (``batch``, S 2048, causal, no mask)
+    held, counted and timed beside SDPA (flash, ``enable_gqa``); every
+    decode read (words and planes, full width and draft) over the
+    2176-slot contiguous cache and on the 8 x 1280 paged pool, held and
+    timed."""
+    from repro_torch.configs.base import GLOBAL
+    from repro_torch.serve import kvcache
+    H, KH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    t0 = time.perf_counter()
+    what = f"{tag} hd {hd} rep {H // KH}"
+    out = {"attention": attention_timed(
+        torch, gen, f"{cfg.name} layer", what, batch, MOE_PROMPT, H, KH, hd,
+        (None,))}
+    torch.cuda.empty_cache()
+    L = kvcache.cache_len(cfg, GLOBAL, MOE_PROMPT + MAX_NEW)      # 2176
+    out["decode"] = decode_reads(
+        torch, gen, flush, what, H, KH, hd,
+        (("global", L, None, MOE_POS),), (CONTAINER, DENSE))
+    out["paged"] = paged_reads(torch, gen, flush, H, KH, hd, what=what)
+    torch.cuda.empty_cache()
+    print(f"{tag} kernel checks: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+MOE_PROFILE_CLASSES = (
+    ("attention", lambda op, k: "flash_attention" in k or "bwd_d" in k),
+    ("stash", lambda op, k: any(t in k for t in (
+        "sfp_pack", "sfp_unpack", "bitplane_", "gecko_"))),
+    ("expert matmuls", lambda op, k: op == "aten::bmm"),
+    ("scatter and gather", lambda op, k: op in (
+        "aten::scatter", "aten::scatter_", "aten::gather",
+        "aten::scatter_add", "aten::scatter_add_")),
+    ("router", lambda op, k: op in (
+        "aten::topk", "aten::_softmax", "aten::_softmax_backward_data",
+        "aten::cumsum", "aten::one_hot", "aten::logsumexp", "aten::sort")),
+    ("other matmuls", lambda op, k: op in ("aten::mm", "aten::addmm")),
+)
+
+
+def moe_profile(torch, counters, card):
+    """One olmoe-1b-7b training step (qm + sfp8, full widths, 4 layers, B
+    4, S 2048; after two unprofiled steps) under torch.profiler with the
+    inputs' shapes: device time by the ATen op or kernel that launched it,
+    in MOE_PROFILE_CLASSES order (the router's f32 (d, 64) products are
+    the mm calls with a dimension of 64, the expert FFNs the bmm calls;
+    our kernels by name), beside the profiled step's wall time and an
+    unprofiled step's. Prints and returns the breakdown."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import configs
+    cfg = configs.get(OL_ARCH)
+    argv = train_argv(cfg, "qm", CONTAINER, 3, "--qm-init-bits",
+                      str(QM_INIT_BITS), batch=OL_TRAIN_B, seq=OL_TRAIN_SEQ)
+    _, step_fn, state, batches, _ = train_setup(torch, argv, OL_TRAIN_LAYERS)
+    state, rec = timed_step(torch, step_fn, state, batches[0], counters, 0)
+    state, rec = timed_step(torch, step_fn, state, batches[1], counters, 1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        state, _ = step_fn(state, batches[2])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    E = cfg.n_experts
+    ms = {name: 0.0 for name, _ in MOE_PROFILE_CLASSES}
+    ms["elementwise, copies and the rest"] = 0.0
+    for e in prof.events():
+        for k in e.kernels:
+            op = e.name
+            if op == "aten::mm" and any(E in tuple(sh) for sh in (
+                    e.input_shapes or ()) if sh):
+                op = "aten::topk"       # the router's product: a router op
+            name = next((n for n, f in MOE_PROFILE_CLASSES if f(op, k.name)),
+                        "elementwise, copies and the rest")
+            ms[name] += k.duration / 1e3
+    del state, batches
+    busy = sum(ms.values())
+    out = {"arch": cfg.name, "layers": OL_TRAIN_LAYERS, "batch": OL_TRAIN_B,
+           "seq": OL_TRAIN_SEQ, "policy": "qm", "container": CONTAINER,
+           "profiled_step_wall_ms": wall * 1e3,
+           "unprofiled_step_ms": rec["step_s"] * 1e3,
+           "device_busy_ms": busy, "device_ms": ms, "card": card}
+    print("profile olmoe train step: " + json.dumps(out))
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_phase(torch, counters, card, gen, flush, which):
+    """The olmoe-1b-7b (``which`` "olmoe") or phi3.5-moe-42b-a6.6b
+    ("phi35_moe") phase: the kernel checks, then serving and training
+    against the plain path, and (olmoe) one paged trace, every model's
+    experts at their own fan-in. Returns (its summary, the launches of
+    each of its paths)."""
+    with fan_in_experts(torch):
+        return moe_paths(torch, counters, card, gen, flush, which)
+
+
+def moe_paths(torch, counters, card, gen, flush, which):
+    """``moe_phase``'s body."""
+    from repro_torch import configs
+    from repro_torch.models.model import DecoderModel
+    if which == "olmoe":
+        cfg, tag = configs.get(OL_ARCH), "olmoe"
+        kernels = moe_kernels(torch, cfg, gen, flush, tag, OL_TRAIN_B)
+        serving = ((cfg, CONTAINER, ""), (cfg, DENSE, " dense"))
+        training = (("qm", CONTAINER, True, ""),
+                    ("qm+qe", DENSE, True, " dense"))
+        train_kw = dict(batch=OL_TRAIN_B, seq=OL_TRAIN_SEQ,
+                        depth=OL_TRAIN_LAYERS)
+    else:
+        cfg, tag = configs.get(PHI_ARCH), "phi35_moe"
+        kernels = moe_kernels(torch, cfg, gen, flush, tag, PHI_TRAIN_B)
+        serving = ((dataclasses.replace(cfg, n_layers=PHI_SERVE_LAYERS),
+                    CONTAINER, ""),)
+        training = (("qm", CONTAINER, False, ""),)
+        train_kw = dict(batch=PHI_TRAIN_B, seq=PHI_TRAIN_SEQ,
+                        depth=PHI_TRAIN_LAYERS)
+    summary, launches = {"kernels": kernels}, {}
+    for scfg, container, suffix in serving:
+        path = f"serve {tag}{suffix}"
+        t0 = time.perf_counter()
+        e2e, launches[path] = serve_run(torch, scfg, gen, counters,
+                                        container, prompt_len=MOE_PROMPT,
+                                        batch=MOE_SERVE_B)
+        e2e["card"] = card
+        print(f"e2e {tag} ({container}): " + json.dumps(e2e))
+        print(f"{path}: {time.perf_counter() - t0:.1f} s")
+        summary[path] = e2e
+        torch.cuda.empty_cache()
+    for policy, container, witness, suffix in training:
+        path = f"train {tag}{suffix}"
+        t0 = time.perf_counter()
+        e2e, launches[path] = train_run(
+            torch, cfg, counters, policy=policy, container=container,
+            steps=TRAIN_STEPS, bits={"qm": QM_INIT_BITS}, witness=witness,
+            **train_kw)
+        e2e["card"] = card
+        print(f"{path}: " + json.dumps(e2e))
+        print(f"{path}: {time.perf_counter() - t0:.1f} s")
+        summary[path] = e2e
+        torch.cuda.empty_cache()
+    if which == "olmoe":
+        t0 = time.perf_counter()
+        summary["profile"] = moe_profile(torch, counters, card)
+        print(f"profile olmoe: {time.perf_counter() - t0:.1f} s")
+        path = "serve paged olmoe"
+        t0 = time.perf_counter()
+        pcfg = dataclasses.replace(cfg, n_layers=OL_PAGED_LAYERS)
+        model = DecoderModel(pcfg, kv_container=CONTAINER,
+                             device=torch.device("cuda"))
+        params = model.init(SEED)
+        rec, launches[path], _ = trace_run(torch, pcfg, counters, model,
+                                           params, CONTAINER, None)
+        rec["card"] = card
+        print(f"trace {path}: " + json.dumps(rec))
+        print(f"trace {path}: {time.perf_counter() - t0:.1f} s")
+        summary[path] = rec
+        del model, params
         torch.cuda.empty_cache()
     return summary, launches
 
@@ -2737,7 +3115,8 @@ def timed_step(torch, step_fn, state, b, counters, i, expect=None):
         fail(f"train step {i}: launch counts {launches} != expected "
              f"{expect}")
     rec = {k: float(v) for k, v in met.items()
-           if k in ("loss", "xent", "grad_norm") + CONTROLLER_BITS
+           if k in ("loss", "xent", "grad_norm", "moe_lb_loss",
+                    "moe_drop_frac") + CONTROLLER_BITS
            or k.endswith(("_act_mean", "_w_mean"))}
     rec.update(step_s=dt, launches=launches)
     for k in ("loss", "xent", "grad_norm"):
@@ -3047,6 +3426,12 @@ def train_run(torch, cfg, counters, *, policy, container, steps, bits,
            "step_s": [r["step_s"] for r in records],
            "plain_step_s": [r["step_s"] for r in plain_records],
            "launches_per_step": expect}
+    if cfg.is_moe:
+        for k in ("moe_lb_loss", "moe_drop_frac"):
+            e2e[k] = [r[k] for r in records]
+            e2e[f"plain_{k}"] = [r[k] for r in plain_records]
+        print(f"  moe_lb_loss {e2e['moe_lb_loss']}, moe_drop_frac "
+              f"{e2e['moe_drop_frac']} (plain {e2e['plain_moe_drop_frac']})")
     if footprint is not None:
         e2e["stash_footprint_last_step"] = footprint
     return e2e, launches
@@ -4765,20 +5150,54 @@ def prefix_entry(name, r, pf, path_launches):
         r["note"] += "; " + "; ".join(notes)
 
 
+def moe_entry(name, r, mo, path_launches):
+    """Add the MoE phases to a kernel's note: every kernel its launches per
+    MoE generate, step and trace; rows 8 their attention timings beside
+    SDPA, rows 9-10 their reads at olmoe's 16 KV heads of 128 (rep 1)
+    and phi3.5-moe's 8 (rep 4)."""
+    notes = []
+    for path, n in sorted(path_launches.items()):
+        if ("olmoe" in path or "phi35_moe" in path) and n.get(name):
+            per = n[name] // TRAIN_STEPS if path.startswith("train") else \
+                n[name]
+            what = "step" if path.startswith("train") else (
+                "trace" if "paged" in path else "generate")
+            notes.append(f"{per} launches per {path} {what}")
+    for tag in ("olmoe", "phi35_moe"):
+        if name in ("flash_attention", "flash_attention_bwd"):
+            g = mo[tag]["kernels"]["attention"][name]
+            notes.append(
+                f"{g['shape']}: {g['ms']:.5f} ms, bound {g['bound_ms']:.5f}"
+                f" ({g['bound_by']}), plain {g['plain_ms']:.4f}, "
+                f"{g['library']} {g['library_ms']:.5f}, "
+                f"{g['tflops']:.1f} TFLOP/s, max |d| {g['max_abs_err']:.3g}")
+        elif name in DECODE_READS:
+            group, container, pp, label = DECODE_READS[name]
+            key = (f"{container} {'paged' if group == 'paged' else 'global'}"
+                   f" prefix_planes={pp}")
+            g = mo[tag]["kernels"][group][key]
+            notes.append(f"{tag} ({key}): {g['ms']:.5f} ms, bound "
+                         f"{g['bound_ms']:.6f}, plain {g['plain_ms']:.4f}; "
+                         f"{g['note']}")
+    if notes:
+        r["note"] += "; " + "; ".join(notes)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phase", choices=("all", "gecko", "dense", "sfp",
                                         "cnn", "ckpt", "gradc", "gemma3",
                                         "gemma2_27b", "mistral",
-                                        "paligemma", "musicgen"),
+                                        "paligemma", "musicgen", "olmoe",
+                                        "phi35_moe"),
                     default="all",
                     help="gecko / dense / sfp: only the Gecko, the dense "
                          "bit-plane or the fixed-lane word kernel checks "
                          "and timings; cnn: only the CNN phase; ckpt: only "
                          "the checkpoint phase; gradc: only the compressed "
                          "gradients and AdaptivFloat phase; gemma3, "
-                         "gemma2_27b, mistral, paligemma, musicgen: only "
-                         "that model's phase")
+                         "gemma2_27b, mistral, paligemma, musicgen, olmoe, "
+                         "phi35_moe: only that model's phase")
     ap.add_argument("--src", type=Path, default=SRC,
                     help="the directory holding the repro_torch package")
     args = ap.parse_args(argv)
@@ -4840,8 +5259,10 @@ def main(argv=None) -> int:
         print(json.dumps({"tree": str(src), "card": card,
                           "gemma3": summary["kernels"]}))
         return 0
-    if args.phase in ("gemma2_27b", "mistral", "paligemma", "musicgen"):
+    if args.phase in ("gemma2_27b", "mistral", "paligemma", "musicgen",
+                      "olmoe", "phi35_moe"):
         phase = (prefix_phase if args.phase in ("paligemma", "musicgen")
+                 else moe_phase if args.phase in ("olmoe", "phi35_moe")
                  else dense_config_phase)
         summary, _ = phase(torch, counters, card, gen, flush, args.phase)
         print(card)
@@ -4896,6 +5317,14 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         pf[which], launches = prefix_phase(torch, counters, card, gen, flush,
                                            which)
+        dc_launches.update(launches)
+        print(f"{which} phase: {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+    mo = {}
+    for which in ("olmoe", "phi35_moe"):
+        t0 = time.perf_counter()
+        mo[which], launches = moe_phase(torch, counters, card, gen, flush,
+                                        which)
         dc_launches.update(launches)
         print(f"{which} phase: {time.perf_counter() - t0:.1f} s")
         torch.cuda.empty_cache()
@@ -5012,6 +5441,7 @@ def main(argv=None) -> int:
         path = gemma3_entry(name, r, path, g3, path_launches)
         dense_configs_entry(name, r, dc, path_launches)
         prefix_entry(name, r, pf, path_launches)
+        moe_entry(name, r, mo, path_launches)
         kernels.append(dict(name=name, route="cuda", source=r["source"],
                             replaces=r["replaces"],
                             launches=path_launches[path][name], path=path,

@@ -13,3 +13,5 @@ from repro_torch.configs.mistral_large_123b import (  # noqa: F401
 )
 from repro_torch.configs.paligemma_3b import PALIGEMMA_3B  # noqa: F401
 from repro_torch.configs.musicgen_large import MUSICGEN_LARGE  # noqa: F401
+from repro_torch.configs.olmoe_1b_7b import OLMOE_1B_7B  # noqa: F401
+from repro_torch.configs.phi35_moe import PHI35_MOE  # noqa: F401

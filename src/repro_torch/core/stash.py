@@ -3,25 +3,29 @@
 The forward pass encodes each period's input activation as it is stashed
 and the backward pass decodes it on the way back in (paper §V):
 
-    h = sfp_scan(layer_fn, compress, decompress, h0, xs, stash_grad)
+    h, extras, aux = sfp_scan(layer_fn, compress, decompress, h0, xs,
+                              stash_grad)
 
   forward : for period i, stash c_i = compress(h_i, x_i) and compute
-            h_{i+1} = layer_fn(decompress(c_i, x_i), x_i) without saving
-            anything else: compute consumes the quantized values (§IV-A1).
+            (h_{i+1}, e_{i+1}, aux_i) = layer_fn(decompress(c_i, x_i), e_i,
+            x_i) without saving anything else: compute consumes the
+            quantized values (§IV-A1).
   backward: decompress c_i once, recompute the period under autograd and
-            take its vector-Jacobian product for h, the period's
+            take its vector-Jacobian product for h, e_i, the period's
             parameters and its policy slice. Only the packed containers
-            live across the forward/backward gap.
+            (and the small ``extras`` carry e_i) live across the
+            forward/backward gap.
 
 The JAX package writes this as a ``jax.custom_vjp`` around ``lax.scan``;
 here each period is one ``torch.autograd.Function`` and the periods chain
 through autograd. The gradient is straight-through at the stash boundary
 (dL/dh = dL/dh_q); ``stash_grad`` adds the learned-bitlength (Quantum
-Mantissa / Exponent) estimates from the realized stash to the policy slice's cotangent. The
-JAX package also threads a small ``extras`` carry (MoE aux losses); the
-port's dense family has no MoE, so it has none. Every random draw a
-period makes is taken before it runs and stored in ``x``, so the
-recompute sees the forward's draws.
+Mantissa / Exponent) estimates from the realized stash to the policy
+slice's cotangent. ``extras`` is a small differentiable side carry (the
+MoE auxiliary loss summed over the layers), kept raw as JAX keeps it in
+its ``extras_seq``; ``aux`` is each period's metrics, detached. Every
+random draw a period makes is taken before it runs and stored in ``x``,
+so the recompute sees the forward's draws.
 """
 from __future__ import annotations
 
@@ -57,7 +61,8 @@ def substitute(tree, subs: Dict[Path, torch.Tensor], path: Path = ()):
 
 
 class _Period:
-    """What one period's autograd Function needs beyond its tensors."""
+    """What one period's autograd Function needs beyond its tensors; the
+    forward leaves the period's detached ``aux`` metrics here."""
 
     def __init__(self, layer_fn, compress, decompress, stash_grad, x):
         self.layer_fn = layer_fn
@@ -66,31 +71,40 @@ class _Period:
         self.stash_grad = stash_grad
         self.x = x
         self.paths = [p for p, _ in float_leaves(x)]
+        self.aux = None
 
 
 class _StashedPeriod(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, h, period: _Period, *leaves):
+    def forward(ctx, h, extras, period: _Period, *leaves):
         c = period.compress(h, period.x)
-        h_new = period.layer_fn(period.decompress(c, period.x), period.x)
+        h_new, e_new, aux = period.layer_fn(period.decompress(c, period.x),
+                                            extras, period.x)
+        period.aux = {k: v.detach() for k, v in aux.items()}
         ctx.period = period
         ctx.stash = c
-        return h_new
+        ctx.save_for_backward(extras)
+        return h_new, e_new
 
     @staticmethod
-    def backward(ctx, dh):
+    def backward(ctx, dh, dextras):
         period = ctx.period
-        need = ctx.needs_input_grad[2:]
+        need = ctx.needs_input_grad[3:]
+        (extras,) = ctx.saved_tensors
         h_q = period.decompress(ctx.stash, period.x)
         with torch.enable_grad():
             hq = h_q.detach().requires_grad_(True)
+            e_in = extras.detach().requires_grad_(True)
             subs = {p: t.detach().requires_grad_(n)
                     for (p, t), n in zip(float_leaves(period.x), need)}
-            out = period.layer_fn(hq, substitute(period.x, subs))
-            wrt = [hq] + [subs[p] for p, n in zip(period.paths, need) if n]
-            grads = list(torch.autograd.grad(out, wrt, dh,
+            out, e_out, _ = period.layer_fn(hq, e_in,
+                                            substitute(period.x, subs))
+            wrt = [hq, e_in] + [subs[p] for p, n in zip(period.paths, need)
+                                if n]
+            grads = list(torch.autograd.grad((out, e_out), wrt,
+                                             (dh, dextras),
                                              allow_unused=True))
-        dh_prev = grads.pop(0)
+        dh_prev, de_prev = grads.pop(0), grads.pop(0)
         leaf_grads = [grads.pop(0) if n else None for n in need]
         if period.stash_grad is not None:
             index = {p: i for i, p in enumerate(period.paths)}
@@ -100,19 +114,23 @@ class _StashedPeriod(torch.autograd.Function):
                     leaf_grads[i] = (g if leaf_grads[i] is None
                                      else leaf_grads[i] + g.to(
                                          leaf_grads[i].dtype))
-        return (dh_prev, None, *leaf_grads)
+        return (dh_prev, de_prev, None, *leaf_grads)
 
 
-def sfp_scan(layer_fn: Callable[[torch.Tensor, Any], torch.Tensor],
+def sfp_scan(layer_fn: Callable[[torch.Tensor, torch.Tensor, Any],
+                                Tuple[torch.Tensor, torch.Tensor, Any]],
              compress: Callable[[torch.Tensor, Any], Any],
              decompress: Callable[[Any, Any], torch.Tensor],
              h0: torch.Tensor, xs: List[Any],
              stash_grad: Optional[Callable[[torch.Tensor, torch.Tensor, Any],
-                                           Any]] = None) -> torch.Tensor:
+                                           Any]] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor, List[Any]]:
     """Run ``layer_fn`` over the periods ``xs`` with a compressed stash.
 
     Args:
-      layer_fn:   (h, x) -> h_new, one period.
+      layer_fn:   (h, extras, x) -> (h_new, extras_new, aux), one period;
+                  ``extras`` is an f32 scalar that starts at 0, ``aux`` a
+                  dict of metric tensors (no gradient).
       compress:   (h, x) -> packed (the stashed representation).
       decompress: (packed, x) -> h_q with h's shape and dtype.
       h0:         the first period's input.
@@ -122,13 +140,19 @@ def sfp_scan(layer_fn: Callable[[torch.Tensor, Any], torch.Tensor],
       stash_grad: optional (dh, h_q, x) -> nest of cotangents, keyed like
                   ``x``, added to those of the recompute (QM / QE bitlength
                   gradients). ``dh`` is the period output's cotangent.
+
+    Returns (h after the last period, the final extras, each period's
+    detached aux).
     """
     h = h0
+    extras = torch.zeros((), dtype=torch.float32, device=h0.device)
+    aux = []
     for x in xs:
         period = _Period(layer_fn, compress, decompress, stash_grad, x)
-        h = _StashedPeriod.apply(h, period,
-                                 *[t for _, t in float_leaves(x)])
-    return h
+        h, extras = _StashedPeriod.apply(h, extras, period,
+                                         *[t for _, t in float_leaves(x)])
+        aux.append(period.aux)
+    return h, extras, aux
 
 
 def identity_compress(h, x):

@@ -58,6 +58,9 @@ from repro_torch.train import step as step_mod
 REPORT_KEYS = ("step", "loss", "xent", "qm_act_mean", "qm_w_mean",
                "qe_act_mean", "qe_w_mean", "bc_bits", "bw_man_bits",
                "bw_exp_bits", "step_time_s")
+# An MoE model's report adds its routing metrics (JAX's step reports them
+# for every model, zeros when dense; its launcher prints neither).
+MOE_REPORT_KEYS = ("moe_lb_loss", "moe_drop_frac")
 
 
 def build_policy(args) -> policies.Policy:
@@ -256,8 +259,8 @@ def main(argv=None) -> dict:
     if res.profile is not None:
         print("profile " + json.dumps(res.profile))
     last = res.history[-1]
-    print(json.dumps({k: last[k] for k in REPORT_KEYS if k in last},
-                     indent=2))
+    keys = REPORT_KEYS + (MOE_REPORT_KEYS if cfg.is_moe else ())
+    print(json.dumps({k: last[k] for k in keys if k in last}, indent=2))
     fp = policies.modeled_footprint(model.policy, res.state.pstate,
                                     model.dims)
     print("footprint " + json.dumps({k: round(v, 4) for k, v in fp.items()}))

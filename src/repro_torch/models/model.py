@@ -1,4 +1,5 @@
-"""Decoder model for the GLOBAL/LOCAL attention families with a dense MLP.
+"""Decoder model for the GLOBAL/LOCAL attention families, with a dense MLP
+or a Mixture-of-Experts FFN (``models/moe.py``).
 
 Parameters are a plain dict: ``embed``, ``final_norm`` and ``layers``, one
 dict per layer in order (the JAX package stacks each period's layers and
@@ -8,7 +9,8 @@ runs ``loss`` / ``forward``: the periods go through ``core.stash.sfp_scan``
 with the policy's container as the cross-pass activation stash (or, with
 ``stash_containers``, each period's own container: the per-layer plan of
 ``stash_plan``), and a policy that quantizes weights fake-quantizes them
-at their use sites. Serving runs
+at their use sites. An MoE model's auxiliary losses ride the scan's
+``extras`` carry into the loss, its routing metrics beside it. Serving runs
 ``prefill`` over the prompt and ``decode_step`` per token over a KV cache
 that is updated in place — raw bf16, or packed by a registry codec
 (``kv_container``): read through the fused decode kernel for the SFP
@@ -28,8 +30,12 @@ import torch.nn.functional as F
 from repro_torch import codecs, policies, resolve_device
 from repro_torch.configs.base import ArchConfig, GLOBAL, LOCAL
 from repro_torch.core import containers, stash
-from repro_torch.models import attention, common
+from repro_torch.models import attention, common, moe
 from repro_torch.serve import kvcache
+
+MOE_LB_COEF = 0.01
+MOE_Z_COEF = 1e-3
+MOE_AUX = ("moe_lb_loss", "moe_z_loss", "moe_drop_frac")
 
 
 class RunState(NamedTuple):
@@ -81,10 +87,10 @@ class DecoderModel:
         own compress/decompress pair in ``sfp_scan``, so a new plan needs
         only a new model."""
         bad = set(cfg.period) - {GLOBAL, LOCAL}
-        if bad or cfg.is_moe:
+        if bad:
             raise NotImplementedError(
-                f"{cfg.name}: only dense GLOBAL/LOCAL attention models are "
-                f"ported (got period {cfg.period}, {cfg.n_experts} experts)")
+                f"{cfg.name}: only GLOBAL/LOCAL attention models are "
+                f"ported (got period {cfg.period})")
         self.cfg = cfg
         self.policy = policies.coerce(policy)
         if self.policy.enabled and cfg.remainder:
@@ -113,8 +119,9 @@ class DecoderModel:
 
     def init(self, seed: int = 0) -> Dict[str, Any]:
         """Random weights from a ``torch.Generator`` seeded with ``seed``
-        (normal, fan_in ** -0.5; embeddings unit scale; norms zero; an
-        untied ``head`` of (d_model, padded vocab) last)."""
+        (normal, fan_in ** -0.5; embeddings unit scale; norms zero; an MoE
+        layer's ``moe`` in place of ``mlp``, its router f32; an untied
+        ``head`` of (d_model, padded vocab) last)."""
         cfg, dev, dt = self.cfg, self.device, self.cfg.compute_dtype
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
@@ -125,13 +132,17 @@ class DecoderModel:
             "layers": [],
         }
         for _ in self.kinds:
-            params["layers"].append({
+            layer = {
                 "pre_norm": common.rmsnorm_init(cfg.d_model, dev, dt),
                 "attn": attention.attn_init(cfg, gen, dev, dt),
                 "mlp_norm": common.rmsnorm_init(cfg.d_model, dev, dt),
-                "mlp": common.mlp_init(cfg.d_model, cfg.d_ff, cfg.glu, gen,
-                                       dev, dt),
-            })
+            }
+            if cfg.is_moe:
+                layer["moe"] = moe.moe_init(cfg, gen, dev, dt)
+            else:
+                layer["mlp"] = common.mlp_init(cfg.d_model, cfg.d_ff,
+                                               cfg.glu, gen, dev, dt)
+            params["layers"].append(layer)
         if not cfg.tie_embeddings:
             # Drawn after every other leaf, so a tied model's weights do
             # not depend on this branch.
@@ -166,14 +177,37 @@ class DecoderModel:
 
         return quant(slot_params)
 
+    def _ffn(self, slot_params, hm):
+        """The layer's FFN of the normed input ``hm``: the dense MLP, or
+        the MoE with its aux values. Returns (out, extras loss
+        MOE_LB_COEF * lb + MOE_Z_COEF * z, aux); None and None when
+        dense."""
+        cfg = self.cfg
+        if not cfg.is_moe:
+            return (common.mlp(slot_params["mlp"], hm, cfg.act, cfg.glu),
+                    None, None)
+        out, aux = moe.moe_forward(slot_params["moe"], hm, cfg)
+        return out, (MOE_LB_COEF * aux["moe_lb_loss"]
+                     + MOE_Z_COEF * aux["moe_z_loss"]), aux
+
+    def _ffn_decode(self, slot_params, hm):
+        """The serving FFN of one token a row: MoE routes the batch as one
+        group (``moe.moe_decode``)."""
+        cfg = self.cfg
+        if cfg.is_moe:
+            return moe.moe_decode(slot_params["moe"], hm, cfg)
+        return common.mlp(slot_params["mlp"], hm, cfg.act, cfg.glu)
+
     def _apply_slot(self, slot_params, h, kind, *, positions, prefix_len):
+        """One layer: (h, its extras loss, its aux values)."""
         cfg = self.cfg
         hn = common.rmsnorm(slot_params["pre_norm"], h)
         h = h + attention.attention_train(slot_params["attn"], hn, cfg,
                                           kind=kind, positions=positions,
                                           prefix_len=prefix_len)
         hm = common.rmsnorm(slot_params["mlp_norm"], h)
-        return h + common.mlp(slot_params["mlp"], hm, cfg.act, cfg.glu)
+        out, eloss, aux = self._ffn(slot_params, hm)
+        return h + out, eloss, aux
 
     def _codec_fns(self):
         """Stash compress/decompress/stash_grad closures; the raw
@@ -273,63 +307,83 @@ class DecoderModel:
 
     def forward(self, params, tokens: torch.Tensor, run: RunState,
                 cond_embeddings: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
-        """Full-sequence training forward: logits (B, S, V) f32 over the
-        token positions. A prefix-LM's ``cond_embeddings`` (B, P, d_model)
-        go in front of the tokens as a prefix every position sees; the
-        stash then holds all P + S positions. (The JAX model also returns
-        MoE metrics; this dense family has none.)"""
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Full-sequence training forward: (logits (B, S, V) f32 over the
+        token positions, metrics). A prefix-LM's ``cond_embeddings`` (B,
+        P, d_model) go in front of the tokens as a prefix every position
+        sees; the stash then holds all P + S positions. The metrics, as
+        the JAX model's: ``moe_aux_loss`` (the MoE layers' weighted lb and
+        z losses, summed; the loss adds it) and ``moe_lb_loss``,
+        ``moe_z_loss``, ``moe_drop_frac`` (each period's sum over its
+        layers, averaged over the periods); zeros for a dense model."""
         cfg, pol = self.cfg, self.policy
         h, P = self._embed(params, tokens, cond_embeddings)
         positions = torch.arange(h.shape[1], device=tokens.device)
         compress, decompress, stash_grad = self._codec_fns()
 
-        def period_fn(h, x):
+        def period_fn(h, extras, x):
             draws = x.get("draws")
+            aux_sum = {}
             for i, kind in enumerate(cfg.period):
                 sp = x["params"][i]
                 if pol.quantizes_weights:
                     sp = self._quantize_weights(sp, x["pol"],
                                                 draws["w"][i])
-                h = self._apply_slot(sp, h, kind, positions=positions,
-                                     prefix_len=P)
-            return h
+                h, eloss, aux = self._apply_slot(sp, h, kind,
+                                                 positions=positions,
+                                                 prefix_len=P)
+                if eloss is not None:
+                    extras = extras + eloss
+                    aux_sum = {k: aux_sum[k] + aux[k] for k in MOE_AUX
+                               } if aux_sum else aux
+            return h, extras, aux_sum
 
-        h = stash.sfp_scan(period_fn, compress, decompress, h,
-                           self._period_inputs(params, run), stash_grad)
+        h, extras, aux = stash.sfp_scan(period_fn, compress, decompress, h,
+                                        self._period_inputs(params, run),
+                                        stash_grad)
         n_rem = len(cfg.remainder)
         for lp, kind in zip(params["layers"][len(self.kinds) - n_rem:],
                             cfg.remainder):
-            h = self._apply_slot(lp, h, kind, positions=positions,
-                                 prefix_len=P)
+            h, eloss, _ = self._apply_slot(lp, h, kind, positions=positions,
+                                           prefix_len=P)
+            if eloss is not None:
+                extras = extras + eloss
         h = common.rmsnorm(params["final_norm"], h)
         if P:
             h = h[:, P:]
-        return common.unembed(params, h, tied=cfg.tie_embeddings,
-                              softcap=cfg.final_softcap,
-                              valid_vocab=cfg.vocab)
+        logits = common.unembed(params, h, tied=cfg.tie_embeddings,
+                                softcap=cfg.final_softcap,
+                                valid_vocab=cfg.vocab)
+        metrics = {"moe_aux_loss": extras}
+        for k in MOE_AUX:
+            metrics[k] = (torch.stack([a[k] for a in aux]).mean()
+                          if cfg.is_moe else
+                          torch.zeros((), dtype=torch.float32,
+                                      device=logits.device))
+        return logits, metrics
 
     def loss(self, params, batch: Dict[str, torch.Tensor], run: RunState
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """(mean cross-entropy, metrics); the loss is the cross-entropy,
-        there being no MoE auxiliary loss in this family. A prefix-LM's
-        batch carries ``cond_embeddings``."""
-        logits = self.forward(params, batch["tokens"], run,
-                              cond_embeddings=batch.get("cond_embeddings"))
+        """(mean cross-entropy + ``moe_aux_loss``, the forward's metrics
+        with ``xent``). A prefix-LM's batch carries ``cond_embeddings``."""
+        logits, metrics = self.forward(
+            params, batch["tokens"], run,
+            cond_embeddings=batch.get("cond_embeddings"))
         xent = common.softmax_xent(logits, batch["labels"])
-        return xent, {"xent": xent}
+        return xent + metrics["moe_aux_loss"], dict(metrics, xent=xent)
 
     def layer_param_count(self) -> int:
         """Parameters of one layer (every GLOBAL/LOCAL layer has the same:
         two norms, the four attention projections, the q/k norms with
-        ``qk_norm``, and the MLP)."""
+        ``qk_norm``, and the MLP, or the MoE's router and experts)."""
         cfg = self.cfg
         d, hd = cfg.d_model, cfg.head_dim_
         attn = 2 * d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd
         if cfg.qk_norm:
             attn += 2 * hd
-        mlp = (3 if cfg.glu else 2) * d * cfg.d_ff
-        return 2 * d + attn + mlp
+        ffn = (moe.param_count(cfg) if cfg.is_moe
+               else (3 if cfg.glu else 2) * d * cfg.d_ff)
+        return 2 * d + attn + ffn
 
     # -- serving -------------------------------------------------------------
 
@@ -381,7 +435,7 @@ class DecoderModel:
                 c = kvcache.pack_prefill_cache(c, self.kv_container)
             caches.append(c)
             hm = common.rmsnorm(lp["mlp_norm"], h)
-            h = h + common.mlp(lp["mlp"], hm, cfg.act, cfg.glu)
+            h = h + self._ffn(lp, hm)[0]
         h = common.rmsnorm(params["final_norm"], h)
         logits = common.unembed(params, h[:, -1:],
                                 tied=cfg.tie_embeddings,
@@ -431,7 +485,7 @@ class DecoderModel:
                     lp["attn"], hn, cache["layers"][i], pos, cfg, kind=kind)
             h = h + out
             hm = common.rmsnorm(lp["mlp_norm"], h)
-            h = h + common.mlp(lp["mlp"], hm, cfg.act, cfg.glu)
+            h = h + self._ffn_decode(lp, hm)
         h = common.rmsnorm(params["final_norm"], h)
         logits = common.unembed(params, h, tied=cfg.tie_embeddings,
                                 softcap=cfg.final_softcap,

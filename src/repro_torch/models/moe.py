@@ -1,0 +1,146 @@
+"""Mixture-of-Experts FFN: top-k routing with capacity and scatter dispatch
+(the port of ``repro.models.moe``).
+
+Dispatch is per batch row (one group a row): each (token, slot)
+assignment gets a position within its expert from an exclusive cumulative
+sum over the row's assignments in token-major order (token s, slot k at
+s * K + k, so earlier tokens win a full expert), assignments past the
+capacity C go to a drop bucket, and the kept tokens are scattered into an
+(E * C, d) buffer. Each slot of the buffer receives at most one token, so
+the scatter is exact. The experts run as batched matmuls over that
+buffer, their outputs are gathered back and combined with the
+renormalized gate weights. The router runs in f32 (its weight is f32 in a
+bf16 model) and yields the Switch load-balance loss and the router
+z-loss; the share of dropped assignments is a metric.
+
+The JAX package computes the expert products as einsums outside any
+Pallas kernel, so no hand-written kernel replaces them here either.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import common
+
+
+def moe_init(cfg: ArchConfig, gen: torch.Generator, device, dtype
+             ) -> Dict[str, torch.Tensor]:
+    """The router (d, E) in f32 whatever ``dtype``, and the experts'
+    ``w_in`` (E, d, ffe), ``w_out`` (E, ffe, d) and, with GLU, ``w_gate``
+    (E, d, ffe) in ``dtype``; each N(0, 1 / shape[0]) as the JAX
+    package's ``ParamFactory`` draws them, so the expert tensors at
+    E ** -0.5 (their leading axis is the expert count)."""
+    d, E, ffe = cfg.d_model, cfg.n_experts, cfg.d_ff_expert
+    params = {
+        "router": common.normal_init((d, E), gen, device, torch.float32),
+        "w_in": common.normal_init((E, d, ffe), gen, device, dtype),
+        "w_out": common.normal_init((E, ffe, d), gen, device, dtype),
+    }
+    if cfg.glu:
+        params["w_gate"] = common.normal_init((E, d, ffe), gen, device,
+                                              dtype)
+    return params
+
+
+def param_count(cfg: ArchConfig) -> int:
+    """Parameters of one layer's MoE: the router and every expert."""
+    d, E, ffe = cfg.d_model, cfg.n_experts, cfg.d_ff_expert
+    return d * E + E * ((3 if cfg.glu else 2) * d * ffe)
+
+
+def capacity_for(cfg: ArchConfig, tokens_per_group: int) -> int:
+    c = int(tokens_per_group * cfg.top_k / cfg.n_experts
+            * cfg.capacity_factor)
+    return max(c, cfg.top_k)
+
+
+def _experts(params, buf: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """The expert FFNs over the dispatch buffer (B, E, C, d) -> (B, E, C, d):
+    one batched matmul a projection, experts as the batch."""
+    B, E, C, d = buf.shape
+    x = buf.transpose(0, 1).reshape(E, B * C, d)
+    inner = torch.bmm(x, params["w_in"])
+    a = common.activation(cfg.act)(inner.to(torch.float32)).to(buf.dtype)
+    if cfg.glu:
+        a = a * torch.bmm(x, params["w_gate"])
+    out = torch.bmm(a, params["w_out"])
+    return out.reshape(E, B, C, d).transpose(0, 1)
+
+
+def select(params, h: torch.Tensor, cfg: ArchConfig):
+    """The router's choice for h (B, S, d): (logits (B, S, E) f32, probs,
+    gate weights (B, S, K), expert indices (B, S, K): the top-k)."""
+    logits = h.to(torch.float32) @ params["router"]
+    probs = torch.softmax(logits, dim=-1)
+    idx = torch.topk(probs, cfg.top_k, dim=-1).indices
+    return logits, probs, gates(probs, idx), idx
+
+
+def gates(probs: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The chosen experts' probabilities, renormalized to sum to one."""
+    gate = probs.gather(-1, idx)
+    return gate / torch.clamp_min(gate.sum(-1, keepdim=True), 1e-9)
+
+
+def place(idx: torch.Tensor, cfg: ArchConfig):
+    """Each assignment's position within its expert (B, S, K), from the
+    exclusive cumsum over a row's assignments in token-major order, and
+    the keep mask (position below the row's capacity)."""
+    B, S, K = idx.shape
+    onehot = F.one_hot(idx, cfg.n_experts).reshape(B, S * K, -1)
+    pos = torch.cumsum(onehot, dim=1) - onehot            # exclusive
+    pos = (pos * onehot).sum(-1).reshape(B, S, K)
+    return pos, pos < capacity_for(cfg, S)
+
+
+def route(params, h: torch.Tensor, cfg: ArchConfig):
+    """``select`` then ``place``: (logits, probs, gate, idx, pos, keep)."""
+    logits, probs, gate, idx = select(params, h, cfg)
+    return (logits, probs, gate, idx) + place(idx, cfg)
+
+
+def moe_forward(params, h: torch.Tensor, cfg: ArchConfig
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """h (B, S, d) -> (B, S, d), and the aux values in f32:
+    ``moe_lb_loss`` (E * sum(mean probs * mean top-1 one-hot)),
+    ``moe_z_loss`` (mean squared log-sum-exp of the router logits) and
+    ``moe_drop_frac`` (the share of assignments past capacity)."""
+    B, S, d = h.shape
+    E, K = cfg.n_experts, cfg.top_k
+    C = capacity_for(cfg, S)
+    logits, probs, gate, idx, pos, keep = route(params, h, cfg)
+
+    seg = torch.where(keep, idx * C + pos, E * C).reshape(B, S * K)
+    data = h[:, :, None, :].expand(B, S, K, d).reshape(B, S * K, d)
+    buf = torch.scatter(h.new_zeros((B, E * C + 1, d)), 1,
+                        seg[..., None].expand(B, S * K, d), data)
+    buf = buf[:, :E * C].reshape(B, E, C, d)
+
+    out_flat = _experts(params, buf, cfg).reshape(B, E * C, d)
+    gathered = torch.gather(
+        out_flat, 1, torch.clamp_max(seg, E * C - 1)[..., None].expand(
+            B, S * K, d)).reshape(B, S, K, d)
+    weight = (gate * keep.to(torch.float32)).to(h.dtype)
+    out = (gathered * weight[..., None]).sum(2)
+
+    me = probs.reshape(-1, E).mean(0)
+    ce = F.one_hot(idx[..., 0], E).to(torch.float32).reshape(-1, E).mean(0)
+    aux = {"moe_lb_loss": E * torch.sum(me * ce),
+           "moe_z_loss": torch.mean(torch.logsumexp(logits, dim=-1) ** 2),
+           "moe_drop_frac": 1.0 - keep.to(torch.float32).mean()}
+    return out, aux
+
+
+def moe_decode(params, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """The single-token path: the whole batch (B, 1, d) routes as one
+    group, so the capacity, max(int(B * K / E * cf), K), depends on B and
+    can drop tokens (as the JAX package's does)."""
+    B, S, d = h.shape
+    if S != 1:
+        raise ValueError(f"moe_decode takes one token a row, got {S}")
+    out, _ = moe_forward(params, h.reshape(1, B, d), cfg)
+    return out.reshape(B, S, d)

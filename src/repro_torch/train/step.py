@@ -8,7 +8,9 @@
     the policy's decisions; learned bitlengths receive their weight-side
     and stash-estimator gradients plus the eq. 7 footprint penalty, then
     the policy's own SGD step; a controller policy observes the
-    (pre-penalty) loss once per step.
+    (pre-penalty) cross-entropy once per step. The loss adds an MoE
+    model's auxiliary loss; its ``moe_lb_loss`` and ``moe_drop_frac``
+    are reported as means over the micro-batches (zeros when dense).
   * optional gradient compression with error feedback
     (``train/grad_compress.py``): with ``grad_compress_bits`` the
     accumulated parameter gradients go through ``grad_codec``'s round trip
@@ -110,7 +112,7 @@ def make_train_step(model: DecoderModel, tc: TrainConfig):
         wrt = p_leaves + [t for _, t in float_leaves(learn)]
         acc = [None] * len(wrt)
         zero = torch.zeros((), dtype=torch.float32, device=model.device)
-        loss_acc = xent_acc = pen_acc = zero
+        loss_acc = xent_acc = pen_acc = lb_acc = drop_acc = zero
         for i in range(nm):
             mb = {k: v[i * (B // nm):(i + 1) * (B // nm)]
                   for k, v in batch.items()}
@@ -129,6 +131,8 @@ def make_train_step(model: DecoderModel, tc: TrainConfig):
             loss_acc = loss_acc + total.detach() / nm
             xent_acc = xent_acc + metrics["xent"].detach() / nm
             pen_acc = pen_acc + penalty.detach() / nm
+            lb_acc = lb_acc + metrics["moe_lb_loss"].detach() / nm
+            drop_acc = drop_acc + metrics["moe_drop_frac"].detach() / nm
 
         n_p = len(p_leaves)
         grads, residual = acc[:n_p], state.grad_residual
@@ -148,7 +152,8 @@ def make_train_step(model: DecoderModel, tc: TrainConfig):
                                   tc.schedule.lr_changed(state.step), dims)
         new_pstate = PolicyState(learn=new_learn, ctrl=new_ctrl)
         metrics = {"loss": loss_acc, "xent": xent_acc, "lr": lr,
-                   "grad_norm": gnorm, "policy_penalty": pen_acc,
+                   "grad_norm": gnorm, "moe_lb_loss": lb_acc,
+                   "moe_drop_frac": drop_acc, "policy_penalty": pen_acc,
                    **policy.metrics(new_pstate, dims)}
         return TrainState(params=new_params, opt=new_opt, pstate=new_pstate,
                           step=state.step + 1, gen=state.gen,

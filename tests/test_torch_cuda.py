@@ -813,3 +813,73 @@ def test_flash_attention_hd144_softcap(dev, window):
 def test_decode_hd144_softcap(dev, container, draft, window, pos):
     _check_decode(dev, 24, 144, 32, 16, container, draft, window, pos,
                   softcap=50.0)
+
+
+MOE_HEADS = {"olmoe-1b-7b": dict(n_heads=2, n_kv_heads=1, head_dim=128),
+             "phi3.5-moe-42b-a6.6b": dict(n_heads=8, n_kv_heads=2,
+                                          head_dim=64)}
+
+
+def _fan_in_experts(params, cfg):
+    """Scale every layer's expert matrices in place from E ** -0.5 to
+    their own fan-in (d; d_ff_expert for ``w_out``); returns ``params``."""
+    E = cfg.n_experts
+    for layer in params["layers"]:
+        for name, fan_in in (("w_in", cfg.d_model), ("w_gate", cfg.d_model),
+                             ("w_out", cfg.d_ff_expert)):
+            if name in layer["moe"]:
+                with torch.no_grad():
+                    layer["moe"][name].mul_((E / fan_in) ** 0.5)
+    return params
+
+
+@pytest.mark.parametrize("arch", list(MOE_HEADS))
+def test_moe_generate_and_step_vs_plain(dev, arch):
+    """A reduced MoE model (4 experts, top-2; heads cut to one 128-lane KV
+    group, phi3.5's at its rep of 4) serves from an sfp8 cache through the
+    attention, pack and decode kernels, against the plain path (prefill
+    logits close, the same tokens up to a near tie), and takes one qm +
+    sfp8 training step on each path: losses within 5e-3, MoE metrics
+    finite and the load-balance loss equal up to the kernels' rounding.
+    The experts' random weights are scaled from JAX's E ** -0.5 to their
+    own fan-in, as the chip smoke's are, so that a routing flip does not
+    swamp the residual stream."""
+    from repro_torch.serve import engine
+    cfg = dataclasses.replace(reduced(configs.get(arch)), **MOE_HEADS[arch])
+    model = DecoderModel(cfg, kv_container="sfp8", device=dev)
+    params = _fan_in_experts(model.init(0), cfg)
+    g = torch.Generator(device="cpu").manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab, (2, 40), generator=g).to(dev)
+    before = (fa.flash_attention.launches, pfd.packed_flash_decode.launches)
+    res = engine.generate(model, params, prompt, 6)
+    assert fa.flash_attention.launches > before[0]
+    assert pfd.packed_flash_decode.launches > before[1]
+    ops.force_backend("plain")
+    try:
+        plain = engine.generate(model, params, prompt, 6)
+    finally:
+        ops.force_backend(None)
+    d = (res.prefill_logits - plain.prefill_logits).abs().max().item()
+    assert d <= 1.0, d
+    first = (res.tokens != plain.tokens).int().argmax(1)
+    for b in range(2):
+        if bool((res.tokens[b] != plain.tokens[b]).any()):
+            assert plain.margins[b, first[b]] < 2.0
+    tm = DecoderModel(cfg, "qm", device=dev)
+    tc = tstep.TrainConfig()
+    batch = {"tokens": prompt, "labels": prompt}
+    mets = []
+    for backend in (None, "plain"):
+        state = tstep.init_state(tm, 0, tc)
+        _fan_in_experts(state.params, cfg)
+        ops.force_backend(backend)
+        try:
+            _, met = tstep.make_train_step(tm, tc)(state, batch)
+        finally:
+            ops.force_backend(None)
+        mets.append({k: float(v) for k, v in met.items()})
+    k, p = mets
+    assert abs(k["loss"] - p["loss"]) <= 5e-3 * abs(p["loss"])
+    assert k["loss"] > k["xent"] and p["moe_lb_loss"] > 0
+    assert abs(k["moe_lb_loss"] - p["moe_lb_loss"]) <= 1e-2 * p[
+        "moe_lb_loss"]

@@ -87,7 +87,7 @@ def test_forward_logits_match_jax(params):
         jax.random.PRNGKey(1))))(jp, jnp.asarray(tokens, jnp.int32))
     tl = TModel(tc, device="cpu").forward(
         convert.from_jax(jp, tc), torch.from_numpy(tokens),
-        RunState(gen=None, pol=None)).detach().numpy()[..., :jc.vocab]
+        RunState(gen=None, pol=None))[0].detach().numpy()[..., :jc.vocab]
     np.testing.assert_allclose(tl, np.asarray(jl)[..., :jc.vocab],
                                atol=2e-4, rtol=0)
     assert np.abs(tl).max() < 30.0

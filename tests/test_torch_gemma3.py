@@ -148,8 +148,8 @@ def test_forward_logits_match_jax(params):
     jl, _ = jax.jit(lambda p, t: jm.forward(p, t, jm.run_state(
         jax.random.PRNGKey(1))))(jp, jnp.asarray(tokens, jnp.int32))
     tm = TModel(tc, device="cpu")
-    tl = tm.forward(convert.from_jax(jp, tc), torch.from_numpy(tokens),
-                    RunState(gen=None, pol=None))
+    tl, _ = tm.forward(convert.from_jax(jp, tc), torch.from_numpy(tokens),
+                       RunState(gen=None, pol=None))
     np.testing.assert_allclose(tl.detach().numpy()[..., :jc.vocab],
                                np.asarray(jl)[..., :jc.vocab], atol=2e-4,
                                rtol=0)

@@ -144,7 +144,7 @@ def test_forward_loss_and_gradients_match_jax(params):
         t.requires_grad_(True)
     tb = {k: torch.from_numpy(v).long() for k, v in b.items()}
     run_t = RunState(gen=None, pol=None)
-    tl = tm.forward(tp, tb["tokens"], run_t)
+    tl, _ = tm.forward(tp, tb["tokens"], run_t)
     assert _rel_to_max(np.asarray(jl)[..., :jc.vocab],
                        tl.detach().numpy()[..., :jc.vocab]) <= 1e-5
     tval, _ = tm.loss(tp, tb, run_t)

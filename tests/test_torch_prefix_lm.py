@@ -158,8 +158,8 @@ def test_forward_loss_and_gradients_match_jax(setup):
     tb = {k: torch.from_numpy(v).long() for k, v in b.items()}
     tb["cond_embeddings"] = torch.from_numpy(cond)
     run_t = RunState(gen=None, pol=None)
-    tl = tm.forward(tp, tb["tokens"], run_t,
-                    cond_embeddings=tb["cond_embeddings"])
+    tl, _ = tm.forward(tp, tb["tokens"], run_t,
+                       cond_embeddings=tb["cond_embeddings"])
     assert tuple(tl.shape[:2]) == (B, S)
     assert _rel_to_max(np.asarray(jl)[..., :jc.vocab],
                        tl.detach().numpy()[..., :jc.vocab]) <= 1e-5
@@ -172,7 +172,7 @@ def test_forward_loss_and_gradients_match_jax(setup):
     # Without the conditioning the same tokens give JAX's prefix-free
     # logits.
     jl0, _ = jax.jit(lambda p, t: jm.forward(p, t, run))(jp, jb["tokens"])
-    tl0 = tm.forward(tp, tb["tokens"], run_t)
+    tl0, _ = tm.forward(tp, tb["tokens"], run_t)
     assert _rel_to_max(np.asarray(jl0)[..., :jc.vocab],
                        tl0.detach().numpy()[..., :jc.vocab]) <= 1e-5
     assert _rel_to_max(tl0.detach().numpy(), tl.detach().numpy()) > 1e-3
@@ -193,7 +193,7 @@ def test_zero_prefix_hides_the_mask(setup, monkeypatch):
         if causal_only:
             monkeypatch.setattr(ops, "attention", lambda *a, prefix_len=0,
                                 **kw: attention(*a, **kw))
-        out = tm.forward(tp, tokens, run, cond_embeddings=cond)
+        out, _ = tm.forward(tp, tokens, run, cond_embeddings=cond)
         monkeypatch.setattr(ops, "attention", attention)
         return out
     zeros = torch.zeros((B, tc.prefix_tokens, tc.d_model))
