@@ -14,13 +14,16 @@
     python3 chip_smoke.py --phase musicgen [--src DIR]
     python3 chip_smoke.py --phase olmoe [--src DIR]
     python3 chip_smoke.py --phase phi35_moe [--src DIR]
+    python3 chip_smoke.py --phase mamba2 [--src DIR]
+    python3 chip_smoke.py --phase recurrentgemma [--src DIR]
 
 The other forms run only the Gecko kernel checks and timings of step 5,
 or only the dense bit-plane or the fixed-lane word ones of step 2, or
 only the CNN phase of step 8, or only the checkpoint phase of step 9, or
 only the compressed-gradient and AdaptivFloat phase of step 10, or only
 the gemma3-12b, gemma2-27b, mistral-large-123b, paligemma-3b,
-musicgen-large, olmoe-1b-7b or phi3.5-moe-42b-a6.6b phase of steps 11-15,
+musicgen-large, olmoe-1b-7b, phi3.5-moe-42b-a6.6b, mamba2-370m or
+recurrentgemma-9b phase of steps 11-16,
 against the ``repro_torch`` package under DIR (default: this checkout's
 ``src``), so two trees can be timed by the same code on one card.
 
@@ -187,8 +190,8 @@ against the ``repro_torch`` package under DIR (default: this checkout's
    serving prefill's (B 1, S 4224, windows None and 4096), held; the
    decode reads at head dim 144 with the softcap (words and planes, full
    width and draft, the 4352-slot global cache and the 4096-slot ring),
-   held and timed as in step 2; (b) serving 6 of its 46 layers (9.2 GB
-   of bf16 weights), batch 2, 4224-token prompts (past the window: the
+   held and timed as in step 2; (b) serving 2 of its 46 layers (one
+   LOCAL/GLOBAL period), batch 2, 4224-token prompts (past the window: the
    local layers mask in prefill and their rings wrap), 64 new tokens,
    from an sfp8 cache, against the plain path (which, in every serving
    run, prefills one request at a time and decodes as one batch);
@@ -234,7 +237,7 @@ against the ``repro_torch`` package under DIR (default: this checkout's
    2048) held, counted and timed beside scaled_dot_product_attention on
    its flash backend; every decode read over the 2176-slot contiguous
    cache and on the 8 x 1280 paged pool, held and timed; (b) serving
-   olmoe whole (16 layers) from sfp8 and sfp-m2e4 caches and phi3.5-moe
+   olmoe at 8 of 16 layers from sfp8 and sfp-m2e4 caches and phi3.5-moe
    at 8 of 32 layers from sfp8, batch 4, 2048-token prompts, 64 new
    tokens, against the plain path: the prefill logits with the plain and
    an f64-attention prefill routed as the kernel path routed (no final
@@ -247,6 +250,32 @@ against the ``repro_torch`` package under DIR (default: this checkout's
    sfp8 step under torch.profiler, its device time by router, scatter and
    gather, expert matmuls, attention and stash; (d) the seeded paged
    trace over olmoe at 4 layers (sfp8, --burst 1).
+16. The recurrent families (after step 15): mamba2-370m (48 SSD layers,
+   no attention) and recurrentgemma-9b (12 (rglru, rglru, local) periods
+   and two remainder RG-LRU layers; 16 q / 1 KV head of 256, rep 16,
+   window 2048), their tied tables drawn at the head's fan-in (d_model **
+   -0.5; at JAX's unit scale the fed token's own logit decides every
+   greedy step): (a) the recurrence twins, in f32 at full width (mamba2
+   over 8 layers, recurrentgemma over 5): the chunked prefill or the
+   log-depth scan over a 300-token prompt against stepping decode_step,
+   states, conv tails and last logits within f32 rounding (TWIN_RTOL);
+   (b) recurrentgemma's rows 8-9: the attention forward and backward at
+   B 4, S 4096 (windows 2048 and None) held, counted and timed at window
+   2048 beside scaled_dot_product_attention with the same boolean mask,
+   and the ring decode reads (words and planes, full width and draft)
+   over 2048 slots, held and timed; (c) serving mamba2 whole (batch 4,
+   2048-token prompts, 64 new tokens; no kernel runs) and recurrentgemma
+   whole (batch 4, 4096-token prompts past the window, 64 new tokens,
+   sfp8 and sfp-m2e4), against the plain path, the prefill logits held
+   to twice an f64-attention prefill's distance plus one bf16 spacing at
+   the largest logit, and silencing every layer of a kind (its output
+   projection zeroed) must move them past that gate (the last layer of
+   each kind alone is printed); mamba2's greedy stream must not repeat
+   the fed token; (d) 4 training steps each,
+   mamba2 whole (B 4, S 2048; qm + sfp8 and qm+qe + sfp-m2e4, every
+   gradient finite) and recurrentgemma at full widths over 8 layers (B 2,
+   S 4096; qm + sfp8, and qm+qe + sfp-m2e4
+   with the attention-plain witness).
 
 Any failure exits non-zero. The last line is the device JSON.
 """
@@ -678,17 +707,25 @@ def attention_note(plan, heads, flops, r):
             f"{100 * r['bound_ms'] / r['ms']:.1f}% of the bound")
 
 
-def attention_f64(torch, q, k, v, rep, softcap, prefix_len=0):
-    """Causal attention over folded rows (B, S*rep, KH, D) in float64, the
-    first ``prefix_len`` keys visible to every row: the exact function, to
-    be rounded to bf16 once."""
+def attention_layers(cfg) -> int:
+    """The GLOBAL and LOCAL layers of ``cfg``: the attention kernels' (SSD
+    and RG-LRU layers launch none)."""
+    from repro_torch.configs.base import GLOBAL, LOCAL
+    return sum(k in (GLOBAL, LOCAL) for k in cfg.layer_kinds())
+
+
+def attention_f64(torch, q, k, v, rep, softcap, prefix_len=0, window=None):
+    """Causal attention over folded rows (B, S*rep, KH, D) in float64 (over
+    the last ``window`` keys when given), the first ``prefix_len`` keys
+    visible to every row: the exact function, to be rounded to bf16
+    once."""
     from repro_torch.kernels import flash_attention as fa
     Sq, hd = q.shape[1], q.shape[3]
     qh, kh, vh = (t.double().permute(0, 2, 1, 3) for t in (q, k, v))
     logits = qh @ kh.transpose(-1, -2) / hd ** 0.5
     if softcap is not None:
         logits = softcap * torch.tanh(logits / softcap)
-    vis = fa.visible_mask(Sq, k.shape[1], rep, True, None, q.device,
+    vis = fa.visible_mask(Sq, k.shape[1], rep, True, window, q.device,
                           prefix_len=prefix_len)
     p = torch.softmax(torch.where(vis, logits, -1e30), -1)
     return (p @ vh).permute(0, 2, 1, 3)
@@ -1585,8 +1622,15 @@ def prefix_embeddings(torch, cfg, batch, seed):
     return (x * scale).to("cuda", cfg.compute_dtype)
 
 
+def spacing_at(torch, cfg, logits):
+    """One spacing of the compute dtype at the largest of ``logits``."""
+    top = logits[..., :cfg.vocab].abs().max().item()
+    return torch.finfo(cfg.compute_dtype).eps * 2.0 ** math.floor(
+        math.log2(top))
+
+
 def serve_run(torch, cfg, gen, counters, container, prompt_len=PROMPT,
-              batch=B, prefix=False):
+              batch=B, prefix=False, layer_faults=False):
     """``cfg`` at full width through engine.generate from a ``container``
     KV cache, ``batch`` rows of ``prompt_len``-token prompts (after P
     random conditioning embeddings with ``prefix``, a prefix-LM's, which
@@ -1595,7 +1639,9 @@ def serve_run(torch, cfg, gen, counters, container, prompt_len=PROMPT,
     fixed-width payload (gecko8) takes the unpack fallback and is also
     held to a raw bf16 cache (``raw_cache_check``). The plain path (and
     the f64-attention prefill) prefills one request at a time
-    (``prefill_by_rows``)."""
+    (``prefill_by_rows``). With ``layer_faults``, the prefill is held
+    without the E2E floors and the silenced layers of each kind must move
+    its logits past that gate (``layer_fault_moves``)."""
     from repro_torch import codecs
     from repro_torch.kernels import ops
     from repro_torch.models.model import DecoderModel
@@ -1629,7 +1675,7 @@ def serve_run(torch, cfg, gen, counters, container, prompt_len=PROMPT,
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
     launches = {c.__name__: c.launches for c in counters}
-    n_layers, steps = cfg.n_layers, MAX_NEW - 1
+    n_layers, steps = attention_layers(cfg), MAX_NEW - 1
     expect = {c.__name__: 0 for c in counters}
     expect["flash_attention"] = n_layers
     if fields is None:     # every step unpacks the whole K and V cache
@@ -1692,6 +1738,16 @@ def serve_run(torch, cfg, gen, counters, container, prompt_len=PROMPT,
                   - plain_res.prefill_logits).abs()
         lim_max = max(lim_max, 2 * dx.max().item())
         lim_mean = max(lim_mean, 2 * dx.mean().item())
+        if layer_faults:
+            # The recurrent phases' logits (their tied tables at the
+            # head's fan-in: std ~1) lie under the E2E floors, and so does
+            # a silenced layer's move (recurrentgemma's last RG-LRU layer
+            # on the H100: max 0.41, mean 0.058): their prefill is held to
+            # twice the f64 prefill's distance plus one spacing at the
+            # largest logit (as the MoE gate below), without the floors.
+            lim_max = 2 * dx.max().item() + spacing_at(
+                torch, cfg, plain_res.prefill_logits)
+            lim_mean = 2 * dx.mean().item()
         exact = {"exact_attention_prefill_logit_max_diff": dx.max().item(),
                  "exact_attention_prefill_logit_mean_diff":
                      dx.mean().item()}
@@ -1721,9 +1777,7 @@ def serve_run(torch, cfg, gen, counters, container, prompt_len=PROMPT,
                                    cond)
         fp = fp[:, -1]
         gated, dxf = (res.prefill_logits - fp).abs(), (fx - fp).abs()
-        top = fp[:, :cfg.vocab].abs().max().item()
-        spacing = torch.finfo(cfg.compute_dtype).eps * 2.0 ** math.floor(
-            math.log2(top))
+        spacing = spacing_at(torch, cfg, fp)
         g_max = max(E2E_MAX, 2 * dxf.max().item() + spacing)
         g_mean = max(E2E_MEAN, 2 * dxf.mean().item())
         exact.update({
@@ -1739,6 +1793,10 @@ def serve_run(torch, cfg, gen, counters, container, prompt_len=PROMPT,
     if gated.max().item() > g_max or gated.mean().item() > g_mean:
         fail(f"prefill logits: max {gated.max().item():.4f} mean "
              f"{gated.mean().item():.4f} over {g_max:.4f}/{g_mean:.4f}")
+    if layer_faults:
+        exact["layer_fault_prefill_logit_max_mean_diff"] = layer_fault_moves(
+            torch, model, params, prompt, max_len, res.prefill_logits,
+            (g_max, g_mean))
     if prefix:
         # The prefix must move the logits further on average than the
         # kernels' rounding moves them from the plain path's. (Not at
@@ -1768,7 +1826,10 @@ def serve_run(torch, cfg, gen, counters, container, prompt_len=PROMPT,
            "plain_margin_at_first_difference": [
                plain_res.margins[b, t].item() if t < MAX_NEW else None
                for b, t in enumerate(agree)],
-           "token_agreement": same, "launches": launches,
+           "token_agreement": same,
+           "self_repeat_share": (toks == torch.cat(
+               [prompt[:, -1:], toks[:, :-1]], dim=1)).float().mean().item(),
+           "launches": launches,
            "peak_mem_gb": peak_gb}
     if cfg.is_moe:
         n, total = route_flips(torch, routes["kernel"], routes["plain"],
@@ -1780,6 +1841,45 @@ def serve_run(torch, cfg, gen, counters, container, prompt_len=PROMPT,
     if fields is None:
         e2e.update(raw_cache_check(torch, cfg, model, params, prompt, toks))
     return e2e, launches
+
+
+def layer_fault_moves(torch, model, params, prompt, max_len, logits, lim):
+    """How far silencing layers (their blocks' output projections zeroed:
+    the fault of a scan or an attention that returns zeros) moves the
+    kernel path's last prefill ``logits``, for each layer kind: the last
+    layer of the kind alone, printed, and every layer of the kind, as a
+    fault in the code they share would, which must move them past the
+    prefill gate's limits ``lim`` (max, mean) so that the gate sees it.
+    Returns {"{kind} last" and "{kind} all": (max, mean) move}."""
+    from repro_torch.configs.base import RGLRU, SSD
+    out = {}
+    for kind in dict.fromkeys(model.kinds):
+        block, leaf = {SSD: ("ssd", "w_out"), RGLRU: ("rglru", "w_out")
+                       }.get(kind, ("attn", "wo"))
+        layers = [i for i, k in enumerate(model.kinds) if k == kind]
+        for which, idx in (("last", layers[-1:]), ("all", layers)):
+            ws = [params["layers"][i][block][leaf] for i in idx]
+            saved = [w.clone() for w in ws]
+            for w in ws:
+                w.zero_()
+            try:
+                with torch.inference_mode():
+                    got, _ = model.prefill(params, prompt, max_len)
+            finally:
+                for w, v in zip(ws, saved):
+                    w.copy_(v)
+            mv = (got[:, -1] - logits).abs()
+            key = f"{kind} {which}"
+            out[key] = (mv.max().item(), mv.mean().item())
+            del got, saved
+            print(f"  {which} {len(idx)} {kind} layer(s) silenced move the "
+                  f"prefill logits by max {out[key][0]:.4f}, mean "
+                  f"{out[key][1]:.4f} (gate {lim[0]:.4f} / {lim[1]:.4f})")
+        if not (out[key][0] > lim[0] or out[key][1] > lim[1]):
+            fail(f"{model.cfg.name}: silencing its {kind} layers moves the "
+                 f"prefill logits within their gate: the gate cannot see "
+                 f"them")
+    return out
 
 
 def paged_tables(torch):
@@ -2139,13 +2239,13 @@ def grad_check(torch, what, got, want):
 
 
 def attention_at(torch, gen, what, batch, S, H, KH, hd, windows,
-                 softcap=None, prefix_len=0):
+                 softcap=None, prefix_len=0, keep=None):
     """The attention forward and backward at (batch, S, H, KH, hd), folded
     as ops.attention folds GQA, the first ``prefix_len`` keys visible to
     every row: held to the plain versions (one bf16 ulp, GRAD_TOL),
     bit-equal over two launches and row by row against the batch, for each
-    window. Returns the inputs, the window None forward's (o, lse) and the
-    largest errors."""
+    window. Returns the inputs, the window ``keep`` forward's (o, lse) and
+    the largest errors."""
     from repro_torch.kernels import flash_attention as fa
     dev = torch.device("cuda")
     rep = H // KH
@@ -2183,7 +2283,7 @@ def attention_at(torch, gen, what, batch, S, H, KH, hd, windows,
                 *(t[rows(r)].contiguous() for t in (q, k, v, o, do)),
                 lse.reshape(batch, KH, -1)[rows(r)].reshape(-1, S * rep)
                 .contiguous(), **kw), batch, KH)
-        if window is None:
+        if window == keep:
             kept = (o, lse)
     print(f"  flash_attention forward and backward {what} (softcap "
           f"{softcap}, prefix {prefix_len}): within the gates, bit-equal "
@@ -2192,14 +2292,15 @@ def attention_at(torch, gen, what, batch, S, H, KH, hd, windows,
     return (q, k, v, do), kept, errs
 
 
-def sdpa(torch, q, k, v, rep, prefix_len=0):
+def sdpa(torch, q, k, v, rep, prefix_len=0, window=None):
     """scaled_dot_product_attention over the folded (B, S*rep, KH, hd) q
     and (B, S, KH, hd) k/v, GQA by ``enable_gqa``: the library's call of
     the kernels' function without a softcap. Causal on its flash backend;
-    with a prefix, the boolean causal-or-prefix mask, which the flash
-    backend does not take, on the first backend that takes the call
-    (memory efficient, cuDNN, then math). Returns (the call, its leaves,
-    its output, that output folded back, the backend's name)."""
+    with a prefix or a sliding window, the boolean mask (causal or prefix,
+    within the window), which the flash backend does not take, on the
+    first backend that takes the call (memory efficient, cuDNN, then
+    math). Returns (the call, its leaves, its output, that output folded
+    back, the backend's name)."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
     from repro_torch.kernels import flash_attention as fa
     B_, Sr, KH, hd = q.shape
@@ -2207,8 +2308,8 @@ def sdpa(torch, q, k, v, rep, prefix_len=0):
     qs = q.reshape(B_, S, rep, KH, hd).transpose(2, 3).reshape(
         B_, S, KH * rep, hd).transpose(1, 2).detach().requires_grad_()
     ks, vs = (t.transpose(1, 2).detach().requires_grad_() for t in (k, v))
-    if prefix_len:
-        kw = dict(attn_mask=fa.visible_mask(S, S, 1, True, None, q.device,
+    if prefix_len or window:
+        kw = dict(attn_mask=fa.visible_mask(S, S, 1, True, window, q.device,
                                             prefix_len=prefix_len))
         names = ("EFFICIENT_ATTENTION", "CUDNN_ATTENTION", "MATH")
     else:
@@ -2228,33 +2329,36 @@ def sdpa(torch, q, k, v, rep, prefix_len=0):
         folded = out.detach().transpose(1, 2).reshape(
             B_, S, KH, rep, hd).transpose(2, 3).reshape(B_, Sr, KH, hd)
         return call, (qs, ks, vs), out, folded, name.lower()
-    fail(f"no SDPA backend takes the call (prefix {prefix_len})")
+    fail(f"no SDPA backend takes the call (prefix {prefix_len}, window "
+         f"{window})")
 
 
 def attention_timed(torch, gen, label, what, Bt, S, H, KH, hd, windows,
-                    softcap=None, prefix_len=0):
+                    softcap=None, prefix_len=0, timed_window=None):
     """Row 8 at (Bt, S, H, KH, hd), folded as ops.attention folds GQA, the
     first ``prefix_len`` keys visible to every row: held for each window
-    (``attention_at``); the window None forward's outputs that round away
-    from plain's bf16 and from the f64 function's counted; forward and
-    backward timed beside plain and, without a softcap, SDPA with
-    ``enable_gqa`` (the same function; its flash backend, or with a prefix
-    the first backend that takes the boolean mask; SDPA has no softcap, so
-    with one ``library_ms`` is None). Returns {"flash_attention": ...,
+    (``attention_at``); at ``timed_window`` (default None, full causal)
+    the forward's outputs that round away from plain's bf16 and from the
+    f64 function's counted, and forward and backward timed beside plain
+    and, without a softcap, SDPA with ``enable_gqa`` (the same function;
+    its flash backend, or with a prefix or a window the first backend that
+    takes the boolean mask; SDPA has no softcap, so with one
+    ``library_ms`` is None). Returns {"flash_attention": ...,
     "flash_attention_bwd": ...}."""
     from repro_torch.kernels import flash_attention as fa
     rep = H // KH
     (q, k, v, do), (o, lse), errs = attention_at(
-        torch, gen, what, Bt, S, H, KH, hd, windows, softcap, prefix_len)
-    kw = dict(causal=True, window=None, softcap=softcap, q_rep=rep,
+        torch, gen, what, Bt, S, H, KH, hd, windows, softcap, prefix_len,
+        keep=timed_window)
+    kw = dict(causal=True, window=timed_window, softcap=softcap, q_rep=rep,
               prefix_len=prefix_len)
     want = fa.plain(q, k, v, **kw)
-    exact = attention_f64(torch, q, k, v, rep, softcap, prefix_len).to(
-        torch.bfloat16)
+    exact = attention_f64(torch, q, k, v, rep, softcap, prefix_len,
+                          timed_window).to(torch.bfloat16)
     flips = ((o != want).sum().item(), (o != exact).sum().item(),
              (want != exact).sum().item())
     del exact
-    print(f"  flash_attention {what} window=None: {flips[0]} of "
+    print(f"  flash_attention {what} window={timed_window}: {flips[0]} of "
           f"{o.numel()} outputs round to another bf16 than the plain "
           f"version's; against the f64 function rounded once, kernel "
           f"{flips[1]}, plain {flips[2]}")
@@ -2264,7 +2368,7 @@ def attention_timed(torch, gen, label, what, Bt, S, H, KH, hd, windows,
         # The yardstick must compute the same function: held loosely (its
         # P enters P V as one bf16 term, 2^-9 relative).
         call, leaves, so, folded, backend = sdpa(torch, q, k, v, rep,
-                                                 prefix_len)
+                                                 prefix_len, timed_window)
         sdpa_err = (folded.float() - want.float()).abs().max().item()
         if not sdpa_err <= SDPA_TOL * want.float().abs().max().item():
             fail(f"scaled_dot_product_attention ({backend}) is "
@@ -2277,8 +2381,10 @@ def attention_timed(torch, gen, label, what, Bt, S, H, KH, hd, windows,
             so, leaves, gs, retain_graph=True), reps=5)
         del so, leaves, gs
     del want
-    # Visible (query, key) pairs a head: position i sees max(i + 1, P).
-    pairs = sum(max(i + 1, prefix_len) for i in range(S))
+    # Visible (query, key) pairs a head: position i sees max(i + 1, P),
+    # or min(i + 1, window) within a window.
+    pairs = sum(min(max(i + 1, prefix_len), timed_window or S)
+                for i in range(S))
     flops_f, flops_b = 2 * 2 * Bt * H * hd * pairs, 2 * 5 * Bt * H * hd * pairs
     out = {}
     fwd = dict(ms=time_ms(torch, lambda: fa.flash_attention(q, k, v, **kw),
@@ -2302,6 +2408,8 @@ def attention_timed(torch, gen, label, what, Bt, S, H, KH, hd, windows,
                       + o.numel() + do.numel()) + 4 * lse.numel())
     cap = "no softcap" if softcap is None else f"softcap {softcap:g}"
     mask = f"causal, prefix {prefix_len}" if prefix_len else "causal"
+    if timed_window:
+        mask += f", window {timed_window}"
     for name, r, flops in (("flash_attention", fwd, flops_f),
                            ("flash_attention_bwd", bwd, flops_b)):
         r["shape"] = (f"{label}: B {Bt}, S {S}, {H} q / {KH} KV heads of "
@@ -2494,43 +2602,58 @@ def gemma3_kernels(torch, cfg, gen, flush):
     return out
 
 
+def config_paths(torch, counters, card, gen, tag, cfg, summary, serving,
+                 serve_kw, training, train_kw):
+    """A model phase's paths: each (served config, container, suffix) of
+    ``serving`` through ``serve_run`` with ``serve_kw``, then each
+    (policy, container, witness, suffix) of ``training`` through
+    ``train_run`` of ``cfg`` with ``train_kw``, each record into
+    ``summary`` under "serve {tag}{suffix}" or "train {tag}{suffix}".
+    Returns the launches of each path."""
+    launches = {}
+    for scfg, container, suffix in serving:
+        path = f"serve {tag}{suffix}"
+        t0 = time.perf_counter()
+        e2e, launches[path] = serve_run(torch, scfg, gen, counters,
+                                        container, **serve_kw)
+        e2e["card"] = card
+        print(f"e2e {tag} ({container}): " + json.dumps(e2e))
+        print(f"{path}: {time.perf_counter() - t0:.1f} s")
+        summary[path] = e2e
+        torch.cuda.empty_cache()
+    for policy, container, witness, suffix in training:
+        path = f"train {tag}{suffix}"
+        t0 = time.perf_counter()
+        e2e, launches[path] = train_run(
+            torch, cfg, counters, policy=policy, container=container,
+            steps=TRAIN_STEPS, bits={"qm": QM_INIT_BITS}, witness=witness,
+            **train_kw)
+        e2e["card"] = card
+        print(f"{path}: " + json.dumps(e2e))
+        print(f"{path}: {time.perf_counter() - t0:.1f} s")
+        summary[path] = e2e
+        torch.cuda.empty_cache()
+    return launches
+
+
 def gemma3_phase(torch, counters, card, gen, flush):
     """The gemma3-12b phase, (a) to (c); returns (its summary, the launches
     of each of its paths)."""
     from repro_torch import configs
     cfg = configs.get(G3_ARCH)
     summary = {"kernels": gemma3_kernels(torch, cfg, gen, flush)}
-    launches = {}
     served = dataclasses.replace(cfg, n_layers=G3_SERVE_LAYERS)
-    for path, container in (("serve gemma3", CONTAINER),
-                            ("serve gemma3 dense", DENSE)):
-        t0 = time.perf_counter()
-        e2e, launches[path] = serve_run(torch, served, gen, counters,
-                                        container, prompt_len=G3_PROMPT)
-        e2e["card"] = card
-        print(f"e2e gemma3 ({container}): " + json.dumps(e2e))
-        print(f"{path}: {time.perf_counter() - t0:.1f} s")
-        summary[path] = e2e
-        torch.cuda.empty_cache()
-    for path, policy, container, witness in (
-            ("train gemma3", "qm", CONTAINER, False),
-            ("train gemma3 dense", "qm+qe", DENSE, True)):
-        t0 = time.perf_counter()
-        e2e, launches[path] = train_run(
-            torch, cfg, counters, policy=policy, container=container,
-            steps=TRAIN_STEPS, bits={"qm": QM_INIT_BITS}, witness=witness,
-            batch=G3_TRAIN_B, seq=G3_TRAIN_SEQ, depth=G3_TRAIN_LAYERS)
-        e2e["card"] = card
-        print(f"{path}: " + json.dumps(e2e))
-        print(f"{path}: {time.perf_counter() - t0:.1f} s")
-        summary[path] = e2e
-        torch.cuda.empty_cache()
-    return summary, launches
+    return summary, config_paths(
+        torch, counters, card, gen, "gemma3", cfg, summary,
+        ((served, CONTAINER, ""), (served, DENSE, " dense")),
+        dict(prompt_len=G3_PROMPT),
+        (("qm", CONTAINER, False, ""), ("qm+qe", DENSE, True, " dense")),
+        dict(batch=G3_TRAIN_B, seq=G3_TRAIN_SEQ, depth=G3_TRAIN_LAYERS))
 
 
 # The last dense configs. gemma2-27b (32 q / 16 KV heads of 144,
-# softcaps 50 / 30, window 4096, tied embeddings) is served at 6 of its
-# 46 layers (9.2 GB of bf16 weights; all
+# softcaps 50 / 30, window 4096, tied embeddings) is served at 2 of its
+# 46 layers (cut from 6 for the smoke's time limit; all
 # 46, 55.1 GB, fit the card but not the whole smoke's time limit beside
 # the later phases), batch 2, from 4224-token prompts, past the window,
 # so the local
@@ -2541,7 +2664,7 @@ def gemma3_phase(torch, counters, card, gen, flush):
 # layers (88 layers are 245 GB), batch 4,
 # 2048-token prompts, and trained at 2.
 G27_ARCH, G27_SERVE_B, G27_PROMPT, G27_SERVE_LAYERS = (
-    "gemma2-27b", 2, 4224, 6)
+    "gemma2-27b", 2, 4224, 2)
 G27_TRAIN_B, G27_TRAIN_SEQ, G27_TRAIN_LAYERS = 2, 2048, 4
 G27_GLOBAL_POS = (4351, 4287, 4223, 900)
 G27_RING_POS = (5000, 4287, 4095, 2000)
@@ -2651,30 +2774,10 @@ def dense_config_phase(torch, counters, card, gen, flush, which):
                     ("qm+qe", DENSE, True, " dense"))
         train_kw = dict(batch=MI_TRAIN_B, seq=MI_TRAIN_SEQ,
                         depth=MI_TRAIN_LAYERS)
-    summary, launches = {"kernels": kernels}, {}
-    for scfg, container, suffix in serving:
-        path = f"serve {tag}{suffix}"
-        t0 = time.perf_counter()
-        e2e, launches[path] = serve_run(torch, scfg, gen, counters,
-                                        container, **serve_kw)
-        e2e["card"] = card
-        print(f"e2e {tag} ({container}): " + json.dumps(e2e))
-        print(f"{path}: {time.perf_counter() - t0:.1f} s")
-        summary[path] = e2e
-        torch.cuda.empty_cache()
-    for policy, container, witness, suffix in training:
-        path = f"train {tag}{suffix}"
-        t0 = time.perf_counter()
-        e2e, launches[path] = train_run(
-            torch, cfg, counters, policy=policy, container=container,
-            steps=TRAIN_STEPS, bits={"qm": QM_INIT_BITS}, witness=witness,
-            **train_kw)
-        e2e["card"] = card
-        print(f"{path}: " + json.dumps(e2e))
-        print(f"{path}: {time.perf_counter() - t0:.1f} s")
-        summary[path] = e2e
-        torch.cuda.empty_cache()
-    return summary, launches
+    summary = {"kernels": kernels}
+    return summary, config_paths(torch, counters, card, gen, tag, cfg,
+                                 summary, serving, serve_kw, training,
+                                 train_kw)
 
 
 # The prefix-LMs (slice 17): paligemma-3b, served and trained over 9 of
@@ -2739,40 +2842,20 @@ def prefix_phase(torch, counters, card, gen, flush, which):
         serving = ((CONTAINER, ""),)
         training = (("qm+qe", DENSE, True, " dense"),)
     summary = {"kernels": prefix_kernels(torch, cfg, gen, flush, which)}
-    served = cfg if depth is None else dataclasses.replace(cfg,
-                                                           n_layers=depth)
-    launches = {}
-    for container, suffix in serving:
-        path = f"serve {which}{suffix}"
-        t0 = time.perf_counter()
-        e2e, launches[path] = serve_run(torch, served, gen, counters,
-                                        container, prompt_len=PREFIX_SEQ,
-                                        batch=PREFIX_B, prefix=True)
-        e2e["card"] = card
-        print(f"e2e {which} ({container}): " + json.dumps(e2e))
-        print(f"{path}: {time.perf_counter() - t0:.1f} s")
-        summary[path] = e2e
-        torch.cuda.empty_cache()
-    for policy, container, witness, suffix in training:
-        path = f"train {which}{suffix}"
-        t0 = time.perf_counter()
-        e2e, launches[path] = train_run(
-            torch, cfg, counters, policy=policy, container=container,
-            steps=TRAIN_STEPS, bits={"qm": QM_INIT_BITS}, witness=witness,
-            batch=PREFIX_B, seq=PREFIX_SEQ, depth=depth, prefix=True)
-        e2e["card"] = card
-        print(f"{path}: " + json.dumps(e2e))
-        print(f"{path}: {time.perf_counter() - t0:.1f} s")
-        summary[path] = e2e
-        torch.cuda.empty_cache()
-    return summary, launches
+    served = dataclasses.replace(cfg, n_layers=depth)
+    return summary, config_paths(
+        torch, counters, card, gen, which, cfg, summary,
+        tuple((served, c, suffix) for c, suffix in serving),
+        dict(prompt_len=PREFIX_SEQ, batch=PREFIX_B, prefix=True), training,
+        dict(batch=PREFIX_B, seq=PREFIX_SEQ, depth=depth, prefix=True))
 
 
 # Mixture-of-Experts (slice 18). olmoe-1b-7b: 16 layers, d_model 2048, 16
 # q / 16 KV heads of 128 (rep 1), 64 experts of 1024 (GLU-SiLU), top-8, a
 # tied 50,304-word vocabulary; 6.82 B parameters (13.6 GB of bf16), served
-# whole: batch 4, 2048-token prompts, 64 new tokens, sfp8 and sfp-m2e4
-# caches; trained at full widths over 4 of its 16 layers (B 4, S 2048);
+# at 8 of its 16 layers (cut from 16 for the smoke's time limit): batch
+# 4, 2048-token prompts, 64 new tokens, sfp8 and sfp-m2e4 caches; trained
+# at full widths over 4 of its 16 layers (B 4, S 2048);
 # one paged trace (the seeded 12-request trace, sfp8, --burst 1) at 4
 # layers. phi3.5-moe-42b-a6.6b: 32 layers, d_model 4096, 32 q / 8 KV
 # heads of 128 (rep 4), 16 experts of 6400, top-2, an untied 32,064-word
@@ -2807,6 +2890,7 @@ def prefix_phase(torch, counters, card, gen, flush, which):
 OL_ARCH, PHI_ARCH = "olmoe-1b-7b", "phi3.5-moe-42b-a6.6b"
 MOE_PROMPT, MOE_SERVE_B = 2048, 4
 OL_TRAIN_B, OL_TRAIN_SEQ, OL_TRAIN_LAYERS, OL_PAGED_LAYERS = 4, 2048, 4, 4
+OL_SERVE_LAYERS = 8
 PHI_SERVE_LAYERS, PHI_TRAIN_B, PHI_TRAIN_SEQ, PHI_TRAIN_LAYERS = (
     8, 2, 2048, 2)
 MOE_POS = (2111, 2047, 1500, 0)
@@ -3007,7 +3091,8 @@ def moe_paths(torch, counters, card, gen, flush, which):
     if which == "olmoe":
         cfg, tag = configs.get(OL_ARCH), "olmoe"
         kernels = moe_kernels(torch, cfg, gen, flush, tag, OL_TRAIN_B)
-        serving = ((cfg, CONTAINER, ""), (cfg, DENSE, " dense"))
+        scfg = dataclasses.replace(cfg, n_layers=OL_SERVE_LAYERS)
+        serving = ((scfg, CONTAINER, ""), (scfg, DENSE, " dense"))
         training = (("qm", CONTAINER, True, ""),
                     ("qm+qe", DENSE, True, " dense"))
         train_kw = dict(batch=OL_TRAIN_B, seq=OL_TRAIN_SEQ,
@@ -3020,30 +3105,11 @@ def moe_paths(torch, counters, card, gen, flush, which):
         training = (("qm", CONTAINER, False, ""),)
         train_kw = dict(batch=PHI_TRAIN_B, seq=PHI_TRAIN_SEQ,
                         depth=PHI_TRAIN_LAYERS)
-    summary, launches = {"kernels": kernels}, {}
-    for scfg, container, suffix in serving:
-        path = f"serve {tag}{suffix}"
-        t0 = time.perf_counter()
-        e2e, launches[path] = serve_run(torch, scfg, gen, counters,
-                                        container, prompt_len=MOE_PROMPT,
-                                        batch=MOE_SERVE_B)
-        e2e["card"] = card
-        print(f"e2e {tag} ({container}): " + json.dumps(e2e))
-        print(f"{path}: {time.perf_counter() - t0:.1f} s")
-        summary[path] = e2e
-        torch.cuda.empty_cache()
-    for policy, container, witness, suffix in training:
-        path = f"train {tag}{suffix}"
-        t0 = time.perf_counter()
-        e2e, launches[path] = train_run(
-            torch, cfg, counters, policy=policy, container=container,
-            steps=TRAIN_STEPS, bits={"qm": QM_INIT_BITS}, witness=witness,
-            **train_kw)
-        e2e["card"] = card
-        print(f"{path}: " + json.dumps(e2e))
-        print(f"{path}: {time.perf_counter() - t0:.1f} s")
-        summary[path] = e2e
-        torch.cuda.empty_cache()
+    summary = {"kernels": kernels}
+    launches = config_paths(torch, counters, card, gen, tag, cfg, summary,
+                            serving, dict(prompt_len=MOE_PROMPT,
+                                          batch=MOE_SERVE_B),
+                            training, train_kw)
     if which == "olmoe":
         t0 = time.perf_counter()
         summary["profile"] = moe_profile(torch, counters, card)
@@ -3062,6 +3128,186 @@ def moe_paths(torch, counters, card, gen, flush, which):
         summary[path] = rec
         del model, params
         torch.cuda.empty_cache()
+    return summary, launches
+
+
+# The recurrent families (slice 19). mamba2-370m: 48 SSD layers (d_model
+# 1024, 32 heads of 64, state 128, chunk 128; no attention and no MLP), a
+# tied 50,280-word vocabulary; 0.37 B parameters, served and trained
+# whole: batch 4, 2048-token prompts (16 chunks), 64 new tokens; 4 steps
+# at B 4, S 2048 with qm + sfp8 and qm+qe + sfp-m2e4, every gradient
+# finite at every step (the grad norm is finite only if every gradient
+# is; the JAX reference's SSD gradients turn NaN at a full chunk of 128).
+# Its serving runs no TPU kernel (no attention, and the SSD state is not
+# packed); its training runs the stash kernels, 48 packs a step.
+# recurrentgemma-9b: 38 layers, 12 (rglru, rglru, local) periods and a
+# remainder of two RG-LRU layers (d_model 4096, lru 4096, 16 q / 1 KV
+# head of 256, GQA rep 16, window 2048, GLU-GELU d_ff 12288, a tied
+# 256,000-word vocabulary with emb_scale); 8.52 B parameters (17.0 GB of
+# bf16; JAX's param_count says 9.40 B, ROADMAP §C), served whole at
+# batch 4 from 4096-token prompts (past the window: the prefill kernel
+# masks and the decode ring wraps), 64 new
+# tokens, sfp8 and sfp-m2e4; trained at full widths over 8 layers (two
+# periods and the two remainder layers, whose straight-through stash
+# decision then runs) at B 2, S 4096: whole, its bf16 weights and
+# gradients and f32 moments would take ~113 GB. Its 12 LOCAL layers run
+# rows 8-9 at a layout no other config has: rep 16 over one KV head of
+# 256, window 2048.
+M2_ARCH, RG_ARCH = "mamba2-370m", "recurrentgemma-9b"
+M2_B, M2_PROMPT, M2_TRAIN_B, M2_TRAIN_SEQ = 4, 2048, 4, 2048
+RG_B, RG_PROMPT = 4, 4096
+RG_TRAIN_B, RG_TRAIN_SEQ, RG_TRAIN_LAYERS = 2, 4096, 8
+RG_RING_POS = (4159, 4096, 2047, 1000)   # decode reads over the 2048 ring
+# The recurrence twins: the chunked prefill (mamba2) or the log-depth scan
+# (recurrentgemma) over a 300-token prompt (two chunks of 128 and a tail
+# padded with dt = 0) against stepping decode_step over the same tokens,
+# in f32 at full width over TWIN_LAYERS layers (recurrentgemma's 5: one
+# period and the remainder), on the plain path (the attention kernels
+# take bf16). The two orders of the same sums part only by f32 rounding:
+# each state, conv tail and the last logits within TWIN_RTOL of its
+# largest element.
+TWIN_PROMPT, TWIN_RTOL = 300, 1e-4
+SELF_REPEAT_MAX = 0.5   # mamba2's greedy tokens equal to the token fed
+TWIN_LAYERS = {M2_ARCH: 8, RG_ARCH: 5}
+
+
+def recurrent_twin(torch, cfg, device="cuda"):
+    """The recurrence twin of ``cfg`` (see TWIN_RTOL). Returns its
+    readings: the largest gap of each recurrent field, relative to its
+    largest element, over the layers, and the last logits'."""
+    from repro_torch.configs.base import RGLRU, SSD
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import DecoderModel
+    tcfg = dataclasses.replace(cfg, n_layers=TWIN_LAYERS[cfg.name],
+                               dtype="float32")
+    model = DecoderModel(tcfg, device=device)
+    params = model.init(SEED)
+    g = torch.Generator(device="cpu").manual_seed(SEED + 3)
+    prompt = torch.randint(0, cfg.vocab, (2, TWIN_PROMPT),
+                           generator=g).to(device)
+    ops.force_backend("plain")
+    try:
+        with torch.inference_mode():
+            logits, cache = model.prefill(params, prompt, TWIN_PROMPT)
+            stepped = model.init_cache(2, TWIN_PROMPT)
+            for i in range(TWIN_PROMPT):
+                slog, stepped = model.decode_step(
+                    params, stepped, prompt[:, i:i + 1], i)
+    finally:
+        ops.force_backend(None)
+
+    def rel(a, b):
+        return ((a.double() - b.double()).abs().max()
+                / b.double().abs().max().clamp_min(1e-30)).item()
+    V = cfg.vocab    # the padded vocabulary's logits are -1e30 on both
+    out = {"layers": tcfg.n_layers, "prompt": TWIN_PROMPT,
+           "logits": rel(logits[:, -1, :V], slog[:, -1, :V])}
+    for i, kind in enumerate(tcfg.layer_kinds()):
+        if kind not in (SSD, RGLRU):
+            continue
+        for name, a in cache["layers"][i]._asdict().items():
+            key = f"{kind} {name}"
+            out[key] = max(out.get(key, 0.0),
+                           rel(a, getattr(stepped["layers"][i], name)))
+    bad = {k: v for k, v in out.items()
+           if k not in ("layers", "prompt") and not v <= TWIN_RTOL}
+    print(f"  twin {cfg.name} (f32, {tcfg.n_layers} layers, prompt "
+          f"{TWIN_PROMPT}), prefill vs stepped decode, gap / largest: "
+          + json.dumps(out))
+    if bad:
+        fail(f"{cfg.name}: the prefill's recurrence departs from stepped "
+             f"decode beyond f32 rounding ({TWIN_RTOL}): {bad}")
+    return out
+
+
+def recurrent_kernels(torch, cfg, gen, flush):
+    """Rows 8-9 at recurrentgemma's LOCAL layers (16 q / 1 KV head of
+    256, rep 16, window 2048): the attention forward and backward at the
+    serving prefill's shape (B 4, S 4096, past the window), held at
+    windows 2048 and None, counted and timed at 2048 beside SDPA with the
+    same boolean mask; the decode reads (words and planes, full width and
+    draft) over the 2048-slot ring, held and timed."""
+    H, KH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    t0 = time.perf_counter()
+    what = f"recurrentgemma hd {hd} rep {H // KH}"
+    out = {"attention": attention_timed(
+        torch, gen, f"{cfg.name} local layer", what, RG_B, RG_PROMPT, H, KH,
+        hd, (cfg.window, None), timed_window=cfg.window)}
+    torch.cuda.empty_cache()
+    out["decode"] = decode_reads(
+        torch, gen, flush, what, H, KH, hd,
+        (("ring", cfg.window, cfg.window, RG_RING_POS),),
+        (CONTAINER, DENSE))
+    torch.cuda.empty_cache()
+    print(f"recurrentgemma kernel checks: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+@contextlib.contextmanager
+def fan_in_embeddings(torch):
+    """Within the block, ``DecoderModel.init`` draws as the JAX package
+    does and then scales the tied embedding table, which is also the
+    head, to the head's own fan-in: d_model ** -0.5 from 1 (a power of
+    two at both recurrent widths, so exact in bf16)."""
+    from repro_torch.models.model import DecoderModel
+    init = DecoderModel.init
+
+    def scaled(self, seed=0):
+        params = init(self, seed)
+        with torch.no_grad():
+            params["embed"]["table"].mul_(self.cfg.d_model ** -0.5)
+        return params
+    DecoderModel.init = scaled
+    try:
+        yield
+    finally:
+        DecoderModel.init = init
+
+
+def recurrent_phase(torch, counters, card, gen, flush, which):
+    """The mamba2-370m (``which`` "mamba2") or recurrentgemma-9b
+    ("recurrentgemma") phase: the kernel checks (recurrentgemma), then,
+    with the embeddings at the head's fan-in, the recurrence twin and
+    serving and training against the plain path. Returns (its summary,
+    the launches of each of its paths)."""
+    from repro_torch import configs
+    if which == "mamba2":
+        cfg = configs.get(M2_ARCH)
+        serving = ((cfg, CONTAINER, ""),)
+        serve_kw = dict(prompt_len=M2_PROMPT, batch=M2_B)
+        training = (("qm", CONTAINER, False, ""),
+                    ("qm+qe", DENSE, False, " dense"))
+        train_kw = dict(batch=M2_TRAIN_B, seq=M2_TRAIN_SEQ)
+        summary = {"kernels": {}}
+    else:
+        cfg = configs.get(RG_ARCH)
+        serving = ((cfg, CONTAINER, ""), (cfg, DENSE, " dense"))
+        serve_kw = dict(prompt_len=RG_PROMPT, batch=RG_B)
+        training = (("qm", CONTAINER, False, ""),
+                    ("qm+qe", DENSE, True, " dense"))
+        train_kw = dict(batch=RG_TRAIN_B, seq=RG_TRAIN_SEQ,
+                        depth=RG_TRAIN_LAYERS)
+        summary = {"kernels": recurrent_kernels(torch, cfg, gen, flush)}
+    with fan_in_embeddings(torch):
+        t0 = time.perf_counter()
+        summary["twin"] = recurrent_twin(torch, cfg)
+        print(f"twin {which}: {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+        launches = config_paths(torch, counters, card, gen, which, cfg,
+                                summary, serving,
+                                dict(serve_kw, layer_faults=True), training,
+                                train_kw)
+    # At the head's fan-in the SSD layers decide mamba2's next token (at
+    # unit scale its greedy stream repeated each fed token).
+    # recurrentgemma's sqrt(d_model) embedding scale keeps the fed token's
+    # own logit on top of a random tied head at any table scale, so there
+    # the silenced layers above are the gate.
+    if which == "mamba2":
+        rep = summary["serve mamba2"]["self_repeat_share"]
+        if rep >= SELF_REPEAT_MAX:
+            fail(f"mamba2's stream repeats the fed token at {rep:.3f} of "
+                 f"its steps (limit {SELF_REPEAT_MAX}): the layers do not "
+                 f"decide it")
     return summary, launches
 
 
@@ -3302,9 +3548,10 @@ def train_run(torch, cfg, counters, *, policy, container, steps, bits,
     n_periods, n_layers = cfg.n_periods, cfg.n_layers
     s_tot = seq + (cfg.prefix_tokens if prefix else 0)  # stashed positions
     expect = {c.__name__: 0 for c in counters}
+    n_attn = attention_layers(cfg)
     expect.update({pack: n_periods, unpack: 2 * n_periods,
-                   "flash_attention": 2 * n_layers,
-                   "flash_attention_bwd": n_layers})
+                   "flash_attention": 2 * n_attn,
+                   "flash_attention_bwd": n_attn})
     # The estimators act where the stash keeps more than floor(bits):
     # qm where its draw can exceed floor(n) within the kept mantissa bits,
     # qe where it starts below the full exponent field.
@@ -4615,8 +4862,7 @@ def ckpt_disk_need(cfg) -> float:
     (bf16 parameters, f32 AdamW moments) and the gecko8 copy of the
     parameters (at most their bf16 bytes), with a margin."""
     from repro_torch.models.model import DecoderModel
-    per_layer = DecoderModel(cfg, device="cpu").layer_param_count()
-    n = cfg.n_layers * per_layer + cfg.vocab * cfg.d_model + cfg.d_model
+    n = DecoderModel(cfg, device="cpu").param_count()
     return CKPT_DISK_MARGIN * (2 * n * (2 + 4 + 4) + 2 * n)
 
 
@@ -5183,13 +5429,45 @@ def moe_entry(name, r, mo, path_launches):
         r["note"] += "; " + "; ".join(notes)
 
 
+def recurrent_entry(name, r, rg, path_launches):
+    """Add the recurrent phases to a kernel's note: every kernel its
+    launches per mamba2 and recurrentgemma generate and step; rows 8 their
+    attention timings at recurrentgemma's window 2048 beside SDPA with the
+    same mask, rows 9 its ring reads (16 q / 1 KV head of 256)."""
+    notes = []
+    for path, n in sorted(path_launches.items()):
+        if ("mamba2" in path or "recurrentgemma" in path) and n.get(name):
+            train = path.startswith("train")
+            notes.append(f"{n[name] // TRAIN_STEPS if train else n[name]} "
+                         f"launches per {path} "
+                         f"{'step' if train else 'generate'}")
+    if name in ("flash_attention", "flash_attention_bwd"):
+        g = rg["kernels"]["attention"][name]
+        notes.append(
+            f"{g['shape']}: {g['ms']:.5f} ms, bound {g['bound_ms']:.5f}"
+            f" ({g['bound_by']}), plain {g['plain_ms']:.4f}, "
+            f"{g['library']} {g['library_ms']:.5f}, "
+            f"{g['tflops']:.1f} TFLOP/s, max |d| {g['max_abs_err']:.3g}")
+    elif name in DECODE_READS and DECODE_READS[name][0] == "decode":
+        _, container, pp, _ = DECODE_READS[name]
+        key = f"{container} ring prefix_planes={pp}"
+        g = rg["kernels"]["decode"][key]
+        notes.append(f"recurrentgemma rep 16 hd 256 ({key}, "
+                     f"{g['live_slots']} live slots): {g['ms']:.5f} ms, "
+                     f"bound {g['bound_ms']:.6f}, plain "
+                     f"{g['plain_ms']:.4f}; {g['note']}")
+    if notes:
+        r["note"] += "; " + "; ".join(notes)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phase", choices=("all", "gecko", "dense", "sfp",
                                         "cnn", "ckpt", "gradc", "gemma3",
                                         "gemma2_27b", "mistral",
                                         "paligemma", "musicgen", "olmoe",
-                                        "phi35_moe"),
+                                        "phi35_moe", "mamba2",
+                                        "recurrentgemma"),
                     default="all",
                     help="gecko / dense / sfp: only the Gecko, the dense "
                          "bit-plane or the fixed-lane word kernel checks "
@@ -5197,7 +5475,8 @@ def main(argv=None) -> int:
                          "the checkpoint phase; gradc: only the compressed "
                          "gradients and AdaptivFloat phase; gemma3, "
                          "gemma2_27b, mistral, paligemma, musicgen, olmoe, "
-                         "phi35_moe: only that model's phase")
+                         "phi35_moe, mamba2, recurrentgemma: only that "
+                         "model's phase")
     ap.add_argument("--src", type=Path, default=SRC,
                     help="the directory holding the repro_torch package")
     args = ap.parse_args(argv)
@@ -5232,9 +5511,16 @@ def main(argv=None) -> int:
     _lib.load()
     print(f"kernel build+load: {time.perf_counter() - t0:.2f} s "
           f"(nvcc {_lib.build_seconds:.2f} s)")
+    fn = ""
     for line in _lib.ptxas_log.splitlines():
+        if "Function properties for" in line:
+            fn = line.split("for ")[-1].strip()
         if "registers" in line or "spill" in line or "error" in line:
-            print(f"  ptxas: {line.strip()}")
+            spills = "spill" in line and " 0 bytes spill stores" not in line
+            # A spilling kernel's name (mangled, with its template
+            # arguments: the decode's word type, dense flag and REP).
+            print(f"  ptxas: {line.strip()}"
+                  + (f" [{fn[-70:]}]" if spills else ""))
 
     cfg = configs.get("gemma2-2b")
     gen = torch.Generator(device=dev)
@@ -5260,9 +5546,11 @@ def main(argv=None) -> int:
                           "gemma3": summary["kernels"]}))
         return 0
     if args.phase in ("gemma2_27b", "mistral", "paligemma", "musicgen",
-                      "olmoe", "phi35_moe"):
+                      "olmoe", "phi35_moe", "mamba2", "recurrentgemma"):
         phase = (prefix_phase if args.phase in ("paligemma", "musicgen")
                  else moe_phase if args.phase in ("olmoe", "phi35_moe")
+                 else recurrent_phase if args.phase in ("mamba2",
+                                                        "recurrentgemma")
                  else dense_config_phase)
         summary, _ = phase(torch, counters, card, gen, flush, args.phase)
         print(card)
@@ -5325,6 +5613,14 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         mo[which], launches = moe_phase(torch, counters, card, gen, flush,
                                         which)
+        dc_launches.update(launches)
+        print(f"{which} phase: {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+    rc = {}
+    for which in ("mamba2", "recurrentgemma"):
+        t0 = time.perf_counter()
+        rc[which], launches = recurrent_phase(torch, counters, card, gen,
+                                              flush, which)
         dc_launches.update(launches)
         print(f"{which} phase: {time.perf_counter() - t0:.1f} s")
         torch.cuda.empty_cache()
@@ -5442,6 +5738,7 @@ def main(argv=None) -> int:
         dense_configs_entry(name, r, dc, path_launches)
         prefix_entry(name, r, pf, path_launches)
         moe_entry(name, r, mo, path_launches)
+        recurrent_entry(name, r, rc["recurrentgemma"], path_launches)
         kernels.append(dict(name=name, route="cuda", source=r["source"],
                             replaces=r["replaces"],
                             launches=path_launches[path][name], path=path,

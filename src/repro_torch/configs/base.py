@@ -86,6 +86,18 @@ class ArchConfig:
         return self.n_experts > 0
 
     @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
+    @property
+    def lru_width_(self) -> int:
+        return self.lru_width if self.lru_width else self.d_model
+
+    @property
     def compute_dtype(self) -> torch.dtype:
         return _TORCH_DTYPES[self.dtype]
 

@@ -44,7 +44,7 @@ import torch
 
 from repro_torch import configs, resolve_device
 from repro_torch import obs as obs_mod
-from repro_torch.configs.base import reduced
+from repro_torch.configs.base import RGLRU, SSD, reduced
 from repro_torch.launch.args import container_name, prefix_zeros
 from repro_torch.models.model import DecoderModel
 from repro_torch.serve import engine, faults, precision
@@ -172,6 +172,10 @@ def run_trace(args) -> dict:
         raise SystemExit(f"--trace: {cfg.name} is a prefix-LM, which the "
                          f"paged engine does not serve (as in the JAX "
                          f"package); use batch mode")
+    if set(cfg.period) & {SSD, RGLRU}:
+        raise SystemExit(f"--trace: {cfg.name} has SSD / RG-LRU layers, "
+                         f"whose paged serving is the next slice of the "
+                         f"port (ROADMAP §A5b); use batch mode")
     eng = engine.PagedEngine(model, params, max_slots=args.max_slots,
                              max_len=args.max_len,
                              num_blocks=args.num_blocks,

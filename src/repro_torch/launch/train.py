@@ -203,7 +203,7 @@ def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
     cfg, model, tc, batch, seq = build(args)
     state = step_mod.init_state(model, args.seed, tc)
-    n_params = sum(p.numel() for p in adamw.leaves(state.params))
+    n_params = model.param_count()
     print(f"arch={cfg.name} params~{n_params / 1e6:.1f}M "
           f"policy={model.policy.name} container={args.container} "
           f"device={model.device}")

@@ -1,5 +1,7 @@
-"""Decoder model for the GLOBAL/LOCAL attention families, with a dense MLP
-or a Mixture-of-Experts FFN (``models/moe.py``).
+"""Decoder model over the ported families: GLOBAL/LOCAL attention layers
+with a dense MLP or a Mixture-of-Experts FFN (``models/moe.py``), Mamba-2
+SSD layers (``models/mamba2.py``, no MLP) and RG-LRU layers
+(``models/rglru.py``, with the MLP), in the config's period.
 
 Parameters are a plain dict: ``embed``, ``final_norm`` and ``layers``, one
 dict per layer in order (the JAX package stacks each period's layers and
@@ -9,14 +11,19 @@ runs ``loss`` / ``forward``: the periods go through ``core.stash.sfp_scan``
 with the policy's container as the cross-pass activation stash (or, with
 ``stash_containers``, each period's own container: the per-layer plan of
 ``stash_plan``), and a policy that quantizes weights fake-quantizes them
-at their use sites. An MoE model's auxiliary losses ride the scan's
+at their use sites. The remainder layers (n_layers % len(period)) run
+after the periods, outside the stash scan, each behind its own
+straight-through stash decision (``apply_decision_ste``) and with its own
+weight fake-quant. An MoE model's auxiliary losses ride the scan's
 ``extras`` carry into the loss, its routing metrics beside it. Serving runs
 ``prefill`` over the prompt and ``decode_step`` per token over a KV cache
 that is updated in place — raw bf16, or packed by a registry codec
 (``kv_container``): read through the fused decode kernel for the SFP
 containers, unpacked whole for ``bit_exact`` and ``gecko8`` — or, for the
 continuous-batching engine, ``decode_step_paged`` over a paged pool for
-the GLOBAL layers and per-slot rings for the LOCAL ones.
+the GLOBAL layers and per-slot rings for the LOCAL ones. SSD and RG-LRU
+layers keep a per-row recurrent state (and their conv inputs' tails) that
+no codec packs.
 """
 from __future__ import annotations
 
@@ -28,14 +35,15 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import codecs, policies, resolve_device
-from repro_torch.configs.base import ArchConfig, GLOBAL, LOCAL
+from repro_torch.configs.base import ArchConfig, GLOBAL, LOCAL, RGLRU, SSD
 from repro_torch.core import containers, stash
-from repro_torch.models import attention, common, moe
+from repro_torch.models import attention, common, mamba2, moe, rglru
 from repro_torch.serve import kvcache
 
 MOE_LB_COEF = 0.01
 MOE_Z_COEF = 1e-3
 MOE_AUX = ("moe_lb_loss", "moe_z_loss", "moe_drop_frac")
+KINDS = (GLOBAL, LOCAL, SSD, RGLRU)
 
 
 class RunState(NamedTuple):
@@ -65,6 +73,17 @@ def _quantized(leaf: torch.Tensor) -> bool:
     return leaf.dim() >= 2 and leaf.is_floating_point()
 
 
+META = torch.device("meta")
+
+
+def _numel(tree) -> int:
+    """Elements of every tensor in a nest of dicts and lists."""
+    if isinstance(tree, torch.Tensor):
+        return tree.numel()
+    return sum(_numel(t) for t in (tree.values() if isinstance(tree, dict)
+                                   else tree))
+
+
 def _count_truncation(count, h, t):
     """Add to ``count`` the values of ``h`` that the exponent truncation
     ``t`` flushed to zero and those it saturated."""
@@ -86,18 +105,11 @@ class DecoderModel:
         per-layer realized containers of ``stash_plan``. Each period is its
         own compress/decompress pair in ``sfp_scan``, so a new plan needs
         only a new model."""
-        bad = set(cfg.period) - {GLOBAL, LOCAL}
+        bad = set(cfg.period) - set(KINDS)
         if bad:
-            raise NotImplementedError(
-                f"{cfg.name}: only GLOBAL/LOCAL attention models are "
-                f"ported (got period {cfg.period})")
+            raise ValueError(f"{cfg.name}: unknown layer kinds {bad}")
         self.cfg = cfg
         self.policy = policies.coerce(policy)
-        if self.policy.enabled and cfg.remainder:
-            raise NotImplementedError(
-                f"{cfg.name}: {cfg.n_layers} layers leave a remainder after "
-                f"the period; its straight-through stash decision is not "
-                f"ported yet")
         self.kv_container = kv_container
         if stash_containers is not None:
             stash_containers = tuple(stash_containers)
@@ -120,35 +132,49 @@ class DecoderModel:
     def init(self, seed: int = 0) -> Dict[str, Any]:
         """Random weights from a ``torch.Generator`` seeded with ``seed``
         (normal, fan_in ** -0.5; embeddings unit scale; norms zero; an MoE
-        layer's ``moe`` in place of ``mlp``, its router f32; an untied
-        ``head`` of (d_model, padded vocab) last)."""
-        cfg, dev, dt = self.cfg, self.device, self.cfg.compute_dtype
-        gen = torch.Generator(device=dev)
+        layer's ``moe`` in place of ``mlp``, its router f32; an SSD or
+        RG-LRU layer's block in place of ``attn`` (an SSD layer without
+        ``mlp_norm`` and MLP), its vectors f32; an untied ``head`` of
+        (d_model, padded vocab) last)."""
+        gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
+        return self._draw(gen, self.device)
+
+    def _draw(self, gen, dev) -> Dict[str, Any]:
+        """``init``'s tree, drawn from ``gen`` on ``dev``."""
+        cfg, dt = self.cfg, self.cfg.compute_dtype
         params = {
             "embed": {"table": common.normal_init(
                 (cfg.padded_vocab, cfg.d_model), gen, dev, dt, scale=1.0)},
             "final_norm": common.rmsnorm_init(cfg.d_model, dev, dt),
-            "layers": [],
+            "layers": [self._layer_init(kind, gen, dev, dt)
+                       for kind in self.kinds],
         }
-        for _ in self.kinds:
-            layer = {
-                "pre_norm": common.rmsnorm_init(cfg.d_model, dev, dt),
-                "attn": attention.attn_init(cfg, gen, dev, dt),
-                "mlp_norm": common.rmsnorm_init(cfg.d_model, dev, dt),
-            }
-            if cfg.is_moe:
-                layer["moe"] = moe.moe_init(cfg, gen, dev, dt)
-            else:
-                layer["mlp"] = common.mlp_init(cfg.d_model, cfg.d_ff,
-                                               cfg.glu, gen, dev, dt)
-            params["layers"].append(layer)
         if not cfg.tie_embeddings:
             # Drawn after every other leaf, so a tied model's weights do
             # not depend on this branch.
             params["head"] = common.normal_init(
                 (cfg.d_model, cfg.padded_vocab), gen, dev, dt)
         return params
+
+    def _layer_init(self, kind, gen, dev, dt) -> Dict[str, Any]:
+        """One layer of ``kind``, drawn from ``gen``."""
+        cfg = self.cfg
+        layer = {"pre_norm": common.rmsnorm_init(cfg.d_model, dev, dt)}
+        if kind == SSD:   # a Mamba-2 block carries no separate MLP
+            layer["ssd"] = mamba2.ssd_init(cfg, gen, dev, dt)
+            return layer
+        if kind == RGLRU:
+            layer["rglru"] = rglru.rglru_init(cfg, gen, dev, dt)
+        else:
+            layer["attn"] = attention.attn_init(cfg, gen, dev, dt)
+        layer["mlp_norm"] = common.rmsnorm_init(cfg.d_model, dev, dt)
+        if cfg.is_moe:
+            layer["moe"] = moe.moe_init(cfg, gen, dev, dt)
+        else:
+            layer["mlp"] = common.mlp_init(cfg.d_model, cfg.d_ff, cfg.glu,
+                                           gen, dev, dt)
+        return layer
 
     def _emb_scale(self):
         return (self.cfg.d_model ** 0.5) if self.cfg.emb_scale else None
@@ -202,9 +228,15 @@ class DecoderModel:
         """One layer: (h, its extras loss, its aux values)."""
         cfg = self.cfg
         hn = common.rmsnorm(slot_params["pre_norm"], h)
-        h = h + attention.attention_train(slot_params["attn"], hn, cfg,
-                                          kind=kind, positions=positions,
-                                          prefix_len=prefix_len)
+        if kind == SSD:    # a Mamba-2 block carries no MLP
+            return (h + mamba2.ssd_forward(slot_params["ssd"], hn, cfg),
+                    None, None)
+        if kind == RGLRU:
+            h = h + rglru.rglru_forward(slot_params["rglru"], hn, cfg)
+        else:
+            h = h + attention.attention_train(
+                slot_params["attn"], hn, cfg, kind=kind,
+                positions=positions, prefix_len=prefix_len)
         hm = common.rmsnorm(slot_params["mlp_norm"], h)
         out, eloss, aux = self._ffn(slot_params, hm)
         return h + out, eloss, aux
@@ -256,14 +288,25 @@ class DecoderModel:
         return tuple(codecs.dense_name(m, e)
                      for m, e in pol.layer_decisions(st, self.dims))
 
+    def _draws(self, ps, layers, gen):
+        """One scope's draws from ``gen``: its act decision (for "qm+qe",
+        qm's draw then qe's), then per layer its weight draws (qm's for
+        every leaf, then qe's) when the policy quantizes weights."""
+        pol, dims = self.policy, self.dims
+        d = pol.act_decision(ps, gen, dims)
+        w = [pol.weight_draws(
+            ps, gen, sum(1 for _, t in stash.float_leaves(lp)
+                         if _quantized(t)), dims)
+             for lp in layers] if pol.quantizes_weights else None
+        return {"act": {"man": d.man_bits, "exp": d.exp_bits}, "w": w}
+
     def _period_inputs(self, params, run: RunState):
         """One ``sfp_scan`` input per period: its layers, its stash codec,
         its policy slice and every bitlength it draws, drawn here so the
         backward's recompute replays them. The order of the draws from
-        ``run.gen``: per period, the act decision (for "qm+qe", qm's draw
-        then qe's), then per layer its weight draws (qm's for every leaf,
-        then qe's) when the policy quantizes weights. Layer i belongs to
-        period i // len(period)."""
+        ``run.gen``: period by period, ``_draws`` of each; then the
+        remainder layers', one scope a layer (``_rem_inputs``, called
+        after this). Layer i belongs to period i // len(period)."""
         cfg, pol, dims = self.cfg, self.policy, self.dims
         n_slot = len(cfg.period)
         slices = pol.scan_slices(run.pol, dims) if pol.enabled else None
@@ -274,15 +317,24 @@ class DecoderModel:
             x = {"params": layers}
             if pol.enabled:
                 ps = _index(slices, p)
-                d = pol.act_decision(ps, run.gen, dims)
-                w = [pol.weight_draws(
-                    ps, run.gen, sum(1 for _, t in stash.float_leaves(lp)
-                                     if _quantized(t)), dims)
-                     for lp in layers] if pol.quantizes_weights else None
                 x["codec"] = codecs.get(names[p])
                 x["pol"] = ps
-                x["draws"] = {"act": {"man": d.man_bits, "exp": d.exp_bits},
-                              "w": w}
+                x["draws"] = self._draws(ps, layers, run.gen)
+            xs.append(x)
+        return xs
+
+    def _rem_inputs(self, params, run: RunState):
+        """Per remainder layer: its parameters, and under a policy its
+        scope's slice (``rem_slice``) and ``_draws``, in layer order, after
+        every period's draws."""
+        cfg, pol = self.cfg, self.policy
+        n_rem = len(cfg.remainder)
+        xs = []
+        for i, lp in enumerate(params["layers"][len(self.kinds) - n_rem:]):
+            x = {"params": lp}
+            if pol.enabled:
+                x["pol"] = pol.rem_slice(run.pol, i, self.dims)
+                x["draws"] = self._draws(x["pol"], [lp], run.gen)
             xs.append(x)
         return xs
 
@@ -341,9 +393,19 @@ class DecoderModel:
         h, extras, aux = stash.sfp_scan(period_fn, compress, decompress, h,
                                         self._period_inputs(params, run),
                                         stash_grad)
-        n_rem = len(cfg.remainder)
-        for lp, kind in zip(params["layers"][len(self.kinds) - n_rem:],
-                            cfg.remainder):
+        # Remainder layers, unrolled: the scope's stash decision realized
+        # straight-through on the layer's input, its weights fake-quantized
+        # with the scope's own bitlengths.
+        for x, kind in zip(self._rem_inputs(params, run), cfg.remainder):
+            lp = x["params"]
+            if pol.enabled:
+                act = x["draws"]["act"]
+                h = policies.apply_decision_ste(
+                    h, policies.PrecisionDecision(man_bits=act["man"],
+                                                  exp_bits=act["exp"]),
+                    self.dims, adapts_exponent=pol.adapts_exponent)
+            if pol.quantizes_weights:
+                lp = self._quantize_weights(lp, x["pol"], x["draws"]["w"][0])
             h, eloss, _ = self._apply_slot(lp, h, kind, positions=positions,
                                            prefix_len=P)
             if eloss is not None:
@@ -372,18 +434,25 @@ class DecoderModel:
         xent = common.softmax_xent(logits, batch["labels"])
         return xent + metrics["moe_aux_loss"], dict(metrics, xent=xent)
 
-    def layer_param_count(self) -> int:
-        """Parameters of one layer (every GLOBAL/LOCAL layer has the same:
-        two norms, the four attention projections, the q/k norms with
-        ``qk_norm``, and the MLP, or the MoE's router and experts)."""
+    def layer_param_count(self, kind: Optional[str] = None) -> int:
+        """Parameters of one layer of ``kind``, 1-D leaves included: the
+        leaves of ``_layer_init``, drawn on the meta device (no memory).
+        Without ``kind``, the count every layer of the model shares
+        (ValueError if its kinds differ)."""
         cfg = self.cfg
-        d, hd = cfg.d_model, cfg.head_dim_
-        attn = 2 * d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd
-        if cfg.qk_norm:
-            attn += 2 * hd
-        ffn = (moe.param_count(cfg) if cfg.is_moe
-               else (3 if cfg.glu else 2) * d * cfg.d_ff)
-        return 2 * d + attn + ffn
+        if kind is None:
+            counts = {self.layer_param_count(k) for k in set(cfg.period)}
+            if len(counts) > 1:
+                raise ValueError(f"{cfg.name}: its layer kinds differ in "
+                                 f"size; name one of {cfg.period}")
+            return counts.pop()
+        return _numel(self._layer_init(kind, torch.Generator(), META,
+                                       cfg.compute_dtype))
+
+    def param_count(self) -> int:
+        """Parameters of the model: the leaves of ``init``, drawn on the
+        meta device."""
+        return _numel(self._draw(torch.Generator(), META))
 
     # -- serving -------------------------------------------------------------
 
@@ -392,17 +461,22 @@ class DecoderModel:
             return kvcache.cache_len(self.cfg, kind, max_len)
         return min(max_len, self.cfg.window) if kind == LOCAL else max_len
 
-    def init_cache(self, batch: int, max_len: int) -> Dict[str, Any]:
-        cfg = self.cfg
+    def _layer_cache(self, kind: str, batch: int, max_len: int):
+        cfg, dt, dev = self.cfg, self.cfg.compute_dtype, self.device
+        if kind == SSD:
+            return mamba2.ssd_cache_init(cfg, batch, dt, dev)
+        if kind == RGLRU:
+            return rglru.lru_cache_init(cfg, batch, dt, dev)
         if self.kv_container is not None:
-            layers = [kvcache.packed_cache_init(
-                cfg, kind, batch, max_len, self.kv_container,
-                device=self.device) for kind in self.kinds]
-        else:
-            layers = [attention.cache_init(cfg, kind, batch, max_len,
-                                           cfg.compute_dtype, self.device)
-                      for kind in self.kinds]
-        return {"layers": layers}
+            return kvcache.packed_cache_init(cfg, kind, batch, max_len,
+                                             self.kv_container, device=dev)
+        return attention.cache_init(cfg, kind, batch, max_len, dt, dev)
+
+    def init_cache(self, batch: int, max_len: int) -> Dict[str, Any]:
+        """One entry a layer: the attention layers' KV caches (packed with
+        ``kv_container``), the SSD and RG-LRU layers' zero states."""
+        return {"layers": [self._layer_cache(kind, batch, max_len)
+                           for kind in self.kinds]}
 
     def prefill(self, params, tokens: torch.Tensor, max_len: int,
                 cond_embeddings: Optional[torch.Tensor] = None
@@ -419,23 +493,31 @@ class DecoderModel:
         caches = []
         for lp, kind in zip(params["layers"], self.kinds):
             hn = common.rmsnorm(lp["pre_norm"], h)
-            out, (k, v) = attention.attention_train(
-                lp["attn"], hn, cfg, kind=kind, positions=positions,
-                prefix_len=P, return_kv=True)
-            h = h + out
-            L = self._cache_len(kind, max_len)
-            if kind == LOCAL:
-                k, v = attention.ring_pack_kv(k, v, L)
+            if kind == SSD:
+                out, c = mamba2.ssd_forward(lp["ssd"], hn, cfg,
+                                            return_cache=True)
+            elif kind == RGLRU:
+                out, c = rglru.rglru_forward(lp["rglru"], hn, cfg,
+                                             return_cache=True)
             else:
-                k = F.pad(k, (0, 0, 0, 0, 0, L - S))
-                v = F.pad(v, (0, 0, 0, 0, 0, L - S))
-            c = attention.KVCache(k=k.to(cfg.compute_dtype),
-                                  v=v.to(cfg.compute_dtype))
-            if self.kv_container is not None:
-                c = kvcache.pack_prefill_cache(c, self.kv_container)
+                out, (k, v) = attention.attention_train(
+                    lp["attn"], hn, cfg, kind=kind, positions=positions,
+                    prefix_len=P, return_kv=True)
+                L = self._cache_len(kind, max_len)
+                if kind == LOCAL:
+                    k, v = attention.ring_pack_kv(k, v, L)
+                else:
+                    k = F.pad(k, (0, 0, 0, 0, 0, L - S))
+                    v = F.pad(v, (0, 0, 0, 0, 0, L - S))
+                c = attention.KVCache(k=k.to(cfg.compute_dtype),
+                                      v=v.to(cfg.compute_dtype))
+                if self.kv_container is not None:
+                    c = kvcache.pack_prefill_cache(c, self.kv_container)
+            h = h + out
             caches.append(c)
-            hm = common.rmsnorm(lp["mlp_norm"], h)
-            h = h + self._ffn(lp, hm)[0]
+            if kind != SSD:    # a Mamba-2 block carries no MLP
+                hm = common.rmsnorm(lp["mlp_norm"], h)
+                h = h + self._ffn(lp, hm)[0]
         h = common.rmsnorm(params["final_norm"], h)
         logits = common.unembed(params, h[:, -1:],
                                 tied=cfg.tie_embeddings,
@@ -447,9 +529,10 @@ class DecoderModel:
                     pos, tables: Optional[torch.Tensor] = None,
                     prefix_planes: Optional[int] = None
                     ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-        """One decode step, updating ``cache`` in place. token (B, 1);
-        ``pos`` an int or (B,) absolute positions. Returns (logits
-        (B, 1, V) f32, cache).
+        """One decode step, updating ``cache`` in place (an SSD or RG-LRU
+        layer's entry is replaced by its new state). token (B, 1); ``pos``
+        an int or (B,) absolute positions. Returns (logits (B, 1, V) f32,
+        cache).
 
         With ``tables`` (B, nb) this is the continuous-batching paged
         step: GLOBAL layers of ``cache`` hold ``kvcache.PagedKV`` pool
@@ -470,7 +553,13 @@ class DecoderModel:
         h = common.embed(params["embed"], token, self._emb_scale())
         for i, (lp, kind) in enumerate(zip(params["layers"], self.kinds)):
             hn = common.rmsnorm(lp["pre_norm"], h)
-            if tables is not None and kind == GLOBAL:
+            if kind == SSD:
+                out, cache["layers"][i] = mamba2.ssd_decode(
+                    lp["ssd"], hn, cache["layers"][i], cfg)
+            elif kind == RGLRU:
+                out, cache["layers"][i] = rglru.rglru_decode(
+                    lp["rglru"], hn, cache["layers"][i], cfg)
+            elif tables is not None and kind == GLOBAL:
                 out, _ = kvcache.attention_decode_paged(
                     lp["attn"], hn, cache["layers"][i], tables, pos, cfg,
                     container=self.kv_container,
@@ -484,8 +573,9 @@ class DecoderModel:
                 out, _ = attention.attention_decode(
                     lp["attn"], hn, cache["layers"][i], pos, cfg, kind=kind)
             h = h + out
-            hm = common.rmsnorm(lp["mlp_norm"], h)
-            h = h + self._ffn_decode(lp, hm)
+            if kind != SSD:
+                hm = common.rmsnorm(lp["mlp_norm"], h)
+                h = h + self._ffn_decode(lp, hm)
         h = common.rmsnorm(params["final_norm"], h)
         logits = common.unembed(params, h, tied=cfg.tie_embeddings,
                                 softcap=cfg.final_softcap,

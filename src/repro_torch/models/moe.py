@@ -46,12 +46,6 @@ def moe_init(cfg: ArchConfig, gen: torch.Generator, device, dtype
     return params
 
 
-def param_count(cfg: ArchConfig) -> int:
-    """Parameters of one layer's MoE: the router and every expert."""
-    d, E, ffe = cfg.d_model, cfg.n_experts, cfg.d_ff_expert
-    return d * E + E * ((3 if cfg.glu else 2) * d * ffe)
-
-
 def capacity_for(cfg: ArchConfig, tokens_per_group: int) -> int:
     c = int(tokens_per_group * cfg.top_k / cfg.n_experts
             * cfg.capacity_factor)

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch import codecs, resolve_device
-from repro_torch.configs.base import GLOBAL
+from repro_torch.configs.base import GLOBAL, RGLRU, SSD
 from repro_torch.kernels import ops
 from repro_torch.models.model import DecoderModel
 from repro_torch.serve import kvcache
@@ -105,6 +105,11 @@ class PagedEngine:
         if cfg.prefix_tokens:
             raise NotImplementedError(
                 "prefix-conditioned archs are not paged-served yet")
+        if set(cfg.period) & {SSD, RGLRU}:
+            raise NotImplementedError(
+                f"{cfg.name}: paged serving of SSD / RG-LRU state (per-slot "
+                f"state, rewound on a speculative round) is the next slice "
+                f"of the port (ROADMAP §A5b); use generate")
         self.model = model
         self.params = params
         self.cfg = cfg

@@ -69,14 +69,17 @@ def _scope_lambdas(model: DecoderModel, batch_shape: Tuple[int, int]
     and weight footprint. Activation stash per period: B * (S + P) * d
     values, P a prefix-LM's prefix (``cfg.prefix_tokens``, counted as the
     JAX package counts it, whether or not the batch carries one); weights
-    per period: the parameter count of its layers."""
+    per period: the parameter count of its layers, 1-D leaves included
+    (each kind its own: an RG-LRU layer and a LOCAL one differ); per
+    remainder scope: the mean of the remainder layers' counts, as the JAX
+    package weighs them."""
     cfg = model.cfg
     B, S = batch_shape
-    per_layer = model.layer_param_count()
-    per_period = len(cfg.period) * per_layer
+    per_period = sum(model.layer_param_count(k) for k in cfg.period)
     act = float(B * (S + cfg.prefix_tokens) * cfg.d_model)
     n_rem = len(cfg.remainder)
-    rem_w = float(per_layer) if n_rem else 0.0
+    rem_w = (sum(model.layer_param_count(k) for k in cfg.remainder) / n_rem
+             if n_rem else 0.0)
     total = (act + per_period) * cfg.n_periods + (act + rem_w) * n_rem
 
     def full(n, v):

@@ -655,10 +655,10 @@ def test_compress_grads_kernel_vs_plain(dev, codec):
 HD16 = [(240, 16, 8), (144, 32, 16)]
 
 
-def _check_attention(dev, seed, hd, H, KH, window, softcap):
+def _check_attention(dev, seed, hd, H, KH, window, softcap, S=129):
     """Forward within one bf16 ulp of plain with its log-sum-exp, backward
     within 2^-6; bit-equal twice and row by row against the batch."""
-    B, S, rep = 2, 129, H // KH
+    B, rep = 2, H // KH
     q, k, v, do = _attention_inputs(dev, seed, B, S, KH, hd, rep)
     kw = dict(causal=True, window=window, softcap=softcap, q_rep=rep)
 
@@ -883,3 +883,22 @@ def test_moe_generate_and_step_vs_plain(dev, arch):
     assert k["loss"] > k["xent"] and p["moe_lb_loss"] > 0
     assert abs(k["moe_lb_loss"] - p["moe_lb_loss"]) <= 1e-2 * p[
         "moe_lb_loss"]
+
+
+# recurrentgemma-9b's LOCAL layers: 16 q heads over one KV head of 256 (GQA
+# rep 16) with a sliding window of 2048. At S 2200 the window cuts the
+# attention of the last 152 positions, as a prefill past it does.
+@pytest.mark.parametrize("window", [None, 2048])
+def test_flash_attention_rep16_hd256_window2048(dev, window):
+    _check_attention(dev, 25, 256, 16, 1, window, None, S=2200)
+
+
+@pytest.mark.parametrize("container,draft", [("sfp8", None), ("sfp8", 7),
+                                             ("sfp-m2e4", None),
+                                             ("sfp-m2e4", 6)])
+def test_decode_rep16_hd256_ring2048(dev, container, draft):
+    """The 2048-slot ring of recurrentgemma's LOCAL layers, read at
+    positions that wrapped it (4159, 2048), filled it (2047) and did not
+    (1000)."""
+    _check_decode(dev, 26, 256, 16, 1, container, draft, 2048,
+                  [4159, 2048, 2047, 1000])
