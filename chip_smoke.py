@@ -265,17 +265,23 @@ against the ``repro_torch`` package under DIR (default: this checkout's
    and the ring decode reads (words and planes, full width and draft)
    over 2048 slots, held and timed; (c) serving mamba2 whole (batch 4,
    2048-token prompts, 64 new tokens; no kernel runs) and recurrentgemma
-   whole (batch 4, 4096-token prompts past the window, 64 new tokens,
-   sfp8 and sfp-m2e4), against the plain path, the prefill logits held
-   to twice an f64-attention prefill's distance plus one bf16 spacing at
-   the largest logit, and silencing every layer of a kind (its output
-   projection zeroed) must move them past that gate (the last layer of
-   each kind alone is printed); mamba2's greedy stream must not repeat
-   the fed token; (d) 4 training steps each,
-   mamba2 whole (B 4, S 2048; qm + sfp8 and qm+qe + sfp-m2e4, every
-   gradient finite) and recurrentgemma at full widths over 8 layers (B 2,
-   S 4096; qm + sfp8, and qm+qe + sfp-m2e4
-   with the attention-plain witness).
+   at full widths over 14 layers (batch 4, 4096-token prompts past the
+   window, 64 new tokens, sfp8 and sfp-m2e4), against the plain path, the
+   prefill logits held to twice an f64-attention prefill's distance plus
+   one bf16 spacing at the largest logit, and silencing every layer of a
+   kind (its output projection zeroed) must move them past that gate (the
+   last layer of each kind alone is printed); the decode logits after
+   steps 1, 32 and 63 held to the same gate against the plain path fed
+   the same tokens; mamba2's greedy stream must not repeat the fed token;
+   (d) 4 training steps each, mamba2 at full width over 24 layers (B 4, S
+   2048; qm + sfp8 and qm+qe + sfp-m2e4, every gradient finite) and
+   recurrentgemma at full widths over 8 layers (B 2, S 4096; qm + sfp8,
+   and qm+qe + sfp-m2e4 with the attention-plain witness); (e) seeded
+   12-request paged traces through the scheduler and the paged engine,
+   mamba2 over 8 layers and recurrentgemma over 8, at --burst 1,
+   --speculate 4 and under forced draft rejections (recurrentgemma also
+   sfp-m2e4 --speculate 4): every request finished after a preemption,
+   the launches counted, the speculative streams held to burst 1.
 
 Any failure exits non-zero. The last line is the device JSON.
 """
@@ -1641,7 +1647,9 @@ def serve_run(torch, cfg, gen, counters, container, prompt_len=PROMPT,
     the f64-attention prefill) prefills one request at a time
     (``prefill_by_rows``). With ``layer_faults``, the prefill is held
     without the E2E floors and the silenced layers of each kind must move
-    its logits past that gate (``layer_fault_moves``)."""
+    its logits past that gate (``layer_fault_moves``), and the last
+    logits of decode steps DECODE_HELD are held to the same gate against
+    the plain path fed the kernel path's tokens (``decode_logit_gaps``)."""
     from repro_torch import codecs
     from repro_torch.kernels import ops
     from repro_torch.models.model import DecoderModel
@@ -1668,8 +1676,10 @@ def serve_run(torch, cfg, gen, counters, container, prompt_len=PROMPT,
         c.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    held = {}
     t0 = time.perf_counter()
-    with recorded("kernel"):
+    with recorded("kernel"), (held_steps(model, held) if layer_faults
+                              else contextlib.nullcontext()):
         res = engine.generate(model, params, prompt, MAX_NEW,
                               cond_embeddings=cond)
     torch.cuda.synchronize()
@@ -1797,6 +1807,9 @@ def serve_run(torch, cfg, gen, counters, container, prompt_len=PROMPT,
         exact["layer_fault_prefill_logit_max_mean_diff"] = layer_fault_moves(
             torch, model, params, prompt, max_len, res.prefill_logits,
             (g_max, g_mean))
+        exact["decode_logit_max_mean_diff_vs_plain"] = decode_logit_gaps(
+            torch, model, params, prompt, res.tokens, max_len, held,
+            (g_max, g_mean))
     if prefix:
         # The prefix must move the logits further on average than the
         # kernels' rounding moves them from the plain path's. (Not at
@@ -1841,6 +1854,60 @@ def serve_run(torch, cfg, gen, counters, container, prompt_len=PROMPT,
     if fields is None:
         e2e.update(raw_cache_check(torch, cfg, model, params, prompt, toks))
     return e2e, launches
+
+
+@contextlib.contextmanager
+def held_steps(model, held):
+    """Within the block, ``model``'s own ``decode_step`` keeps in ``held``
+    the last logits (valid vocabulary) of its calls numbered DECODE_HELD,
+    from 1: decode step n reads the n-th generated token."""
+    step, n = model.decode_step, [0]
+    V = model.cfg.vocab
+
+    def wrapped(*args, **kw):
+        logits, cache = step(*args, **kw)
+        n[0] += 1
+        if n[0] in DECODE_HELD:
+            held[n[0]] = logits[:, -1, :V].float().clone()
+        return logits, cache
+    model.decode_step = wrapped
+    try:
+        yield
+    finally:
+        del model.decode_step
+
+
+def decode_logit_gaps(torch, model, params, prompt, toks, max_len, held,
+                      lim):
+    """The plain path prefilled (one request at a time) and stepped with
+    the kernel path's own tokens ``toks``: its last logits at decode steps
+    DECODE_HELD against the kernel path's (``held``), each within the
+    prefill's gate ``lim`` (max, mean). Returns {step: (max, mean)}."""
+    from repro_torch.kernels import ops
+    V, S = model.cfg.vocab, prompt.shape[1]
+    out = {}
+    ops.force_backend("plain")
+    try:
+        with torch.inference_mode():
+            with prefill_by_rows(torch, model):
+                _, cache = model.prefill(params, prompt, max_len)
+            for i in range(max(DECODE_HELD)):
+                logits, cache = model.decode_step(params, cache,
+                                                  toks[:, i:i + 1], S + i)
+                if i + 1 in DECODE_HELD:
+                    d = (held[i + 1] - logits[:, -1, :V].float()).abs()
+                    out[i + 1] = (d.max().item(), d.mean().item())
+    finally:
+        ops.force_backend(None)
+    del cache
+    print(f"  decode logits, kernel path against plain fed the same tokens "
+          f"(step: max, mean; gate {lim[0]:.4f} / {lim[1]:.4f}): "
+          + json.dumps(out))
+    bad = {k: v for k, v in out.items() if v[0] > lim[0] or v[1] > lim[1]}
+    if bad:
+        fail(f"{model.cfg.name}: decode logits off the plain path past the "
+             f"prefill's gate: {bad}")
+    return out
 
 
 def layer_fault_moves(torch, model, params, prompt, max_len, logits, lim):
@@ -2052,16 +2119,36 @@ def trace_stream_check(torch, model, params, reqs, out, max_len):
     return whole, agree
 
 
+def layer_bytes(eng, kinds):
+    """Device bytes a slot of the engine's layers of ``kinds`` hold (the
+    SSD / RG-LRU state, or the LOCAL rings)."""
+    from repro_torch.configs.base import LOCAL
+    total = 0
+    for kind, layer in zip(eng.model.kinds, eng.mem["layers"]):
+        if kind in kinds:
+            parts = ([t for pt in layer for t in pt.data.values()]
+                     if kind == LOCAL else layer)
+            total += sum(t.numel() * t.element_size() for t in parts)
+    return total // eng.max_slots
+
+
 def trace_run(torch, cfg, counters, model, params, container, speculate,
-              against_generate=True):
-    """The seeded trace through Scheduler over PagedEngine: returns the
-    record, the launches of the run and its streams (held to contiguous
-    ``generate`` unless ``against_generate`` is False)."""
+              against_generate=True, traffic=PAGED_TRACE):
+    """The seeded trace (``traffic``: make_trace's flags) through Scheduler
+    over PagedEngine: returns the record, the launches of the run and its
+    streams (held to contiguous ``generate`` unless ``against_generate``
+    is False). Every request must finish, leaving the pool's invariants
+    and no held block. Per model step each GLOBAL layer reads the pool
+    once and each LOCAL layer its ring once, as a draft in the draft half
+    of a speculative round; each attention layer packs its K and V once a
+    step and once a prefill, and prefills through the attention kernel
+    once (the engine's prefill count); SSD and RG-LRU layers launch no
+    kernel."""
     from repro_torch.launch import serve as tserve
     from repro_torch.serve import engine
     from repro_torch.serve.scheduler import Scheduler
     argv = ["--arch", cfg.name, "--preset", "full", "--trace",
-            "--kv-container", container, *PAGED_TRACE]
+            "--kv-container", container, *traffic]
     if speculate:
         argv += ["--speculate", str(speculate)]
     args = tserve.build_parser().parse_args(argv)
@@ -2069,7 +2156,18 @@ def trace_run(torch, cfg, counters, model, params, container, speculate,
                              max_len=args.max_len,
                              num_blocks=args.num_blocks)
     reqs = tserve.make_trace(args, cfg.vocab)
-    sched = Scheduler(eng)
+    # Each request's tokens streamed so far, and the counts at which it
+    # was preempted (``preempted_at``; it resumes by a recompute prefill).
+    emitted, preempted = {}, {}
+    sched = Scheduler(eng, on_token=lambda uid, tok, done:
+                      emitted.__setitem__(uid, emitted.get(uid, 0) + 1))
+    preempt = sched._preempt
+
+    def preempt_recorded(st):
+        preempted.setdefault(st.req.uid, []).append(emitted.get(st.req.uid,
+                                                                0))
+        preempt(st)
+    sched._preempt = preempt_recorded
     clock = {"t": 0.0}
 
     def now():
@@ -2080,8 +2178,14 @@ def trace_run(torch, cfg, counters, model, params, container, speculate,
         c.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = sched.run(reqs, now_fn=now, speculate=speculate)
-    torch.cuda.synchronize()
+    try:
+        out = sched.run(reqs, now_fn=now, speculate=speculate)
+        torch.cuda.synchronize()
+    finally:
+        # The wrapper holds the scheduler, and through it the engine and
+        # the model: left in place, the cycle keeps them on the card until
+        # a collection.
+        del sched._preempt
     wall = time.perf_counter() - t0
     launches = {c.__name__: c.launches for c in counters}
     s = sched.stats
@@ -2095,12 +2199,14 @@ def trace_run(torch, cfg, counters, model, params, container, speculate,
     draft = steps // 2 if speculate else 0
     full = steps - draft
     from repro_torch import codecs
-    from repro_torch.configs.base import GLOBAL
+    from repro_torch.configs.base import GLOBAL, LOCAL, RGLRU, SSD
     dense = codecs.get(container).pack_fields(cfg.compute_dtype).dense
     sfx = "_dense" if dense else ""
     n_global = sum(k == GLOBAL for k in model.kinds)
-    n_local = cfg.n_layers - n_global
-    n_fa = launches["flash_attention"]
+    n_local = sum(k == LOCAL for k in model.kinds)
+    n_attn = n_global + n_local
+    snap = sched.obs.registry.snapshot()
+    prefills = snap["serve_prefill_seconds"]["series"][0]["count"]
     expect = {c.__name__: 0 for c in counters}
     expect.update({
         "paged_flash_decode" + sfx: n_global * full,
@@ -2108,12 +2214,11 @@ def trace_run(torch, cfg, counters, model, params, container, speculate,
         "paged_flash_decode" + sfx + "_draft": n_global * draft,
         "packed_flash_decode" + sfx + "_draft": n_local * draft,
         "bitplane_pack" if dense else "sfp_pack":
-            2 * cfg.n_layers * (steps + n_fa // cfg.n_layers),
-        "flash_attention": n_fa})
-    if launches != expect or n_fa % cfg.n_layers or n_fa == 0:
+            2 * n_attn * (steps + prefills),
+        "flash_attention": n_attn * prefills})
+    if launches != expect or prefills < len(reqs):
         fail(f"trace {container} speculate={speculate}: launches "
-             f"{launches} != expected {expect}")
-    snap = sched.obs.registry.snapshot()
+             f"{launches} != expected {expect} ({prefills} prefills)")
 
     def mean_ms(name):
         ser = snap.get(name, {"series": []})["series"]
@@ -2126,8 +2231,9 @@ def trace_run(torch, cfg, counters, model, params, container, speculate,
            "scheduler_steps": snap["serve_step_seconds"]["series"][0][
                "count"],
            "model_steps": steps, "preemptions": s.preemptions,
+           "preempted_at": preempted,
            "recompute_tokens": s.recompute_tokens,
-           "prefills": n_fa // cfg.n_layers,
+           "prefills": prefills,
            "pool_blocks": eng.pool.num_blocks,
            "pool_peak_used": eng.pool.stats().peak_used,
            "decode_ms_per_scheduler_step": mean_ms("serve_decode_seconds"),
@@ -2141,6 +2247,8 @@ def trace_run(torch, cfg, counters, model, params, container, speculate,
            "ring_launches_per_model_step":
                (launches["packed_flash_decode" + sfx]
                 + launches["packed_flash_decode" + sfx + "_draft"]) / steps,
+           "state_bytes_per_slot": layer_bytes(eng, (SSD, RGLRU)),
+           "ring_bytes_per_slot": layer_bytes(eng, (LOCAL,)),
            "launches": {k: v for k, v in launches.items() if v}}
     if speculate:
         rec.update(spec_rounds=s.spec_rounds, drafted=s.drafted,
@@ -3133,21 +3241,25 @@ def moe_paths(torch, counters, card, gen, flush, which):
 
 # The recurrent families (slice 19). mamba2-370m: 48 SSD layers (d_model
 # 1024, 32 heads of 64, state 128, chunk 128; no attention and no MLP), a
-# tied 50,280-word vocabulary; 0.37 B parameters, served and trained
-# whole: batch 4, 2048-token prompts (16 chunks), 64 new tokens; 4 steps
-# at B 4, S 2048 with qm + sfp8 and qm+qe + sfp-m2e4, every gradient
-# finite at every step (the grad norm is finite only if every gradient
-# is; the JAX reference's SSD gradients turn NaN at a full chunk of 128).
-# Its serving runs no TPU kernel (no attention, and the SSD state is not
-# packed); its training runs the stash kernels, 48 packs a step.
+# tied 50,280-word vocabulary; 0.37 B parameters, served whole: batch 4,
+# 2048-token prompts (16 chunks), 64 new tokens; trained at full width
+# over 24 layers (cut from 48 to keep the smoke inside its time limit
+# beside the paged traces): 4 steps at B 4, S 2048 with qm + sfp8
+# and qm+qe + sfp-m2e4, every gradient finite at every step (the grad
+# norm is finite only if every gradient is; the JAX reference's SSD
+# gradients turn NaN at a full chunk of 128). Its serving runs no TPU
+# kernel (no attention, and the SSD state is not packed); its training
+# runs the stash kernels, a pack a layer a step.
 # recurrentgemma-9b: 38 layers, 12 (rglru, rglru, local) periods and a
 # remainder of two RG-LRU layers (d_model 4096, lru 4096, 16 q / 1 KV
 # head of 256, GQA rep 16, window 2048, GLU-GELU d_ff 12288, a tied
 # 256,000-word vocabulary with emb_scale); 8.52 B parameters (17.0 GB of
-# bf16; JAX's param_count says 9.40 B, ROADMAP §C), served whole at
-# batch 4 from 4096-token prompts (past the window: the prefill kernel
-# masks and the decode ring wraps), 64 new
-# tokens, sfp8 and sfp-m2e4; trained at full widths over 8 layers (two
+# bf16; JAX's param_count says 9.40 B, ROADMAP §C), served at full
+# widths over 14 layers (four periods and the remainder; cut from 38 for
+# the time limit, as mamba2's training) at batch 4 from
+# 4096-token prompts (past the window: the prefill kernel masks and the
+# decode ring wraps), 64 new tokens, sfp8 and sfp-m2e4; trained at full
+# widths over 8 layers (two
 # periods and the two remainder layers, whose straight-through stash
 # decision then runs) at B 2, S 4096: whole, its bf16 weights and
 # gradients and f32 moments would take ~113 GB. Its 12 LOCAL layers run
@@ -3155,7 +3267,8 @@ def moe_paths(torch, counters, card, gen, flush, which):
 # 256, window 2048.
 M2_ARCH, RG_ARCH = "mamba2-370m", "recurrentgemma-9b"
 M2_B, M2_PROMPT, M2_TRAIN_B, M2_TRAIN_SEQ = 4, 2048, 4, 2048
-RG_B, RG_PROMPT = 4, 4096
+M2_TRAIN_LAYERS = 24
+RG_B, RG_PROMPT, RG_SERVE_LAYERS = 4, 4096, 14
 RG_TRAIN_B, RG_TRAIN_SEQ, RG_TRAIN_LAYERS = 2, 4096, 8
 RG_RING_POS = (4159, 4096, 2047, 1000)   # decode reads over the 2048 ring
 # The recurrence twins: the chunked prefill (mamba2) or the log-depth scan
@@ -3169,6 +3282,40 @@ RG_RING_POS = (4159, 4096, 2047, 1000)   # decode reads over the 2048 ring
 TWIN_PROMPT, TWIN_RTOL = 300, 1e-4
 SELF_REPEAT_MAX = 0.5   # mamba2's greedy tokens equal to the token fed
 TWIN_LAYERS = {M2_ARCH: 8, RG_ARCH: 5}
+# The recurrent decode logits held against the plain path: the last
+# logits after these decode steps of the served batch (of MAX_NEW - 1).
+DECODE_HELD = (1, 32, 63)
+# Paged serving of recurrent state, inside the recurrent phases' table
+# scaling, each trace through Scheduler over PagedEngine: sfp8 --burst 1
+# (streams held to generate), sfp8 --speculate 4 (held to burst 1,
+# ``against_burst_1``), an sfp8 --speculate 4 run whose draft steps are
+# biased (``forced_rejections``: random weights accept every draft, and
+# only a rejected one commits the recurrent state of a verify step before
+# the last), and for recurrentgemma also sfp-m2e4 --speculate 4 (the
+# P' = 6 dense draft, held to generate). mamba2 runs at full width over
+# M2_PAGED_LAYERS of its 48 layers: whole, its three traces took 103 s on
+# the H100 (72 s at 24 layers), and the smoke ran 1,109 s of its 1,200;
+# the scheduler, the pool and the state protocol do the same work a
+# layer.
+# It takes PAGED_TRACE's traffic on 17 blocks: at its vocabulary of
+# 50,280 the seeded draws give other lengths than gemma2-2b's, and 23
+# blocks preempt none (the scheduler alone, on the CPU, before any chip
+# run; 17 preempts in all three runs). recurrentgemma runs at full widths
+# over RG_TRAIN_LAYERS (two periods and the remainder); its prompts
+# (1,792-2,304 tokens) cross the 2,048 window, so the prefill masks and
+# the rings wrap in decode and within rounds; its pool of 32 blocks holds
+# about two requests and preempts one in each run (the same host check,
+# also with random draft rejections).
+M2_PAGED_TRACE = PAGED_TRACE[:-4] + ["--num-blocks", "17",
+                                     "--seed", str(SEED)]
+RG_PAGED_TRACE = ["--requests", "12", "--prompt-len-min", "1792",
+                  "--prompt-len-max", "2304", "--max-new-min", "16",
+                  "--max-new-max", "48", "--arrival-rate", "4",
+                  "--max-slots", str(PAGED_SLOTS), "--max-len", "2432",
+                  "--num-blocks", "32", "--seed", str(SEED)]
+M2_PAGED_LAYERS = 8
+FORCE_EVERY = 5   # a draft step of slot s at position p is biased where
+                  # (p + s) % FORCE_EVERY == 0
 
 
 def recurrent_twin(torch, cfg, device="cuda"):
@@ -3264,12 +3411,124 @@ def fan_in_embeddings(torch):
         DecoderModel.init = init
 
 
+@contextlib.contextmanager
+def forced_rejections(torch, model):
+    """Within the block, ``model``'s own ``decode_step_paged`` (the
+    instance's, as tests/test_torch_recurrent_paged.py patches it) puts
+    1e4 on token (31 p + 7 s) mod vocab of slot s at position p of a
+    draft step (``prefix_planes`` set) where (p + s) % FORCE_EVERY == 0:
+    drafts are rejected at every step of a round as positions advance."""
+    step, vocab = model.decode_step_paged, model.cfg.vocab
+
+    def biased(params, mem, tok, pos, tables, prefix_planes=None):
+        logits, mem = step(params, mem, tok, pos, tables,
+                           prefix_planes=prefix_planes)
+        if prefix_planes is None:
+            return logits, mem
+        s = torch.arange(tok.shape[0], device=tok.device)
+        hit = (pos + s) % FORCE_EVERY == 0
+        target = (pos * 31 + s * 7) % vocab
+        cols = torch.arange(logits.shape[-1], device=tok.device)
+        bias = ((cols[None, :] == target[:, None]) & hit[:, None]) * 1e4
+        return logits + bias[:, None, :], mem
+    model.decode_step_paged = biased
+    try:
+        yield
+    finally:
+        del model.decode_step_paged
+
+
+def against_burst_1(path, base, base_at, out, out_at):
+    """A speculative trace's streams ``out`` against burst 1's ``base``
+    (``*_at``: each run's ``preempted_at``). A request resumed after a
+    preemption is prefilled again over its prompt and the tokens it had
+    streamed: the chunked SSD or the RG-LRU scan reaches its state by
+    another order of f32 sums than stepping did (the twins: ~1e-5 of the
+    largest element), which may flip a near tie at a later token. So each
+    stream must equal burst 1's in full where both runs preempted the
+    request at the same counts, and up to the first count where the runs'
+    preemptions part elsewhere. Returns (requests equal in full, {uid:
+    (count where the preemptions part, tokens equal before the first
+    difference)} of the requests whose preemptions part)."""
+    if sorted(base) != sorted(out):
+        fail(f"{path}: requests {sorted(out)} != burst 1's {sorted(base)}")
+    whole, parted = 0, {}
+    for u in base:
+        a, b = base_at.get(u, []), out_at.get(u, [])
+        n, got, want = len(base[u]), list(out[u]), list(base[u])
+        part = next((min(x, y) for x, y in zip(a, b) if x != y), None)
+        if part is None and len(a) != len(b):
+            part = max(a, b, key=len)[min(len(a), len(b))]
+        same = next((t for t in range(n) if got[t] != want[t]), n)
+        whole += same == n
+        if part is not None:
+            parted[u] = (part, same)
+        if same < min(n, n if part is None else part):
+            fail(f"{path}: request {u} leaves burst 1's stream at token "
+                 f"{same} (preempted at {b} here, at {a} in burst 1)")
+    return whole, parted
+
+
+def recurrent_traces(torch, counters, card, cfg, which):
+    """The recurrent phase's paged traces (see RG_PAGED_TRACE): every run
+    preempts and finishes every request with the generalized launch
+    counts (``trace_run``); the speculative sfp8 streams, forced
+    rejections included, equal burst 1's (``against_burst_1``); forced
+    acceptance below 1.
+    Returns (the records, the launches of each path)."""
+    from repro_torch.models.model import DecoderModel
+    if which == "mamba2":
+        cfg = dataclasses.replace(cfg, n_layers=M2_PAGED_LAYERS)
+        traffic, dense = M2_PAGED_TRACE, ()
+    else:
+        cfg = dataclasses.replace(cfg, n_layers=RG_TRAIN_LAYERS)
+        traffic, dense = RG_PAGED_TRACE, ((DENSE, SPEC_K, " dense spec"),)
+    summary, launches, streams, model = {}, {}, {}, None
+    for container, speculate, suffix in (
+            (CONTAINER, None, ""), (CONTAINER, SPEC_K, " spec"),
+            (CONTAINER, SPEC_K, " forced")) + dense:
+        path = f"serve paged {which}{suffix}"
+        t0 = time.perf_counter()
+        if model is None or model.kv_container != container:
+            model = params = None
+            torch.cuda.empty_cache()
+            model = DecoderModel(cfg, kv_container=container,
+                                 device=torch.device("cuda"))
+            params = model.init(SEED)
+        forced = suffix == " forced"
+        with (forced_rejections(torch, model) if forced
+              else contextlib.nullcontext()):
+            rec, launches[path], out = trace_run(
+                torch, cfg, counters, model, params, container, speculate,
+                against_generate=suffix in ("", " dense spec"),
+                traffic=traffic)
+        rec.update(layers=cfg.n_layers, card=card)
+        if rec["preemptions"] == 0:
+            fail(f"{path}: no request was preempted: the pool does not "
+                 f"gate the trace")
+        if container == CONTAINER and speculate:
+            whole, parted = against_burst_1(path, *streams[CONTAINER],
+                                            out, rec["preempted_at"])
+            rec.update(streams_identical_to_burst_1=whole,
+                       parted_preemptions=parted)
+        if forced and not rec["acceptance_rate"] < 1:
+            fail(f"{path}: every draft was accepted under forced rejections")
+        streams.setdefault(container, (out, rec["preempted_at"]))
+        print(f"trace {path}: " + json.dumps(rec))
+        print(f"trace {path}: {time.perf_counter() - t0:.1f} s")
+        summary[path] = rec
+    del model, params
+    torch.cuda.empty_cache()
+    return summary, launches
+
+
 def recurrent_phase(torch, counters, card, gen, flush, which):
     """The mamba2-370m (``which`` "mamba2") or recurrentgemma-9b
     ("recurrentgemma") phase: the kernel checks (recurrentgemma), then,
-    with the embeddings at the head's fan-in, the recurrence twin and
-    serving and training against the plain path. Returns (its summary,
-    the launches of each of its paths)."""
+    with the embeddings at the head's fan-in, the recurrence twin,
+    serving and training against the plain path, and the paged traces
+    (``recurrent_traces``). Returns (its summary, the launches of each of
+    its paths)."""
     from repro_torch import configs
     if which == "mamba2":
         cfg = configs.get(M2_ARCH)
@@ -3277,11 +3536,13 @@ def recurrent_phase(torch, counters, card, gen, flush, which):
         serve_kw = dict(prompt_len=M2_PROMPT, batch=M2_B)
         training = (("qm", CONTAINER, False, ""),
                     ("qm+qe", DENSE, False, " dense"))
-        train_kw = dict(batch=M2_TRAIN_B, seq=M2_TRAIN_SEQ)
+        train_kw = dict(batch=M2_TRAIN_B, seq=M2_TRAIN_SEQ,
+                        depth=M2_TRAIN_LAYERS)
         summary = {"kernels": {}}
     else:
         cfg = configs.get(RG_ARCH)
-        serving = ((cfg, CONTAINER, ""), (cfg, DENSE, " dense"))
+        scfg = dataclasses.replace(cfg, n_layers=RG_SERVE_LAYERS)
+        serving = ((scfg, CONTAINER, ""), (scfg, DENSE, " dense"))
         serve_kw = dict(prompt_len=RG_PROMPT, batch=RG_B)
         training = (("qm", CONTAINER, False, ""),
                     ("qm+qe", DENSE, True, " dense"))
@@ -3297,6 +3558,12 @@ def recurrent_phase(torch, counters, card, gen, flush, which):
                                 summary, serving,
                                 dict(serve_kw, layer_faults=True), training,
                                 train_kw)
+        t0 = time.perf_counter()
+        traces, trace_launches = recurrent_traces(torch, counters, card,
+                                                  cfg, which)
+        summary.update(traces)
+        launches.update(trace_launches)
+        print(f"paged traces {which}: {time.perf_counter() - t0:.1f} s")
     # At the head's fan-in the SSD layers decide mamba2's next token (at
     # unit scale its greedy stream repeated each fed token).
     # recurrentgemma's sqrt(d_model) embedding scale keeps the fed token's
@@ -5438,9 +5705,10 @@ def recurrent_entry(name, r, rg, path_launches):
     for path, n in sorted(path_launches.items()):
         if ("mamba2" in path or "recurrentgemma" in path) and n.get(name):
             train = path.startswith("train")
+            unit = ("step" if train else "trace" if "paged" in path
+                    else "generate")
             notes.append(f"{n[name] // TRAIN_STEPS if train else n[name]} "
-                         f"launches per {path} "
-                         f"{'step' if train else 'generate'}")
+                         f"launches per {path} {unit}")
     if name in ("flash_attention", "flash_attention_bwd"):
         g = rg["kernels"]["attention"][name]
         notes.append(

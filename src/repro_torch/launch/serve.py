@@ -35,6 +35,7 @@ Weights are random, drawn from ``--seed``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 from pathlib import Path
@@ -44,7 +45,8 @@ import torch
 
 from repro_torch import configs, resolve_device
 from repro_torch import obs as obs_mod
-from repro_torch.configs.base import RGLRU, SSD, reduced
+from repro_torch.configs.base import reduced
+from repro_torch.kernels.ref import GROUP
 from repro_torch.launch.args import container_name, prefix_zeros
 from repro_torch.models.model import DecoderModel
 from repro_torch.serve import engine, faults, precision
@@ -57,6 +59,8 @@ def build_model(args):
         cfg = reduced(cfg)
     elif args.preset == "small":
         cfg = reduced(cfg, n_layers=max(2 * len(cfg.period), 4), d_model=256)
+    if args.preset != "full" and getattr(args, "trace", False):
+        cfg = paged_heads(cfg)
     container = args.kv_container
     if args.policy_ckpt:
         container = precision.container_from_checkpoint(args.policy_ckpt)
@@ -64,6 +68,17 @@ def build_model(args):
     model = DecoderModel(cfg, kv_container=container,
                          device=resolve_device(args.device))
     return cfg, model, model.init(args.seed)
+
+
+def paged_heads(cfg):
+    """``cfg``, or a cut whose KV rows do not fill a whole 128-lane group
+    (mamba2's and recurrentgemma's: one KV head of 64 or 32 lanes) with
+    its KV heads widened to fill one: the paged pool and the packed rings
+    store whole groups (the JAX launcher's cut fails its lane assert)."""
+    D = cfg.n_kv_heads * cfg.head_dim_
+    if D % GROUP == 0 or GROUP % cfg.n_kv_heads:
+        return cfg
+    return dataclasses.replace(cfg, head_dim=GROUP // cfg.n_kv_heads)
 
 
 def _sync(dev: torch.device) -> None:
@@ -172,10 +187,6 @@ def run_trace(args) -> dict:
         raise SystemExit(f"--trace: {cfg.name} is a prefix-LM, which the "
                          f"paged engine does not serve (as in the JAX "
                          f"package); use batch mode")
-    if set(cfg.period) & {SSD, RGLRU}:
-        raise SystemExit(f"--trace: {cfg.name} has SSD / RG-LRU layers, "
-                         f"whose paged serving is the next slice of the "
-                         f"port (ROADMAP §A5b); use batch mode")
     eng = engine.PagedEngine(model, params, max_slots=args.max_slots,
                              max_len=args.max_len,
                              num_blocks=args.num_blocks,

@@ -537,9 +537,11 @@ class DecoderModel:
         With ``tables`` (B, nb) this is the continuous-batching paged
         step: GLOBAL layers of ``cache`` hold ``kvcache.PagedKV`` pool
         slices addressed through the tables, LOCAL layers per-slot packed
-        rings read at per-row positions (idle slots carry pos 0 and a
-        trash-block table row; their logits are garbage the engine
-        discards). ``prefix_planes`` makes every packed-attention read
+        rings read at per-row positions, SSD and RG-LRU layers a per-slot
+        state row, stepped as in the contiguous path and replaced (idle
+        slots carry pos 0 and a trash-block table row; their logits and
+        state are garbage the engine discards or overwrites at the next
+        prefill). ``prefix_planes`` makes every packed-attention read
         decode only the leading P' payload bits (the speculative draft);
         K/V writes stay full width. Both need ``kv_container``."""
         if (tables is not None or prefix_planes is not None) and \

@@ -9,8 +9,9 @@ Two modes share the model:
   number of batch *slots* share one codec-packed KV block pool
   (serve/pool.py); one fixed-shape decode step advances every slot at its
   own position, and the paged decode kernel reads the GLOBAL layers'
-  blocks through the block table. Queueing, admission and preemption live
-  above, in serve/scheduler.py.
+  blocks through the block table; LOCAL layers keep per-slot rings and SSD
+  / RG-LRU layers per-slot recurrent state. Queueing, admission and
+  preemption live above, in serve/scheduler.py.
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch import codecs, resolve_device
-from repro_torch.configs.base import GLOBAL, RGLRU, SSD
+from repro_torch.configs.base import GLOBAL, LOCAL, RGLRU, SSD
 from repro_torch.kernels import ops
 from repro_torch.models.model import DecoderModel
 from repro_torch.serve import kvcache
@@ -83,7 +84,10 @@ class PagedEngine:
     ``max_slots`` requests decode together in one step; each GLOBAL layer
     stores K/V in codec-packed physical blocks (``block_l`` = the decode
     kernel's tile) shared by the slots and addressed through per-slot block
-    tables; LOCAL layers keep per-slot packed rings (window-bounded). Idle
+    tables; LOCAL layers keep per-slot packed rings (window-bounded), SSD
+    and RG-LRU layers a ``max_slots``-row state (an arch without a GLOBAL
+    layer prices a block at 0 bytes: the pool still gates admission by
+    block count, and the integrity checks have nothing to check). Idle
     slots run the same step on the trash block and their outputs are
     discarded, so the step has one shape whatever requests come and go.
 
@@ -105,11 +109,6 @@ class PagedEngine:
         if cfg.prefix_tokens:
             raise NotImplementedError(
                 "prefix-conditioned archs are not paged-served yet")
-        if set(cfg.period) & {SSD, RGLRU}:
-            raise NotImplementedError(
-                f"{cfg.name}: paged serving of SSD / RG-LRU state (per-slot "
-                f"state, rewound on a speculative round) is the next slice "
-                f"of the port (ROADMAP §A5b); use generate")
         self.model = model
         self.params = params
         self.cfg = cfg
@@ -128,6 +127,8 @@ class PagedEngine:
         # packed bytes across the layers that share the pool.
         kvcache.paged_block_spec(cfg, 1, self.block_l, self.container)
         self.n_global_layers = sum(k == GLOBAL for k in model.kinds)
+        self._recurrent = [i for i, k in enumerate(model.kinds)
+                           if k in (SSD, RGLRU)]
         self.block_bytes = self.n_global_layers * kvcache.paged_block_bytes(
             cfg, self.block_l, self.container)
         # Graceful degradation (serve/precision.PressureController): under
@@ -183,7 +184,8 @@ class PagedEngine:
     def _init_mem(self) -> Dict[str, List[Any]]:
         """One entry per layer: a ``PagedKV`` pool slice for GLOBAL layers
         (physical block 0 is the trash block, pool.TRASH_BLOCK), a packed
-        ``max_slots``-row ring for LOCAL ones."""
+        ``max_slots``-row ring for LOCAL ones, a ``max_slots``-row
+        ``SSDCache`` / ``LRUCache`` of zeros for SSD / RG-LRU ones."""
         cfg, dev = self.cfg, self.device
         layers = []
         for kind in self.model.kinds:
@@ -191,23 +193,27 @@ class PagedEngine:
                 layers.append(kvcache.paged_block_init(
                     cfg, self.pool.num_blocks + 1, self.block_l,
                     self.container, device=dev))
-            else:
+            elif kind == LOCAL:
                 layers.append(kvcache.packed_cache_init(
                     cfg, kind, self.max_slots, self.max_len, self.container,
                     device=dev))
+            else:
+                layers.append(self.model._layer_cache(kind, self.max_slots,
+                                                      self.max_len))
         return {"layers": layers}
 
     def _tensors(self):
-        for layer in self.mem["layers"]:
-            if isinstance(layer, kvcache.PagedKV):
-                yield from layer
-            else:
+        for kind, layer in zip(self.model.kinds, self.mem["layers"]):
+            if kind == LOCAL:
                 for pt in layer:
                     yield from pt.data.values()
+            else:   # PagedKV, SSDCache, LRUCache: tuples of tensors
+                yield from layer
 
     def cache_bytes(self) -> Dict[str, float]:
-        """Realized device bytes of the pool and rings, and the packed
-        bytes live in allocated blocks, per the host byte accounting."""
+        """Realized device bytes of the pool, rings and recurrent state,
+        and the packed bytes live in allocated blocks, per the host byte
+        accounting."""
         total = float(sum(t.numel() * t.element_size()
                           for t in self._tensors()))
         st = self.pool.stats()
@@ -234,7 +240,11 @@ class PagedEngine:
 
     def _block_sums(self, ids: Optional[List[int]] = None) -> np.ndarray:
         """uint32 checksums of physical blocks ``ids`` (all when None),
-        each summed over the GLOBAL layers with salt = entry + 1."""
+        each summed over the GLOBAL layers with salt = entry + 1: zeros
+        when there is none."""
+        if not self.n_global_layers:
+            return np.zeros(self.pool.num_blocks + 1 if ids is None
+                            else len(ids), np.uint32)
         idx = (None if ids is None else
                torch.as_tensor(ids, dtype=torch.long, device=self.device))
         total = None
@@ -254,7 +264,7 @@ class PagedEngine:
         """The physical block ids among ``ids`` whose packed parts no longer
         match the checksum recorded at their last legitimate write."""
         ids = [int(p) for p in ids if p != _pool.TRASH_BLOCK]
-        if not self.integrity or not ids:
+        if not self.integrity or not ids or not self.n_global_layers:
             return []
         t0 = time.perf_counter()
         sums = self._block_sums(ids)
@@ -268,7 +278,7 @@ class PagedEngine:
         """Record the current checksums of ``ids`` as expected: called
         after every legitimate write (prefill scatter, decode step)."""
         ids = [int(p) for p in ids if p != _pool.TRASH_BLOCK]
-        if not self.integrity or not ids:
+        if not self.integrity or not ids or not self.n_global_layers:
             return
         self.expected_sums[ids] = self._block_sums(ids)
 
@@ -278,6 +288,9 @@ class PagedEngine:
         ``phys``. ``layer`` picks a GLOBAL entry (its first layer),
         ``field`` the part (k_payload, k_bases, v_payload, v_bases)."""
         entries = self._global_entries()
+        if not entries:
+            raise ValueError(f"{self.cfg.name}: the engine has no paged "
+                             f"(GLOBAL) layer to corrupt")
         kv = self.mem["layers"][entries[layer % len(entries)][0]]
         arr = kv[field % len(kv)]
         idx = (int(phys), row % arr.shape[-2], col % arr.shape[-1])
@@ -329,10 +342,15 @@ class PagedEngine:
         """Write one request's prefill cache into slot ``slot``: GLOBAL
         layers scatter whole blocks to the physical ``ids`` (unallocated
         logical blocks name the trash block and receive identical packed
-        zero rows), LOCAL layers overwrite their ring row."""
+        zero rows), LOCAL layers overwrite their ring row, SSD and RG-LRU
+        layers their state row."""
         nmax, bl = self.nmax, self.block_l
-        for mem, pref in zip(self.mem["layers"], pref_cache["layers"]):
-            if isinstance(mem, kvcache.PagedKV):
+        for kind, mem, pref in zip(self.model.kinds, self.mem["layers"],
+                                   pref_cache["layers"]):
+            if kind in (SSD, RGLRU):
+                for dst, src in zip(mem, pref):
+                    dst[slot] = src[0]
+            elif kind == GLOBAL:
                 for dst, pt, key in ((mem.k_payload, pref.k, "payload"),
                                      (mem.k_bases, pref.k, "bases"),
                                      (mem.v_payload, pref.v, "payload"),
@@ -459,8 +477,8 @@ class PagedEngine:
         S = self.max_slots
         slots = torch.arange(S, device=self.device)[:, None]
         out = []
-        for layer in self.mem["layers"]:
-            if isinstance(layer, kvcache.PagedKV):
+        for kind, layer in zip(self.model.kinds, self.mem["layers"]):
+            if kind != LOCAL:
                 continue
             for pt in layer:
                 for t in pt.data.values():
@@ -481,21 +499,30 @@ class PagedEngine:
         * **Draft**: K decode steps whose packed-attention reads decode
           only the leading ``draft_planes`` bits (``prefix_planes``); K/V
           writes stay full width.
-        * **Rewind**: the LOCAL rings return to their round-start state.
-          The pool needs no rollback: verify rewrites each position before
-          any step attends to it, and later rows are causally masked.
+        * **Rewind**: the LOCAL rings and the SSD / RG-LRU state return to
+          their round-start state. The pool needs no rollback: verify
+          rewrites each position before any step attends to it, and later
+          rows are causally masked.
         * **Verify**: K full-width steps teacher-forced with [token,
           d_1..d_{K-1}] at the same positions.
         * **Accept**: per slot, m = the longest prefix with d_i == v_i;
           ``n_emit = min(m + 1, K)`` (the verifier's token always commits).
-          The committed ring state is the one after verify step
+          The committed per-slot state is the one after verify step
           ``n_emit - 1``, which is bit-exact against ``burst=1`` decode.
 
-        A step of a round writes only ring row (pos + i) mod L of each
-        slot, so the round-start state is those K rows per slot (saved
-        before the draft), and the state after verify step n - 1 is the
-        final one with rows n..K-1 put back: that is how the rewind and
-        the commit are done, with no copy of a whole ring or of the pool.
+        The two kinds of per-slot state are rewound and committed in two
+        ways, neither of which copies a whole ring or the pool:
+
+        * A LOCAL layer's step writes only ring row (pos + i) mod L of each
+          slot, so the round-start ring is those K rows per slot (saved
+          before the draft), and the ring after verify step n - 1 is the
+          final one with rows n..K-1 put back.
+        * An SSD or RG-LRU step rewrites its layer's whole state, as new
+          tensors (``decode_step`` replaces the cache entry; the JAX
+          package's protocol): the round start is a reference to the
+          state before the draft, put back after it; verify keeps a
+          reference to the state after each of its K steps; the commit
+          gathers, for each slot s, the state after step n_emit[s] - 1.
 
         Calling convention as ``decode_burst``. Returns (verifs (K, S)
         int32, bad (K, S) bool, accepted (S,), n_emit (S,)); the caller
@@ -510,6 +537,8 @@ class PagedEngine:
         with torch.no_grad():
             tables, tok0, pos_t = self._inputs(toks, pos)
             saved = self._ring_rows(pos_t, K)
+            layers = self.mem["layers"]
+            snap = {li: layers[li] for li in self._recurrent}
             tok, drafts = tok0, []
             for i in range(K):
                 nxt, _ = self._step(tables, tok, pos_t + i, dp)
@@ -517,12 +546,15 @@ class PagedEngine:
                 tok = nxt[:, None]
             for t, slots, r, rows in saved:     # rewind the rings
                 t[slots, r] = rows
+            for li, state in snap.items():      # and the recurrent state
+                layers[li] = state
             vin = [tok0[:, 0]] + drafts[:-1]
-            verifs, bads = [], []
+            verifs, bads, stack = [], [], []
             for i in range(K):
                 nxt, bad = self._step(tables, vin[i][:, None], pos_t + i)
                 verifs.append(nxt)
                 bads.append(bad)
+                stack.append([layers[li] for li in self._recurrent])
             drafts_t, verifs_t = torch.stack(drafts), torch.stack(verifs)
             match = torch.cumprod((drafts_t == verifs_t).long(), dim=0)
             accepted = match.sum(dim=0)
@@ -532,6 +564,12 @@ class PagedEngine:
             for t, slots, r, rows in saved:     # commit step n_emit - 1
                 sl = slots.expand_as(r)
                 t[sl[late], r[late]] = rows[late]
+            pick = (n_emit - 1, torch.arange(self.max_slots,
+                                             device=self.device))
+            for j, li in enumerate(self._recurrent):
+                layers[li] = type(layers[li])(*(
+                    torch.stack(steps)[pick]
+                    for steps in zip(*(st[j] for st in stack))))
             res = torch.cat([verifs_t, torch.stack(bads).long(),
                              accepted[None], n_emit[None]]).cpu().numpy()
         self.decode_steps += 2 * K  # K draft + K verify model steps

@@ -902,3 +902,55 @@ def test_decode_rep16_hd256_ring2048(dev, container, draft):
     (1000)."""
     _check_decode(dev, 26, 256, 16, 1, container, draft, 2048,
                   [4159, 2048, 2047, 1000])
+
+
+def test_recurrentgemma_paged_trace_vs_plain(dev):
+    """A reduced recurrentgemma (its one KV head widened to 128 lanes; the
+    32-slot window makes its rings wrap) serves a seeded 8-request trace
+    through ``PagedEngine`` and ``Scheduler`` from an sfp8 pool of 3
+    blocks at ``--speculate 4``: the ring reads launch the decode kernel
+    at full width and as drafts, every request finishes, and the streams
+    equal the plain route's up to a near tie (a first difference only
+    where contiguous ``generate``'s plain margin is below 2)."""
+    from repro_torch.launch import serve as tserve
+    from repro_torch.serve import engine
+    from repro_torch.serve.scheduler import Scheduler
+    cfg = dataclasses.replace(
+        reduced(configs.get("recurrentgemma-9b"), n_layers=5), head_dim=128)
+    model = DecoderModel(cfg, kv_container="sfp8", device=dev)
+    params = model.init(0)
+    args = tserve.build_parser().parse_args(
+        ["--arch", "recurrentgemma-9b", "--trace", "--requests", "8",
+         "--kv-container", "sfp8", "--max-slots", "3", "--num-blocks", "3",
+         "--prompt-len-min", "90", "--prompt-len-max", "126",
+         "--max-new-min", "16", "--max-new-max", "40", "--speculate", "4"])
+    outs = {}
+    for backend in (None, "plain"):
+        before = (pfd.packed_flash_decode.launches,
+                  pfd.packed_flash_decode.draft_launches)
+        ops.force_backend(backend)
+        try:
+            eng = engine.PagedEngine(model, params, max_slots=3,
+                                     max_len=256, num_blocks=3)
+            sched = Scheduler(eng)
+            reqs = tserve.make_trace(args, cfg.vocab)
+            outs[backend] = sched.run(reqs, speculate=4)
+        finally:
+            ops.force_backend(None)
+        assert sched.stats.finished == 8 and eng.pool.used_blocks == 0
+        grew = (pfd.packed_flash_decode.launches > before[0],
+                pfd.packed_flash_decode.draft_launches > before[1])
+        assert grew == ((True, True) if backend is None else (False, False))
+    for r in reqs:
+        got, want = (list(outs[b][r.uid]) for b in (None, "plain"))
+        if got != want:
+            t = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+            ops.force_backend("plain")
+            try:
+                ref = engine.generate(
+                    model, params, torch.as_tensor(
+                        r.prompt, dtype=torch.long, device=dev)[None],
+                    r.max_new, 256)
+            finally:
+                ops.force_backend(None)
+            assert ref.margins[0, t] < 2.0, (r.uid, t)

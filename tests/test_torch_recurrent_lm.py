@@ -10,8 +10,8 @@ Tolerances, as the other parity tests of the port: the forward's logits,
 the loss and every gradient to 1e-5 of each tensor's largest element;
 serving prefill and teacher-forced step logits to 2e-3, the greedy
 tokens equal (40-token prompts past recurrentgemma's 32-slot window, so
-its ring wraps). Also: the per-kind layer counts, both launchers on the
-CPU, and the paged engine's and ``--trace``'s refusals.
+its ring wraps). Also: the per-kind layer counts and both launchers on
+the CPU (paged serving: ``test_torch_recurrent_paged.py``).
 """
 import dataclasses
 
@@ -215,20 +215,3 @@ def test_launchers_run_on_cpu_when_asked(monkeypatch, arch):
                            policy, "--container", container, "--steps", "1",
                            "--device", "cpu"])
         assert np.isfinite(out["history"][0]["loss"])
-
-
-@pytest.mark.parametrize("arch", ARCHS)
-def test_paged_engine_and_trace_refuse_recurrent_archs(monkeypatch, arch):
-    """The paged engine keeps no per-slot SSD / RG-LRU state yet: it and
-    ``launch.serve --trace`` refuse both archs, naming the next slice."""
-    _no_gpu(monkeypatch)
-    tc = treduced(tconfigs.get(arch), n_layers=ARCHS[arch])
-    if arch != "mamba2-370m":
-        tc = dataclasses.replace(tc, head_dim=128)
-    tm = TModel(tc, kv_container="sfp8", device="cpu")
-    with pytest.raises(NotImplementedError, match="A5b"):
-        engine.PagedEngine(tm, tm.init(0), max_slots=2, max_len=128)
-    with pytest.raises(SystemExit, match="A5b"):
-        tserve.run_trace(tserve.build_parser().parse_args(
-            ["--arch", arch, "--preset", "tiny", "--trace",
-             "--kv-container", "sfp8", "--device", "cpu"]))

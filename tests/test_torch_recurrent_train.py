@@ -140,67 +140,6 @@ def _set_learn(learn, bits):
             for k, v in learn.items()}
 
 
-@pytest.mark.parametrize("case", ["qm-sfp8", "qm+qe-sfp-m2e4"])
-@pytest.mark.parametrize("arch", ARCHS)
-def test_train_step_matches_jax(arch, case, monkeypatch):
-    """One step from the same state and batch: qm over an sfp8 stash from
-    integer bits (every draw 0), qm+qe over sfp-m2e4 planes from
-    fractional bits with the draws injected as their ceiling on both
-    sides; both from JAX's stash inputs."""
-    jc, tc = _cfgs(arch)
-    jparams = JModel(jc).init(jax.random.PRNGKey(0))
-    jpol, tpol, bits = _policies(case)
-    composite = case.startswith("qm+qe")
-    b = jsyn.MarkovCorpus(jsyn.SyntheticConfig(
-        vocab=jc.vocab, seq_len=S, global_batch=B, seed=0)).batch(0)
-    if composite:
-        monkeypatch.setattr(jcontainers, "stochastic_bitlength", _j_ceil)
-        monkeypatch.setattr(tcontainers, "stochastic_bitlength", _t_ceil)
-    jtc = jstep.TrainConfig(opt=jadamw.AdamWConfig(lr=LR),
-                            schedule=JSchedule(**SCHED))
-    ttc = tstep.TrainConfig(opt=tadamw.AdamWConfig(lr=LR),
-                            schedule=TSchedule(**SCHED))
-    jm, tm = JModel(jc, jpol), TModel(tc, tpol, device="cpu")
-    js = jstep.init_state(jm, jax.random.PRNGKey(0), jtc)
-    js = js._replace(params=jax.tree.map(jnp.asarray, jparams),
-                     pstate=js.pstate._replace(
-                         learn=_set_learn(js.pstate.learn, bits)),
-                     step=jnp.asarray(1, jnp.int32))
-    ts = convert.state_from_jax(jax.tree.map(np.asarray, js), tc)
-    record = _record_jax_stash(monkeypatch, jpol.container)
-    jnew, jmet = jax.jit(jstep.make_train_step(jm, jtc))(
-        js, {k: jnp.asarray(v) for k, v in b.items()})
-    jax.effects_barrier()
-    assert len(record) == jc.n_periods
-    flips = []
-    _stash_jax_inputs(monkeypatch, tpol.container, record, flips)
-    tb = {k: torch.from_numpy(v).long() for k, v in b.items()}
-    tnew, tmet = tstep.make_train_step(tm, ttc)(ts, tb)
-    assert len(flips) == jc.n_periods
-    assert all(n <= 1e-3 * size for n, size in flips), flips
-    for k in ("loss", "xent", "grad_norm", "policy_penalty", "moe_lb_loss",
-              "moe_drop_frac"):
-        np.testing.assert_allclose(float(tmet[k]), float(np.asarray(jmet[k])),
-                                   rtol=1e-5, atol=1e-7, err_msg=k)
-    assert float(tmet["loss"]) > float(tmet["xent"])   # the aux loss
-    assert float(tmet["moe_lb_loss"]) > 0
-    jlearn = jax.tree.map(np.asarray, jnew.pstate.learn)
-    for s in (("qm", "qe") if composite else (None,)):
-        jl = jlearn[s] if s else jlearn
-        tl = tnew.pstate.learn[s] if s else tnew.pstate.learn
-        for k, v in jl.items():
-            np.testing.assert_allclose(tl[k].detach().numpy(), v,
-                                       atol=1e-6 if composite else 1e-4,
-                                       err_msg=(s, k))
-    jm_ = convert.from_jax(jax.tree.map(np.asarray, jnew.opt.m), tc)
-    paths = []
-    for (path, m), (_, tm_) in zip(float_leaves(jm_),
-                                   float_leaves(tnew.opt.m)):
-        paths.append(path)
-        assert _rel_to_max(m.numpy(), tm_.numpy()) <= 1e-5, path
-    assert ("layers", 1, "moe", "router") in paths
-
-
 @pytest.mark.parametrize("arch", ARCHS)
 def test_scope_lambdas_match_jax(arch):
     """Each scope's footprint weight, at full size and cut: a period's
