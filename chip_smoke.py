@@ -16,6 +16,7 @@
     python3 chip_smoke.py --phase phi35_moe [--src DIR]
     python3 chip_smoke.py --phase mamba2 [--src DIR]
     python3 chip_smoke.py --phase recurrentgemma [--src DIR]
+    python3 chip_smoke.py --phase distributed [--src DIR]
 
 The other forms run only the Gecko kernel checks and timings of step 5,
 or only the dense bit-plane or the fixed-lane word ones of step 2, or
@@ -23,7 +24,8 @@ only the CNN phase of step 8, or only the checkpoint phase of step 9, or
 only the compressed-gradient and AdaptivFloat phase of step 10, or only
 the gemma3-12b, gemma2-27b, mistral-large-123b, paligemma-3b,
 musicgen-large, olmoe-1b-7b, phi3.5-moe-42b-a6.6b, mamba2-370m or
-recurrentgemma-9b phase of steps 11-16,
+recurrentgemma-9b phase of steps 11-16, or only the distribution phase
+of step 17,
 against the ``repro_torch`` package under DIR (default: this checkout's
 ``src``), so two trees can be timed by the same code on one card.
 
@@ -282,6 +284,18 @@ against the ``repro_torch`` package under DIR (default: this checkout's
    --speculate 4 and under forced draft rejections (recurrentgemma also
    sfp-m2e4 --speculate 4): every request finished after a preemption,
    the launches counted, the speculative streams held to burst 1.
+17. Distribution (after step 10): the sharded train step over NCCL at a
+   world of one (one card holds one NCCL rank; a (data 1, model 1)
+   mesh), gemma2-2b at full width over 4 layers, qm + sfp8, B 4, S 1024:
+   (a) 3 steps in each layout (tp, fsdp), fed by the prefetching input
+   pipeline with the batch placements, against 3 unsharded steps: losses
+   and grad norms at rtol 1e-5, parameters within 1e-5 of each leaf's
+   largest, the launches of rows 2, 3 and 8 equal step by step, with step
+   ms and peak memory; (b) psum_compressed of a step's full-width f32
+   gradients at 4 bits over the NCCL group (row 7), bit-equal to
+   compress_grads and the bf16 round trip; (c) the tp state saved and
+   restored with the fsdp layout's shardings, every leaf bit-equal, and
+   one more step of each equal.
 
 Any failure exits non-zero. The last line is the device JSON.
 """
@@ -5018,6 +5032,208 @@ def cnn_table1(torch, card, dev):
     return rows
 
 
+DIST_LAYERS, DIST_STEPS, DIST_BITS, DIST_RTOL = 4, 3, 4, 1e-5
+# The kernels of the sharded step's path (rows 2, 3 and 8).
+DIST_KERNELS = ("sfp_quantize_pack", "sfp_unpack", "flash_attention",
+                "flash_attention_bwd")
+
+
+def dist_close(what, got, want):
+    """Fail unless two step records' loss, xent and grad norm agree at
+    rtol DIST_RTOL."""
+    for k in ("loss", "xent", "grad_norm"):
+        if abs(got[k] - want[k]) > DIST_RTOL * abs(want[k]):
+            fail(f"{what}: {k} {got[k]!r} against {want[k]!r}")
+
+
+def leaf_gap(got, want):
+    """The largest |got - want| of each leaf pair over the leaf's largest
+    |want|, the worst of them."""
+    worst = 0.0
+    for a, b in zip(got, want):
+        a, b = a.float(), b.float()
+        worst = max(worst, float((a - b).abs().max())
+                    / max(float(b.abs().max()), 1e-30))
+    return worst
+
+
+def distributed_phase(torch, cfg, counters, card):
+    """Slice 21: the sharded train step over NCCL at a world of one (a
+    (data 1, model 1) mesh; one card cannot hold two NCCL ranks), gemma2-2b
+    at full width over DIST_LAYERS layers, qm + sfp8, B 4, S 1024, weights
+    and batches from seed 0: (a) DIST_STEPS sharded steps in each layout
+    (tp, fsdp), fed by ``data.pipeline.prefetch`` with the batch
+    placements, against the unsharded steps of the same model: f32 losses
+    and grad norms at rtol 1e-5, every parameter after the last step within
+    1e-5 of its leaf's largest element, and the launches of rows 2, 3 and
+    8 equal step by step; (b) ``psum_compressed`` over the NCCL group on a
+    step's full-width f32 gradients at 4 bits (row 7), bit-equal to
+    ``compress_grads`` and the bf16 round trip; (c) the tp state after the
+    last step saved, restored with the fsdp layout's shardings (every leaf
+    bit-equal), and one more step of each equal. Returns (report, the tp
+    run's launches summed over its steps, with (b)'s mantissa_quantize)."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.checkpoint.manager import CheckpointManager, named_leaves
+    from repro_torch.core.stash import float_leaves
+    from repro_torch.data import pipeline, synthetic
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import mantissa_quant as mq
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.model import DecoderModel
+    from repro_torch.train import grad_compress
+    from repro_torch.train import step as step_mod
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(cfg, n_layers=DIST_LAYERS)
+    argv = train_argv(cfg, "qm", CONTAINER, DIST_STEPS + 1)
+    model, step_fn, state, _, tc = train_setup(torch, argv,
+                                               n_layers=DIST_LAYERS)
+    corpus = synthetic.MarkovCorpus(synthetic.SyntheticConfig(
+        vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=B, seed=SEED))
+    batches = [corpus.batch(i) for i in range(DIST_STEPS + 1)]
+
+    def whole(b):
+        return {k: torch.from_numpy(v).long().cuda() for k, v in b.items()}
+    report = {"card": card, "layers": DIST_LAYERS, "batch": B,
+              "seq": TRAIN_SEQ}
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    ref = []
+    for i, b in enumerate(batches[:DIST_STEPS]):
+        state, rec = timed_step(torch, step_fn, state, whole(b), counters, i)
+        ref.append(rec)
+    ref_params = [t.detach() for _, t in float_leaves(state.params)]
+    report["unsharded"] = {
+        "step_ms": [r["step_s"] * 1e3 for r in ref],
+        "loss": [r["loss"] for r in ref],
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "held_before_gb": held / 1e9}
+    print("distributed unsharded: " + json.dumps(report["unsharded"]))
+    del state, step_fn
+    torch.cuda.empty_cache()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_debug_mesh(1, 1)
+        runs, launches = {}, {}
+        for layout in ("tp", "fsdp"):
+            rules = shd.rules_for(mesh, layout=layout)
+            m = DecoderModel(cfg, model.policy, device=model.device,
+                             mesh=mesh, rules=rules)
+            s = step_mod.init_state(m, SEED, tc)
+            f = step_mod.make_train_step(m, tc)
+            specs = shd.batch_specs(rules, "train", False, mesh)
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            recs = []
+            for i, b in enumerate(pipeline.prefetch(
+                    iter(batches[:DIST_STEPS]), specs)):
+                s, rec = timed_step(torch, f, s, b, counters, i)
+                dist_close(f"distributed (a) {layout} step {i}", rec,
+                           ref[i])
+                for k in DIST_KERNELS:
+                    if rec["launches"][k] != ref[i]["launches"][k]:
+                        fail(f"distributed (a) {layout} step {i}: {k} "
+                             f"launched {rec['launches'][k]} times, "
+                             f"unsharded {ref[i]['launches'][k]}")
+                recs.append(rec)
+            gap = leaf_gap([shd.full(t) for _, t in float_leaves(s.params)],
+                           ref_params)
+            if gap > DIST_RTOL:
+                fail(f"distributed (a) {layout}: parameters after step "
+                     f"{DIST_STEPS} {gap:.3g} of a leaf's largest apart")
+            runs[layout] = (m, s, f)
+            out = {"step_ms": [r["step_s"] * 1e3 for r in recs],
+                   "loss": [r["loss"] for r in recs],
+                   "grad_norm": [r["grad_norm"] for r in recs],
+                   "loss_rel_gap": max(abs(r["loss"] - q["loss"])
+                                       / abs(q["loss"])
+                                       for r, q in zip(recs, ref)),
+                   "param_gap_of_largest": gap,
+                   # held before: the unsharded run's parameters, and
+                   # for fsdp the tp state too
+                   "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                   "held_before_gb": held / 1e9,
+                   "launches_per_step": {k: recs[0]["launches"][k]
+                                         for k in DIST_KERNELS}}
+            report[layout] = out
+            print(f"distributed (a) {layout}: " + json.dumps(out))
+            if layout == "tp":
+                launches = total_launches(recs)
+        del ref_params
+        torch.cuda.empty_cache()
+        # (b) psum_compressed on one step's full-width f32 gradients.
+        m_tp, s_tp, f_tp = runs["tp"]
+        tcw = dataclasses.replace(tc, grad_compress_bits=DIST_BITS)
+        s_w = step_mod.init_state(m_tp, SEED, tcw)
+        grads, residual = step_gradients(
+            torch, m_tp, step_mod.make_train_step(m_tp, tcw), s_w,
+            pipeline.place(batches[0], shd.batch_specs(
+                m_tp.rules, "train", False, mesh)))
+        del s_w
+        want_q, want_r = grad_compress.compress_grads(
+            [g.clone() for g in grads], [r.clone() for r in residual],
+            DIST_BITS)
+        mq.mantissa_quantize.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, got_r = grad_compress.psum_compressed(
+            grads, residual, DIST_BITS, shd.mesh_group(mesh))
+        torch.cuda.synchronize()
+        psum_ms = (time.perf_counter() - t0) * 1e3
+        launches["mantissa_quantize"] = mq.mantissa_quantize.launches
+        for a, q, r, w in zip(got, want_q, got_r, want_r):
+            if not (torch.equal(a, q.to(torch.bfloat16).to(torch.float32))
+                    and torch.equal(r, w)):
+                fail("distributed (b): psum_compressed differs from "
+                     "compress_grads and the bf16 round trip")
+        b_out = {"leaves": len(got), "values": sum(t.numel() for t in got),
+                 "ms": psum_ms,
+                 "mantissa_quantize_launches":
+                     launches["mantissa_quantize"]}
+        report["psum_compressed"] = b_out
+        print("distributed (b) psum_compressed: " + json.dumps(b_out))
+        del grads, residual, want_q, want_r, got, got_r
+        torch.cuda.empty_cache()
+        # (c) elastic restore: the tp state onto the fsdp layout.
+        m_f, _, f_f = runs.pop("fsdp")
+        with tempfile.TemporaryDirectory() as d:
+            mgr = CheckpointManager(d)
+            t0 = time.perf_counter()
+            mgr.save(DIST_STEPS, s_tp)
+            save_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            back = mgr.restore(DIST_STEPS, s_tp, shardings=(
+                step_mod.state_shardings(m_f, s_tp)))
+            restore_s = time.perf_counter() - t0
+        for (name, a), (_, w) in zip(named_leaves(back), named_leaves(s_tp)):
+            if isinstance(w, torch.Tensor) and not torch.equal(
+                    shd.full(a), shd.full(w)):
+                fail(f"distributed (c): {name} restored unequal")
+        s_tp, rec_tp = timed_step(torch, f_tp, s_tp, whole(
+            batches[DIST_STEPS]), counters, DIST_STEPS)
+        back, rec_f = timed_step(torch, f_f, back, whole(
+            batches[DIST_STEPS]), counters, DIST_STEPS)
+        dist_close("distributed (c) the restored step", rec_f, rec_tp)
+        gap = leaf_gap([shd.full(t) for _, t in float_leaves(
+            back.params)], [shd.full(t) for _, t in float_leaves(
+                s_tp.params)])
+        if gap > DIST_RTOL:
+            fail(f"distributed (c): the restored step's parameters {gap:.3g}"
+                 f" of a leaf's largest from the un-restored run's")
+        c_out = {"save_s": save_s, "restore_s": restore_s,
+                 "loss": [rec_tp["loss"], rec_f["loss"]],
+                 "param_gap_of_largest": gap}
+        report["elastic"] = c_out
+        print("distributed (c) elastic restore tp -> fsdp: "
+              + json.dumps(c_out))
+    finally:
+        dist.destroy_process_group()
+    report["seconds"] = time.perf_counter() - t_phase
+    print(f"distributed: {report['seconds']:.1f} s")
+    return report, launches
+
+
 def cnn_phase(torch, card, dev="cuda"):
     """The CNN phase: (a), (b) and (c) above; returns their summaries."""
     from repro_torch.models import cnn
@@ -5735,7 +5951,7 @@ def main(argv=None) -> int:
                                         "gemma2_27b", "mistral",
                                         "paligemma", "musicgen", "olmoe",
                                         "phi35_moe", "mamba2",
-                                        "recurrentgemma"),
+                                        "recurrentgemma", "distributed"),
                     default="all",
                     help="gecko / dense / sfp: only the Gecko, the dense "
                          "bit-plane or the fixed-lane word kernel checks "
@@ -5744,7 +5960,8 @@ def main(argv=None) -> int:
                          "gradients and AdaptivFloat phase; gemma3, "
                          "gemma2_27b, mistral, paligemma, musicgen, olmoe, "
                          "phi35_moe, mamba2, recurrentgemma: only that "
-                         "model's phase")
+                         "model's phase; distributed: only the sharded "
+                         "train step over NCCL at a world of one")
     ap.add_argument("--src", type=Path, default=SRC,
                     help="the directory holding the repro_torch package")
     args = ap.parse_args(argv)
@@ -5825,11 +6042,12 @@ def main(argv=None) -> int:
         print(json.dumps({"tree": str(src), "card": card,
                           args.phase: summary["kernels"]}))
         return 0
-    if args.phase in ("ckpt", "gradc"):
+    if args.phase in ("ckpt", "gradc", "distributed"):
         del flush
-        phase = {"ckpt": ckpt_phase, "gradc": gradc_phase}[args.phase]
+        phase = {"ckpt": ckpt_phase, "gradc": gradc_phase,
+                 "distributed": distributed_phase}[args.phase]
         summary = phase(torch, cfg, counters, card)
-        if args.phase == "gradc":
+        if args.phase in ("gradc", "distributed"):
             summary = summary[0]
         print(card)
         print(json.dumps({"tree": str(src), "card": card,
@@ -5964,6 +6182,8 @@ def main(argv=None) -> int:
     _, path_launches["train gradc"], row7 = gradc_phase(torch, cfg, counters,
                                                         card)
     torch.cuda.empty_cache()
+    dist_report, dist_launches = distributed_phase(torch, cfg, counters, card)
+    torch.cuda.empty_cache()
     cnn_phase(torch, card)
     torch.cuda.empty_cache()
     ckpt = ckpt_phase(torch, cfg, counters, card)
@@ -6002,6 +6222,13 @@ def main(argv=None) -> int:
         if name in ("sfp_pack", "bitplane_pack", "gecko_pack"):
             r["note"] += (f"; launch floor {floor_ms:.5f} ms (a one-element "
                           f"fill, same timer)")
+        if dist_launches.get(name):
+            r["note"] = r.get("note", "") + (
+                f"; {dist_launches[name]} launches on the sharded path "
+                + ("(psum_compressed of one step's gradients" if name ==
+                   "mantissa_quantize" else
+                   f"({DIST_STEPS} tp steps") + " over NCCL at a world of "
+                f"one, {DIST_LAYERS} layers)")
         path = gemma3_entry(name, r, path, g3, path_launches)
         dense_configs_entry(name, r, dc, path_launches)
         prefix_entry(name, r, pf, path_launches)

@@ -1,9 +1,13 @@
-"""PyTorch/CUDA port of the Schrodinger's FP serving path for NVIDIA Hopper.
+"""PyTorch/CUDA port of Schrodinger's FP for NVIDIA Hopper: training with
+adaptive floating-point containers (one device or sharded over a
+``torch.distributed`` mesh) and serving from packed, paged KV caches.
 
 Layout mirrors ``src/repro``: ``configs``, ``core``, ``kernels`` (plain
 PyTorch versions beside hand-written CUDA kernels under ``csrc/``),
-``codecs``, ``models``, ``serve`` and ``launch``. Importing the package
-never builds or loads a kernel; the CUDA library is built on first launch.
+``codecs``, ``models``, ``train``, ``optim``, ``checkpoint``,
+``distributed``, ``data``, ``serve``, ``obs`` and ``launch``. Importing
+the package never builds or loads a kernel; the CUDA library is built on
+first launch.
 """
 from __future__ import annotations
 

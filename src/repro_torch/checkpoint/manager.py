@@ -29,6 +29,15 @@ on-device pack before it returns, since the next step updates the
 parameters in place; the writer thread only serializes host bytes. A
 leaf packs on its own device, so on the card the codec's kernel packs and
 only the packed parts cross to the host.
+
+A sharded tree (DTensor leaves, the sharded train step's state) is saved
+in the same format: every rank of the leaves' mesh calls ``save``, each
+leaf is gathered whole on the calling thread (never in the writer
+thread), the rank at the mesh's origin writes, and the others wait for
+its write (in ``save``, or in ``wait`` after a non-blocking save).
+``restore(shardings=)`` loads each leaf on the host and keeps this rank's
+shard of it, so a checkpoint restores onto a mesh of another shape or
+layout, or onto fewer ranks (elastic restart).
 """
 from __future__ import annotations
 
@@ -45,6 +54,7 @@ import numpy as np
 import torch
 
 from repro_torch import codecs, resolve_device
+from repro_torch.distributed import sharding as shd
 from repro_torch.codecs.base import (dtype_name, host_bits, tensor_from_bits,
                                      torch_dtype)
 
@@ -122,6 +132,7 @@ class CheckpointManager:
             self._compress_dtypes = _COMPRESSIBLE_DTYPES
         self.compress_codec = compress_codec
         self._thread: Optional[threading.Thread] = None
+        self._barrier = None   # the group that waits for rank 0's write
         self._error: Optional[BaseException] = None
 
     # ------------------------------------------------------------------
@@ -156,15 +167,27 @@ class CheckpointManager:
         self.wait()  # never two writers at once (gc races on tmp dirs)
         codec = (codecs.get(self.compress_codec)
                  if self.compress_codec is not None else None)
-        host = [self._snapshot(i, name, leaf, codec) for i, (name, leaf)
-                in enumerate(named_leaves(tree))]
-        if blocking:
+        named = named_leaves(tree)
+        meshes = [leaf.device_mesh for _, leaf in named
+                  if isinstance(leaf, shd.DTensor)]
+        writer = not meshes or shd.is_rank0(meshes[0])
+        host = []
+        for i, (name, leaf) in enumerate(named):
+            leaf = shd.full(leaf)   # every rank of the mesh gathers
+            if writer:
+                host.append(self._snapshot(i, name, leaf, codec))
+            del leaf
+        if meshes:
+            self._barrier = shd.mesh_group(meshes[0])
+        if writer and blocking:
             self._write(int(step), host, extra)
-        else:
+        elif writer:
             self._thread = threading.Thread(
                 target=self._write_guarded, args=(int(step), host, extra),
                 daemon=True)
             self._thread.start()
+        if blocking:
+            self.wait()
 
     def _snapshot(self, i: int, name: str, leaf: Any, codec
                   ) -> Tuple[Dict[str, Any], np.ndarray]:
@@ -246,6 +269,9 @@ class CheckpointManager:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._barrier is not None:
+            group, self._barrier = self._barrier, None
+            torch.distributed.barrier(group=group)
         self.check()
 
     def check(self) -> None:
@@ -266,11 +292,13 @@ class CheckpointManager:
         """Restore into the structure of ``like``: every tensor on the
         device and in the dtype of ``like``'s leaf, with its
         ``requires_grad``; ints as ints; a generator on the device of
-        ``like``'s generator. A CUDA leaf needs a GPU."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restore(shardings=...) re-places leaves across devices; "
-                "the port runs on one device")
+        ``like``'s generator. A CUDA leaf needs a GPU.
+
+        ``shardings`` (``like``'s structure, a ``sharding.Sharding`` or
+        None at each leaf or subtree) re-places leaves: each becomes a
+        DTensor holding this rank's shard, on the mesh's device (the
+        elastic restart onto another mesh). Without it a DTensor leaf of
+        ``like`` keeps its own sharding."""
         d = self._step_dir(step)
         manifest = json.loads((d / "manifest.json").read_text())
         leaves = named_leaves(like)
@@ -283,14 +311,43 @@ class CheckpointManager:
                 f"checkpoint step {step} lacks leaves {missing[:4]}"
                 f"{'...' if len(missing) > 4 else ''} for the requested "
                 f"state tree — e.g. a different precision policy{hint}")
-        out = [_restore_leaf(d, by_name[name], name, leaf)
-               for name, leaf in leaves]
+        sh = (_aligned(like, shardings) if shardings is not None else
+              [shd.sharding_of(leaf) if isinstance(leaf, shd.DTensor)
+               else None for _, leaf in leaves])
+        out = [_restore_leaf(d, by_name[name], name, leaf, s)
+               for (name, leaf), s in zip(leaves, sh)]
         return _rebuild(like, iter(out))
 
 
-def _restore_leaf(d: Path, entry: Dict[str, Any], name: str, leaf: Any):
+def _aligned(like: Any, shardings: Any) -> List[Any]:
+    """Per leaf of ``like`` (in ``named_leaves`` order), its sharding from
+    the tree ``shardings`` (None under a None subtree)."""
+    out: List[Any] = []
+
+    def walk(node, sh):
+        if node is None:
+            return
+        if _is_namedtuple(node):
+            for f in node._fields:
+                walk(getattr(node, f), None if sh is None else getattr(sh, f))
+        elif isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], None if sh is None else sh[k])
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, None if sh is None else sh[i])
+        else:
+            out.append(sh)
+    walk(like, shardings)
+    return out
+
+
+def _restore_leaf(d: Path, entry: Dict[str, Any], name: str, leaf: Any,
+                  sharding=None):
     device = (resolve_device(leaf.device) if hasattr(leaf, "device")
               else torch.device("cpu"))
+    if sharding is not None:
+        device = resolve_device(sharding.mesh.device_type)
     arr = np.load(d / entry["file"])
     if isinstance(leaf, torch.Generator):
         gen = torch.Generator(device=device)
@@ -306,6 +363,8 @@ def _restore_leaf(d: Path, entry: Dict[str, Any], name: str, leaf: Any):
     if tuple(t.shape) != expect:
         raise ValueError(
             f"checkpoint leaf {name} shape {tuple(t.shape)} != {expect}")
+    if sharding is not None:
+        return shd.distribute(t.to(device=device, dtype=leaf.dtype), sharding)
     if isinstance(leaf, torch.Tensor):
         t = t.to(device=device, dtype=leaf.dtype)
         return t.requires_grad_() if leaf.requires_grad else t

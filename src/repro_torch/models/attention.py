@@ -4,6 +4,13 @@ Prefill sends every prompt length through ``ops.attention`` (the flash
 kernel on the card): the kernel computes the same function as the JAX
 package's chunked route for long prompts, without the S x S tensor.
 Decode positions are (B,) tensors throughout, one per batch row.
+
+Under tensor parallelism (``attention_train(tp=)``) a rank computes its
+``n_heads / tp`` query heads from its columns of ``wq``, and its group's KV
+heads: its own columns of ``wk`` / ``wv`` where ``n_kv_heads`` divides tp,
+else every KV head from the whole weights (the JAX package's
+``_qkv_specs`` replicates them), of which it reads its group's. ``wo``'s
+partial product is summed over the TP group.
 """
 from __future__ import annotations
 
@@ -11,11 +18,35 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from repro_torch import NotYetPorted
 from repro_torch.configs.base import ArchConfig, LOCAL
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import ops
 from repro_torch.models import common
 
 NEG_INF = -1e30
+
+PARAM_AXES = {"wq": ("embed", "heads"), "wk": ("embed", "heads"),
+              "wv": ("embed", "heads"), "wo": ("heads", "embed"),
+              "q_norm": {"scale": ("norm",)}, "k_norm": {"scale": ("norm",)}}
+
+
+def kv_local(cfg: ArchConfig, tp: int) -> bool:
+    """Whether a TP rank holds only its own KV heads (they divide tp);
+    else it computes all of them. Raises ``NotYetPorted`` where the query
+    heads do not split over tp, or where a rank's query heads would read
+    more than one KV head without owning them (JAX replicates such heads;
+    ROADMAP §A item 1)."""
+    H, KH = cfg.n_heads, cfg.n_kv_heads
+    if H % tp:
+        raise NotYetPorted(f"{cfg.name}: {H} query heads do not split over "
+                           f"a TP degree of {tp} (replicated heads: "
+                           f"ROADMAP §A item 1)")
+    if KH % tp and tp % KH:
+        raise NotYetPorted(f"{cfg.name}: {KH} KV heads neither split over "
+                           f"nor divide a TP degree of {tp} (replicated "
+                           f"heads: ROADMAP §A item 1)")
+    return KH % tp == 0
 
 
 def attn_init(cfg: ArchConfig, gen, device, dtype):
@@ -35,11 +66,13 @@ def attn_init(cfg: ArchConfig, gen, device, dtype):
 
 def _project_qkv(params, h: torch.Tensor, cfg: ArchConfig,
                  positions: torch.Tensor):
+    """q (B, S, H, hd), k and v (B, S, KH, hd); the head counts are those
+    of the weights given (a TP rank's columns)."""
     B, S, _ = h.shape
-    hd, H, KH = cfg.head_dim_, cfg.n_heads, cfg.n_kv_heads
-    q = (h @ params["wq"]).reshape(B, S, H, hd)
-    k = (h @ params["wk"]).reshape(B, S, KH, hd)
-    v = (h @ params["wv"]).reshape(B, S, KH, hd)
+    hd = cfg.head_dim_
+    q = (h @ params["wq"]).reshape(B, S, -1, hd)
+    k = (h @ params["wk"]).reshape(B, S, -1, hd)
+    v = (h @ params["wv"]).reshape(B, S, -1, hd)
     if cfg.qk_norm:  # Gemma-style RMSNorms over the head dim, before RoPE
         q = common.rmsnorm(params["q_norm"], q)
         k = common.rmsnorm(params["k_norm"], k)
@@ -61,10 +94,12 @@ def ring_pack_kv(k: torch.Tensor, v: torch.Tensor, L: int):
 
 def attention_train(params, h: torch.Tensor, cfg: ArchConfig, *, kind: str,
                     positions: torch.Tensor, prefix_len: int = 0,
-                    return_kv: bool = False):
+                    return_kv: bool = False, tp=None):
     """Full-sequence causal attention (training and prefill). h: (B, S, d);
     the first ``prefix_len`` positions (a prefix-LM's conditioning) are
-    visible to every query.
+    visible to every query. Under ``tp`` (a ``sharding.TensorParallel``)
+    ``params`` hold this rank's columns (see the module's note) and the
+    output is summed over the TP group.
 
     At every length this is ``ref.attention(prefix_len=)``. The JAX
     package's chunked route (``src/repro/models/attention.py``, taken for
@@ -72,12 +107,17 @@ def attention_train(params, h: torch.Tensor, cfg: ArchConfig, *, kind: str,
     global branch and attends causally there; the port does not follow it
     (ROADMAP §C)."""
     B, S, _ = h.shape
-    hd, H = cfg.head_dim_, cfg.n_heads
     window = cfg.window if kind == LOCAL else None
-    q, k, v = _project_qkv(params, h, cfg, positions)
+    group = tp.group if tp is not None else None
+    q, k, v = _project_qkv(params, shd.copy_to(h, group), cfg, positions)
+    if tp is not None and not kv_local(cfg, tp.size):
+        # Every KV head was computed; this rank's query heads all read
+        # one of them.
+        kv = tp.rank * q.shape[2] * cfg.n_kv_heads // cfg.n_heads
+        k, v = k[:, :, kv:kv + 1], v[:, :, kv:kv + 1]
     out = ops.attention(q, k, v, causal=True, window=window,
                         softcap=cfg.attn_softcap, prefix_len=prefix_len)
-    out = out.reshape(B, S, H * hd) @ params["wo"]
+    out = shd.reduce(out.reshape(B, S, -1) @ params["wo"], group)
     if return_kv:
         return out, (k, v)
     return out

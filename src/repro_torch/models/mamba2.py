@@ -24,6 +24,15 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import common
 
+# The logical axes of each leaf (the JAX package's ``ParamFactory`` names).
+PARAM_AXES = {"w_x": ("embed", "ssm_inner"), "w_z": ("embed", "ssm_inner"),
+              "w_B": ("embed", "state"), "w_C": ("embed", "state"),
+              "w_dt": ("embed", "heads"), "conv_x": ("conv", "ssm_inner"),
+              "conv_B": ("conv", "state"), "conv_C": ("conv", "state"),
+              "A_log": ("heads",), "D": ("heads",), "dt_bias": ("heads",),
+              "norm": {"scale": ("ssm_inner",)},
+              "w_out": ("ssm_inner", "embed")}
+
 
 def ssd_init(cfg: ArchConfig, gen, device, dtype):
     """One SSD block's parameters, drawn from ``gen`` in the JAX package's

@@ -24,19 +24,33 @@ continuous-batching engine, ``decode_step_paged`` over a paged pool for
 the GLOBAL layers and per-slot rings for the LOCAL ones. SSD and RG-LRU
 layers keep a per-row recurrent state (and their conv inputs' tails) that
 no codec packs.
+
+With a ``mesh`` (a ``torch.distributed`` ``DeviceMesh``) and sharding
+``rules`` (``distributed.sharding.rules_for``) the model trains on local
+shards: ``param_axes`` names every leaf's logical axes, ``shardings`` is
+where each leaf lives, and ``forward`` / ``loss`` take each leaf's local
+shard. Each layer gathers its weights over the dims that shard them but
+the TP axis (so again in the stash recompute, whose backward
+reduce-scatters their gradients), computes its heads and ff columns
+under tensor parallelism (``tp``) and sums its row-parallel outputs; the
+embedding, logits and cross-entropy run across vocab shards, and every
+rank takes its batch rows. Under a mesh of more than one rank, MoE, SSD
+and RG-LRU layers and the serving entry points are not ported yet.
 """
 from __future__ import annotations
 
 import itertools
+import math
 from typing import (Any, Dict, NamedTuple, Optional, Sequence, Tuple,
                     Union)
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch import codecs, policies, resolve_device
+from repro_torch import NotYetPorted, codecs, policies, resolve_device
 from repro_torch.configs.base import ArchConfig, GLOBAL, LOCAL, RGLRU, SSD
 from repro_torch.core import containers, stash
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import attention, common, mamba2, moe, rglru
 from repro_torch.serve import kvcache
 
@@ -44,6 +58,16 @@ MOE_LB_COEF = 0.01
 MOE_Z_COEF = 1e-3
 MOE_AUX = ("moe_lb_loss", "moe_z_loss", "moe_drop_frac")
 KINDS = (GLOBAL, LOCAL, SSD, RGLRU)
+# The logical axes of each layer block's leaves, by the block's key.
+BLOCK_AXES = {"attn": attention.PARAM_AXES, "mlp": common.MLP_AXES,
+              "moe": moe.PARAM_AXES, "ssd": mamba2.PARAM_AXES,
+              "rglru": rglru.PARAM_AXES}
+NORM_AXES = {"scale": ("embed",)}
+# Leaves a TP rank computes with on its own columns (the table and the
+# head: its vocab rows or columns); ``wk`` / ``wv`` too where the KV heads
+# split over the TP axis (``attention.kv_local``).
+TP_COLUMNS = {"wq", "wo", "w_in", "w_gate", "w_out", "table", "head"}
+KV_WEIGHTS = {"wk", "wv"}
 
 
 class RunState(NamedTuple):
@@ -84,6 +108,28 @@ def _numel(tree) -> int:
                                    else tree))
 
 
+def _axes_like(tree, table):
+    """``table``'s axes tuples over the structure of the tensor nest
+    ``tree``."""
+    if isinstance(tree, dict):
+        return {k: _axes_like(v, table[k]) for k, v in tree.items()}
+    if len(table) != tree.dim():
+        raise ValueError(f"axes {table} for a {tree.dim()}-D leaf")
+    return table
+
+
+def _sharding_leaves(tree, path=()):
+    """(path, Sharding) of every leaf of a shardings nest, in
+    ``float_leaves`` order."""
+    if isinstance(tree, dict):
+        return [kv for k, v in tree.items()
+                for kv in _sharding_leaves(v, path + (k,))]
+    if isinstance(tree, list):
+        return [kv for i, v in enumerate(tree)
+                for kv in _sharding_leaves(v, path + (i,))]
+    return [(path, tree)]
+
+
 def _count_truncation(count, h, t):
     """Add to ``count`` the values of ``h`` that the exponent truncation
     ``t`` flushed to zero and those it saturated."""
@@ -96,7 +142,8 @@ class DecoderModel:
     def __init__(self, cfg: ArchConfig, policy=None,
                  kv_container: Optional[str] = None,
                  device: Optional[Union[str, torch.device]] = None,
-                 stash_containers: Optional[Sequence[str]] = None):
+                 stash_containers: Optional[Sequence[str]] = None,
+                 mesh=None, rules=None):
         """``policy``: a ``policies.Policy``, a registry name or None (full
         precision). ``device`` defaults to CUDA and raises without a GPU;
         pass ``device="cpu"`` for the plain path on the CPU.
@@ -104,7 +151,9 @@ class DecoderModel:
         period's stash in its own container instead of the policy's: the
         per-layer realized containers of ``stash_plan``. Each period is its
         own compress/decompress pair in ``sfp_scan``, so a new plan needs
-        only a new model."""
+        only a new model. ``mesh`` and ``rules`` (default
+        ``rules_for(mesh)``, the tp layout) make it a sharded model (see
+        the module's note)."""
         bad = set(cfg.period) - set(KINDS)
         if bad:
             raise ValueError(f"{cfg.name}: unknown layer kinds {bad}")
@@ -126,6 +175,131 @@ class DecoderModel:
         # without a host sync) the values it flushed to zero ("flushed")
         # and the values it saturated ("saturated").
         self.truncation_count: Optional[Dict[str, torch.Tensor]] = None
+        self.mesh = mesh
+        self.rules = (shd.rules_for(mesh) if mesh is not None and rules is None
+                      else rules)
+        self.shardings = self.tp = None
+        self._embed_mesh = self._unembed_mesh = None
+        if mesh is not None:
+            self._shard_init()
+
+    # -- sharding ------------------------------------------------------------
+
+    def param_axes(self) -> Dict[str, Any]:
+        """The logical axes of every leaf of ``init``'s tree (the JAX
+        package's ``param_axes``, one entry a layer instead of a leading
+        ``layers`` axis)."""
+        meta = self._draw(torch.Generator(), META)
+        axes = {"embed": _axes_like(meta["embed"], common.EMBED_AXES),
+                "final_norm": _axes_like(meta["final_norm"], NORM_AXES),
+                "layers": [{k: _axes_like(v, NORM_AXES if k.endswith("norm")
+                                          else BLOCK_AXES[k])
+                            for k, v in lp.items()}
+                           for lp in meta["layers"]]}
+        if "head" in meta:
+            axes["head"] = common.HEAD_AXES
+        return axes
+
+    def _shard_init(self):
+        cfg, mesh = self.cfg, self.mesh
+        if mesh.size() > 1:
+            other = sorted(set(self.kinds) - {GLOBAL, LOCAL})
+            if cfg.is_moe or other:
+                what = ", ".join((["MoE"] if cfg.is_moe else []) + other)
+                raise NotYetPorted(
+                    f"{cfg.name}: {what} layers under a mesh of "
+                    f"{mesh.size()} ranks (ROADMAP §A item 1, the next "
+                    f"distribution slice)")
+        self.batch_axes = tuple(self.rules["batch"])
+        heads = self.rules.get("heads")
+        self._tp_axis = heads[0] if heads else None
+        self._kv_local = True
+        if self._tp_axis is not None:
+            # The vocab-parallel pieces of ``models.common`` take the
+            # table's and the head's vocab shards over ``model``.
+            if self._tp_axis != "model":
+                raise ValueError(f"the TP axis must be named 'model', not "
+                                 f"{self._tp_axis!r}")
+            size = shd.axis_sizes(mesh)[self._tp_axis]
+            self._kv_local = attention.kv_local(cfg, size)
+            self.tp = shd.TensorParallel(mesh.get_group(self._tp_axis), size,
+                                         mesh.get_local_rank(self._tp_axis))
+            self._embed_mesh = self._unembed_mesh = mesh
+        self.shardings = shd.refine_shardings(
+            self._draw(torch.Generator(), META),
+            shd.tree_shardings(mesh, self.param_axes(), self.rules), mesh)
+        # Every layer of a kind shards alike.
+        self._kind_shardings = {}
+        for kind, sh in zip(self.kinds, self.shardings["layers"]):
+            self._kind_shardings.setdefault(kind, sh)
+        names = tuple(mesh.mesh_dim_names)
+        for path, sh in _sharding_leaves(self.shardings):
+            keep = self._keep(path)
+            if keep is not None and not isinstance(
+                    sh.placements[names.index(keep)], shd.Shard):
+                raise ValueError(f"{cfg.name}: {path} must split over the "
+                                 f"{keep} axis for tensor parallelism")
+
+    def _keep(self, path) -> Optional[str]:
+        """The mesh axis a leaf at ``path`` stays sharded over when its
+        layer gathers it: the TP axis for a TP rank's own columns."""
+        name = path[-1]
+        if name in TP_COLUMNS or (name in KV_WEIGHTS and self._kv_local):
+            return self._tp_axis
+        return None
+
+    def _tp_partial(self, path) -> bool:
+        """Whether each TP rank computes only a share of the leaf's
+        gradient while holding the whole leaf: the head-dim norms act on
+        its own heads, and every KV weight when the ranks compute all KV
+        heads but read their own."""
+        if self._tp_axis is None:
+            return False
+        return ("q_norm" in path or "k_norm" in path
+                or (path[-1] in KV_WEIGHTS and not self._kv_local))
+
+    def grad_reduce_axes(self) -> Dict[Tuple[Any, ...], Tuple[str, ...]]:
+        """Per parameter leaf (by its ``float_leaves`` path), the mesh axes
+        its local gradient must still be summed over after the backward:
+        those it is replicated over while each rank computed only a share
+        of its gradient (the batch axes, and the TP axis for
+        ``_tp_partial`` leaves). Over the axes that shard it, the layer's
+        gather already reduce-scattered the shares."""
+        out = {}
+        for path, sh in _sharding_leaves(self.shardings):
+            axes = set(self.batch_axes)
+            if self._tp_partial(path):
+                axes.add(self._tp_axis)
+            axes -= set(shd.shard_axes(sh))
+            out[path] = tuple(a for a in self.mesh.mesh_dim_names
+                              if a in axes)
+        return out
+
+    def _gather(self, tree, shardings, path=()):
+        """The local shards of a nest of leaves, each gathered whole but
+        over its ``_keep`` axis; the nest itself without a mesh."""
+        if self.mesh is None:
+            return tree
+        if isinstance(tree, dict):
+            return {k: self._gather(v, shardings[k], path + (k,))
+                    for k, v in tree.items()}
+        return shd.materialize(tree, shardings, keep=self._keep(path))
+
+    def _kind_sharding(self, kind):
+        return self._kind_shardings[kind] if self.mesh is not None else None
+
+    def _gather_top(self, params, key: str):
+        """``params[key]`` (the embedding, the final norm, the head) as
+        ``_gather`` gives it."""
+        return self._gather(params[key], self.shardings and
+                            self.shardings[key], (key,))
+
+    def _batch_shards(self) -> int:
+        """How many ranks split the batch rows."""
+        if self.mesh is None:
+            return 1
+        sizes = shd.axis_sizes(self.mesh)
+        return math.prod(sizes[a] for a in self.batch_axes)
 
     # -- parameters ----------------------------------------------------------
 
@@ -176,6 +350,12 @@ class DecoderModel:
                                            gen, dev, dt)
         return layer
 
+    def _unsharded(self, what: str):
+        if self.mesh is not None:
+            raise NotYetPorted(f"{what} under a mesh: sharded serving (the "
+                               f"KV sequence over model) is ROADMAP §A "
+                               f"item 1, the next distribution slice")
+
     def _emb_scale(self):
         return (self.cfg.d_model ** 0.5) if self.cfg.emb_scale else None
 
@@ -210,8 +390,8 @@ class DecoderModel:
         dense."""
         cfg = self.cfg
         if not cfg.is_moe:
-            return (common.mlp(slot_params["mlp"], hm, cfg.act, cfg.glu),
-                    None, None)
+            return (common.mlp(slot_params["mlp"], hm, cfg.act, cfg.glu,
+                               tp=self.tp), None, None)
         out, aux = moe.moe_forward(slot_params["moe"], hm, cfg)
         return out, (MOE_LB_COEF * aux["moe_lb_loss"]
                      + MOE_Z_COEF * aux["moe_z_loss"]), aux
@@ -236,7 +416,7 @@ class DecoderModel:
         else:
             h = h + attention.attention_train(
                 slot_params["attn"], hn, cfg, kind=kind,
-                positions=positions, prefix_len=prefix_len)
+                positions=positions, prefix_len=prefix_len, tp=self.tp)
         hm = common.rmsnorm(slot_params["mlp_norm"], h)
         out, eloss, aux = self._ffn(slot_params, hm)
         return h + out, eloss, aux
@@ -345,7 +525,8 @@ class DecoderModel:
         that makes them is a stub in both packages), in the compute dtype:
         (h (B, P + S, d), P)."""
         cfg = self.cfg
-        h = common.embed(params["embed"], tokens, self._emb_scale())
+        h = common.embed(self._gather_top(params, "embed"), tokens,
+                         self._emb_scale(), mesh=self._embed_mesh)
         if cond_embeddings is None:
             return h, 0
         P = cfg.prefix_tokens
@@ -377,7 +558,8 @@ class DecoderModel:
             draws = x.get("draws")
             aux_sum = {}
             for i, kind in enumerate(cfg.period):
-                sp = x["params"][i]
+                sp = self._gather(x["params"][i],
+                                  self._kind_sharding(kind))
                 if pol.quantizes_weights:
                     sp = self._quantize_weights(sp, x["pol"],
                                                 draws["w"][i])
@@ -397,7 +579,7 @@ class DecoderModel:
         # straight-through on the layer's input, its weights fake-quantized
         # with the scope's own bitlengths.
         for x, kind in zip(self._rem_inputs(params, run), cfg.remainder):
-            lp = x["params"]
+            lp = self._gather(x["params"], self._kind_sharding(kind))
             if pol.enabled:
                 act = x["draws"]["act"]
                 h = policies.apply_decision_ste(
@@ -410,12 +592,15 @@ class DecoderModel:
                                            prefix_len=P)
             if eloss is not None:
                 extras = extras + eloss
-        h = common.rmsnorm(params["final_norm"], h)
+        top = {k: self._gather_top(params, k)
+               for k in ("embed", "final_norm", "head") if k in params}
+        h = common.rmsnorm(top["final_norm"], h)
         if P:
             h = h[:, P:]
-        logits = common.unembed(params, h, tied=cfg.tie_embeddings,
+        logits = common.unembed(top, h, tied=cfg.tie_embeddings,
                                 softcap=cfg.final_softcap,
-                                valid_vocab=cfg.vocab)
+                                valid_vocab=cfg.vocab,
+                                mesh=self._unembed_mesh)
         metrics = {"moe_aux_loss": extras}
         for k in MOE_AUX:
             metrics[k] = (torch.stack([a[k] for a in aux]).mean()
@@ -427,12 +612,21 @@ class DecoderModel:
     def loss(self, params, batch: Dict[str, torch.Tensor], run: RunState
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(mean cross-entropy + ``moe_aux_loss``, the forward's metrics
-        with ``xent``). A prefix-LM's batch carries ``cond_embeddings``."""
+        with ``xent``). A prefix-LM's batch carries ``cond_embeddings``.
+        Under a mesh, ``batch`` is this rank's rows and the loss and
+        ``xent`` are its share of the global mean (its rows' mean over the
+        number of batch shards): the shares summed over the batch ranks
+        give the one-device values, and their gradients its gradient."""
         logits, metrics = self.forward(
             params, batch["tokens"], run,
             cond_embeddings=batch.get("cond_embeddings"))
-        xent = common.softmax_xent(logits, batch["labels"])
-        return xent + metrics["moe_aux_loss"], dict(metrics, xent=xent)
+        xent = common.softmax_xent(logits, batch["labels"],
+                                   mesh=self._unembed_mesh)
+        loss = xent + metrics["moe_aux_loss"]
+        n = self._batch_shards()
+        if n > 1:
+            loss, xent = loss / n, xent / n
+        return loss, dict(metrics, xent=xent)
 
     def layer_param_count(self, kind: Optional[str] = None) -> int:
         """Parameters of one layer of ``kind``, 1-D leaves included: the
@@ -485,6 +679,7 @@ class DecoderModel:
         (B, P, d_model) when given: (last-position logits (B, 1, V) f32,
         cache sized for ``max_len`` positions, at least P + S; decoding
         continues at position P + S)."""
+        self._unsharded("prefill")
         cfg = self.cfg
         h, P = self._embed(params, tokens, cond_embeddings)
         S = h.shape[1]
@@ -544,6 +739,7 @@ class DecoderModel:
         prefill). ``prefix_planes`` makes every packed-attention read
         decode only the leading P' payload bits (the speculative draft);
         K/V writes stay full width. Both need ``kv_container``."""
+        self._unsharded("decode_step")
         if (tables is not None or prefix_planes is not None) and \
                 self.kv_container is None:
             raise ValueError("paged decode and prefix_planes (draft reads) "

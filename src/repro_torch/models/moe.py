@@ -26,6 +26,12 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import common
 
+# The logical axes of each leaf (the JAX package's ``ParamFactory`` names).
+PARAM_AXES = {"router": ("embed", "experts"),
+              "w_in": ("experts", "embed", "expert_ff"),
+              "w_gate": ("experts", "embed", "expert_ff"),
+              "w_out": ("experts", "expert_ff", "embed")}
+
 
 def moe_init(cfg: ArchConfig, gen: torch.Generator, device, dtype
              ) -> Dict[str, torch.Tensor]:

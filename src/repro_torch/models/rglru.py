@@ -28,6 +28,12 @@ from repro_torch.models.mamba2 import causal_conv, raw_tail, softplus
 
 C_FACTOR = 8.0
 
+# The logical axes of each leaf (the JAX package's ``ParamFactory`` names).
+PARAM_AXES = {"w_x": ("embed", "lru"), "w_gate": ("embed", "lru"),
+              "conv": ("conv", "lru"), "w_r": ("lru",), "b_r": ("lru",),
+              "w_i": ("lru",), "b_i": ("lru",), "lam": ("lru",),
+              "w_out": ("lru", "embed")}
+
 
 def rglru_init(cfg: ArchConfig, gen, device, dtype):
     """One RG-LRU block's parameters in the JAX package's leaf order; the

@@ -10,15 +10,18 @@ format is the codec's: ``bit_exact`` (the default) truncates mantissas
 fixed-lane words, ``sfp-m{K}e{E}`` dense bit planes, ``gecko8`` the Gecko
 exponent stream.
 
-The port runs on one device, so only the error-feedback step is here;
-the JAX package's ``psum_compressed`` (a ``shard_map`` collective) waits
-for the multi-device work, with ``TrainConfig.param_shardings``.
+The train step runs the round trip on each rank's local gradient shards
+(``compress_grads`` works leaf by leaf and shard by shard, as JAX's does
+under GSPMD). ``psum_compressed`` is the collective building block: the
+round trip, then the bf16 payloads summed over a process group and
+averaged.
 """
 from __future__ import annotations
 
 from typing import Any, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import codecs
 from repro_torch.core.stash import float_leaves, substitute
@@ -60,3 +63,23 @@ def init_residual(grads_like: Any) -> Any:
     """An f32 zero residual shaped like ``grads_like`` (a nest of dicts and
     lists of tensors), on their devices."""
     return adamw.zeros_like(grads_like)
+
+
+def psum_compressed(grads: Any, residual: Any, bits, group,
+                    codec: str = codecs.BIT_EXACT) -> Tuple[Any, Any]:
+    """The error-feedback round trip of this rank's ``grads`` (in place, as
+    ``compress_grads``), then each leaf's bf16 payload all-reduced over
+    ``group`` and divided by its size, in f32. Returns (the mean nest, the
+    new residual nest). The wire carries bf16 containers with
+    ``bits``-bit mantissas (the Gecko exponent packing applies on top in
+    the hardware realization). The backend sums the bf16 payloads in its
+    own order, so the mean can differ from JAX's (whose XLA:CPU psum
+    accumulates in f32) by the rounding of a bf16 sum."""
+    q, new_res = compress_grads(grads, residual, bits, codec)
+    n = dist.get_world_size(group)
+    out = {}
+    for path, t in float_leaves(q):
+        wire = t.to(torch.bfloat16)
+        dist.all_reduce(wire, group=group)
+        out[path] = wire.to(torch.float32) / n
+    return substitute(q, out), new_res

@@ -16,8 +16,22 @@
     accumulated parameter gradients go through ``grad_codec``'s round trip
     once per step, before AdamW (so ``grad_norm`` is the compressed
     gradients' norm), and the residual rides in the state.
-
-Parameter shardings are not ported (the port runs on one device).
+  * a sharded step for a model built on a mesh (``DecoderModel(mesh=)``):
+    the parameters, AdamW moments and residual are DTensors of the
+    model's ``shardings`` (the placements belong to the model, whose
+    layers compute in them), the gradient accumulators their local
+    shards. Each rank takes its rows of
+    every microbatch (the one-device step's microbatches, split over the
+    batch ranks) and differentiates its share of the global mean; the
+    layers' gathers reduce-scatter the shares of sharded leaves, and the
+    step sums the rest over the ranks that hold different shares: a
+    replicated leaf's over the batch axes (and the TP axis where each TP
+    rank holds a share, ``DecoderModel.grad_reduce_axes``), a learned
+    activation bitlength's over the batch axes, a weight bitlength's over
+    the whole mesh (each rank sees its own weight shard). The penalty's
+    gradient is added once. Every rank draws the one-device step's
+    bitlengths from its own copy of the generator, so all must run every
+    step. The metrics are global and equal on every rank.
 """
 from __future__ import annotations
 
@@ -27,6 +41,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.core.stash import float_leaves, substitute
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels.sfp_pack import device_bits
 from repro_torch.models.model import DecoderModel, RunState
 from repro_torch.optim import adamw
@@ -49,10 +64,15 @@ def init_state(model: DecoderModel, seed: int, tc: TrainConfig
                ) -> TrainState:
     """Parameters from ``seed``; the step's generator from ``seed`` too
     (a separate stream object); an f32 zero residual when gradients are
-    compressed."""
+    compressed. Under a mesh every rank draws the whole tree and keeps its
+    shards (DTensors of the model's ``shardings``)."""
     params = model.init(seed)
-    for p in adamw.leaves(params):
-        p.requires_grad_(True)
+    shardings = model.shardings
+    if shardings is None:
+        for p in adamw.leaves(params):
+            p.requires_grad_(True)
+    else:
+        params = shd.tree_map(shd.distribute, params, shardings)
     gen = torch.Generator(device=model.device)
     gen.manual_seed(seed + 999)
     return TrainState(params=params, opt=adamw.init(params),
@@ -91,11 +111,87 @@ def _scope_lambdas(model: DecoderModel, batch_shape: Tuple[int, int]
             "w_rem": full(n_rem, rem_w / total)}
 
 
+def shard_state(model: DecoderModel, state: TrainState) -> TrainState:
+    """A whole (one-device) state, the same on every rank, as the sharded
+    step's: the parameters, moments and residual as DTensors of the
+    model's ``shardings`` (this rank's shards); the rest as it is."""
+    sh = model.shardings
+
+    def dist(tree):
+        return None if tree is None else shd.tree_map(shd.distribute, tree,
+                                                      sh)
+    return state._replace(
+        params=dist(state.params),
+        opt=state.opt._replace(m=dist(state.opt.m), v=dist(state.opt.v)),
+        grad_residual=dist(state.grad_residual))
+
+
+def state_shardings(model: DecoderModel, state: TrainState) -> TrainState:
+    """``state``'s structure with the sharding of each leaf that has one
+    under ``model``'s mesh: the model's ``shardings`` for the parameters,
+    moments and residual; None elsewhere, so the policy state stays whole
+    on every rank (the ``shardings=`` of ``CheckpointManager.restore``,
+    onto this model's mesh)."""
+    sh = model.shardings
+    return TrainState(
+        params=sh, opt=adamw.AdamWState(m=sh, v=sh, count=None),
+        pstate=None, step=None, gen=None,
+        grad_residual=None if state.grad_residual is None else sh)
+
+
 def make_train_step(model: DecoderModel, tc: TrainConfig):
-    policy, dims = model.policy, model.dims
+    policy, dims, mesh = model.policy, model.dims, model.mesh
     # The wire's bitlength goes to the device once, not once per leaf.
     wire_bits = (None if tc.grad_compress_bits is None else
                  device_bits(tc.grad_compress_bits, model.device))
+    if mesh is not None:
+        n_batch = model._batch_shards()
+        batch_group = shd.axes_group(mesh, model.batch_axes)
+        mesh_group = shd.mesh_group(mesh)
+        reduce_groups = {path: shd.axes_group(mesh, a)
+                         for path, a in model.grad_reduce_axes().items()}
+
+    def learn_grads(shares, penalty, learn):
+        """The learned bitlengths' gradients from this rank's shares: an
+        activation bitlength's summed over the batch axes (the stash
+        estimate covers this rank's rows), any other over the whole mesh
+        (the weight estimate covers this rank's weight shard and rows),
+        then the penalty's gradient once."""
+        paths, leaves = zip(*float_leaves(learn)) if learn else ((), ())
+        pen = (torch.autograd.grad(penalty, leaves, allow_unused=True)
+               if penalty.requires_grad else [None] * len(leaves))
+        out = []
+        for path, t, g, p in zip(paths, leaves, shares, pen):
+            g = (torch.zeros(t.shape, dtype=torch.float32, device=t.device)
+                 if g is None else g.to(torch.float32))
+            shd.all_reduce_(g, batch_group if path[-1].startswith("act")
+                            else mesh_group)
+            out.append(g if p is None else g + p)
+        return out
+
+    def rows(batch, i, nm):
+        """Microbatch ``i`` of the global batch: under a mesh this rank's
+        rows of it (a DTensor batch is gathered first unless it is one
+        microbatch already in the batch placements)."""
+        B = batch["tokens"].shape[0]
+        if mesh is None:
+            return {k: v[i * (B // nm):(i + 1) * (B // nm)]
+                    for k, v in batch.items()}
+        if (B // nm) % n_batch:
+            raise ValueError(f"a microbatch of {B // nm} rows does not "
+                             f"split over {n_batch} batch ranks")
+        specs = shd.batch_specs(model.rules, "train",
+                                "cond_embeddings" in batch, mesh)
+        out = {}
+        for k, v in batch.items():
+            if isinstance(v, shd.DTensor):
+                if nm == 1 and tuple(v.placements) == specs[k].placements:
+                    out[k] = v.to_local()
+                    continue
+                v = shd.full(v)
+            out[k] = shd.local_chunk(v[i * (B // nm):(i + 1) * (B // nm)],
+                                     specs[k])
+        return out
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
@@ -108,23 +204,39 @@ def make_train_step(model: DecoderModel, tc: TrainConfig):
         lr = tc.schedule(state.step)
         learn = state.pstate.learn
         cview = policy.control_view(state.pstate.ctrl, dims)
-        p_leaves = adamw.leaves(state.params)
+        params = state.params
+        p_paths = [path for path, _ in float_leaves(params)]
+        p_leaves = adamw.leaves(params)
+        if mesh is not None:
+            # Differentiate the local shards (views of the DTensors).
+            p_leaves = [shd.local(p).detach().requires_grad_()
+                        for p in p_leaves]
+            params = substitute(params, dict(zip(p_paths, p_leaves)))
         # A composite's learn is nested ({"qm": {...}, "qe": {...}}): its
         # leaves are differentiated flat and the gradients renested.
         paths = [path for path, _ in float_leaves(learn)]
         wrt = p_leaves + [t for _, t in float_leaves(learn)]
+        n_p = len(p_leaves)
         acc = [None] * len(wrt)
         zero = torch.zeros((), dtype=torch.float32, device=model.device)
         loss_acc = xent_acc = pen_acc = lb_acc = drop_acc = zero
         for i in range(nm):
-            mb = {k: v[i * (B // nm):(i + 1) * (B // nm)]
-                  for k, v in batch.items()}
+            mb = rows(batch, i, nm)
             run = RunState(gen=state.gen,
                            pol=policy.forward_view(learn, cview, dims))
-            loss, metrics = model.loss(state.params, mb, run)
+            loss, metrics = model.loss(params, mb, run)
             penalty = policy.penalty(learn, lam, dims).to(loss.device)
-            total = loss + penalty
-            grads = list(torch.autograd.grad(total, wrt, allow_unused=True))
+            if mesh is None:
+                total = loss + penalty
+                grads = list(torch.autograd.grad(total, wrt,
+                                                 allow_unused=True))
+            else:
+                # This rank's share; the penalty is added once, after the
+                # shares are summed.
+                total = loss
+                grads = list(torch.autograd.grad(loss, wrt,
+                                                 allow_unused=True))
+                grads[n_p:] = learn_grads(grads[n_p:], penalty, learn)
             for j, t in enumerate(wrt):
                 g = (torch.zeros(t.shape, dtype=torch.float32,
                                  device=t.device)
@@ -137,7 +249,14 @@ def make_train_step(model: DecoderModel, tc: TrainConfig):
             lb_acc = lb_acc + metrics["moe_lb_loss"].detach() / nm
             drop_acc = drop_acc + metrics["moe_drop_frac"].detach() / nm
 
-        n_p = len(p_leaves)
+        if mesh is not None:
+            for g, path in zip(acc[:n_p], p_paths):
+                shd.all_reduce_(g, reduce_groups[path])
+            sums = shd.all_reduce_(torch.stack(
+                [loss_acc, xent_acc, lb_acc / n_batch, drop_acc / n_batch]),
+                batch_group)
+            loss_acc, xent_acc, lb_acc, drop_acc = sums.unbind()
+            loss_acc = loss_acc + pen_acc
         grads, residual = acc[:n_p], state.grad_residual
         if wire_bits is not None:
             if residual is None:
@@ -146,7 +265,8 @@ def make_train_step(model: DecoderModel, tc: TrainConfig):
                                  "this TrainConfig)")
             # Error feedback, in place over the gradients and the residual.
             grads, _ = grad_compress.compress_grads(
-                grads, adamw.leaves(residual), wire_bits, tc.grad_codec)
+                grads, [shd.local(r) for r in adamw.leaves(residual)],
+                wire_bits, tc.grad_codec)
         new_params, new_opt, gnorm = adamw.update(
             grads, state.opt, state.params, tc.opt, lr)
         new_learn = policy.update_learn(

@@ -268,10 +268,31 @@ def test_restore_missing_leaf_names_the_saved_run(tmp_path):
 
 
 def test_restore_onto_shardings_is_not_ported(tmp_path):
+    """``restore(shardings=)`` raised NotImplementedError until the
+    distributed slice ported it: a None sharding keeps the leaf as
+    ``like``'s, a ``Sharding`` makes it a DTensor of this rank's shard
+    (here on a gloo world of one; multi-rank restores are
+    ``tests/test_torch_dist_ops.py``'s)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.distributed import sharding as shd
     mgr = CheckpointManager(str(tmp_path))
-    mgr.save(1, {"a": torch.zeros(2)})
-    with pytest.raises(NotImplementedError):
-        mgr.restore(1, {"a": torch.zeros(2)}, shardings={"a": None})
+    a = torch.arange(4, dtype=torch.float32)
+    mgr.save(1, {"a": a})
+    back = mgr.restore(1, {"a": torch.zeros(4)}, shardings={"a": None})
+    assert type(back["a"]) is torch.Tensor and torch.equal(back["a"], a)
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = DeviceMesh("cpu", torch.arange(1).reshape(1, 1),
+                          mesh_dim_names=("data", "model"))
+        sh = shd.Sharding(mesh, (shd.Shard(0), shd.Replicate()))
+        back = mgr.restore(1, {"a": torch.zeros(4)}, shardings={"a": sh})
+        assert isinstance(back["a"], shd.DTensor)
+        assert tuple(back["a"].placements) == sh.placements
+        assert torch.equal(shd.full(back["a"]), a)
+    finally:
+        dist.destroy_process_group()
 
 
 def test_compressed_checkpoint_truncates_mantissas(tmp_path):
