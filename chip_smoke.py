@@ -164,7 +164,7 @@ against the ``repro_torch`` package under DIR (default: this checkout's
    (e) mantissa_quantize timed on the f32 embed/table gradient beside its
    bound, its plain version and ``torch.bitwise_and``; (c) one step each
    with ``TrainConfig(grad_codec="sfp8")`` and ``"gecko8"`` at 4 layers;
-   (d) ``--policy afloat --container sfp-m2e4`` for 4 steps (QE's bits
+   (d) ``--policy afloat --container sfp-m2e4`` over 8 layers for 4 steps (QE's bits
    from 4.5), act_b held at 0 and w_b moved, then one 2-layer step on the
    card and on the CPU from the same weights and injected draws, losses
    within 1e-4.
@@ -197,7 +197,7 @@ against the ``repro_torch`` package under DIR (default: this checkout's
    local layers mask in prefill and their rings wrap), 64 new tokens,
    from an sfp8 cache, against the plain path (which, in every serving
    run, prefills one request at a time and decodes as one batch);
-   (c) training at full widths over 4 layers (two periods), B 2, S 2048,
+   (c) training at full widths over 2 layers (one period), B 2, S 2048,
    4 steps of qm + sfp8 against the plain path.
 13. mistral-large-123b (96 q / 8 KV heads of 128, GQA rep 12, an untied
    head, no softcaps): (a) the attention forward and backward at its
@@ -211,8 +211,8 @@ against the ``repro_torch`` package under DIR (default: this checkout's
    prefill); (c) training at full widths over 2
    layers, B 2, S 2048: 4 steps of qm + sfp8 and of qm+qe + sfp-m2e4
    (with the attention-plain witness) against the plain path.
-14. The prefix-LMs (after step 13; musicgen at 12 of its 48 layers,
-   paligemma at 9 of 18): paligemma-3b (8 q / 1 KV head
+14. The prefix-LMs (after step 13; musicgen at 6 of its 48 layers,
+   paligemma at 6 of 18): paligemma-3b (8 q / 1 KV head
    of 256, GQA rep 8, P 256) and musicgen-large (32 / 32 heads of 64, no
    GLU, an untied head, P 64), each reading P seeded random conditioning
    embeddings (drawn on the CPU) before its tokens as a prefix every
@@ -239,19 +239,19 @@ against the ``repro_torch`` package under DIR (default: this checkout's
    2048) held, counted and timed beside scaled_dot_product_attention on
    its flash backend; every decode read over the 2176-slot contiguous
    cache and on the 8 x 1280 paged pool, held and timed; (b) serving
-   olmoe at 8 of 16 layers from sfp8 and sfp-m2e4 caches and phi3.5-moe
-   at 8 of 32 layers from sfp8, batch 4, 2048-token prompts, 64 new
+   olmoe at 4 of 16 layers from sfp8 and sfp-m2e4 caches and phi3.5-moe
+   at 4 of 32 layers from sfp8, batch 4, 2048-token prompts, 64 new
    tokens, against the plain path: the prefill logits with the plain and
    an f64-attention prefill routed as the kernel path routed (no final
    softcap), printing how many (token, expert) prefill assignments the
    two paths route differently; the experts' random weights at their own
    fan-in; (c) 4 training steps at full widths,
-   olmoe over 4 layers (B 4, S 2048; qm + sfp8 and qm+qe + sfp-m2e4, both
+   olmoe over 2 layers (B 4, S 2048; qm + sfp8 and qm+qe + sfp-m2e4, both
    with the attention-plain witness) and phi3.5-moe over 2 (B 2; qm + sfp8),
    printing ``moe_lb_loss`` and ``moe_drop_frac`` a step; one olmoe qm +
    sfp8 step under torch.profiler, its device time by router, scatter and
    gather, expert matmuls, attention and stash; (d) the seeded paged
-   trace over olmoe at 4 layers (sfp8, --burst 1).
+   trace over olmoe at 2 layers (sfp8, --burst 1).
 16. The recurrent families (after step 15): mamba2-370m (48 SSD layers,
    no attention) and recurrentgemma-9b (12 (rglru, rglru, local) periods
    and two remainder RG-LRU layers; 16 q / 1 KV head of 256, rep 16,
@@ -265,9 +265,9 @@ against the ``repro_torch`` package under DIR (default: this checkout's
    B 4, S 4096 (windows 2048 and None) held, counted and timed at window
    2048 beside scaled_dot_product_attention with the same boolean mask,
    and the ring decode reads (words and planes, full width and draft)
-   over 2048 slots, held and timed; (c) serving mamba2 whole (batch 4,
+   over 2048 slots, held and timed; (c) serving mamba2 over 24 layers (batch 4,
    2048-token prompts, 64 new tokens; no kernel runs) and recurrentgemma
-   at full widths over 14 layers (batch 4, 4096-token prompts past the
+   at full widths over 8 layers (batch 4, 4096-token prompts past the
    window, 64 new tokens, sfp8 and sfp-m2e4), against the plain path, the
    prefill logits held to twice an f64-attention prefill's distance plus
    one bf16 spacing at the largest logit, and silencing every layer of a
@@ -275,12 +275,12 @@ against the ``repro_torch`` package under DIR (default: this checkout's
    last layer of each kind alone is printed); the decode logits after
    steps 1, 32 and 63 held to the same gate against the plain path fed
    the same tokens; mamba2's greedy stream must not repeat the fed token;
-   (d) 4 training steps each, mamba2 at full width over 24 layers (B 4, S
+   (d) 4 training steps each, mamba2 at full width over 12 layers (B 4, S
    2048; qm + sfp8 and qm+qe + sfp-m2e4, every gradient finite) and
-   recurrentgemma at full widths over 8 layers (B 2, S 4096; qm + sfp8,
+   recurrentgemma at full widths over 5 layers (B 2, S 4096; qm + sfp8,
    and qm+qe + sfp-m2e4 with the attention-plain witness); (e) seeded
    12-request paged traces through the scheduler and the paged engine,
-   mamba2 over 8 layers and recurrentgemma over 8, at --burst 1,
+   mamba2 over 4 layers and recurrentgemma over 3, at --burst 1,
    --speculate 4 and under forced draft rejections (recurrentgemma also
    sfp-m2e4 --speculate 4): every request finished after a preemption,
    the launches counted, the speculative streams held to burst 1.
@@ -295,7 +295,13 @@ against the ``repro_torch`` package under DIR (default: this checkout's
    gradients at 4 bits over the NCCL group (row 7), bit-equal to
    compress_grads and the bf16 round trip; (c) the tp state saved and
    restored with the fsdp layout's shardings, every leaf bit-equal, and
-   one more step of each equal.
+   one more step of each equal; (d) the other families' sharded steps,
+   olmoe-1b-7b at full widths over 2 layers (experts at their fan-in),
+   mamba2-370m over 4 and recurrentgemma-9b over its 3-layer period, qm
+   + sfp8 and qm+qe + sfp-m2e4, B 4, S 1024: 2 steps in each layout
+   against 2 unsharded, the losses, grad norms and the launches of rows
+   2, 3, 5, 6 and 8 equal, with step ms, NCCL calls a step and peak
+   memory.
 
 Any failure exits non-zero. The last line is the device JSON.
 """
@@ -304,6 +310,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import itertools
 import json
 import math
 import shutil
@@ -538,6 +545,7 @@ CKPT_DISK_MARGIN = 1.1
 GRADC_BITS, GRADC_LEAVES, GRADC_WIRE_LAYERS = 5, 236, 4
 GRADC_CODECS = ("bit_exact", "sfp8", "sfp16", "sfp-m2e4", "gecko8")
 AF_INIT_BITS, AF_CPU_LAYERS, AF_CPU_BATCH, AF_CPU_SEQ = 4.5, 2, 1, 128
+AF_LAYERS = 8   # the afloat launcher's depth at full width
 AF_LOSS_RTOL = 1e-4
 
 
@@ -2780,14 +2788,14 @@ def gemma3_phase(torch, counters, card, gen, flush):
 # the later phases), batch 2, from 4224-token prompts, past the window,
 # so the local
 # layers mask in prefill and their rings wrap in decode. It trains at full
-# widths over 4 of its 46 layers (two LOCAL/GLOBAL periods; 46 layers and
+# widths over 2 of its 46 layers (one LOCAL/GLOBAL period; 46 layers and
 # AdamW's moments need ~330 GB). mistral-large-123b (96 q / 8 KV heads of
 # 128, GQA rep 12, an untied head, no softcaps) is served at 2 of its 88
 # layers (88 layers are 245 GB), batch 4,
 # 2048-token prompts, and trained at 2.
 G27_ARCH, G27_SERVE_B, G27_PROMPT, G27_SERVE_LAYERS = (
     "gemma2-27b", 2, 4224, 2)
-G27_TRAIN_B, G27_TRAIN_SEQ, G27_TRAIN_LAYERS = 2, 2048, 4
+G27_TRAIN_B, G27_TRAIN_SEQ, G27_TRAIN_LAYERS = 2, 2048, 2
 G27_GLOBAL_POS = (4351, 4287, 4223, 900)
 G27_RING_POS = (5000, 4287, 4095, 2000)
 MI_ARCH, MI_SERVE_LAYERS, MI_SERVE_B, MI_PROMPT = (
@@ -2902,17 +2910,17 @@ def dense_config_phase(torch, counters, card, gen, flush, which):
                                  train_kw)
 
 
-# The prefix-LMs (slice 17): paligemma-3b, served and trained over 9 of
+# The prefix-LMs (slice 17): paligemma-3b, served and trained over 6 of
 # its 18 layers (d_model 2048, 8 q / 1 KV head of 256, GQA rep 8, GLU-GELU d_ff
 # 16384, a tied 257,216-word vocabulary with emb_scale, P 256) and
 # musicgen-large (48 layers, 32 q / 32 KV heads of 64, a GELU MLP without
 # GLU, d_ff 8192, an untied 2048-word head, P 64), served and trained over
-# 12 of its 48 layers (the smoke's time limit), 2.51 B and 2.42 B parameters. Each reads P seeded random conditioning embeddings (drawn on
+# 6 of its 48 layers (the smoke's time limit), 2.51 B and 2.42 B parameters. Each reads P seeded random conditioning embeddings (drawn on
 # the CPU) before 1024 tokens, so its attention runs over S_tot 1280 and
 # 1088 positions (the latter off the 128-row tile), batch 4; the decode
 # caches hold 1408 and 1152 slots.
 PG_ARCH, MG_ARCH = "paligemma-3b", "musicgen-large"
-PREFIX_B, PREFIX_SEQ, PG_LAYERS, MG_LAYERS = 4, 1024, 9, 12
+PREFIX_B, PREFIX_SEQ, PG_LAYERS, MG_LAYERS = 4, 1024, 6, 6
 PREFIX_POS = {PG_ARCH: (1407, 1343, 1279, 600),
               MG_ARCH: (1151, 1087, 1023, 300)}
 
@@ -2975,13 +2983,13 @@ def prefix_phase(torch, counters, card, gen, flush, which):
 # Mixture-of-Experts (slice 18). olmoe-1b-7b: 16 layers, d_model 2048, 16
 # q / 16 KV heads of 128 (rep 1), 64 experts of 1024 (GLU-SiLU), top-8, a
 # tied 50,304-word vocabulary; 6.82 B parameters (13.6 GB of bf16), served
-# at 8 of its 16 layers (cut from 16 for the smoke's time limit): batch
+# at 4 of its 16 layers (cut from 16 for the smoke's time limit): batch
 # 4, 2048-token prompts, 64 new tokens, sfp8 and sfp-m2e4 caches; trained
-# at full widths over 4 of its 16 layers (B 4, S 2048);
-# one paged trace (the seeded 12-request trace, sfp8, --burst 1) at 4
+# at full widths over 2 of its 16 layers (B 4, S 2048);
+# one paged trace (the seeded 12-request trace, sfp8, --burst 1) at 2
 # layers. phi3.5-moe-42b-a6.6b: 32 layers, d_model 4096, 32 q / 8 KV
 # heads of 128 (rep 4), 16 experts of 6400, top-2, an untied 32,064-word
-# head; 41.87 B parameters (84 GB of bf16), served at 8 of its 32 layers
+# head; 41.87 B parameters (84 GB of bf16), served at 4 of its 32 layers
 # (batch 4, 2048-token prompts, sfp8) and trained at full widths over 2
 # (B 2, S 2048; the weights, AdamW's f32 moments and the activations of
 # more layers pass 80 GB). The weights are drawn as the port's moe_init
@@ -3011,10 +3019,10 @@ def prefix_phase(torch, counters, card, gen, flush, which):
 # 1-10 at the new layouts.
 OL_ARCH, PHI_ARCH = "olmoe-1b-7b", "phi3.5-moe-42b-a6.6b"
 MOE_PROMPT, MOE_SERVE_B = 2048, 4
-OL_TRAIN_B, OL_TRAIN_SEQ, OL_TRAIN_LAYERS, OL_PAGED_LAYERS = 4, 2048, 4, 4
-OL_SERVE_LAYERS = 8
+OL_TRAIN_B, OL_TRAIN_SEQ, OL_TRAIN_LAYERS, OL_PAGED_LAYERS = 4, 2048, 2, 2
+OL_SERVE_LAYERS = 4
 PHI_SERVE_LAYERS, PHI_TRAIN_B, PHI_TRAIN_SEQ, PHI_TRAIN_LAYERS = (
-    8, 2, 2048, 2)
+    4, 2, 2048, 2)
 MOE_POS = (2111, 2047, 1500, 0)
 
 
@@ -3026,8 +3034,8 @@ def record_routes(positions, store):
     from repro_torch.models import moe
     route = moe.route
 
-    def recording(params, h, cfg):
-        out = route(params, h, cfg)
+    def recording(params, h, cfg, *group):
+        out = route(params, h, cfg, *group)
         if h.shape[1] == positions:
             store.append(out[3])
         return out
@@ -3049,10 +3057,10 @@ def forced_routes(torch, positions, routes):
     from repro_torch.models import moe
     route, calls, layers = moe.route, [0], len(routes)
 
-    def forced(params, h, cfg):
+    def forced(params, h, cfg, *group):
         if h.shape[1] != positions:
-            return route(params, h, cfg)
-        logits, probs, _, _ = moe.select(params, h, cfg)
+            return route(params, h, cfg, *group)
+        logits, probs, _, _ = moe.select(params, h, cfg, *group)
         n = calls[0]
         calls[0] += 1
         idx = routes[n % layers]
@@ -3255,9 +3263,10 @@ def moe_paths(torch, counters, card, gen, flush, which):
 
 # The recurrent families (slice 19). mamba2-370m: 48 SSD layers (d_model
 # 1024, 32 heads of 64, state 128, chunk 128; no attention and no MLP), a
-# tied 50,280-word vocabulary; 0.37 B parameters, served whole: batch 4,
+# tied 50,280-word vocabulary; 0.37 B parameters, served over 24 layers
+# (cut from 48 for the smoke's time limit): batch 4,
 # 2048-token prompts (16 chunks), 64 new tokens; trained at full width
-# over 24 layers (cut from 48 to keep the smoke inside its time limit
+# over 12 layers (cut from 48 to keep the smoke inside its time limit
 # beside the paged traces): 4 steps at B 4, S 2048 with qm + sfp8
 # and qm+qe + sfp-m2e4, every gradient finite at every step (the grad
 # norm is finite only if every gradient is; the JAX reference's SSD
@@ -3269,21 +3278,20 @@ def moe_paths(torch, counters, card, gen, flush, which):
 # head of 256, GQA rep 16, window 2048, GLU-GELU d_ff 12288, a tied
 # 256,000-word vocabulary with emb_scale); 8.52 B parameters (17.0 GB of
 # bf16; JAX's param_count says 9.40 B, ROADMAP §C), served at full
-# widths over 14 layers (four periods and the remainder; cut from 38 for
+# widths over 8 layers (two periods and the remainder; cut from 38 for
 # the time limit, as mamba2's training) at batch 4 from
 # 4096-token prompts (past the window: the prefill kernel masks and the
 # decode ring wraps), 64 new tokens, sfp8 and sfp-m2e4; trained at full
-# widths over 8 layers (two
-# periods and the two remainder layers, whose straight-through stash
-# decision then runs) at B 2, S 4096: whole, its bf16 weights and
+# widths over 5 layers (one period and the two remainder layers, whose
+# straight-through stash decision then runs) at B 2, S 4096: whole, its bf16 weights and
 # gradients and f32 moments would take ~113 GB. Its 12 LOCAL layers run
 # rows 8-9 at a layout no other config has: rep 16 over one KV head of
 # 256, window 2048.
 M2_ARCH, RG_ARCH = "mamba2-370m", "recurrentgemma-9b"
 M2_B, M2_PROMPT, M2_TRAIN_B, M2_TRAIN_SEQ = 4, 2048, 4, 2048
-M2_TRAIN_LAYERS = 24
-RG_B, RG_PROMPT, RG_SERVE_LAYERS = 4, 4096, 14
-RG_TRAIN_B, RG_TRAIN_SEQ, RG_TRAIN_LAYERS = 2, 4096, 8
+M2_TRAIN_LAYERS, M2_SERVE_LAYERS = 12, 24
+RG_B, RG_PROMPT, RG_SERVE_LAYERS = 4, 4096, 8
+RG_TRAIN_B, RG_TRAIN_SEQ, RG_TRAIN_LAYERS = 2, 4096, 5
 RG_RING_POS = (4159, 4096, 2047, 1000)   # decode reads over the 2048 ring
 # The recurrence twins: the chunked prefill (mamba2) or the log-depth scan
 # (recurrentgemma) over a 300-token prompt (two chunks of 128 and a tail
@@ -3307,15 +3315,16 @@ DECODE_HELD = (1, 32, 63)
 # only a rejected one commits the recurrent state of a verify step before
 # the last), and for recurrentgemma also sfp-m2e4 --speculate 4 (the
 # P' = 6 dense draft, held to generate). mamba2 runs at full width over
-# M2_PAGED_LAYERS of its 48 layers: whole, its three traces took 103 s on
-# the H100 (72 s at 24 layers), and the smoke ran 1,109 s of its 1,200;
+# M2_PAGED_LAYERS of its 48 layers: whole, its three traces took 103 s
+# on the H100 (72 s at 24 layers), and the smoke ran 1,109 s of its
+# 1,200;
 # the scheduler, the pool and the state protocol do the same work a
 # layer.
 # It takes PAGED_TRACE's traffic on 17 blocks: at its vocabulary of
 # 50,280 the seeded draws give other lengths than gemma2-2b's, and 23
 # blocks preempt none (the scheduler alone, on the CPU, before any chip
 # run; 17 preempts in all three runs). recurrentgemma runs at full widths
-# over RG_TRAIN_LAYERS (two periods and the remainder); its prompts
+# over RG_PAGED_LAYERS (one period); its prompts
 # (1,792-2,304 tokens) cross the 2,048 window, so the prefill masks and
 # the rings wrap in decode and within rounds; its pool of 32 blocks holds
 # about two requests and preempts one in each run (the same host check,
@@ -3327,7 +3336,8 @@ RG_PAGED_TRACE = ["--requests", "12", "--prompt-len-min", "1792",
                   "--max-new-max", "48", "--arrival-rate", "4",
                   "--max-slots", str(PAGED_SLOTS), "--max-len", "2432",
                   "--num-blocks", "32", "--seed", str(SEED)]
-M2_PAGED_LAYERS = 8
+M2_PAGED_LAYERS = 4
+RG_PAGED_LAYERS = 3
 FORCE_EVERY = 5   # a draft step of slot s at position p is biased where
                   # (p + s) % FORCE_EVERY == 0
 
@@ -3495,7 +3505,7 @@ def recurrent_traces(torch, counters, card, cfg, which):
         cfg = dataclasses.replace(cfg, n_layers=M2_PAGED_LAYERS)
         traffic, dense = M2_PAGED_TRACE, ()
     else:
-        cfg = dataclasses.replace(cfg, n_layers=RG_TRAIN_LAYERS)
+        cfg = dataclasses.replace(cfg, n_layers=RG_PAGED_LAYERS)
         traffic, dense = RG_PAGED_TRACE, ((DENSE, SPEC_K, " dense spec"),)
     summary, launches, streams, model = {}, {}, {}, None
     for container, speculate, suffix in (
@@ -3546,7 +3556,8 @@ def recurrent_phase(torch, counters, card, gen, flush, which):
     from repro_torch import configs
     if which == "mamba2":
         cfg = configs.get(M2_ARCH)
-        serving = ((cfg, CONTAINER, ""),)
+        serving = ((dataclasses.replace(cfg, n_layers=M2_SERVE_LAYERS),
+                    CONTAINER, ""),)
         serve_kw = dict(prompt_len=M2_PROMPT, batch=M2_B)
         training = (("qm", CONTAINER, False, ""),
                     ("qm+qe", DENSE, False, " dense"))
@@ -4651,7 +4662,8 @@ def _ceil_draw(n_float, generator, max_bits, min_bits=0, shape=None):
 
 
 def afloat_run(torch, cfg, counters):
-    """(d): ``--policy afloat --container sfp-m2e4`` at full width for 4
+    """(d): ``--policy afloat --container sfp-m2e4`` at full width over
+    AF_LAYERS layers for 4
     steps, QE's bitlengths from AF_INIT_BITS (the launcher starts them at
     the full 8-bit field, where the window holds every finite value and
     neither bias has a gradient); act_b must stay 0, as in JAX, and w_b
@@ -4667,6 +4679,7 @@ def afloat_run(torch, cfg, counters):
 
     def policy_fn(pol):
         return dataclasses.replace(pol, init_bits=AF_INIT_BITS)
+    cfg = dataclasses.replace(cfg, n_layers=AF_LAYERS)
     argv = train_argv(cfg, "afloat", DENSE, TRAIN_STEPS)
     expect = {c.__name__: 0 for c in counters}
     expect.update({"bitplane_quantize_pack": cfg.n_periods,
@@ -4675,8 +4688,8 @@ def afloat_run(torch, cfg, counters):
                    "flash_attention_bwd": cfg.n_layers})
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    model, step_fn, state, batches, _ = train_setup(torch, argv,
-                                                    policy_fn=policy_fn)
+    model, step_fn, state, batches, _ = train_setup(
+        torch, argv, n_layers=AF_LAYERS, policy_fn=policy_fn)
     records, metrics = [], []
     for i, b in enumerate(batches):
         for c in counters:
@@ -5036,6 +5049,17 @@ DIST_LAYERS, DIST_STEPS, DIST_BITS, DIST_RTOL = 4, 3, 4, 1e-5
 # The kernels of the sharded step's path (rows 2, 3 and 8).
 DIST_KERNELS = ("sfp_quantize_pack", "sfp_unpack", "flash_attention",
                 "flash_attention_bwd")
+# Part (d): every other family's sharded step at full widths over a cut
+# depth (olmoe over 2 layers, mamba2 over 4 SSD layers, recurrentgemma
+# over its (rglru, rglru, local) period), B 4, S 1024, DIST_FAMILY_STEPS
+# steps a layout under each of DIST_FAMILY_POLICIES; the launches of rows
+# 2, 3, 5, 6 and 8 held.
+DIST_FAMILIES = (("olmoe-1b-7b", 2), ("mamba2-370m", 4),
+                 ("recurrentgemma-9b", 3))
+DIST_FAMILY_STEPS = 2
+DIST_FAMILY_POLICIES = (("qm", CONTAINER), ("qm+qe", DENSE))
+DIST_FAMILY_KERNELS = DIST_KERNELS + ("bitplane_quantize_pack",
+                                      "bitplane_unpack")
 
 
 def dist_close(what, got, want):
@@ -5057,6 +5081,116 @@ def leaf_gap(got, want):
     return worst
 
 
+@contextlib.contextmanager
+def nccl_calls(torch):
+    """Within the block, count the collectives the sharded model and step
+    call (all-reduce, all-gather, reduce-scatter, all-to-all) into the
+    yielded dict."""
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding as shd
+    calls = {}
+    saved = {}
+
+    def counted(owner, name):
+        fn = getattr(owner, name)
+        saved[(owner, name)] = fn
+
+        def call(*a, **k):
+            calls[name] = calls.get(name, 0) + 1
+            return fn(*a, **k)
+        setattr(owner, name, call)
+    for owner, name in ((dist, "all_reduce"), (dist, "all_to_all_single"),
+                        (shd, "_all_gather_base"),
+                        (shd, "_reduce_scatter_base")):
+        counted(owner, name)
+    try:
+        yield calls
+    finally:
+        for (owner, name), fn in saved.items():
+            setattr(owner, name, fn)
+
+
+def family_steps(torch, counters, card, mesh):
+    """Part (d): for each of DIST_FAMILIES and DIST_FAMILY_POLICIES,
+    DIST_FAMILY_STEPS unsharded steps, then as many sharded in each layout
+    (tp, fsdp) from the same seed over the world of one: losses and grad
+    norms bit-equal step by step, and the launches of
+    DIST_FAMILY_KERNELS; step ms, NCCL calls a step and peak memory.
+    olmoe's experts at their own fan-in (as its phase)."""
+    from repro_torch import configs
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models.model import DecoderModel
+    from repro_torch.train import step as step_mod
+    out = {}
+    for (arch, layers), (policy, container) in itertools.product(
+            DIST_FAMILIES, DIST_FAMILY_POLICIES):
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(configs.get(arch), n_layers=layers)
+        argv = train_argv(cfg, policy, container, DIST_FAMILY_STEPS)
+        scale = (fan_in_experts(torch) if cfg.is_moe
+                 else contextlib.nullcontext())
+        name = f"{arch} {policy} {container}"
+        rep = {"layers": layers, "batch": B, "seq": TRAIN_SEQ}
+        with scale:
+            model, step_fn, state, batches, tc = train_setup(
+                torch, argv, n_layers=layers)
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            ref = []
+            for i, b in enumerate(batches):
+                state, rec = timed_step(torch, step_fn, state, b, counters, i)
+                ref.append(rec)
+            rep["unsharded"] = {
+                "step_ms": [r["step_s"] * 1e3 for r in ref],
+                "loss": [r["loss"] for r in ref],
+                "grad_norm": [r["grad_norm"] for r in ref],
+                "peak_over_held_gb": (torch.cuda.max_memory_allocated()
+                                      - held) / 1e9,
+                "launches_per_step": {k: ref[0]["launches"][k]
+                                      for k in DIST_FAMILY_KERNELS}}
+            del state, step_fn
+            torch.cuda.empty_cache()
+            for layout in ("tp", "fsdp"):
+                m = DecoderModel(cfg, model.policy, device=model.device,
+                                 mesh=mesh, rules=shd.rules_for(
+                                     mesh, layout=layout))
+                s = step_mod.init_state(m, SEED, tc)
+                f = step_mod.make_train_step(m, tc)
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated()
+                recs, per_step = [], []
+                for i, b in enumerate(batches):
+                    with nccl_calls(torch) as calls:
+                        s, rec = timed_step(torch, f, s, b, counters, i)
+                    per_step.append(sum(calls.values()))
+                    what = f"distributed (d) {name} {layout} step {i}"
+                    for k in ("loss", "grad_norm"):
+                        if rec[k] != ref[i][k]:
+                            fail(f"{what}: {k} {rec[k]!r} against the "
+                                 f"unsharded {ref[i][k]!r}")
+                    for k in DIST_FAMILY_KERNELS:
+                        if rec["launches"][k] != ref[i]["launches"][k]:
+                            fail(f"{what}: {k} launched "
+                                 f"{rec['launches'][k]} times, unsharded "
+                                 f"{ref[i]['launches'][k]}")
+                    recs.append(rec)
+                rep[layout] = {
+                    "step_ms": [r["step_s"] * 1e3 for r in recs],
+                    "nccl_calls_per_step": per_step,
+                    "nccl_calls_by_kind": calls,
+                    "peak_over_held_gb": (torch.cuda.max_memory_allocated()
+                                          - held) / 1e9}
+                del s, f, m
+                torch.cuda.empty_cache()
+        del model, batches
+        torch.cuda.empty_cache()
+        rep["seconds"] = time.perf_counter() - t0
+        rep["card"] = card
+        out[name] = rep
+        print(f"distributed (d) {name}: " + json.dumps(rep))
+    return out
+
+
 def distributed_phase(torch, cfg, counters, card):
     """Slice 21: the sharded train step over NCCL at a world of one (a
     (data 1, model 1) mesh; one card cannot hold two NCCL ranks), gemma2-2b
@@ -5070,8 +5204,9 @@ def distributed_phase(torch, cfg, counters, card):
     step's full-width f32 gradients at 4 bits (row 7), bit-equal to
     ``compress_grads`` and the bf16 round trip; (c) the tp state after the
     last step saved, restored with the fsdp layout's shardings (every leaf
-    bit-equal), and one more step of each equal. Returns (report, the tp
-    run's launches summed over its steps, with (b)'s mantissa_quantize)."""
+    bit-equal), and one more step of each equal; (d) ``family_steps``.
+    Returns (report, the tp run's launches summed over its steps, with
+    (b)'s mantissa_quantize)."""
     import tempfile
     import torch.distributed as dist
     from repro_torch.checkpoint.manager import CheckpointManager, named_leaves
@@ -5227,6 +5362,9 @@ def distributed_phase(torch, cfg, counters, card):
         report["elastic"] = c_out
         print("distributed (c) elastic restore tp -> fsdp: "
               + json.dumps(c_out))
+        del back, s_tp, runs, m_f, f_f, m_tp, f_tp
+        torch.cuda.empty_cache()
+        report["families"] = family_steps(torch, counters, card, mesh)
     finally:
         dist.destroy_process_group()
     report["seconds"] = time.perf_counter() - t_phase

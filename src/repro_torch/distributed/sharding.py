@@ -25,6 +25,14 @@ port's kernels take plain contiguous tensors:
             row-parallel product, or of a vocab-sharded embedding lookup)
   copy_to   identity forward, all-reduce backward (the input of a
             column-parallel product)
+  all_to_all  an exchange of equal blocks, the inverse exchange backward
+            (the expert-parallel dispatch of tokens that other ranks hold)
+
+and the compositions ``sum_over`` (all-reduce both ways: a statistic
+summed over ranks whose outputs differ) and ``shared`` (a value every
+rank computes whole; its gradient divided by the group's size, since the
+group sums it later). ``kept_axis`` says which leaves a layer keeps
+sharded when it gathers its weights.
 
 The functions that only plan (``rules_for``, ``spec_from_axes``,
 ``refine_shardings``, ``batch_specs``) read nothing of a mesh but its dim
@@ -150,6 +158,25 @@ def spec_from_axes(axes: Tuple[Optional[str], ...], rules: Rules, mesh
         for i in order:
             placements[i] = Shard(dim)
     return tuple(placements)
+
+
+# Logical axes whose mesh dim a layer keeps sharded: a rank computes with
+# its own heads, ff columns, vocab rows, experts or channels.
+TP_AXES = frozenset({"heads", "ff", "vocab", "experts", "lru", "ssm_inner"})
+
+
+def kept_axis(axes: Tuple[Optional[str], ...], sharding: Sharding,
+              axis: str = "model") -> Optional[str]:
+    """``axis`` when it shards a dim of the leaf whose logical axis is one
+    of ``TP_AXES`` (the layer computes on that shard), else None (the
+    layer gathers the leaf whole over it)."""
+    names = _names(sharding.mesh)
+    if axis not in names:
+        return None
+    p = sharding.placements[names.index(axis)]
+    if isinstance(p, Shard) and axes[p.dim] in TP_AXES:
+        return axis
+    return None
 
 
 def _is_axes(x) -> bool:
@@ -426,13 +453,46 @@ def all_reduce_(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
 
 class _Gather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, dim, group):
-        ctx.dim, ctx.group = dim, group
+    def forward(ctx, x, dim, group, summed):
+        ctx.dim, ctx.group, ctx.summed = dim, group, summed
         return all_gather(x, dim, group)
 
     @staticmethod
     def backward(ctx, g):
-        return _reduce_scatter(g, ctx.dim, ctx.group), None, None
+        if ctx.summed:
+            g = _reduce_scatter(g, ctx.dim, ctx.group)
+        else:
+            n = dist.get_world_size(ctx.group)
+            g = g.chunk(n, dim=ctx.dim)[dist.get_rank(ctx.group)].contiguous()
+        return g, None, None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _exchange(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange(g, ctx.group), None
+
+
+def _exchange(x: torch.Tensor, group) -> torch.Tensor:
+    out = torch.empty_like(x, memory_format=torch.contiguous_format)
+    dist.all_to_all_single(out, x.contiguous(), group=group)
+    return out
+
+
+class _Shared(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.n = dist.get_world_size(group)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None
 
 
 class _Reduce(torch.autograd.Function):
@@ -456,10 +516,34 @@ class _CopyTo(torch.autograd.Function):
         return all_reduce_(g.clone(), ctx.group), None
 
 
-def gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+def gather(x: torch.Tensor, dim: int, group, summed: bool = True
+           ) -> torch.Tensor:
     """All-gather ``x`` along ``dim`` over ``group``; the gradient is
-    reduce-scattered back (summed over the group's partial gradients)."""
-    return x if group is None else _Gather.apply(x, dim, group)
+    reduce-scattered back (summed over the group's partial gradients), or
+    with ``summed=False`` each rank keeps its slice of its own gradient
+    (every rank of the group computed the same whole gradient)."""
+    return x if group is None else _Gather.apply(x, dim, group, summed)
+
+
+def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """Block j of ``x`` (dim 0 in ``group``-size equal blocks) goes to
+    rank j; returns the blocks received, in rank order. The gradient goes
+    back by the inverse exchange (the same one)."""
+    return x if group is None else _AllToAll.apply(x, group)
+
+
+def shared(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` unchanged, where every rank of ``group`` computes it whole;
+    its gradient divided by the group's size, so that the sum over the
+    group a later collective takes counts it once."""
+    return x if group is None else _Shared.apply(x, group)
+
+
+def sum_over(x: torch.Tensor, group) -> torch.Tensor:
+    """Sum ``x`` over ``group``, its gradient summed too: each rank's
+    output differs, and every rank's share of the gradient of the sum is
+    needed."""
+    return copy_to(reduce(x, group), group)
 
 
 def reduce(x: torch.Tensor, group) -> torch.Tensor:
@@ -473,13 +557,16 @@ def copy_to(x: torch.Tensor, group) -> torch.Tensor:
 
 
 def materialize(x: torch.Tensor, sharding: Sharding,
-                keep: Optional[str] = None) -> torch.Tensor:
+                keep: Optional[str] = None, same: Optional[str] = None
+                ) -> torch.Tensor:
     """A leaf's local shard gathered over every mesh dim that shards it
     but ``keep`` (innermost first, so nested shards rejoin in order);
-    differentiable."""
+    differentiable. Over ``same`` every rank computes the whole leaf's
+    same gradient (``gather(summed=False)``)."""
     names = _names(sharding.mesh)
     for i in reversed(range(len(names))):
         p = sharding.placements[i]
         if isinstance(p, Shard) and names[i] != keep:
-            x = gather(x, p.dim, sharding.mesh.get_group(names[i]))
+            x = gather(x, p.dim, sharding.mesh.get_group(names[i]),
+                       summed=names[i] != same)
     return x

@@ -7,10 +7,13 @@ Decode positions are (B,) tensors throughout, one per batch row.
 
 Under tensor parallelism (``attention_train(tp=)``) a rank computes its
 ``n_heads / tp`` query heads from its columns of ``wq``, and its group's KV
-heads: its own columns of ``wk`` / ``wv`` where ``n_kv_heads`` divides tp,
+heads: its own columns of ``wk`` / ``wv`` where tp splits ``n_kv_heads``,
 else every KV head from the whole weights (the JAX package's
 ``_qkv_specs`` replicates them), of which it reads its group's. ``wo``'s
-partial product is summed over the TP group.
+partial product is summed over the TP group. Where the query heads do not
+split over tp, or the KV heads neither split nor divide it, every rank
+computes every head from the whole weights, as JAX replicates them
+(``kv_local``; the model then calls this without ``tp``).
 """
 from __future__ import annotations
 
@@ -18,7 +21,6 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from repro_torch import NotYetPorted
 from repro_torch.configs.base import ArchConfig, LOCAL
 from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import ops
@@ -31,22 +33,22 @@ PARAM_AXES = {"wq": ("embed", "heads"), "wk": ("embed", "heads"),
               "q_norm": {"scale": ("norm",)}, "k_norm": {"scale": ("norm",)}}
 
 
-def kv_local(cfg: ArchConfig, tp: int) -> bool:
-    """Whether a TP rank holds only its own KV heads (they divide tp);
-    else it computes all of them. Raises ``NotYetPorted`` where the query
-    heads do not split over tp, or where a rank's query heads would read
-    more than one KV head without owning them (JAX replicates such heads;
-    ROADMAP §A item 1)."""
+# How a TP rank computes the heads (``kv_local``).
+KV_OWN, KV_DIVIDE, REPLICATED = "own", "divide", "replicated"
+
+
+def kv_local(cfg: ArchConfig, tp: int) -> str:
+    """How a rank of TP degree ``tp`` computes the attention heads:
+    ``KV_OWN``, its query heads and its own KV heads (tp splits both);
+    ``KV_DIVIDE``, its query heads and every KV head, of which it reads
+    the one its query heads share (the KV heads divide tp); ``REPLICATED``,
+    every head from the whole weights, where the query heads do not split
+    over tp or the KV heads neither split nor divide it (JAX's
+    ``_qkv_specs`` replicates them)."""
     H, KH = cfg.n_heads, cfg.n_kv_heads
-    if H % tp:
-        raise NotYetPorted(f"{cfg.name}: {H} query heads do not split over "
-                           f"a TP degree of {tp} (replicated heads: "
-                           f"ROADMAP §A item 1)")
-    if KH % tp and tp % KH:
-        raise NotYetPorted(f"{cfg.name}: {KH} KV heads neither split over "
-                           f"nor divide a TP degree of {tp} (replicated "
-                           f"heads: ROADMAP §A item 1)")
-    return KH % tp == 0
+    if H % tp or (KH % tp and tp % KH):
+        return REPLICATED
+    return KV_OWN if KH % tp == 0 else KV_DIVIDE
 
 
 def attn_init(cfg: ArchConfig, gen, device, dtype):
@@ -99,7 +101,8 @@ def attention_train(params, h: torch.Tensor, cfg: ArchConfig, *, kind: str,
     the first ``prefix_len`` positions (a prefix-LM's conditioning) are
     visible to every query. Under ``tp`` (a ``sharding.TensorParallel``)
     ``params`` hold this rank's columns (see the module's note) and the
-    output is summed over the TP group.
+    output is summed over the TP group; the heads must split over it
+    (``kv_local`` not ``REPLICATED``).
 
     At every length this is ``ref.attention(prefix_len=)``. The JAX
     package's chunked route (``src/repro/models/attention.py``, taken for
@@ -110,7 +113,7 @@ def attention_train(params, h: torch.Tensor, cfg: ArchConfig, *, kind: str,
     window = cfg.window if kind == LOCAL else None
     group = tp.group if tp is not None else None
     q, k, v = _project_qkv(params, shd.copy_to(h, group), cfg, positions)
-    if tp is not None and not kv_local(cfg, tp.size):
+    if tp is not None and kv_local(cfg, tp.size) == KV_DIVIDE:
         # Every KV head was computed; this rank's query heads all read
         # one of them.
         kv = tp.rank * q.shape[2] * cfg.n_kv_heads // cfg.n_heads

@@ -45,10 +45,16 @@ def rmsnorm_init(dim: int, device, dtype):
     return {"scale": torch.zeros((dim,), device=device, dtype=dtype)}
 
 
-def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """Gemma-style: (1 + scale), in f32, cast back."""
+def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6, tp=None
+            ) -> torch.Tensor:
+    """Gemma-style: (1 + scale), in f32, cast back. Under ``tp`` ``x`` and
+    ``scale`` hold this rank's equal share of the normed dim, and the
+    mean square is the mean of the ranks' means (the same bits on one
+    rank), its gradient summed back over the group."""
     xf = x.to(torch.float32)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    if tp is not None:
+        var = shd.sum_over(var, tp.group) / tp.size
     y = xf * torch.rsqrt(var + eps)
     return (y * (1.0 + params["scale"].to(torch.float32))).to(x.dtype)
 

@@ -13,6 +13,15 @@ Shapes follow the "minimal mamba2" formulation:
 
 Everything past the projections runs in f32, as in the JAX package (the
 f32 products stay f32: TF32 must be off for them on the card).
+
+Under tensor parallelism (``ssd_forward(tp=)``) a rank computes its own
+SSD heads: its columns of ``w_x``, ``w_z``, ``w_dt`` and ``conv_x`` and its
+slices of ``A_log``, ``D``, ``dt_bias`` and the gated norm's scale (a
+head's inner channels are its own), from the whole ``w_B``, ``w_C`` and
+their convs (the ``state`` dim is replicated; each rank's gradient of
+them is a share). The gated RMSNorm's mean square spans every rank's
+channels (``common.rmsnorm(tp=)``), and ``w_out``'s partial product is
+summed over the TP group.
 """
 from __future__ import annotations
 
@@ -22,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import common
 
 # The logical axes of each leaf (the JAX package's ``ParamFactory`` names).
@@ -98,10 +108,12 @@ def raw_tail(x: torch.Tensor, cw: int) -> torch.Tensor:
 
 
 def _projections(params, h: torch.Tensor, cfg: ArchConfig, conv_state=None,
-                 return_raw_tail: bool = False):
+                 return_raw_tail: bool = False, tp=None):
+    """x (B, S, H, P), z, B and C per head (B, S, H, N), dt (B, S, H), A
+    (H,) and the conv tails; H is this rank's heads under ``tp``."""
     B, S, _ = h.shape
-    G, N, H, P = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads, \
-        cfg.ssm_head_dim
+    G, N, P = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_head_dim
+    H = params["A_log"].shape[0]
     x = h @ params["w_x"]
     z = h @ params["w_z"]
     Bp = h @ params["w_B"]
@@ -125,10 +137,12 @@ def _projections(params, h: torch.Tensor, cfg: ArchConfig, conv_state=None,
     x = x.reshape(B, S, H, P)
     Bp = Bp.reshape(B, S, G, N)
     Cp = Cp.reshape(B, S, G, N)
-    rep = H // G
+    rep = cfg.ssm_heads // G
     if rep > 1:
         Bp = torch.repeat_interleave(Bp, rep, dim=2)
         Cp = torch.repeat_interleave(Cp, rep, dim=2)
+    if tp is not None:   # this rank's heads' groups
+        Bp, Cp = (t.narrow(2, tp.rank * H, H) for t in (Bp, Cp))
     dt = softplus(dt_raw + params["dt_bias"])
     A = -torch.exp(params["A_log"])  # (H,) negative
     if conv_state is not None:
@@ -136,9 +150,10 @@ def _projections(params, h: torch.Tensor, cfg: ArchConfig, conv_state=None,
     return x, z, Bp, Cp, dt, A, tail
 
 
-def _gated_out(params, y: torch.Tensor, z: torch.Tensor, dtype):
+def _gated_out(params, y: torch.Tensor, z: torch.Tensor, dtype, tp=None):
     y = y * F.silu(z.to(torch.float32)).to(dtype)
-    return common.rmsnorm(params["norm"], y) @ params["w_out"]
+    out = common.rmsnorm(params["norm"], y, tp=tp) @ params["w_out"]
+    return shd.reduce(out, tp.group if tp is not None else None)
 
 
 class SSDCache(NamedTuple):
@@ -149,17 +164,22 @@ class SSDCache(NamedTuple):
 
 
 def ssd_forward(params, h: torch.Tensor, cfg: ArchConfig,
-                return_cache: bool = False):
-    """Chunked SSD over a full sequence. h: (B, S, d).
+                return_cache: bool = False, tp=None):
+    """Chunked SSD over a full sequence. h: (B, S, d). Under ``tp`` (a
+    ``sharding.TensorParallel``) ``params`` hold this rank's heads (see
+    the module's note) and the output is summed over the TP group.
 
     A sequence that does not divide the chunk is padded; the padded
     positions get dt = 0 (decay 1, update 0), so the carried state is
     untouched and a prefill's state hand-off is exact at any length."""
     B, S, _ = h.shape
-    H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    P, N = cfg.ssm_head_dim, cfg.ssm_state
+    H = params["A_log"].shape[0]
     cs = min(cfg.ssm_chunk, S)
+    h = shd.copy_to(h, tp.group if tp is not None else None)
     x, z, Bp, Cp, dt, A, tail = _projections(params, h, cfg,
-                                             return_raw_tail=return_cache)
+                                             return_raw_tail=return_cache,
+                                             tp=tp)
     S_orig = S
     pad = (-S) % cs
     if pad:
@@ -209,7 +229,7 @@ def ssd_forward(params, h: torch.Tensor, cfg: ArchConfig,
     y = (y_intra + y_inter).reshape(B, S, H, P)
     y = y + xc.reshape(B, S, H, P) * params["D"][:, None]
     y = y.reshape(B, S, H * P).to(h.dtype)[:, :S_orig]
-    out = _gated_out(params, y, z, h.dtype)
+    out = _gated_out(params, y, z, h.dtype, tp)
     if return_cache:
         return out, SSDCache(conv_x=tail["x"], conv_B=tail["B"],
                              conv_C=tail["C"], state=carry)

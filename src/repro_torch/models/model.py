@@ -29,13 +29,20 @@ With a ``mesh`` (a ``torch.distributed`` ``DeviceMesh``) and sharding
 ``rules`` (``distributed.sharding.rules_for``) the model trains on local
 shards: ``param_axes`` names every leaf's logical axes, ``shardings`` is
 where each leaf lives, and ``forward`` / ``loss`` take each leaf's local
-shard. Each layer gathers its weights over the dims that shard them but
-the TP axis (so again in the stash recompute, whose backward
-reduce-scatters their gradients), computes its heads and ff columns
-under tensor parallelism (``tp``) and sums its row-parallel outputs; the
-embedding, logits and cross-entropy run across vocab shards, and every
-rank takes its batch rows. Under a mesh of more than one rank, MoE, SSD
-and RG-LRU layers and the serving entry points are not ported yet.
+shard. Each layer fake-quantizes its local shards under the policy, then
+gathers them over the dims that shard them but the one it keeps
+(``sharding.kept_axis``: the TP axis of its own heads, ff columns,
+experts or channels; again in the stash recompute, whose backward
+reduce-scatters their gradients), computes those under tensor
+parallelism (``tp``) and sums its row-parallel outputs; the embedding,
+logits and cross-entropy run across vocab shards, and every rank takes
+its batch rows. MoE layers split their experts over ``model`` in both
+layouts (``moe.Shards``), SSD layers their heads and RG-LRU layers their
+channels in the tp layout. Attention heads that do not split over the TP
+axis (``attention.kv_local``) are computed whole on every TP rank, their
+weights gathered with a backward that keeps each rank's slice of the
+same gradient. The serving entry points raise ``NotYetPorted`` under a
+mesh.
 """
 from __future__ import annotations
 
@@ -63,11 +70,17 @@ BLOCK_AXES = {"attn": attention.PARAM_AXES, "mlp": common.MLP_AXES,
               "moe": moe.PARAM_AXES, "ssd": mamba2.PARAM_AXES,
               "rglru": rglru.PARAM_AXES}
 NORM_AXES = {"scale": ("embed",)}
-# Leaves a TP rank computes with on its own columns (the table and the
-# head: its vocab rows or columns); ``wk`` / ``wv`` too where the KV heads
-# split over the TP axis (``attention.kv_local``).
-TP_COLUMNS = {"wq", "wo", "w_in", "w_gate", "w_out", "table", "head"}
-KV_WEIGHTS = {"wk", "wv"}
+KV_WEIGHTS = ("wk", "wv")
+
+
+class LeafPlan(NamedTuple):
+    """How a layer gathers one leaf: its ``sharding``, the mesh axis it
+    keeps sharded (``keep``) and the one over which every rank computes
+    the whole leaf's same gradient (``same``)."""
+
+    sharding: Any
+    keep: Optional[str]
+    same: Optional[str]
 
 
 class RunState(NamedTuple):
@@ -178,7 +191,8 @@ class DecoderModel:
         self.mesh = mesh
         self.rules = (shd.rules_for(mesh) if mesh is not None and rules is None
                       else rules)
-        self.shardings = self.tp = None
+        self.shardings = self.tp = self._moe = None
+        self.heads_mode = attention.KV_OWN
         self._embed_mesh = self._unembed_mesh = None
         if mesh is not None:
             self._shard_init()
@@ -202,61 +216,81 @@ class DecoderModel:
 
     def _shard_init(self):
         cfg, mesh = self.cfg, self.mesh
-        if mesh.size() > 1:
-            other = sorted(set(self.kinds) - {GLOBAL, LOCAL})
-            if cfg.is_moe or other:
-                what = ", ".join((["MoE"] if cfg.is_moe else []) + other)
-                raise NotYetPorted(
-                    f"{cfg.name}: {what} layers under a mesh of "
-                    f"{mesh.size()} ranks (ROADMAP §A item 1, the next "
-                    f"distribution slice)")
         self.batch_axes = tuple(self.rules["batch"])
         heads = self.rules.get("heads")
         self._tp_axis = heads[0] if heads else None
-        self._kv_local = True
         if self._tp_axis is not None:
             # The vocab-parallel pieces of ``models.common`` take the
             # table's and the head's vocab shards over ``model``.
             if self._tp_axis != "model":
                 raise ValueError(f"the TP axis must be named 'model', not "
                                  f"{self._tp_axis!r}")
-            size = shd.axis_sizes(mesh)[self._tp_axis]
-            self._kv_local = attention.kv_local(cfg, size)
-            self.tp = shd.TensorParallel(mesh.get_group(self._tp_axis), size,
-                                         mesh.get_local_rank(self._tp_axis))
+            if {GLOBAL, LOCAL} & set(self.kinds):
+                self.heads_mode = attention.kv_local(
+                    cfg, shd.axis_sizes(mesh)["model"])
+            self.tp = self._parallel("model")
             self._embed_mesh = self._unembed_mesh = mesh
+        experts = self.rules.get("experts")
+        if cfg.is_moe and experts:
+            self._moe = moe.Shards(
+                ep=self._parallel(experts[0]),
+                exchange=experts[0] in self.batch_axes,
+                batch=shd.axes_group(mesh, self.batch_axes),
+                n_batch=self._batch_shards())
+        axes = self.param_axes()
+        planned = shd.tree_shardings(mesh, axes, self.rules)
         self.shardings = shd.refine_shardings(
-            self._draw(torch.Generator(), META),
-            shd.tree_shardings(mesh, self.param_axes(), self.rules), mesh)
+            self._draw(torch.Generator(), META), planned, mesh)
+        self._plans = self._plan(axes, planned, self.shardings)
         # Every layer of a kind shards alike.
-        self._kind_shardings = {}
-        for kind, sh in zip(self.kinds, self.shardings["layers"]):
-            self._kind_shardings.setdefault(kind, sh)
-        names = tuple(mesh.mesh_dim_names)
-        for path, sh in _sharding_leaves(self.shardings):
-            keep = self._keep(path)
-            if keep is not None and not isinstance(
-                    sh.placements[names.index(keep)], shd.Shard):
-                raise ValueError(f"{cfg.name}: {path} must split over the "
-                                 f"{keep} axis for tensor parallelism")
+        self._kind_plans = {}
+        for kind, plan in zip(self.kinds, self._plans["layers"]):
+            self._kind_plans.setdefault(kind, plan)
 
-    def _keep(self, path) -> Optional[str]:
-        """The mesh axis a leaf at ``path`` stays sharded over when its
-        layer gathers it: the TP axis for a TP rank's own columns."""
-        name = path[-1]
-        if name in TP_COLUMNS or (name in KV_WEIGHTS and self._kv_local):
-            return self._tp_axis
-        return None
+    def _parallel(self, axis: str) -> shd.TensorParallel:
+        return shd.TensorParallel(self.mesh.get_group(axis),
+                                  shd.axis_sizes(self.mesh)[axis],
+                                  self.mesh.get_local_rank(axis))
 
-    def _tp_partial(self, path) -> bool:
+    def _plan(self, axes, planned, refined, path=()):
+        """The ``LeafPlan`` tree: a leaf keeps the axis
+        ``sharding.kept_axis`` names, but the attention weights whose heads
+        a rank does not own (the KV weights where the KV heads divide the
+        TP degree; every weight where the heads are replicated, gathered
+        with the same gradient on every TP rank). A leaf kept or gathered
+        so must split evenly over that axis (ValueError)."""
+        if isinstance(axes, dict):
+            return {k: self._plan(v, planned[k], refined[k], path + (k,))
+                    for k, v in axes.items()}
+        if isinstance(axes, list):
+            return [self._plan(v, planned[i], refined[i], path + (i,))
+                    for i, v in enumerate(axes)]
+        keep, same = shd.kept_axis(axes, planned), None
+        if "attn" in path and keep is not None:
+            if self.heads_mode == attention.REPLICATED:
+                keep, same = None, keep
+            elif (self.heads_mode == attention.KV_DIVIDE
+                  and path[-1] in KV_WEIGHTS):
+                keep = None
+        axis = keep or same
+        if axis is not None and shd.kept_axis(axes, refined) != axis:
+            raise ValueError(f"{self.cfg.name}: {path} must split over the "
+                             f"{axis} axis for tensor parallelism")
+        return LeafPlan(refined, keep, same)
+
+    def _tp_partial(self, path, plan: LeafPlan) -> bool:
         """Whether each TP rank computes only a share of the leaf's
-        gradient while holding the whole leaf: the head-dim norms act on
-        its own heads, and every KV weight when the ranks compute all KV
-        heads but read their own."""
-        if self._tp_axis is None:
+        gradient while holding it whole over the TP axis: a leaf that axis
+        does not shard inside a block that splits its heads, columns or
+        channels over it (the head-dim norms, the KV weights a rank reads
+        one head of, the SSD's ``w_B`` / ``w_C`` and their convs). Attention
+        with replicated heads computes every gradient whole."""
+        if (self._tp_axis is None or path[0] != "layers"
+                or path[2] not in BLOCK_AXES):
             return False
-        return ("q_norm" in path or "k_norm" in path
-                or (path[-1] in KV_WEIGHTS and not self._kv_local))
+        if path[2] == "attn" and self.heads_mode == attention.REPLICATED:
+            return False
+        return self._tp_axis not in shd.shard_axes(plan.sharding)
 
     def grad_reduce_axes(self) -> Dict[Tuple[Any, ...], Tuple[str, ...]]:
         """Per parameter leaf (by its ``float_leaves`` path), the mesh axes
@@ -266,33 +300,34 @@ class DecoderModel:
         ``_tp_partial`` leaves). Over the axes that shard it, the layer's
         gather already reduce-scattered the shares."""
         out = {}
-        for path, sh in _sharding_leaves(self.shardings):
+        for path, plan in _sharding_leaves(self._plans):
             axes = set(self.batch_axes)
-            if self._tp_partial(path):
+            if self._tp_partial(path, plan):
                 axes.add(self._tp_axis)
-            axes -= set(shd.shard_axes(sh))
+            axes -= set(shd.shard_axes(plan.sharding))
             out[path] = tuple(a for a in self.mesh.mesh_dim_names
                               if a in axes)
         return out
 
-    def _gather(self, tree, shardings, path=()):
+    def _gather(self, tree, plans):
         """The local shards of a nest of leaves, each gathered whole but
-        over its ``_keep`` axis; the nest itself without a mesh."""
+        over its kept axis (``LeafPlan``); the nest itself without a
+        mesh."""
         if self.mesh is None:
             return tree
         if isinstance(tree, dict):
-            return {k: self._gather(v, shardings[k], path + (k,))
-                    for k, v in tree.items()}
-        return shd.materialize(tree, shardings, keep=self._keep(path))
+            return {k: self._gather(v, plans[k]) for k, v in tree.items()}
+        return shd.materialize(tree, plans.sharding, keep=plans.keep,
+                               same=plans.same)
 
-    def _kind_sharding(self, kind):
-        return self._kind_shardings[kind] if self.mesh is not None else None
+    def _kind_plan(self, kind):
+        return self._kind_plans[kind] if self.mesh is not None else None
 
     def _gather_top(self, params, key: str):
         """``params[key]`` (the embedding, the final norm, the head) as
         ``_gather`` gives it."""
-        return self._gather(params[key], self.shardings and
-                            self.shardings[key], (key,))
+        return self._gather(params[key], self.mesh is not None
+                            and self._plans[key])
 
     def _batch_shards(self) -> int:
         """How many ranks split the batch rows."""
@@ -392,7 +427,8 @@ class DecoderModel:
         if not cfg.is_moe:
             return (common.mlp(slot_params["mlp"], hm, cfg.act, cfg.glu,
                                tp=self.tp), None, None)
-        out, aux = moe.moe_forward(slot_params["moe"], hm, cfg)
+        out, aux = moe.moe_forward(slot_params["moe"], hm, cfg,
+                                   shards=self._moe)
         return out, (MOE_LB_COEF * aux["moe_lb_loss"]
                      + MOE_Z_COEF * aux["moe_z_loss"]), aux
 
@@ -409,14 +445,17 @@ class DecoderModel:
         cfg = self.cfg
         hn = common.rmsnorm(slot_params["pre_norm"], h)
         if kind == SSD:    # a Mamba-2 block carries no MLP
-            return (h + mamba2.ssd_forward(slot_params["ssd"], hn, cfg),
-                    None, None)
+            return (h + mamba2.ssd_forward(slot_params["ssd"], hn, cfg,
+                                           tp=self.tp), None, None)
         if kind == RGLRU:
-            h = h + rglru.rglru_forward(slot_params["rglru"], hn, cfg)
+            h = h + rglru.rglru_forward(slot_params["rglru"], hn, cfg,
+                                        tp=self.tp)
         else:
             h = h + attention.attention_train(
                 slot_params["attn"], hn, cfg, kind=kind,
-                positions=positions, prefix_len=prefix_len, tp=self.tp)
+                positions=positions, prefix_len=prefix_len,
+                tp=(None if self.heads_mode == attention.REPLICATED
+                    else self.tp))
         hm = common.rmsnorm(slot_params["mlp_norm"], h)
         out, eloss, aux = self._ffn(slot_params, hm)
         return h + out, eloss, aux
@@ -558,11 +597,11 @@ class DecoderModel:
             draws = x.get("draws")
             aux_sum = {}
             for i, kind in enumerate(cfg.period):
-                sp = self._gather(x["params"][i],
-                                  self._kind_sharding(kind))
+                sp = x["params"][i]
                 if pol.quantizes_weights:
                     sp = self._quantize_weights(sp, x["pol"],
                                                 draws["w"][i])
+                sp = self._gather(sp, self._kind_plan(kind))
                 h, eloss, aux = self._apply_slot(sp, h, kind,
                                                  positions=positions,
                                                  prefix_len=P)
@@ -579,7 +618,7 @@ class DecoderModel:
         # straight-through on the layer's input, its weights fake-quantized
         # with the scope's own bitlengths.
         for x, kind in zip(self._rem_inputs(params, run), cfg.remainder):
-            lp = self._gather(x["params"], self._kind_sharding(kind))
+            lp = x["params"]
             if pol.enabled:
                 act = x["draws"]["act"]
                 h = policies.apply_decision_ste(
@@ -588,6 +627,7 @@ class DecoderModel:
                     self.dims, adapts_exponent=pol.adapts_exponent)
             if pol.quantizes_weights:
                 lp = self._quantize_weights(lp, x["pol"], x["draws"]["w"][0])
+            lp = self._gather(lp, self._kind_plan(kind))
             h, eloss, _ = self._apply_slot(lp, h, kind, positions=positions,
                                            prefix_len=P)
             if eloss is not None:

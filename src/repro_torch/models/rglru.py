@@ -15,6 +15,12 @@ decays in f32 (``associative_scan``, the JAX package's
 
 Block layout: in-proj -> [x branch: causal conv(4) -> RG-LRU] * gelu(gate
 branch) -> out-proj.
+
+Under tensor parallelism (``rglru_forward(tp=)``) a rank holds its own
+``lru`` channels: its columns of ``w_x`` and ``w_gate``, its slices of the
+per-channel conv, gates and ``lam`` (the recurrence never mixes
+channels), and its rows of the row-parallel ``w_out``, whose partial
+output is summed over the TP group.
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ from typing import Callable, NamedTuple, Sequence, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import common
 from repro_torch.models.mamba2 import causal_conv, raw_tail, softplus
 
@@ -121,14 +128,18 @@ def _out(params, y: torch.Tensor, gate: torch.Tensor, dtype):
 
 
 def rglru_forward(params, h: torch.Tensor, cfg: ArchConfig,
-                  return_cache: bool = False):
-    """Full-sequence recurrent block. h (B, S, d)."""
+                  return_cache: bool = False, tp=None):
+    """Full-sequence recurrent block. h (B, S, d). Under ``tp`` (a
+    ``sharding.TensorParallel``) ``params`` hold this rank's channels and
+    the output is summed over the TP group."""
+    group = tp.group if tp is not None else None
+    h = shd.copy_to(h, group)
     xb_raw = h @ params["w_x"]
     gate = h @ params["w_gate"]
     xb, _ = causal_conv(xb_raw, params["conv"])
     log_a, b = _gates(params, xb)  # (B, S, lw) f32
     _, hseq = associative_scan(_combine, (log_a, b), dim=1)
-    out = _out(params, hseq, gate, h.dtype)
+    out = shd.reduce(_out(params, hseq, gate, h.dtype), group)
     if return_cache:
         return out, LRUCache(conv=raw_tail(xb_raw, cfg.conv_width),
                              state=hseq[:, -1])

@@ -252,10 +252,10 @@ def make_train_step(model: DecoderModel, tc: TrainConfig):
         if mesh is not None:
             for g, path in zip(acc[:n_p], p_paths):
                 shd.all_reduce_(g, reduce_groups[path])
-            sums = shd.all_reduce_(torch.stack(
-                [loss_acc, xent_acc, lb_acc / n_batch, drop_acc / n_batch]),
-                batch_group)
-            loss_acc, xent_acc, lb_acc, drop_acc = sums.unbind()
+            # The MoE metrics are the global batch's on every rank already.
+            sums = shd.all_reduce_(torch.stack([loss_acc, xent_acc]),
+                                   batch_group)
+            loss_acc, xent_acc = sums.unbind()
             loss_acc = loss_acc + pen_acc
         grads, residual = acc[:n_p], state.grad_residual
         if wire_bits is not None:

@@ -3,7 +3,8 @@ the vocab-sharded embedding lookup, logits and cross-entropy (with their
 gradients), ``psum_compressed``, GPipe stages (``pipeline_apply``, with
 gradients), the elastic restore of a sharded training state onto another
 mesh and onto fewer ranks (read back by JAX's manager too), the batch
-placement by batch specs, what a mesh of more than one rank refuses, and
+placement by batch specs, what a mesh of more than one rank refuses and
+builds, the expert-parallel ``all_to_all`` (against a plain gather), and
 the reduced gemma2-2b's sharded step with a compressed gradient wire.
 One spawn of four ranks (``torch_dist_harness.run_step_cases``) runs every
 case of the file; JAX runs here.
@@ -20,7 +21,7 @@ from repro.checkpoint.manager import CheckpointManager as JManager
 from repro.models import common as jcommon
 from repro.train import grad_compress as jgc
 from torch_dist_harness import (COMPRESSED_CASE, WORLD, check_step_case,
-                                elastic_restore, pipeline_stages,
+                                elastic_restore, exchange, pipeline_stages,
                                 placement_and_gates, psum, run_step_cases,
                                 vocab_parallel)
 
@@ -51,6 +52,16 @@ def _pipeline_inputs():
             "c": rng.standard_normal((6, 4, d)).astype(np.float32)}
 
 
+def _exchange_inputs():
+    """Per rank, a tensor of blocks to exchange and the cotangent of the
+    exchanged one: four blocks over the whole group, two over a model
+    group."""
+    rng = np.random.default_rng(4)
+    return {k: {"world": rng.standard_normal((WORLD, 4 * 3, 5)).astype(
+        np.float32), "model": rng.standard_normal((WORLD, 2 * 3, 5)).astype(
+            np.float32)} for k in ("x", "c")}
+
+
 def _batches():
     rng = np.random.default_rng(3)
     return [{"tokens": rng.integers(0, 512, (8, 6)).astype(np.int32),
@@ -68,7 +79,8 @@ def ranks(tmp_path_factory):
             "psum": (psum, ({"grads": _psum_inputs(), "bits": 3},)),
             "pipeline": (pipeline_stages, (_pipeline_inputs(),)),
             "elastic": (elastic_restore, (str(d / "ckpt"),)),
-            "placement": (placement_and_gates, ({"batches": _batches()},))}
+            "placement": (placement_and_gates, ({"batches": _batches()},)),
+            "exchange": (exchange, (_exchange_inputs(),))}
     out = run_step_cases([COMPRESSED_CASE], d, jobs.values())
     return dict({name: [r[i] for r in out] for i, name in enumerate(jobs)},
                 dir=d)
@@ -228,8 +240,8 @@ def test_batch_placement_and_what_a_mesh_refuses(ranks):
     """``prefetch`` with the batch specs: in the tp layout each rank holds
     its data rank's rows (the same on both model ranks), in fsdp its own
     quarter; every shard gathers back to the batch, tokens as int64. Under
-    a (2, 2) mesh MoE, SSD and RG-LRU models and the serving entry points
-    raise ``NotYetPorted``."""
+    a (2, 2) mesh the serving entry points raise ``NotYetPorted``, and the
+    reduced MoE, SSD and RG-LRU models build in both layouts."""
     batches = _batches()
     for out in ranks["placement"]:
         d, m = out["coord"]
@@ -242,13 +254,31 @@ def test_batch_placement_and_what_a_mesh_refuses(ranks):
                     assert dtype == ("torch.float32" if k == "cond_embeddings"
                                      else "torch.int64")
         refused = out["refused"]
-        assert sorted(refused) == sorted(
-            ["olmoe-1b-7b", "mamba2-370m", "recurrentgemma-9b", "prefill",
-             "decode_step"])
-        assert "MoE" in refused["olmoe-1b-7b"]
-        assert "ssd" in refused["mamba2-370m"]
-        assert "rglru" in refused["recurrentgemma-9b"]
+        assert sorted(refused) == ["decode_step", "prefill"]
         assert all("ROADMAP" in v for v in refused.values())
+        assert out["built"] == [(name, layout) for name in (
+            "olmoe-1b-7b", "mamba2-370m", "recurrentgemma-9b")
+            for layout in ("tp", "fsdp")]
+
+
+def test_all_to_all_exchange_and_its_gradient(ranks):
+    """``sharding.all_to_all`` against a plain gather on CPU ranks: over
+    the whole group and over each (2, 2) mesh's model group (ranks r and
+    r ^ 1), rank r receives block r of every member's tensor in rank
+    order, and the gradient of sum(out * c) for its tensor is block r of
+    every member's c (the inverse exchange)."""
+    inputs = _exchange_inputs()
+    for what, members in (("world", lambda r: list(range(WORLD))),
+                          ("model", lambda r: [r & ~1, r | 1])):
+        x, c = inputs["x"][what], inputs["c"][what]
+        for r, out in enumerate(ranks["exchange"]):
+            group = members(r)
+            me = group.index(r)
+            blocks = lambda t: np.split(t, len(group))[me]
+            y = np.concatenate([blocks(x[m]) for m in group])
+            g = np.concatenate([blocks(c[m]) for m in group])
+            np.testing.assert_array_equal(out[what]["y"], y)
+            np.testing.assert_array_equal(out[what]["g"], g)
 
 
 def test_sharded_step_with_compressed_gradients(ranks, tmp_path_factory):

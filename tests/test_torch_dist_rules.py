@@ -27,6 +27,7 @@ from repro.distributed import sharding as jshd
 from repro.models.model import DecoderModel as JModel
 from repro_torch import NotYetPorted
 from repro_torch import configs as tconfigs
+from repro_torch.configs.base import SSD
 from repro_torch.core.stash import float_leaves
 from repro_torch.data import pipeline
 from repro_torch.distributed import elastic as telastic
@@ -200,24 +201,89 @@ def test_remesh_plans_match_jax(name):
 
 @pytest.mark.parametrize("name", NAMES)
 def test_tp_degrees_past_the_heads_are_refused_by_name(name):
-    """Where JAX's ``_qkv_specs`` would replicate heads that do not split
-    over the TP degree, the port refuses with ``NotYetPorted`` naming the
-    config, the degree and the ROADMAP item (gemma2-2b and paligemma at
-    the production mesh's model axis of 16); elsewhere a TP rank holds its
-    own KV heads exactly when they split."""
+    """``attention.kv_local`` gives the mode of every TP degree of
+    ``valid_tp_degrees``: where JAX's ``_qkv_specs`` would replicate the
+    query heads (they do not split over the degree) or the KV heads (they
+    neither split nor divide it), ``REPLICATED``; else a rank owns its
+    KV heads exactly when they split (``KV_OWN``), or computes them all
+    and reads its group's (``KV_DIVIDE``). Heads are no longer refused:
+    gemma2-2b and paligemma replicate theirs at the production mesh's
+    model axis of 16."""
     cfg = tconfigs.get(name)
     H, KH = cfg.n_heads, cfg.n_kv_heads
     for tp in telastic.valid_tp_degrees(cfg, 64):
-        if H % tp or (KH % tp and tp % KH):
-            with pytest.raises(NotYetPorted) as e:
-                attention.kv_local(cfg, tp)
-            for word in (name, f"TP degree of {tp}", "ROADMAP"):
-                assert word in str(e.value)
-        else:
-            assert attention.kv_local(cfg, tp) == (KH % tp == 0)
+        want = (attention.REPLICATED if H % tp or (KH % tp and tp % KH)
+                else attention.KV_OWN if KH % tp == 0
+                else attention.KV_DIVIDE)
+        assert attention.kv_local(cfg, tp) == want, tp
     if name in ("gemma2-2b", "paligemma-3b"):
-        with pytest.raises(NotYetPorted):
-            attention.kv_local(cfg, 16)
+        assert attention.kv_local(cfg, 16) == attention.REPLICATED
+
+
+class _PlanMesh:
+    """What ``DecoderModel`` reads of a ``DeviceMesh`` to plan its shards,
+    without processes: dim names, shape, and this rank at the origin."""
+
+    def __init__(self, names, shape):
+        self.mesh_dim_names, self.shape = tuple(names), tuple(shape)
+
+    def size(self):
+        return int(np.prod(self.shape))
+
+    def get_group(self, name):
+        return None
+
+    def get_local_rank(self, name):
+        return 0
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_every_config_builds_on_its_valid_tp_degrees(name, monkeypatch):
+    """``DecoderModel(cfg, mesh=, rules=)`` plans its shards for every
+    config at full widths (one period and the remainder layers deep) on a
+    (2, tp) mesh at every degree of
+    ``valid_tp_degrees(cfg, 64)``, in both layouts: MoE, SSD and RG-LRU
+    layers and heads that do not split raise nothing. The one refusal is
+    an SSD head split across ranks (mamba2-370m's 32 heads at 64, which
+    JAX's degrees allow since they count ``d_inner``, not heads): the
+    uneven-split ``ValueError``. Under tp each layer keeps its TP leaves
+    over ``model`` (the replicated heads' weights gathered whole, with
+    ``same``), and the serving entry points stay refused."""
+    monkeypatch.setattr(tshd, "axes_group", lambda mesh, axes: None)
+    full = tconfigs.get(name)
+    # Full widths, one period and the remainder: every kind of leaf.
+    n = len(full.period)
+    cfg = dataclasses.replace(full, n_layers=n + full.n_layers % n)
+    for tp in telastic.valid_tp_degrees(cfg, 64):
+        for layout in ("tp", "fsdp"):
+            mesh = _PlanMesh(("data", "model"), (2, tp))
+            rules = tshd.rules_for(mesh, layout=layout)
+            split = SSD not in cfg.period or cfg.ssm_heads % tp == 0
+            if layout == "tp" and not split:
+                with pytest.raises(ValueError, match="must split over the "
+                                                     "model axis"):
+                    TModel(cfg, device="cpu", mesh=mesh, rules=rules)
+                continue
+            model = TModel(cfg, device="cpu", mesh=mesh, rules=rules)
+            plans = model._plans["layers"][0]
+            replicated = model.heads_mode == attention.REPLICATED
+            for block, leaves in plans.items():
+                for leaf, plan in leaves.items():
+                    if not hasattr(plan, "keep"):
+                        continue
+                    if layout == "fsdp" or tp == 1:
+                        assert plan.same is None
+                    elif block == "attn" and replicated and leaf in (
+                            "wq", "wk", "wv", "wo"):
+                        assert (plan.keep, plan.same) == (None, "model")
+                    elif block in ("mlp", "rglru") or leaf in (
+                            "wq", "wo", "w_x", "w_z", "w_dt", "A_log"):
+                        assert plan.keep == "model", (block, leaf)
+            if cfg.is_moe:
+                assert model._moe.exchange == (layout == "fsdp")
+            with pytest.raises(NotYetPorted):
+                model.prefill(None, torch.zeros((1, 2), dtype=torch.long),
+                              4)
 
 
 def test_prefetch_preserves_order_and_count():

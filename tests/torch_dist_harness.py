@@ -25,6 +25,7 @@ import numpy as np
 
 TIMEOUT = 120          # seconds for a whole spawn, ranks' start included
 LR = 1e-3
+ADAM_B1 = 0.9          # AdamWConfig's default
 SCHED = dict(kind="cosine", base_lr=LR, warmup_steps=1, total_steps=10)
 MICRO = 2              # microbatches a step
 
@@ -145,9 +146,9 @@ def sharded_steps(rank, world, case_file):
     from repro_torch.train import step as tstep
 
     case = torch.load(case_file, weights_only=False)
-    cfg = dataclasses.replace(reduced(tconfigs.get(case["arch"]),
-                                      n_layers=4),
-                              dtype="float32", **case["heads"])
+    arch, heads = CONFIGS[case["arch"]]
+    cfg = dataclasses.replace(reduced(tconfigs.get(arch), n_layers=4),
+                              dtype="float32", **heads)
     mesh = _mesh(world, case["shape"])
     policy = _policy(tpolicies, case["policy"])
     tc = tstep.TrainConfig(opt=adamw.AdamWConfig(lr=LR),
@@ -199,6 +200,9 @@ def _steps(case, cfg, mesh, policy, tc, rank, draw, compress):
         rules = shd.rules_for(mesh, layout=layout)
         model = DecoderModel(cfg, policy, device="cpu", mesh=mesh,
                              rules=rules)
+        forward = None
+        if "forward" in case:
+            forward = _forward_metrics(model, case, rules)
 
         def start(st):
             return tstep.shard_state(model, TrainState(
@@ -242,15 +246,50 @@ def _steps(case, cfg, mesh, policy, tc, rank, draw, compress):
         if policy is not None:
             del tcodecs.get(policy.container).pack
         results[layout] = out
+        if forward is not None:
+            results[layout + " forward"] = forward
     return results
+
+
+def _forward_metrics(model, case, rules):
+    """The sharded model's forward metrics on the case's first state and
+    the first microbatch of its first batch (policy off)."""
+    import torch
+    from repro_torch.data import pipeline
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models.model import RunState
+    params = shd.tree_map(lambda t, sh: shd.local(shd.distribute(t, sh)),
+                          case["states"][0]["params"], model.shardings)
+    rows = {k: v[:B // MICRO] for k, v in case["batches"][0].items()}
+    mb = pipeline.place(rows, shd.batch_specs(rules, "train", False,
+                                              model.mesh))
+    with torch.no_grad():
+        _, met = model.forward(params, shd.local(mb["tokens"]),
+                               RunState(gen=None, pol=None))
+    return {k: float(v) for k, v in met.items()}
 
 
 # --- the JAX side of a step case (run in the test process) ----------------
 
 B, S, STEPS = 8, 32, 2  # global batch rows and tokens, steps a case
-HEADS = {"gemma2-2b": {}, "mistral-large-123b": {},
-         # paligemma's one KV head, at 4 query heads of 32
-         "paligemma-3b": dict(n_heads=4, n_kv_heads=1, head_dim=32)}
+# The step cases' configs by name: an arch, reduced to 4 layers in f32,
+# with these changes (the same in both packages).
+CONFIGS = {"gemma2-2b": ("gemma2-2b", {}),
+           "mistral-large-123b": ("mistral-large-123b", {}),
+           # paligemma's one KV head, at 4 query heads of 32
+           "paligemma-3b": ("paligemma-3b",
+                            dict(n_heads=4, n_kv_heads=1, head_dim=32)),
+           "olmoe-1b-7b": ("olmoe-1b-7b", {}),  # 4 experts, top 2
+           "mamba2-370m": ("mamba2-370m", {}),
+           "recurrentgemma-9b": ("recurrentgemma-9b", {}),
+           # 6 query heads over 2 KV heads: replicated at a TP degree of 4
+           "gemma2-2b-6q2kv": ("gemma2-2b",
+                               dict(n_heads=6, n_kv_heads=2, head_dim=32))}
+# The (config, policy) cases whose JAX step runs op by op
+# (``jax.disable_jit``): jitted, XLA's fusions reassociate f32 sums, which
+# put the reduced olmoe's first moments after its second step 1.09e-5 of
+# a leaf's largest from the port's one-device step's (ROADMAP §C).
+EAGER = {("olmoe-1b-7b", "none")}
 # The policies of the step cases: qm over sfp8 from integer bits, qm+qe
 # over sfp-m2e4 from fractional bits. The bits are fractional after the
 # first SGD step, and the two packages' generators differ, so every draw
@@ -282,11 +321,12 @@ def _set_learn(learn, bits):
             for k, v in learn.items()}
 
 
-def jax_steps(arch, policy, monkeypatch, grad_compress_bits=None):
-    """JAX's one-device step on the reduced ``arch`` (f32, 4 layers) for
+def jax_steps(config, policy, monkeypatch, grad_compress_bits=None):
+    """JAX's one-device step on the config ``config`` of ``CONFIGS`` for
     STEPS steps of B x S batches, MICRO microbatches: (the case's inputs
-    for ``sharded_steps``, JAX's per-step results in the port's
-    layout)."""
+    for ``sharded_steps``, JAX's per-step results in the port's layout).
+    An MoE case without a policy also holds JAX's forward metrics of the
+    first microbatch (``forward``)."""
     import dataclasses
     import jax
     import jax.numpy as jnp
@@ -305,10 +345,11 @@ def jax_steps(arch, policy, monkeypatch, grad_compress_bits=None):
     from repro_torch.configs.base import reduced as treduced
 
     spec, bits, ceil = POLICIES[policy]
+    arch, heads = CONFIGS[config]
     jc = dataclasses.replace(jreduced(jconfigs.get(arch), n_layers=4),
-                             dtype="float32", **HEADS[arch])
+                             dtype="float32", **heads)
     tcfg = dataclasses.replace(treduced(tconfigs.get(arch), n_layers=4),
-                               dtype="float32", **HEADS[arch])
+                               dtype="float32", **heads)
     jpol = None
     if spec is not None:
         name, kw = spec
@@ -359,7 +400,17 @@ def jax_steps(arch, policy, monkeypatch, grad_compress_bits=None):
             return q, r
         monkeypatch.setattr(jstep.grad_compress, "compress_grads",
                             capturing)
-    step = jax.jit(jstep.make_train_step(jm, jtc))
+    forward = None
+    if jc.is_moe and jpol is None:
+        rows = {k: jnp.asarray(v[:B // MICRO]) for k, v in batches[0].items()}
+        _, met = jax.jit(lambda p, t: jm.forward(
+            p, t, jm.run_state(jax.random.PRNGKey(1))))(js.params,
+                                                         rows["tokens"])
+        forward = {k: float(v) for k, v in met.items()}
+    step = jstep.make_train_step(jm, jtc)
+    eager = (config, policy) in EAGER
+    if not eager:
+        step = jax.jit(step)
     records, outs, states = [], [], []
     for b in batches:
         ts = convert.state_from_jax(jax.tree.map(np.asarray, js), tcfg)
@@ -369,7 +420,8 @@ def jax_steps(arch, policy, monkeypatch, grad_compress_bits=None):
                        "ctrl": ts.pstate.ctrl, "step": ts.step,
                        "residual": ts.grad_residual})
         n0 = len(record)
-        js, met = step(js, {k: jnp.asarray(v) for k, v in b.items()})
+        with jax.disable_jit(eager):
+            js, met = step(js, {k: jnp.asarray(v) for k, v in b.items()})
         jax.effects_barrier()
         records.append(record[n0:])
         host = jax.tree.map(np.asarray, js)
@@ -383,9 +435,11 @@ def jax_steps(arch, policy, monkeypatch, grad_compress_bits=None):
         if wire:
             outs[-1]["wire"] = [[t.numpy() for t in _leaves(convert.from_jax(
                 jax.tree.map(np.asarray, part), tcfg))] for part in wire.pop()]
-    case = {"arch": arch, "heads": HEADS[arch], "policy": spec,
+    case = {"arch": config, "policy": spec,
             "ceil": ceil, "grad_compress_bits": grad_compress_bits,
             "states": states, "batches": batches, "records": records}
+    if forward is not None:
+        case["forward"] = forward
     return case, outs
 
 
@@ -411,14 +465,17 @@ def _detached(tree):
 
 
 WORLD = 4  # ranks of every spawn
-# The step cases, (arch, policy, mesh shape, grad_compress_bits): each
-# arch's policies on a (2, 2) mesh (both layouts), and gemma2-2b's qm +
-# sfp8 on a (4, 1) mesh (tp only). One spawn of ranks runs every case of
-# an arch. The compressed wire's case (tp only) runs in the spawn of
+# The step cases, (config name, policy, mesh shape, grad_compress_bits):
+# each arch's policies on a (2, 2) mesh (both layouts), gemma2-2b's qm +
+# sfp8 on a (4, 1) mesh and the replicated heads' policies on a (1, 4)
+# mesh (tp only). One spawn of ranks runs every case of a config name. The
+# compressed wire's case (tp only) runs in the spawn of
 # ``tests/test_torch_dist_ops.py``.
-STEP_CASES = ([(arch, policy, (2, 2), None) for arch in HEADS
-               for policy in POLICIES]
-              + [("gemma2-2b", "qm-sfp8", (4, 1), None)])
+REPLICATED = "gemma2-2b-6q2kv"
+STEP_CASES = ([(name, policy, (2, 2), None) for name in CONFIGS
+               if name != REPLICATED for policy in POLICIES]
+              + [("gemma2-2b", "qm-sfp8", (4, 1), None)]
+              + [(REPLICATED, policy, (1, 4), None) for policy in POLICIES])
 COMPRESSED_CASE = ("gemma2-2b", "qm-sfp8", (2, 2), 4)
 _RESULTS = {}
 
@@ -458,12 +515,15 @@ def check_step_case(arch, policy, layout, tmp_path_factory, shape=(2, 2),
     """Run the reduced ``arch``'s steps under ``policy`` on ranks of a
     ``shape`` mesh in ``layout`` and hold them to JAX's one-device steps
     (ROADMAP §C parity rules): every rank's metrics equal; loss, xent,
-    grad norm and penalty at rtol 1e-5; stash flips isolated (under 1e-3
-    of the values, one truncation step each, as the port's one-device
-    test allows); every gradient (AdamW's first moment after each step) at
+    grad norm, penalty and the MoE metrics ``moe_lb_loss`` and
+    ``moe_drop_frac`` (zeros when dense) at rtol 1e-5, and an MoE model's
+    forward metrics (``moe_z_loss`` too) without a policy; stash flips
+    isolated (under 1e-3 of the values, one truncation step each, as the
+    port's one-device test allows); every gradient (AdamW's first moment after each step) at
     1e-5 of its largest, or the compressed wire's rule (``_wire_flips``);
     the learned bitlengths after their SGD step at 1e-6 (the draws are
     injected); the parameters at rtol 1e-4 / atol 1e-6 where |g| > 1e-6
+    (g the step's gradient, from JAX's first moments before and after it)
     and within 2 lr elsewhere. Each step starts from JAX's state: Adam
     moves a parameter whose gradient two summation orders cannot agree on
     (|g| below ~1e-6) by up to 2 lr, and such a move shifts the next
@@ -475,14 +535,20 @@ def check_step_case(arch, policy, layout, tmp_path_factory, shape=(2, 2),
         keys = ([k for k in STEP_CASES if k[0] == arch]
                 if key in STEP_CASES else [key])
         run_step_cases(keys, tmp_path_factory.mktemp("steps"))
-    case, outs, ranks = _RESULTS[key]
-    ranks = [r[layout] for r in ranks]
+    case, outs, ranks_all = _RESULTS[key]
+    ranks = [r[layout] for r in ranks_all]
     mine = ranks[0]
     for r in ranks[1:]:
         for a, b in zip(mine, r):
             assert a["metrics"] == b["metrics"]
+    if "forward" in case:
+        for r in ranks_all:
+            got = r[layout + " forward"]
+            for k, v in case["forward"].items():
+                np.testing.assert_allclose(got[k], v, rtol=1e-5, err_msg=k)
     for i, (got, want) in enumerate(zip(mine, outs)):
-        for k in ("loss", "xent", "grad_norm", "policy_penalty"):
+        for k in ("loss", "xent", "grad_norm", "policy_penalty",
+                  "moe_lb_loss", "moe_drop_frac"):
             np.testing.assert_allclose(got["metrics"][k],
                                        want["metrics"][k], rtol=1e-5,
                                        err_msg=(i, k))
@@ -500,9 +566,12 @@ def check_step_case(arch, policy, layout, tmp_path_factory, shape=(2, 2),
             for j, (a, b) in enumerate(zip(got["m"], want["m"])):
                 gap = np.abs(a - b).max() / max(np.abs(b).max(), 1e-30)
                 assert gap <= 1e-5, (i, j, gap)
-        for a, b, m, q in zip(got["params"], want["params"], want["m"], same):
+        for a, b, m, m0, q in zip(got["params"], want["params"], want["m"],
+                                  _leaves(case["states"][i]["m"]), same):
+            # The step's gradient, from JAX's moments before and after it.
+            g = (m - ADAM_B1 * m0.detach().numpy()) / (1 - ADAM_B1)
             d = np.abs(a - b)
-            sure = (np.abs(m) > 1e-7) & q
+            sure = (np.abs(g) > 1e-6) & q
             assert (d[sure] <= 1e-6 + 1e-4 * np.abs(b[sure])).all(), i
             assert d.max() <= 2 * LR + 1e-6, i
 
@@ -685,9 +754,30 @@ def _shardings(tree):
     return _sharding_leaves(tree)
 
 
+def exchange(rank, world, inputs):
+    """``sharding.all_to_all`` over the whole group and over each (2, 2)
+    mesh's ``model`` dim: every rank's exchange of its block tensor, and
+    the gradient of sum(out * c) for that tensor."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding as shd
+    mesh = _mesh(world, (2, 2))
+    out = {}
+    for what, group in (("world", dist.group.WORLD),
+                        ("model", mesh.get_group("model"))):
+        x = torch.from_numpy(inputs["x"][what][rank]).requires_grad_()
+        y = shd.all_to_all(x, group)
+        (g,) = torch.autograd.grad(
+            (y * torch.from_numpy(inputs["c"][what][rank])).sum(), x)
+        out[what] = {"y": y.detach().numpy(), "g": g.numpy()}
+    return out
+
+
 def placement_and_gates(rank, world, inputs):
     """``data.pipeline.place`` / ``prefetch`` with the batch specs of both
-    layouts on a (2, 2) mesh, and what a mesh of four ranks refuses."""
+    layouts on a (2, 2) mesh, what a mesh of four ranks refuses (the
+    serving entry points) and the reduced MoE, SSD and RG-LRU models it
+    builds in both layouts."""
     import dataclasses
     import torch
     from repro_torch import NotYetPorted, configs
@@ -704,13 +794,17 @@ def placement_and_gates(rank, world, inputs):
         out[layout] = [{k: (v.to_local().numpy(), shd.full(v).numpy(),
                             str(v.to_local().dtype))
                         for k, v in b.items()} for b in placed]
-    refused = {}
+    refused, built = {}, []
     for name in ("olmoe-1b-7b", "mamba2-370m", "recurrentgemma-9b"):
-        try:
-            DecoderModel(reduced(configs.get(name)), device="cpu",
-                         mesh=mesh)
-        except NotYetPorted as e:
-            refused[name] = str(e)
+        for layout in ("tp", "fsdp"):
+            try:
+                DecoderModel(reduced(configs.get(name)), device="cpu",
+                             mesh=mesh, rules=shd.rules_for(mesh,
+                                                            layout=layout))
+                built.append((name, layout))
+            except NotYetPorted as e:
+                refused[name] = str(e)
+    out["built"] = built
     cfg = dataclasses.replace(reduced(configs.get("gemma2-2b")),
                               dtype="float32")
     model = DecoderModel(cfg, device="cpu", mesh=mesh)
