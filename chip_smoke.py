@@ -5191,6 +5191,356 @@ def family_steps(torch, counters, card, mesh):
     return out
 
 
+# Part (e): sharded serving over NCCL at a world of one. gemma2-2b at full
+# width and depth, batch SERVE_DIST_BATCH, PROMPT-token prompts,
+# SERVE_DIST_NEW new tokens, in both layouts from each of
+# SERVE_DIST_CACHES; the other families at full widths over a cut depth
+# (tp, sfp8). The shard view of row 9 at gemma2-2b shapes, at the port's
+# own split (``shard_split_l`` of the global length): a 1,088-slot cache
+# (prompt 1,024 + 64 new) cut into 4 shards of 272 (8 splits of 34), a
+# 1,152-slot one into 4 x 288 (4 splits of 64 and a partial one of 32),
+# and a 4,096-slot ring read at position 5,000 cut into 4 x 1,024.
+SERVE_DIST_BATCH, SERVE_DIST_NEW = 4, 16
+SERVE_DIST_CACHES = (None, CONTAINER, DENSE, GECKO)
+SERVE_DIST_FAMILIES = (("olmoe-1b-7b", 2), ("mamba2-370m", 4),
+                       ("recurrentgemma-9b", 3))
+SHARD_READS = ((1088, None, (1087, 700, 300, 40)),
+               (1152, None, (1151, 700, 300, 40)),
+               (4096, 4096, (5000, 4500, 4097, 4100)))
+SHARDS = 4
+
+
+def shard_view_kernels(torch, cfg, gen, flush):
+    """Row 9's shard view against its plain version at gemma2-2b's shapes
+    (B 4, 8 q / 4 KV heads of 288): for each of SHARD_READS and each cache
+    (sfp8 words, sfp-m2e4 planes) at full width and as a draft (P' 7 and
+    6), every shard's (o, lse) within the decode kernel's tolerance (lse
+    exactly -inf where the shard sees no slot) and bit-equal over two
+    launches; the SHARDS partials combined by their log-sum-exps against
+    the whole-cache kernel read within the same tolerance. Each shard read
+    timed by CUDA events after ``flush`` (as the whole read's entry, so
+    the shard is read from device memory). Returns the kernels-line
+    entry (timed at the 272-slot sfp8 shard of the global cache; the
+    others in its note)."""
+    from repro_torch.codecs import fields_for
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import packed_flash_decode as pfd
+    dev = torch.device("cuda")
+    H, KH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    D, Bk = KH * hd, SERVE_DIST_BATCH
+    G = D // ref.GROUP
+    q = (torch.randn((Bk, 1, H, hd), generator=gen, device=dev) * 4).to(
+        torch.bfloat16)
+    err, timed, entry = 0.0, {}, None
+    for L, window, pos in SHARD_READS:
+        p = torch.tensor(pos, dtype=torch.int32, device=dev)
+        n = L // SHARDS
+        for container, draft in ((CONTAINER, 7), (DENSE, 6)):
+            f = fields_for(container, torch.bfloat16)
+            # Normal K/V, as the whole read's check in serving_kernels:
+            # values over 2^+-30 cancel in p . v, where two merge orders
+            # then differ by more than the output's rounding.
+            kp, vp = (ops.sfp_compress_nd(torch.randn(
+                (Bk, L, D), generator=gen, device=dev).to(torch.bfloat16), f)
+                for _ in range(2))
+            for pp in (None, draft):
+                what = (f"{container} {'ring' if window else 'global'} "
+                        f"{L} as {SHARDS} x {n} (splits of "
+                        f"{pfd.shard_split_l(L)})"
+                        + (f", draft {pp}" if pp else ""))
+                kw = dict(window=window, softcap=cfg.attn_softcap,
+                          prefix_planes=pp)
+                parts = []
+                for r in range(SHARDS):
+                    sl = slice(r * n, (r + 1) * n)
+                    args = (q, *(t[:, sl].contiguous() for t in (
+                        kp.payload, kp.bases, vp.payload, vp.bases)), p, f)
+                    sk = dict(kw, slot0=r * n, L_global=L)
+                    got = twice(torch, f"shard view {what} shard {r}",
+                                lambda: pfd.packed_flash_decode_shard(
+                                    *args, **sk))
+                    want = ref.packed_flash_decode_shard(*args, block_l=128,
+                                                         **sk)
+                    torch.cuda.synchronize()
+                    if not torch.equal(torch.isinf(got[1]),
+                                       torch.isinf(want[1])):
+                        fail(f"shard view {what} shard {r}: lse -inf where "
+                             f"the plain version's is not")
+                    fin = torch.isfinite(want[1])
+                    err = max(err, check_close(
+                        torch, f"shard view {what} shard {r} o", got[0],
+                        want[0]), check_close(
+                        torch, f"shard view {what} shard {r} lse",
+                        got[1][fin], want[1][fin]))
+                    parts.append(got)
+                    if r == 1 and pp is None:
+                        live = sum(max(0, min(n, int(x) + 1 - r * n))
+                                   if window is None else n for x in pos)
+                        nbytes = (live * 2 * (D * f.payload_bits // 8 + G)
+                                  + q.numel() * 2 + Bk * H * (hd + 1) * 4)
+                        ms = time_ms(
+                            torch, lambda: pfd.packed_flash_decode_shard(
+                                *args, **sk),
+                            reps=50, flush=flush)
+                        pms = time_ms(
+                            torch, lambda: ref.packed_flash_decode_shard(
+                                *args, block_l=128, **sk),
+                            reps=3, flush=flush)
+                        b_ms, by = bound(2 * 2 * H * hd * live, nbytes)
+                        timed[what] = {"ms": ms, "plain_ms": pms,
+                                       "bound_ms": b_ms, "bound_by": by,
+                                       "live_slots": live}
+                        print(f"  shard view {what}, shard 1: {ms:.5f} ms "
+                              f"(plain {pms:.4f}), bound {b_ms:.5f} ms "
+                              f"({by})")
+                lse = torch.stack([x[1] for x in parts])
+                w = torch.exp(lse - lse.max(0).values)[..., None]
+                o = sum(wi * x[0] for wi, x in zip(w, parts)) / w.sum(0)
+                whole = ops.packed_flash_decode(
+                    q, ops.Packed(kp.payload, kp.bases),
+                    ops.Packed(vp.payload, vp.bases), p, fields=f, **kw)
+                err = max(err, check_close(
+                    torch, f"shard view {what}: the combine against the "
+                    f"whole read", o.to(torch.bfloat16).reshape(whole.shape),
+                    whole))
+            del kp, vp
+    head = (f"{CONTAINER} global 1088 as {SHARDS} x 272 (splits of "
+            f"{pfd.shard_split_l(1088)})")
+    entry = dict(path="serve sharded",
+                 replaces="src/repro/kernels/packed_flash_decode.py:196",
+                 source="src/repro_torch/csrc/packed_flash_decode.cu",
+                 max_abs_err=err, library_ms=None, **timed[head])
+    entry.pop("live_slots")
+    entry["note"] = ("shard view of row 9, shard 1 of 4 (B 4, 8 q / 4 KV "
+                     "heads of 288); " + "; ".join(
+                         f"{k}: {v['ms']:.5f} ms, plain {v['plain_ms']:.4f}, "
+                         f"bound {v['bound_ms']:.5f} ({v['bound_by']})"
+                         for k, v in timed.items()))
+    return entry, timed
+
+
+def timed_serving(torch, model, params, prompt, max_len):
+    """``make_prefill_step`` then ``make_decode_loop`` over
+    SERVE_DIST_NEW - 1 steps, timed on the host around synchronizes, then
+    one more ``decode_step`` whose collectives are counted: (tokens (B,
+    SERVE_DIST_NEW), prefill ms, decode ms a step, NCCL calls a step by
+    kind, that step's logits)."""
+    from repro_torch.serve import engine
+    S = prompt.shape[1]
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = engine.make_prefill_step(model, max_len)(params,
+                                                                 prompt)
+        tok = torch.argmax(logits[:, -1], -1, keepdim=True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        toks, cache = engine.make_decode_loop(model, SERVE_DIST_NEW - 1)(
+            params, cache, tok, S)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        with nccl_calls(torch) as calls:
+            last, _ = model.decode_step(params, cache, toks[-1],
+                                        S + SERVE_DIST_NEW - 1)
+    return (torch.cat([tok, toks[:, :, 0].T], 1), (t1 - t0) * 1e3,
+            (t2 - t1) * 1e3 / (SERVE_DIST_NEW - 1), calls, last)
+
+
+def serve_compare(torch, what, model, params, prompt, max_len, ref,
+                  counters):
+    """One sharded model served through ``generate`` and through the step
+    functions against the unsharded run ``ref``: tokens equal, the prefill
+    logits within the smoke's prefill gate (E2E_MAX, E2E_MEAN), and whether
+    they are bit-equal; every kernel's launches in the generate (the
+    counters set to 0 just before it)."""
+    from repro_torch.serve import engine
+    for c in counters:
+        c.launches = 0
+    res = engine.generate(model, params, prompt, SERVE_DIST_NEW,
+                          max_len=max_len)
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    toks, pre_ms, dec_ms, calls, last = timed_serving(
+        torch, model, params, prompt, max_len)
+    for name, t in (("generate", res.tokens), ("the step functions", toks)):
+        if not torch.equal(t, ref["tokens"]):
+            fail(f"distributed (e) {what}: {name}'s tokens differ from the "
+                 f"unsharded generate's")
+    d = (res.prefill_logits - ref["prefill"]).abs()
+    if d.max().item() > E2E_MAX or d.mean().item() > E2E_MEAN:
+        fail(f"distributed (e) {what}: prefill logits max "
+             f"{d.max().item():.4f} mean {d.mean().item():.4f} from the "
+             f"unsharded ones")
+    return {"tokens_equal": True,
+            "prefill_logits_bit_equal": bool(torch.equal(
+                res.prefill_logits, ref["prefill"])),
+            "prefill_logit_max_diff": d.max().item(),
+            "margins_bit_equal": bool(torch.equal(res.margins,
+                                                  ref["margins"])),
+            "last_decode_logits_bit_equal": bool(torch.equal(
+                last, ref["last_logits"])),
+            "prefill_ms": pre_ms, "decode_ms_per_step": dec_ms,
+            "nccl_calls_per_decode_step": sum(calls.values()),
+            "nccl_calls_by_kind": calls, "launches": launches}
+
+
+DECODE_PROFILE_CLASSES = (
+    ("copies", lambda op, k: op in ("aten::copy_", "aten::cat",
+                                    "aten::index", "aten::index_put_")
+     or "memcpy" in k.lower()),
+    ("matmuls", lambda op, k: op in ("aten::mm", "aten::addmm",
+                                     "aten::bmm")),
+)
+
+
+def decode_profile(torch, model, params, prompt, max_len):
+    """One decode step (after the prefill and one unprofiled step) under
+    torch.profiler: device ms by DECODE_PROFILE_CLASSES (by kernel name or
+    the ATen op that launched it; NCCL's all-gathers of one rank are
+    device copies) and the five kernels that took the most, beside the
+    profiled step's wall ms; on the host, the ms inside the outermost
+    profiled ops (the rest of the wall is Python between them) and the
+    eight ops of most self CPU ms, with their calls."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serve import engine
+    step = engine.make_serve_step(model)
+    S = prompt.shape[1]
+    with torch.inference_mode():
+        logits, cache = engine.make_prefill_step(model, max_len)(params,
+                                                                 prompt)
+        tok = torch.argmax(logits[:, -1], -1, keepdim=True)
+        tok, cache = step(params, cache, tok, S)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(params, cache, tok, S + 1)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    ms = {name: 0.0 for name, _ in DECODE_PROFILE_CLASSES}
+    ms["the rest"], by_kernel = 0.0, {}
+    for e in prof.events():
+        for k in e.kernels:
+            name = next((n for n, f in DECODE_PROFILE_CLASSES
+                         if f(e.name, k.name)), "the rest")
+            ms[name] += k.duration / 1e3
+            by_kernel[k.name[:60]] = (by_kernel.get(k.name[:60], 0.0)
+                                      + k.duration / 1e3)
+    in_ops = sum(e.cpu_time_total for e in prof.events()
+                 if e.cpu_parent is None and not e.is_async) / 1e3
+    host = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)
+    return {"profiled_step_wall_ms": wall * 1e3,
+            "device_busy_ms": sum(ms.values()), "device_ms": ms,
+            "top_kernels_ms": dict(sorted(by_kernel.items(),
+                                          key=lambda kv: -kv[1])[:5]),
+            "host_in_ops_ms": in_ops,
+            "host_top_self_cpu": {a.key[:60]: [a.self_cpu_time_total / 1e3,
+                                               a.count] for a in host[:8]}}
+
+
+def unsharded_reference(torch, model, params, prompt, max_len):
+    from repro_torch.serve import engine
+    res = engine.generate(model, params, prompt, SERVE_DIST_NEW,
+                          max_len=max_len)
+    toks, pre_ms, dec_ms, _, last = timed_serving(torch, model, params,
+                                                  prompt, max_len)
+    if not torch.equal(toks, res.tokens):
+        fail("distributed (e): the unsharded step functions' tokens differ "
+             "from its generate's")
+    return {"tokens": res.tokens, "prefill": res.prefill_logits,
+            "margins": res.margins, "last_logits": last,
+            "prefill_ms": pre_ms, "decode_ms_per_step": dec_ms}
+
+
+def sharded_serving(torch, cfg, counters, card, mesh, gen):
+    """Part (e): the shard view's checks (``shard_view_kernels``), then
+    gemma2-2b at full width served from each of SERVE_DIST_CACHES,
+    unsharded and in both layouts (the sfp8 runs' decode steps profiled,
+    ``decode_profile``), and each of SERVE_DIST_FAMILIES (tp, sfp8)
+    against its unsharded run (``serve_compare``). The shard view
+    must serve every packed-cache decode of the sharded runs (26 layers x
+    15 steps a generate) and the contiguous decode none. Returns (report,
+    kernels-line entry, the launches of the tp sfp8 generate)."""
+    from repro_torch import configs
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import packed_flash_decode as pfd
+    from repro_torch.models.model import DecoderModel
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    entry, timed = shard_view_kernels(torch, cfg, gen, flush)
+    del flush
+    report = {"card": card, "shard_view": timed}
+    prompt = torch.randint(0, cfg.vocab, (SERVE_DIST_BATCH, PROMPT),
+                           generator=gen, device=dev)
+    max_len = PROMPT + SERVE_DIST_NEW
+    params = DecoderModel(cfg, device=dev).init(SEED)
+    steps = SERVE_DIST_NEW - 1
+    launches = None
+    for container in SERVE_DIST_CACHES:
+        ref = unsharded_reference(torch, DecoderModel(
+            cfg, kv_container=container, device=dev), params, prompt,
+            max_len)
+        rep = {"unsharded": {k: ref[k] for k in ("prefill_ms",
+                                                 "decode_ms_per_step")}}
+        if container == CONTAINER:
+            rep["unsharded"]["profile"] = decode_profile(
+                torch, DecoderModel(cfg, kv_container=container, device=dev),
+                params, prompt, max_len)
+        packed = container not in (None, GECKO)
+        for layout in ("tp", "fsdp"):
+            model = DecoderModel(cfg, kv_container=container, device=dev,
+                                 mesh=mesh,
+                                 rules=shd.rules_for(mesh, layout=layout))
+            what = f"gemma2-2b {container} {layout}"
+            out = serve_compare(torch, what, model,
+                                model.local_params(params), prompt, max_len,
+                                ref, counters)
+            got = out["launches"]
+            if got[pfd.packed_flash_decode_shard.__name__] != (
+                    cfg.n_layers * steps if packed else 0) or \
+                    got["packed_flash_decode"] or \
+                    got["packed_flash_decode_dense"]:
+                fail(f"distributed (e) {what}: launches {got}")
+            if container == CONTAINER:
+                out["profile"] = decode_profile(
+                    torch, model, model.local_params(params), prompt,
+                    max_len)
+                if layout == "tp":
+                    launches = got
+            rep[layout] = out
+            del model
+        report[f"gemma2-2b {container}"] = rep
+        print(f"distributed (e) gemma2-2b {container}: " + json.dumps(rep))
+    del params
+    torch.cuda.empty_cache()
+    for arch, layers in SERVE_DIST_FAMILIES:
+        fcfg = dataclasses.replace(configs.get(arch), n_layers=layers)
+        scale = (fan_in_experts(torch) if fcfg.is_moe
+                 else contextlib.nullcontext())
+        with scale:
+            params = DecoderModel(fcfg, device=dev).init(SEED)
+        fprompt = torch.randint(0, fcfg.vocab, (SERVE_DIST_BATCH, PROMPT),
+                                generator=gen, device=dev)
+        ref = unsharded_reference(torch, DecoderModel(
+            fcfg, kv_container=CONTAINER, device=dev), params, fprompt,
+            max_len)
+        model = DecoderModel(fcfg, kv_container=CONTAINER, device=dev,
+                             mesh=mesh, rules=shd.rules_for(mesh))
+        rep = {"layers": layers, "unsharded": {
+            k: ref[k] for k in ("prefill_ms", "decode_ms_per_step")},
+            "tp": serve_compare(torch, f"{arch} tp", model,
+                                model.local_params(params), fprompt,
+                                max_len, ref, counters)}
+        report[arch] = rep
+        print(f"distributed (e) {arch}: " + json.dumps(rep))
+        del model, params
+        torch.cuda.empty_cache()
+    report["seconds"] = time.perf_counter() - t0
+    print(f"distributed (e): {report['seconds']:.1f} s")
+    return report, entry, launches
+
+
 def distributed_phase(torch, cfg, counters, card):
     """Slice 21: the sharded train step over NCCL at a world of one (a
     (data 1, model 1) mesh; one card cannot hold two NCCL ranks), gemma2-2b
@@ -5204,9 +5554,9 @@ def distributed_phase(torch, cfg, counters, card):
     step's full-width f32 gradients at 4 bits (row 7), bit-equal to
     ``compress_grads`` and the bf16 round trip; (c) the tp state after the
     last step saved, restored with the fsdp layout's shardings (every leaf
-    bit-equal), and one more step of each equal; (d) ``family_steps``.
-    Returns (report, the tp run's launches summed over its steps, with
-    (b)'s mantissa_quantize)."""
+    bit-equal), and one more step of each equal; (d) ``family_steps``;
+    (e) ``sharded_serving``. Returns (report, the tp run's launches summed
+    over its steps, with (b)'s mantissa_quantize)."""
     import tempfile
     import torch.distributed as dist
     from repro_torch.checkpoint.manager import CheckpointManager, named_leaves
@@ -5219,7 +5569,7 @@ def distributed_phase(torch, cfg, counters, card):
     from repro_torch.train import grad_compress
     from repro_torch.train import step as step_mod
     t_phase = time.perf_counter()
-    cfg = dataclasses.replace(cfg, n_layers=DIST_LAYERS)
+    full, cfg = cfg, dataclasses.replace(cfg, n_layers=DIST_LAYERS)
     argv = train_argv(cfg, "qm", CONTAINER, DIST_STEPS + 1)
     model, step_fn, state, _, tc = train_setup(torch, argv,
                                                n_layers=DIST_LAYERS)
@@ -5365,6 +5715,11 @@ def distributed_phase(torch, cfg, counters, card):
         del back, s_tp, runs, m_f, f_f, m_tp, f_tp
         torch.cuda.empty_cache()
         report["families"] = family_steps(torch, counters, card, mesh)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED)
+        (report["serving"], report["shard_view_entry"],
+         report["serve_sharded_launches"]) = sharded_serving(
+            torch, full, counters, card, mesh, gen)
     finally:
         dist.destroy_process_group()
     report["seconds"] = time.perf_counter() - t_phase
@@ -6158,6 +6513,7 @@ def main(argv=None) -> int:
                 pfd.packed_flash_decode, pfd.packed_flash_decode_dense,
                 gp.gecko_pack, gp.gecko_unpack,
                 pfd.paged_flash_decode, pfd.paged_flash_decode_dense,
+                pfd.packed_flash_decode_shard,
                 DraftCount(pfd.packed_flash_decode),
                 DraftCount(pfd.packed_flash_decode_dense),
                 DraftCount(pfd.paged_flash_decode),
@@ -6321,6 +6677,8 @@ def main(argv=None) -> int:
                                                         card)
     torch.cuda.empty_cache()
     dist_report, dist_launches = distributed_phase(torch, cfg, counters, card)
+    results["packed_flash_decode_shard"] = dist_report["shard_view_entry"]
+    path_launches["serve sharded"] = dist_report["serve_sharded_launches"]
     torch.cuda.empty_cache()
     cnn_phase(torch, card)
     torch.cuda.empty_cache()

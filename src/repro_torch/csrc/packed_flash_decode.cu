@@ -72,6 +72,18 @@
 // the per-CTA latency chain, not bytes: ~35-45 us at the smoke shapes
 // against byte bounds of 2.2-3.0 us.
 //
+// Shard view (lse != nullptr): the rank of a mesh whose cache holds the
+// slots [slot0, slot0 + L) of an L_global-slot cache (its sequence shard
+// over `model`) reads them alone. The validity mask takes the global slot
+// slot0 + l against L_global (a LOCAL ring's slot -> position), the splits
+// are split_l slots from the shard's first, the last one partial where
+// split_l does not divide L (masked by slot; the cache is not padded), and
+// the merge writes the normalized f32 o (B, H, hd) and the log-sum-exp
+// (B, H) of the visible scores (-inf where none) instead of the bf16 o:
+// the ranks' partials are combined over `model` outside the kernel
+// (sharding.lse_combine). A whole cache read this way (slot0 0, L_global
+// L) gives the bf16 output's f32 value before its rounding.
+//
 // Draft read (prefix_planes P' < P): only the leading P' bits of each word
 // are decoded, as the narrow geometry (man_keep - (P - P') mantissa bits;
 // ref.prefix_fields). Fixed-lane words are staged as stored and shifted
@@ -193,7 +205,10 @@ struct DecodeArgs {
   float* part;        // scratch: m, l [B*KH*nsplit*rep], acc [..][hd]
   int* tickets;       // [B*KH], zero between launches
   __nv_bfloat16* out;
+  float* out_f32;     // shard view: f32 o (B, H, hd), else nullptr
+  float* lse;         // shard view: log-sum-exp (B, H), else nullptr
   int B, L, H, KH, hd, G, BL, window;
+  int slot0, Lg;      // the first slot's global index, the global length
   int SL, nsplit;     // slots a split (divides BL), splits a row
   int row_bytes;      // payload bytes per cache row
   SfpFields f;        // the geometry decoded (the leading Pr bits)
@@ -320,8 +335,16 @@ __device__ void ticket_merge(const DecodeArgs& a, int b, int h,
       for (int j = 0; j < 4; ++j)
         if (s0 + j < ns) add(s0 + j, x[j]);
     }
-    a.out[((size_t)b * a.H + h * rep + g) * hd + tid] =
-        __float2bfloat16(acc / fmaxf(l, 1e-30f));
+    const float o = acc / fmaxf(l, 1e-30f);
+    const size_t oi = ((size_t)b * a.H + h * rep + g) * hd + tid;
+    if (a.lse == nullptr) {
+      a.out[oi] = __float2bfloat16(o);
+      continue;
+    }
+    a.out_f32[oi] = o;
+    if (tid == 0)
+      a.lse[(size_t)b * a.H + h * rep + g] =
+          l > 0.f ? MM[g] + logf(l) : -__int_as_float(0x7f800000);
   }
 }
 
@@ -334,6 +357,8 @@ __device__ __forceinline__ void decode_split(const DecodeArgs a) {
   const int nsub = (SL + kSub - 1) / kSub;
   const int pos = a.pos[b];
   const int s0 = s * SL;
+  const int SLs = min(SL, a.L - s0);  // a shard's last split may be partial
+  const int gs0 = a.slot0 + s0;       // the split's first global slot
   const Layout lay = make_layout(a, DENSE, (int)sizeof(W));
 
   extern __shared__ __align__(16) unsigned char smem[];
@@ -351,7 +376,7 @@ __device__ __forceinline__ void decode_split(const DecodeArgs a) {
   // Which 32-slot sub-tiles may any slot see: one warp a sub-tile.
   for (int j = c; j < nsub; j += nch) {
     const int l = j * kSub + lane;
-    const bool v = l < SL && slot_valid(s0 + l, pos, a.L, a.window);
+    const bool v = l < SLs && slot_valid(gs0 + l, pos, a.Lg, a.window);
     const unsigned any = __ballot_sync(0xffffffffu, v);
     if (lane == 0) flags[j] = any != 0u;
   }
@@ -390,7 +415,7 @@ __device__ __forceinline__ void decode_split(const DecodeArgs a) {
 
   // The split's bases (SL * G contiguous bytes) in 16-byte copies from
   // the aligned byte at or below the first one.
-  const size_t bfirst = row0 * G, bend = bfirst + (size_t)SL * G;
+  const size_t bfirst = row0 * G, bend = bfirst + (size_t)SLs * G;
   const size_t balign = bfirst & ~(size_t)15;
   const int boff = (int)(bfirst - balign);
   const int bunits = (int)((bend - balign + 15) / 16);
@@ -410,7 +435,7 @@ __device__ __forceinline__ void decode_split(const DecodeArgs a) {
   auto stage_chunk = [&](int i) {
     const bool is_v = i >= nv;
     const int l0 = nth_set(vis, is_v ? i - nv : i) * kSub;
-    const int n = min(kSub, SL - l0);
+    const int n = min(kSub, SLs - l0);
     const uint8_t* src = (is_v ? a.vp : a.kp)
                          + (row0 + l0) * (size_t)a.row_bytes;
     unsigned char* dst = smem + lay.stage + (i % kStages) * kSub
@@ -471,7 +496,7 @@ __device__ __forceinline__ void decode_split(const DecodeArgs a) {
 
     const bool is_v = i >= nv;
     const int l0 = nth_set(vis, is_v ? i - nv : i) * kSub;
-    const int n = min(kSub, SL - l0);
+    const int n = min(kSub, SLs - l0);
     const unsigned char* stage = smem + lay.stage + (i % kStages) * kSub
                                  * lay.stage_stride;
     const unsigned char* wt = stage;
@@ -582,7 +607,7 @@ __device__ __forceinline__ void decode_split(const DecodeArgs a) {
         x *= a.scale;
         if (a.softcap > 0.f) x = a.softcap * tanhf(x / a.softcap);
         st[g * SL + l0 + l] =
-            slot_valid(s0 + l0 + l, pos, a.L, a.window) ? x : SFP_NEG_INF;
+            slot_valid(gs0 + l0 + l, pos, a.Lg, a.window) ? x : SFP_NEG_INF;
       }
       continue;
     }
@@ -593,7 +618,7 @@ __device__ __forceinline__ void decode_split(const DecodeArgs a) {
         float mx = SFP_NEG_INF;
         for (int k = 0; k < nv; ++k) {
           const int l = nth_set(vis, k) * kSub + lane;
-          if (l < SL) mx = fmaxf(mx, st[g * SL + l]);
+          if (l < SLs) mx = fmaxf(mx, st[g * SL + l]);
         }
 #pragma unroll
         for (int o = 16; o > 0; o >>= 1)
@@ -601,7 +626,7 @@ __device__ __forceinline__ void decode_split(const DecodeArgs a) {
         float sum = 0.f;
         for (int k = 0; k < nv; ++k) {
           const int l = nth_set(vis, k) * kSub + lane;
-          if (l < SL) {
+          if (l < SLs) {
             const float p = expf(st[g * SL + l] - mx);
             st[g * SL + l] = p;
             sum += p;
@@ -752,22 +777,27 @@ int launch(const DecodeArgs& a, cudaStream_t stream) {
 // Contiguous cache: tables == nullptr, L slots per row, payload (B, L,
 // cols). Paged pool: tables (B, nb) int32, L = nb * block_l logical slots,
 // payload (P_blocks, block_l, cols), window -1. A split is split_l slots
-// (a divisor of block_l). prefix_planes -1 (or the payload width) reads
-// full width. scratch: f32 of B * KH * (L / split_l) * (H / KH) * (hd + 2)
-// elements; tickets: B * KH int32 zeros, left zero by the launch.
+// (a divisor of block_l); a contiguous cache's last split may be partial
+// (ceil(L / split_l) splits). slot0 and L_global place the cache's slots
+// in a longer one (0 and L for a whole cache); lse != nullptr is the shard
+// view: out is then f32 (B, H, hd) and lse f32 (B, H). prefix_planes -1
+// (or the payload width) reads full width. scratch: f32 of B * KH *
+// ceil(L / split_l) * (H / KH) * (hd + 2) elements; tickets: B * KH int32
+// zeros, left zero by the launch.
 extern "C" int packed_flash_decode_launch(
     const void* q, const void* kp, const void* kb, const void* vp,
     const void* vb, const void* pos, const void* tables, void* scratch,
-    void* tickets, void* out, int B, int L, int H, int KH, int hd, int G,
-    int block_l, int split_l, int window, int man_keep, int dexp_bits,
-    int payload_bits, int dense, int prefix_planes, float softcap,
-    float scale, void* stream) {
+    void* tickets, void* out, void* lse, int B, int L, int H, int KH,
+    int hd, int G, int block_l, int split_l, int window, int man_keep,
+    int dexp_bits, int payload_bits, int dense, int prefix_planes,
+    int slot0, int L_global, float softcap, float scale, void* stream) {
   if (B == 0 || KH == 0) return 0;
   if (H % KH != 0 || H / KH > kMaxRep || hd > kMaxHd || hd % 16 != 0
-      || KH * hd != G * SFP_GROUP || block_l <= 0
+      || KH * hd != G * SFP_GROUP || block_l <= 0 || L <= 0
       || split_l <= 0 || split_l > kSub * kMaxSub || block_l % split_l != 0
-      || L % block_l != 0
-      || (tables != nullptr && window > 0))
+      || slot0 < 0 || slot0 + L > L_global
+      || (tables != nullptr && (window > 0 || L % block_l != 0
+                                || slot0 != 0 || L_global != L)))
     return (int)cudaErrorInvalidValue;
   const int P = payload_bits;
   const int Pr = prefix_planes < 0 ? P : prefix_planes;
@@ -783,10 +813,13 @@ extern "C" int packed_flash_decode_launch(
   a.tables = static_cast<const int*>(tables);
   a.part = static_cast<float*>(scratch);
   a.tickets = static_cast<int*>(tickets);
-  a.out = static_cast<__nv_bfloat16*>(out);
+  a.out = lse == nullptr ? static_cast<__nv_bfloat16*>(out) : nullptr;
+  a.out_f32 = lse == nullptr ? nullptr : static_cast<float*>(out);
+  a.lse = static_cast<float*>(lse);
   a.B = B; a.L = L; a.H = H; a.KH = KH; a.hd = hd; a.G = G;
   a.BL = block_l; a.window = window;
-  a.SL = split_l; a.nsplit = L / split_l;
+  a.slot0 = slot0; a.Lg = L_global;
+  a.SL = split_l; a.nsplit = (L + split_l - 1) / split_l;
   // The geometry the kernel decodes: the leading Pr bits of each word.
   a.f = SfpFields{man_keep - (P - Pr), dexp_bits, Pr};
   a.P_store = P; a.Pr = Pr;

@@ -9,8 +9,9 @@ rules map them onto the dims of a ``torch.distributed`` ``DeviceMesh``:
                       backward reduce-scatters their gradients)
   heads/ff/vocab/experts/lru/ssm_inner -> model   (tensor parallelism)
   batch    -> (pod, data)
-  cache_seq-> model  (the decode KV cache's sequence; sharded serving is
-                      not ported yet)
+  cache_seq-> model  (the decode KV cache's sequence, flash-decoding
+                      style: each rank attends over its slots and the
+                      ranks' partials are combined)
 
 Anything unlisted is replicated. A leaf's sharding is a ``Sharding``: the
 mesh and one ``Placement`` per mesh dim (``Shard(dim)`` or
@@ -34,6 +35,17 @@ rank computes whole; its gradient divided by the group's size, since the
 group sums it later). ``kept_axis`` says which leaves a layer keeps
 sharded when it gathers its weights.
 
+Sharded serving places each cache leaf by its logical axes, refined (a
+dim the mesh does not divide stays whole), keeps it as a DTensor of the
+rank's shard (``from_local``) and combines the
+decode attention over the cache's sequence shards with ``lse_combine``
+(each rank's normalized output and log-sum-exp, the packed caches' shard
+view) or ``softmax_stats`` (the plain softmax's max and sum taken over
+the ranks, for the caches read unpacked). In the fsdp layout the batch
+already takes ``model``, so ``spec_from_axes`` drops ``cache_seq``'s
+second use of it: the cache's sequence stays whole on each rank, and only
+the tp layout combines over sequence shards.
+
 The functions that only plan (``rules_for``, ``spec_from_axes``,
 ``refine_shardings``, ``batch_specs``) read nothing of a mesh but its dim
 names and shape, so a ``MeshShape`` stands in for one without processes.
@@ -47,6 +59,8 @@ from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Placement, Replicate, Shard
+
+from repro_torch.codecs.base import PackedTensor
 
 Rules = Dict[str, Optional[Tuple[str, ...]]]
 
@@ -185,8 +199,11 @@ def _is_axes(x) -> bool:
 
 
 def tree_map(fn, tree, *rest, is_leaf=None):
-    """``fn`` over the leaves of a nest of dicts and lists (and of trees
-    of the same structure in ``rest``); ``is_leaf`` stops the descent."""
+    """``fn`` over the leaves of a nest of dicts, lists, NamedTuples (a
+    cache's ``KVCache``, ``PackedKV``, ``SSDCache``, ``LRUCache``) and
+    ``PackedTensor`` parts, and of trees of the same structure in
+    ``rest`` (whose leaves may be anything, e.g. axes tuples); ``is_leaf``
+    stops the descent."""
     if is_leaf is not None and is_leaf(tree):
         return fn(tree, *rest)
     if isinstance(tree, dict):
@@ -195,6 +212,14 @@ def tree_map(fn, tree, *rest, is_leaf=None):
     if isinstance(tree, list):
         return [tree_map(fn, v, *(r[i] for r in rest), is_leaf=is_leaf)
                 for i, v in enumerate(tree)]
+    if isinstance(tree, PackedTensor):
+        return PackedTensor(tree.codec, tree.shape, tree.dtype, {
+            k: tree_map(fn, v, *(r.data[k] for r in rest), is_leaf=is_leaf)
+            for k, v in tree.data.items()})
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map(fn, v, *(r[i] for r in rest),
+                                     is_leaf=is_leaf)
+                            for i, v in enumerate(tree)))
     return fn(tree, *rest)
 
 
@@ -374,6 +399,15 @@ def distribute(t: torch.Tensor, sharding: Sharding) -> Optional[DTensor]:
         list(sharding.placements), run_check=False)
 
 
+def from_local(t: torch.Tensor, sharding: Sharding, shape) -> DTensor:
+    """This rank's shard ``t`` (no copy) as the DTensor of a whole
+    ``shape`` placed by ``sharding`` (the serving cache's leaves)."""
+    stride = torch.empty(tuple(shape), device="meta").stride()
+    return DTensor.from_local(t, sharding.mesh, list(sharding.placements),
+                              run_check=False, shape=torch.Size(shape),
+                              stride=stride)
+
+
 def sharding_of(x: DTensor) -> Sharding:
     return Sharding(x.device_mesh, tuple(x.placements))
 
@@ -449,6 +483,31 @@ def all_reduce_(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
         dist.all_reduce(t, op={"sum": dist.ReduceOp.SUM,
                                "max": dist.ReduceOp.MAX}[op], group=group)
     return t
+
+
+def lse_combine(o: torch.Tensor, lse: torch.Tensor, group) -> torch.Tensor:
+    """Join attention partials over sequence shards (flash-decoding): each
+    rank's ``o`` (..., hd) f32 is its softmax over its own slots,
+    normalized, and ``lse`` (...) the log-sum-exp of those scores (-inf
+    where it saw none). Returns the softmax over every rank's slots, in
+    f32: sum_r w_r o_r / sum_r w_r with w_r = exp(lse_r - max lse), by an
+    all-reduce max and one all-reduce sum over ``group`` (None: this
+    rank's slots are all; one rank gives its own ``o`` bit for bit)."""
+    m = all_reduce_(lse.clone(), group, op="max")
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    w = torch.exp(lse - m)[..., None]
+    num = all_reduce_(torch.cat([o * w, w], dim=-1), group)
+    return num[..., :-1] / num[..., -1:]
+
+
+def softmax_stats(s: torch.Tensor, group):
+    """The max over the last dim of scores ``s`` split over ``group``'s
+    ranks (each holds its slots), and the shifted exponentials with their
+    sum over every rank: (exp(s - max), sum), the softmax's own
+    arithmetic, so ``e / sum`` is the softmax over the whole dim."""
+    m = all_reduce_(torch.amax(s, dim=-1, keepdim=True), group, op="max")
+    e = torch.exp(s - m)
+    return e, all_reduce_(torch.sum(e, dim=-1, keepdim=True), group)
 
 
 class _Gather(torch.autograd.Function):

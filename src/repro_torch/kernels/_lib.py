@@ -47,7 +47,7 @@ SIGNATURES = {
     "gecko_unpack_launch": [_P, _P, _P, _L, _P],
     "flash_attention_launch": [_P] * 5 + [_I] * 10 + [_F, _F, _P],
     "flash_attention_bwd_launch": [_P] * 10 + [_I] * 11 + [_F, _F, _P],
-    "packed_flash_decode_launch": [_P] * 10 + [_I] * 14 + [_F, _F, _P],
+    "packed_flash_decode_launch": [_P] * 11 + [_I] * 16 + [_F, _F, _P],
 }
 
 _lock = threading.Lock()

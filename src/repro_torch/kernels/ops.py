@@ -238,6 +238,28 @@ def packed_flash_decode(q, k_packed: Packed, v_packed: Packed, pos, *,
         window=window, softcap=softcap, prefix_planes=prefix_planes)
 
 
+def packed_flash_decode_shard(q, k_packed: Packed, v_packed: Packed, pos, *,
+                              fields: PackFields, slot0: int, L_global: int,
+                              window: Optional[int] = None,
+                              softcap: Optional[float] = None,
+                              prefix_planes: Optional[int] = None):
+    """The shard view of ``packed_flash_decode``: the packed cache holds a
+    rank's slots [slot0, slot0 + L) of an ``L_global``-slot cache whose
+    sequence is split over a mesh. Returns f32 (o (B, H, hd), lse (B,
+    H)), the partials ``sharding.lse_combine`` joins over the ranks."""
+    if not _kernel(q):
+        return _ref.packed_flash_decode_shard(
+            q, k_packed.payload, k_packed.bases, v_packed.payload,
+            v_packed.bases, pos, fields, slot0=slot0, L_global=L_global,
+            window=window, softcap=softcap, block_l=DECODE_BLOCK_L,
+            prefix_planes=prefix_planes)
+    return _pfd.packed_flash_decode_shard(
+        q.contiguous(), k_packed.payload, k_packed.bases, v_packed.payload,
+        v_packed.bases, pos.to(torch.int32).contiguous(), fields,
+        slot0=slot0, L_global=L_global, window=window, softcap=softcap,
+        prefix_planes=prefix_planes)
+
+
 def paged_flash_decode(q, k_packed: Packed, v_packed: Packed, tables, pos, *,
                        fields: PackFields, softcap: Optional[float] = None,
                        prefix_planes: Optional[int] = None) -> torch.Tensor:

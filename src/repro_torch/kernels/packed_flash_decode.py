@@ -19,6 +19,14 @@ prefix for dense planes).
 its recurrence in plain PyTorch (each split from scratch, merged in split
 order); the CPU tests hold both to the plain decode.
 
+The shard view (``packed_flash_decode_shard``, words or planes) is the
+same kernel over one rank's sequence shard of a cache whose sequence is
+split over a mesh's ``model`` dim: slots [slot0, slot0 + L) of an
+L_global-slot cache, masked by their global slot, the splits counted from
+the shard's first slot (``shard_split_l``, the last one partial where it
+does not divide the shard) and the merge's normalized f32 output with its
+log-sum-exp in place of the bf16 output, for ``sharding.lse_combine``.
+
 Each wrapper counts its launches: ``.launches`` at full width,
 ``.draft_launches`` in the draft mode.
 """
@@ -71,6 +79,13 @@ def split_plan(B: int, KH: int, hd: int, L: int,
     return SplitPlan(bl, sl, L // sl, B * KH * (L // sl), 32 * -(-hd // 32))
 
 
+def shard_split_l(L_global: int, block_l: int = DEFAULT_BLOCK_L) -> int:
+    """The shard view's split: the one ``split_plan`` gives the whole
+    L_global-slot cache, so a shard that is the whole cache (a world of
+    one) reads the same splits as ``packed_flash_decode``."""
+    return split_plan(1, 1, 32, L_global, block_l).split_l
+
+
 def chunk_scores(qf: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """(B, KH, rep, hd) f32 queries against (B, L, KH, hd) keys: each
     head's chunks of ``ref.head_chunks`` as partial dot products, added in
@@ -93,8 +108,9 @@ def split_decode_plain(q, k_payload, k_bases, v_payload, v_bases, pos,
                        softcap: Optional[float] = None,
                        block_l: int = DEFAULT_BLOCK_L,
                        prefix_planes: Optional[int] = None,
-                       tables: Optional[torch.Tensor] = None
-                       ) -> torch.Tensor:
+                       tables: Optional[torch.Tensor] = None,
+                       slot0: Optional[int] = None,
+                       L_global: Optional[int] = None):
     """The kernel's split recurrence in plain PyTorch: per split of
     ``split_plan``, the scores as the sum of their ``ref.head_chunks`` partial
     products (``chunk_scores``), the softmax over its 32-slot sub-tiles
@@ -102,8 +118,12 @@ def split_decode_plain(q, k_payload, k_bases, v_payload, v_bases, pos,
     merged in split
     order with weights exp(m_s - max m), a split with no visible slot
     (or a weight that underflows to 0) adding nothing. With ``tables``
-    the payloads are a pool, read as ``paged_flash_decode`` reads it. For
-    the tests only."""
+    the payloads are a pool, read as ``paged_flash_decode`` reads it.
+    With ``slot0`` the cache is the shard view's slots [slot0, slot0 + L)
+    of an ``L_global``-slot cache: splits of ``shard_split_l(L_global)``
+    from the shard's first slot, the last one partial, and the result
+    (o (B, H, hd), lse (B, H)) in f32 as ``packed_flash_decode_shard``
+    gives it. For the tests only."""
     if tables is not None:
         block_l = k_payload.shape[1]
         k_payload, k_bases, v_payload, v_bases = (
@@ -116,6 +136,13 @@ def split_decode_plain(q, k_payload, k_bases, v_payload, v_bases, pos,
     rep = H // KH
     plan = split_plan(B, KH, hd, L, block_l, paged=tables is not None)
     n, spec = plan.split_l, containers.spec_for(q.dtype)
+    splits = plan.splits
+    shard = slot0 is not None
+    if shard:
+        n = shard_split_l(L_global, block_l)
+        splits = -(-L // n)
+    else:
+        slot0, L_global = 0, L
 
     def unp(payload, bases):
         return ref.unpack_tile(
@@ -127,12 +154,13 @@ def split_decode_plain(q, k_payload, k_bases, v_payload, v_bases, pos,
     qf = q.reshape(B, KH, rep, hd).to(torch.float32)
     pos = torch.as_tensor(pos, dtype=torch.int64).reshape(-1).expand(B)
     slots = torch.arange(L)
-    valid = ref.decode_kv_mask(pos[:, None], L, window, slots=slots[None])
+    valid = ref.decode_kv_mask(pos[:, None], L_global, window,
+                               slots=slot0 + slots[None])
     sub = torch.div(slots, SUB_TILE, rounding_mode="floor")
     scale = 1.0 / (hd ** 0.5)
     parts = []
-    for s in range(plan.splits):
-        sl = slice(s * n, (s + 1) * n)
+    for s in range(splits):
+        sl = slice(s * n, min((s + 1) * n, L))
         vs, ss = valid[:, sl], sub[sl] - sub[s * n]
         n_sub = int(ss[-1]) + 1
         vis = torch.stack([vs[:, ss == j].any(1) for j in range(n_sub)], 1)
@@ -156,6 +184,9 @@ def split_decode_plain(q, k_payload, k_bases, v_payload, v_bases, pos,
         l_sum = l_sum + w * l
         acc = acc + torch.where(w != 0, w * a, 0.0)
     o = acc / torch.clamp(l_sum, min=1e-30)
+    if shard:
+        lse = torch.where(l_sum > 0, M + torch.log(l_sum), -torch.inf)
+        return o.reshape(B, H, hd), lse.reshape(B, H)
     return o.reshape(B, 1, H, hd).to(q.dtype)
 
 
@@ -222,9 +253,12 @@ def _launch(name: str, q: torch.Tensor, k_payload: torch.Tensor,
             v_bases: torch.Tensor, pos: torch.Tensor, fields: PackFields,
             window: Optional[int], softcap: Optional[float], block_l: int,
             prefix: Optional[int],
-            tables: Optional[torch.Tensor] = None) -> torch.Tensor:
+            tables: Optional[torch.Tensor] = None,
+            shard: Optional[tuple] = None):
     """Launch over a contiguous cache (payload (B, L, cols)) or, with
-    ``tables`` (B, nb), over a pool (payload (P_blocks, block_l, cols))."""
+    ``tables`` (B, nb), over a pool (payload (P_blocks, block_l, cols)).
+    ``shard`` (slot0, L_global, split_l) is the shard view over a
+    contiguous cache: returns (o, lse) in f32."""
     lib = _lib.load()
     B, one, H, hd = q.shape
     G = k_bases.shape[2]
@@ -236,7 +270,10 @@ def _launch(name: str, q: torch.Tensor, k_payload: torch.Tensor,
     if not q.is_cuda or q.dtype != torch.bfloat16 or not q.is_contiguous():
         raise ValueError(f"{name}: q must be contiguous bf16 on a CUDA "
                          f"device")
-    if tables is None:
+    if shard is not None:
+        lead = (B, k_bases.shape[1])
+        L, bl = lead[1], block_l
+    elif tables is None:
         lead = (B, k_bases.shape[1])
         L, bl = lead[1], block_len(lead[1], block_l)
     else:
@@ -257,6 +294,10 @@ def _launch(name: str, q: torch.Tensor, k_payload: torch.Tensor,
         raise ValueError(f"{name}: hd={hd}, rep={H // KH} not supported "
                          f"(hd % 16 == 0, hd <= 512, rep <= {MAX_REP})")
     plan = split_plan(B, KH, hd, L, bl, paged=True)   # bl is the tile
+    slot0, L_global, split_l = 0, L, plan.split_l
+    if shard is not None:
+        slot0, L_global, split_l = shard
+    splits = -(-L // split_l)
     # 16-byte copies: every payload row starts 16-byte aligned (whole
     # 128-lane groups), and so does every head's run of words (hd % 16 ==
     # 0; planes are staged by whole groups), when each tensor does.
@@ -264,9 +305,14 @@ def _launch(name: str, q: torch.Tensor, k_payload: torch.Tensor,
                     ("v_payload", v_payload), ("v_bases", v_bases)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {part} is not 16-byte aligned")
-    scratch = torch.empty(plan.splits * B * (H // KH) * KH * (hd + 2),
+    scratch = torch.empty(splits * B * (H // KH) * KH * (hd + 2),
                           dtype=torch.float32, device=q.device)
-    out = torch.empty_like(q)
+    lse = None
+    if shard is None:
+        out = torch.empty_like(q)
+    else:
+        out = torch.empty((B, H, hd), dtype=torch.float32, device=q.device)
+        lse = torch.empty((B, H), dtype=torch.float32, device=q.device)
     stream = _lib.stream_ptr(q)
     tickets = _tickets(q.device, stream, B * KH)
     err = lib.packed_flash_decode_launch(
@@ -274,14 +320,16 @@ def _launch(name: str, q: torch.Tensor, k_payload: torch.Tensor,
         v_payload.data_ptr(), v_bases.data_ptr(), pos.data_ptr(),
         None if tables is None else tables.data_ptr(), scratch.data_ptr(),
         tickets.data_ptr(), out.data_ptr(),
-        B, L, H, KH, hd, G, bl, plan.split_l,
+        None if lse is None else lse.data_ptr(),
+        B, L, H, KH, hd, G, bl, split_l,
         -1 if window is None else int(window),
         fields.man_keep, fields.dexp_bits, fields.payload_bits,
         int(fields.dense), -1 if prefix is None else prefix,
+        slot0, L_global,
         0.0 if softcap is None else float(softcap), 1.0 / (hd ** 0.5),
         stream)
     _lib.check(err, name)
-    return out
+    return out if lse is None else (out, lse)
 
 
 def _count(fn, prefix: Optional[int]) -> None:
@@ -386,8 +434,48 @@ def paged_flash_decode_dense(q: torch.Tensor, k_payload: torch.Tensor,
                   prefix_planes)
 
 
+def packed_flash_decode_shard(q: torch.Tensor, k_payload: torch.Tensor,
+                              k_bases: torch.Tensor, v_payload: torch.Tensor,
+                              v_bases: torch.Tensor, pos: torch.Tensor,
+                              fields: PackFields, *, slot0: int,
+                              L_global: int, window: Optional[int] = None,
+                              softcap: Optional[float] = None,
+                              prefix_planes: Optional[int] = None):
+    """The shard view: one-token attention over a rank's sequence shard,
+    slots [slot0, slot0 + L) of an ``L_global``-slot cache (a ring of
+    L_global slots under ``window``), fixed-lane words or dense planes
+    (``fields.dense``): payload (B, L, nd_payload_cols(KH*hd)), bases (B,
+    L, G), ``pos`` (B,) int32 global positions. Splits of
+    ``shard_split_l(L_global)`` slots from the shard's first slot, the
+    last one partial. Returns (o (B, H, hd), lse (B, H)) in
+    f32: the softmax over the shard's visible slots, normalized, and the
+    log-sum-exp of their scores (-inf where none is visible). A CPU
+    tensor takes the plain version; any other launches the kernel or
+    raises."""
+    L = k_bases.shape[1]
+    if not (0 <= slot0 and slot0 + L <= L_global):
+        raise ValueError(f"packed_flash_decode_shard: slots [{slot0}, "
+                         f"{slot0 + L}) outside a {L_global}-slot cache")
+    if q.device.type == "cpu":
+        return ref.packed_flash_decode_shard(
+            q, k_payload, k_bases, v_payload, v_bases, pos, fields,
+            slot0=slot0, L_global=L_global, window=window, softcap=softcap,
+            block_l=DEFAULT_BLOCK_L, prefix_planes=prefix_planes)
+    fn = packed_flash_decode_shard
+    _check_kind(fn.__name__, fields, fields.dense)
+    prefix = draft_planes(fields, prefix_planes)
+    sl = shard_split_l(L_global)
+    bl = -(-DEFAULT_BLOCK_L // sl) * sl    # a tile the split divides
+    out = _launch(fn.__name__, q, k_payload, k_bases, v_payload, v_bases,
+                  pos, fields, window, softcap, bl, prefix,
+                  shard=(int(slot0), int(L_global), sl))
+    _count(fn, prefix)
+    return out
+
+
 for _fn in (packed_flash_decode, packed_flash_decode_dense,
-            paged_flash_decode, paged_flash_decode_dense):
+            paged_flash_decode, paged_flash_decode_dense,
+            packed_flash_decode_shard):
     _fn.launches = 0
     _fn.draft_launches = 0
 del _fn

@@ -1011,6 +1011,65 @@ def decode_kv_mask(pos, L: int, window: Optional[int] = None, slots=None):
             & (slots < L))
 
 
+def _decode_blocks(q, k_payload, k_bases, v_payload, v_bases, pos,
+                   fields: PackFields, *, window, softcap, bl: int,
+                   prefix_planes, slot0: int, L_global: int):
+    """The online-softmax block recurrence of the packed decode over a
+    cache's L slots, slots [slot0, slot0 + L) of an L_global-slot cache,
+    in ``bl``-slot blocks (the last one partial where bl does not divide
+    L). Returns f32 (m, l, acc): (B, KH, rep, 1), (B, KH, rep, 1) and
+    (B, KH, rep, hd)."""
+    B, _, H, hd = q.shape
+    L, G = k_bases.shape[1], k_bases.shape[2]
+    D = G * GROUP
+    KH = D // hd
+    rep = H // KH
+    spec = containers.spec_for(q.dtype)
+    pos = torch.as_tensor(pos, dtype=torch.int64, device=q.device)
+    pos = pos.reshape(-1).expand(B)
+
+    def unp(payload, bases):
+        x = unpack_tile(payload.reshape(B * L, -1), bases.reshape(B * L, G),
+                        fields, spec, rows=B * L, KH=KH, hd=hd,
+                        prefix_planes=prefix_planes)
+        return x.reshape(B, L, KH, hd)
+
+    k = unp(k_payload, k_bases)
+    v = unp(v_payload, v_bases)
+    qf = q.reshape(B, KH, rep, hd).to(torch.float32)
+    scale = 1.0 / (hd ** 0.5)
+    m = torch.full((B, KH, rep, 1), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, KH, rep, 1), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, KH, rep, hd), dtype=torch.float32, device=q.device)
+    for lo in range(0, L, bl):
+        hi = min(lo + bl, L)
+        k_c, v_c = k[:, lo:hi], v[:, lo:hi]
+        s = torch.einsum("bhgd,blhd->bhgl", qf, k_c) * scale
+        if softcap is not None:
+            s = softcap * torch.tanh(s / softcap)
+        slots = slot0 + torch.arange(lo, hi, device=q.device)
+        valid = decode_kv_mask(pos[:, None], L_global, window,
+                               slots=slots[None])
+        s = torch.where(valid[:, None, None, :], s, NEG_INF)
+        m_cur = torch.amax(s, dim=-1, keepdim=True)
+        m_new = torch.maximum(m, m_cur)
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + torch.sum(p, dim=-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("bhgl,blhd->bhgd", p, v_c)
+        m = m_new
+    return m, l, acc
+
+
+def _divisor_block(L: int, block_l: Optional[int]) -> int:
+    """``block_l`` shrunk to a divisor of L (L itself when None)."""
+    bl = L if block_l is None else min(block_l, L)
+    while L % bl:
+        bl -= 1
+    return bl
+
+
 def packed_flash_decode(q: torch.Tensor, k_payload: torch.Tensor,
                         k_bases: torch.Tensor, v_payload: torch.Tensor,
                         v_bases: torch.Tensor, pos, fields: PackFields, *,
@@ -1027,49 +1086,44 @@ def packed_flash_decode(q: torch.Tensor, k_payload: torch.Tensor,
     of L); batch rows are independent, so they run side by side.
     ``prefix_planes`` is the draft read mode (see ``unpack_tile``)."""
     B, _, H, hd = q.shape
-    L, G = k_bases.shape[1], k_bases.shape[2]
-    D = G * GROUP
-    KH = D // hd
-    rep = H // KH
-    spec = containers.spec_for(q.dtype)
-    pos = torch.as_tensor(pos, dtype=torch.int64, device=q.device)
-    pos = pos.reshape(-1).expand(B)
-    bl = L if block_l is None else min(block_l, L)
-    while L % bl:
-        bl -= 1
-
-    def unp(payload, bases):
-        x = unpack_tile(payload.reshape(B * L, -1), bases.reshape(B * L, G),
-                        fields, spec, rows=B * L, KH=KH, hd=hd,
-                        prefix_planes=prefix_planes)
-        return x.reshape(B, L, KH, hd)
-
-    k = unp(k_payload, k_bases)
-    v = unp(v_payload, v_bases)
-    qf = q.reshape(B, KH, rep, hd).to(torch.float32)
-    scale = 1.0 / (hd ** 0.5)
-    m = torch.full((B, KH, rep, 1), NEG_INF, dtype=torch.float32,
-                   device=q.device)
-    l = torch.zeros((B, KH, rep, 1), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((B, KH, rep, hd), dtype=torch.float32, device=q.device)
-    for ki in range(L // bl):
-        k_c = k[:, ki * bl:(ki + 1) * bl]
-        v_c = v[:, ki * bl:(ki + 1) * bl]
-        s = torch.einsum("bhgd,blhd->bhgl", qf, k_c) * scale
-        if softcap is not None:
-            s = softcap * torch.tanh(s / softcap)
-        slots = ki * bl + torch.arange(bl, device=q.device)
-        valid = decode_kv_mask(pos[:, None], L, window, slots=slots[None])
-        s = torch.where(valid[:, None, None, :], s, NEG_INF)
-        m_cur = torch.amax(s, dim=-1, keepdim=True)
-        m_new = torch.maximum(m, m_cur)
-        p = torch.exp(s - m_new)
-        alpha = torch.exp(m - m_new)
-        l = alpha * l + torch.sum(p, dim=-1, keepdim=True)
-        acc = acc * alpha + torch.einsum("bhgl,blhd->bhgd", p, v_c)
-        m = m_new
+    L = k_bases.shape[1]
+    _, l, acc = _decode_blocks(
+        q, k_payload, k_bases, v_payload, v_bases, pos, fields,
+        window=window, softcap=softcap, bl=_divisor_block(L, block_l),
+        prefix_planes=prefix_planes, slot0=0, L_global=L)
     o = acc / torch.clamp(l, min=1e-30)
     return o.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def packed_flash_decode_shard(q: torch.Tensor, k_payload: torch.Tensor,
+                              k_bases: torch.Tensor, v_payload: torch.Tensor,
+                              v_bases: torch.Tensor, pos,
+                              fields: PackFields, *, slot0: int,
+                              L_global: int, window: Optional[int] = None,
+                              softcap: Optional[float] = None,
+                              block_l: Optional[int] = None,
+                              prefix_planes: Optional[int] = None):
+    """The shard view of ``packed_flash_decode``: the cache holds slots
+    [slot0, slot0 + L) of an ``L_global``-slot cache (a ring of L_global
+    slots under ``window``), each masked at its global slot. The blocks
+    are ``block_l`` shrunk to a divisor of L_global, counted from the
+    shard's first slot, the last one partial. Returns f32 (o (B, H, hd),
+    lse (B, H)): the normalized softmax over the shard's visible slots
+    and the log-sum-exp of their scores, -inf where none is visible (so
+    ``sharding.lse_combine`` gives it weight 0)."""
+    B, _, H, hd = q.shape
+    m, l, acc = _decode_blocks(
+        q, k_payload, k_bases, v_payload, v_bases, pos, fields,
+        window=window, softcap=softcap,
+        bl=_divisor_block(L_global, block_l), prefix_planes=prefix_planes,
+        slot0=slot0, L_global=L_global)
+    # A block with no visible slot before the first visible one adds
+    # exp(0) terms that the next visible block's alpha of 0 removes; m
+    # stays NEG_INF only where no slot is visible.
+    seen = m > NEG_INF
+    o = torch.where(seen, acc / torch.clamp(l, min=1e-30), 0.0)
+    lse = torch.where(seen, m + torch.log(l), -torch.inf)
+    return o.reshape(B, H, hd), lse.reshape(B, H)
 
 
 def paged_gather(part: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:

@@ -21,7 +21,9 @@ head's inner channels are its own), from the whole ``w_B``, ``w_C`` and
 their convs (the ``state`` dim is replicated; each rank's gradient of
 them is a share). The gated RMSNorm's mean square spans every rank's
 channels (``common.rmsnorm(tp=)``), and ``w_out``'s partial product is
-summed over the TP group.
+summed over the TP group. ``ssd_decode(tp=)`` steps the same heads over a
+cache that holds the rank's heads (``state``) and channels (``conv_x``),
+as the JAX package's cache axes place them.
 """
 from __future__ import annotations
 
@@ -163,6 +165,13 @@ class SSDCache(NamedTuple):
     state: torch.Tensor    # (B, H, N, P) f32
 
 
+# The cache's logical axes (the JAX package's ``engine._slot_axes``).
+CACHE_AXES = SSDCache(conv_x=("batch", None, "ssm_inner"),
+                      conv_B=("batch", None, "state"),
+                      conv_C=("batch", None, "state"),
+                      state=("batch", "heads", None, None))
+
+
 def ssd_forward(params, h: torch.Tensor, cfg: ArchConfig,
                 return_cache: bool = False, tp=None):
     """Chunked SSD over a full sequence. h: (B, S, d). Under ``tp`` (a
@@ -249,14 +258,15 @@ def ssd_cache_init(cfg: ArchConfig, batch: int, dtype, device) -> SSDCache:
 
 
 def ssd_decode(params, h_tok: torch.Tensor, cache: SSDCache,
-               cfg: ArchConfig) -> Tuple[torch.Tensor, SSDCache]:
+               cfg: ArchConfig, tp=None) -> Tuple[torch.Tensor, SSDCache]:
     """One token a row: state = exp(dt A) state + dt B x; y = C . state +
-    D x. h_tok (B, 1, d). Returns (out, the new cache)."""
+    D x. h_tok (B, 1, d). Returns (out, the new cache). Under ``tp``
+    ``params`` and the cache hold this rank's heads (the module's note)."""
     B = h_tok.shape[0]
-    H, P = cfg.ssm_heads, cfg.ssm_head_dim
+    H, P = params["A_log"].shape[0], cfg.ssm_head_dim
     conv_state = {"x": cache.conv_x, "B": cache.conv_B, "C": cache.conv_C}
     x, z, Bp, Cp, dt, A, new_conv = _projections(params, h_tok, cfg,
-                                                 conv_state)
+                                                 conv_state, tp=tp)
     f32 = torch.float32
     xf, Bf, Cf = (t[:, 0].to(f32) for t in (x, Bp, Cp))  # (B,H,P|N)
     dtf = dt[:, 0]                                        # (B, H)
@@ -266,6 +276,6 @@ def ssd_decode(params, h_tok: torch.Tensor, cache: SSDCache,
     y = torch.einsum("bhn,bhnp->bhp", Cf, state)
     y = y + xf * params["D"][:, None]
     y = y.reshape(B, 1, H * P).to(h_tok.dtype)
-    return _gated_out(params, y, z, h_tok.dtype), SSDCache(
+    return _gated_out(params, y, z, h_tok.dtype, tp), SSDCache(
         conv_x=new_conv["x"], conv_B=new_conv["B"], conv_C=new_conv["C"],
         state=state)

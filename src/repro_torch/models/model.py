@@ -41,8 +41,20 @@ layouts (``moe.Shards``), SSD layers their heads and RG-LRU layers their
 channels in the tp layout. Attention heads that do not split over the TP
 axis (``attention.kv_local``) are computed whole on every TP rank, their
 weights gathered with a backward that keeps each rank's slice of the
-same gradient. The serving entry points raise ``NotYetPorted`` under a
-mesh.
+same gradient.
+
+Serving on a mesh: ``prefill`` and ``decode_step`` take the local shards
+of the parameters (or their DTensors) and the whole batch of tokens, keep
+the rank's rows, and return the whole batch's logits (gathered over the
+vocab shards and the batch ranks, so a greedy pick is the one-device
+pick) and the rank's cache (``serve.engine.cache_axes`` says where each
+leaf lives: the KV sequence over ``model`` in the tp layout, the SSD
+heads and RG-LRU channels with the rank's own). Each layer gathers its
+weights as training does; attention serves through
+``attention.DecodeShard`` (the attention module's note), MoE decode
+routes the whole batch as one group (``moe.moe_decode(ep=, rows=)``),
+SSD and RG-LRU layers step their own heads and channels. The paged
+engine refuses a mesh (``serve.engine.PagedEngine``).
 """
 from __future__ import annotations
 
@@ -52,6 +64,7 @@ from typing import (Any, Dict, NamedTuple, Optional, Sequence, Tuple,
                     Union)
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch import NotYetPorted, codecs, policies, resolve_device
@@ -71,6 +84,8 @@ BLOCK_AXES = {"attn": attention.PARAM_AXES, "mlp": common.MLP_AXES,
               "rglru": rglru.PARAM_AXES}
 NORM_AXES = {"scale": ("embed",)}
 KV_WEIGHTS = ("wk", "wv")
+PAGED_MESH = ("paged serving under a mesh: the JAX package's paged pool has "
+              "no sharding axes to port (ROADMAP §A, sharded serving)")
 
 
 class LeafPlan(NamedTuple):
@@ -194,6 +209,8 @@ class DecoderModel:
         self.shardings = self.tp = self._moe = None
         self.heads_mode = attention.KV_OWN
         self._embed_mesh = self._unembed_mesh = None
+        # ``_decode_shard``'s plans by the cache's length, built once.
+        self._decode_shards: Dict[int, attention.DecodeShard] = {}
         if mesh is not None:
             self._shard_init()
 
@@ -329,6 +346,113 @@ class DecoderModel:
         return self._gather(params[key], self.mesh is not None
                             and self._plans[key])
 
+    def local_params(self, params) -> Dict[str, Any]:
+        """This rank's shards of whole parameters (the same on every rank),
+        by ``shardings``; the tree itself without a mesh."""
+        if self.mesh is None:
+            return params
+        return shd.tree_map(shd.local_chunk, params, self.shardings)
+
+    def _rows(self, B: int):
+        """This rank's rows of a B-row serving batch and the group of the
+        batch ranks: (slice, group), or every row and None where the batch
+        axes do not divide B (the rows then stay whole, as
+        ``refine_shardings`` leaves them)."""
+        n = self._batch_shards()
+        if n == 1 or B % n:
+            return slice(None), None
+        idx = 0
+        for a in self.batch_axes:
+            idx = idx * shd.axis_sizes(self.mesh)[a] + \
+                self.mesh.get_local_rank(a)
+        return (slice(idx * B // n, (idx + 1) * B // n),
+                shd.axes_group(self.mesh, self.batch_axes))
+
+    def _decode_shard(self, L: int) -> Optional[attention.DecodeShard]:
+        """How this rank serves an attention layer whose whole cache has L
+        slots: None without a mesh. The sequence splits over the mesh dims
+        that ``cache_seq`` maps to where they divide L (as
+        ``sharding.refine_shardings`` places the cache). Built once an L."""
+        if self.mesh is None:
+            return None
+        if L not in self._decode_shards:
+            self._decode_shards[L] = self._plan_decode_shard(L)
+        return self._decode_shards[L]
+
+    def _plan_decode_shard(self, L: int) -> attention.DecodeShard:
+        place = shd.spec_from_axes(attention.CACHE_AXES.k, self.rules,
+                                   self.mesh)
+        axes = tuple(a for a, p in zip(self.mesh.mesh_dim_names, place)
+                     if isinstance(p, shd.Shard) and p.dim == 1)
+        n = math.prod(shd.axis_sizes(self.mesh)[a] for a in axes)
+        seq = None
+        if axes and L % n == 0:
+            group = shd.axes_group(self.mesh, axes)
+            seq = shd.TensorParallel(group, n, dist.get_rank(group))
+        tp = None if self.heads_mode == attention.REPLICATED else self.tp
+        return attention.DecodeShard(tp, self.heads_mode, seq)
+
+    def cache_axes(self, batch: int, max_len: int) -> Dict[str, Any]:
+        """The logical axes of every leaf of ``init_cache(batch,
+        max_len)`` (``serve.engine.cache_axes``)."""
+        return {"layers": [self._layer_cache_axes(kind, batch, max_len)
+                           for kind in self.kinds]}
+
+    def _layer_cache_axes(self, kind: str, batch: int, max_len: int):
+        if kind == SSD:
+            return mamba2.CACHE_AXES
+        if kind == RGLRU:
+            return rglru.CACHE_AXES
+        if self.kv_container is not None:
+            return kvcache.packed_cache_axes(self.cfg, kind, batch, max_len,
+                                             self.kv_container)
+        return attention.CACHE_AXES
+
+    def _cache_shardings(self, kind: str, batch: int, max_len: int):
+        """One layer's cache shardings: each leaf placed by its logical
+        axes, refined on its whole shape (a dim the mesh does not divide
+        stays whole); with the whole shapes (meta tensors)."""
+        whole = self._layer_cache(kind, batch, max_len, META)
+        axes = self._layer_cache_axes(kind, batch, max_len)
+        return shd.tree_map(
+            lambda t, a: (shd.refine_shardings(t, shd.Sharding(
+                self.mesh, shd.spec_from_axes(a, self.rules, self.mesh)),
+                self.mesh), t.shape), whole, axes)
+
+    def place_cache(self, cache: Dict[str, Any], batch: int, max_len: int
+                    ) -> Dict[str, Any]:
+        """A whole cache (the same on every rank, as ``init_cache`` or an
+        unsharded prefill makes it) as this rank's DTensors; the cache
+        itself without a mesh."""
+        if self.mesh is None:
+            return cache
+        return {"layers": [shd.tree_map(
+            lambda t, sh: shd.distribute(t, sh[0]), c,
+            self._cache_shardings(kind, batch, max_len))
+            for kind, c in zip(self.kinds, cache["layers"])]}
+
+    def _as_dtensors(self, kind: str, local, batch: int, max_len: int):
+        """One layer's cache of local shards as DTensors of its whole
+        shapes and shardings."""
+        return shd.tree_map(
+            lambda t, sh: shd.from_local(t, sh[0], sh[1]), local,
+            self._cache_shardings(kind, batch, max_len))
+
+    def _logits(self, top, h: torch.Tensor, rows) -> torch.Tensor:
+        """The serving logits (B, 1, V) f32 of final hidden states h: over
+        a mesh, the vocab shards gathered over ``model`` and the rows over
+        the batch ranks (``rows``, None where every rank holds them)."""
+        cfg = self.cfg
+        logits = common.unembed(top, h, tied=cfg.tie_embeddings,
+                                softcap=cfg.final_softcap,
+                                valid_vocab=cfg.vocab,
+                                mesh=self._unembed_mesh)
+        if self._unembed_mesh is not None:
+            logits = shd.all_gather(logits, 2, self.tp.group)
+        if rows is not None:
+            logits = shd.all_gather(logits, 0, rows)
+        return logits
+
     def _batch_shards(self) -> int:
         """How many ranks split the batch rows."""
         if self.mesh is None:
@@ -385,12 +509,6 @@ class DecoderModel:
                                            gen, dev, dt)
         return layer
 
-    def _unsharded(self, what: str):
-        if self.mesh is not None:
-            raise NotYetPorted(f"{what} under a mesh: sharded serving (the "
-                               f"KV sequence over model) is ROADMAP §A "
-                               f"item 1, the next distribution slice")
-
     def _emb_scale(self):
         return (self.cfg.d_model ** 0.5) if self.cfg.emb_scale else None
 
@@ -432,13 +550,16 @@ class DecoderModel:
         return out, (MOE_LB_COEF * aux["moe_lb_loss"]
                      + MOE_Z_COEF * aux["moe_z_loss"]), aux
 
-    def _ffn_decode(self, slot_params, hm):
+    def _ffn_decode(self, slot_params, hm, rows=None):
         """The serving FFN of one token a row: MoE routes the batch as one
-        group (``moe.moe_decode``)."""
+        group (``moe.moe_decode``; ``rows`` the batch ranks' group)."""
         cfg = self.cfg
         if cfg.is_moe:
-            return moe.moe_decode(slot_params["moe"], hm, cfg)
-        return common.mlp(slot_params["mlp"], hm, cfg.act, cfg.glu)
+            return moe.moe_decode(
+                slot_params["moe"], hm, cfg, rows=rows,
+                ep=self._moe.ep if self._moe is not None else None)
+        return common.mlp(slot_params["mlp"], hm, cfg.act, cfg.glu,
+                          tp=self.tp)
 
     def _apply_slot(self, slot_params, h, kind, *, positions, prefix_len):
         """One layer: (h, its extras loss, its aux values)."""
@@ -695,8 +816,9 @@ class DecoderModel:
             return kvcache.cache_len(self.cfg, kind, max_len)
         return min(max_len, self.cfg.window) if kind == LOCAL else max_len
 
-    def _layer_cache(self, kind: str, batch: int, max_len: int):
-        cfg, dt, dev = self.cfg, self.cfg.compute_dtype, self.device
+    def _layer_cache(self, kind: str, batch: int, max_len: int, dev=None):
+        cfg, dt = self.cfg, self.cfg.compute_dtype
+        dev = self.device if dev is None else dev
         if kind == SSD:
             return mamba2.ssd_cache_init(cfg, batch, dt, dev)
         if kind == RGLRU:
@@ -708,9 +830,11 @@ class DecoderModel:
 
     def init_cache(self, batch: int, max_len: int) -> Dict[str, Any]:
         """One entry a layer: the attention layers' KV caches (packed with
-        ``kv_container``), the SSD and RG-LRU layers' zero states."""
-        return {"layers": [self._layer_cache(kind, batch, max_len)
-                           for kind in self.kinds]}
+        ``kv_container``), the SSD and RG-LRU layers' zero states; on a
+        mesh, this rank's DTensors (``place_cache``)."""
+        return self.place_cache(
+            {"layers": [self._layer_cache(kind, batch, max_len)
+                        for kind in self.kinds]}, batch, max_len)
 
     def prefill(self, params, tokens: torch.Tensor, max_len: int,
                 cond_embeddings: Optional[torch.Tensor] = None
@@ -718,32 +842,41 @@ class DecoderModel:
         """Process a prompt (B, S), after a prefix-LM's ``cond_embeddings``
         (B, P, d_model) when given: (last-position logits (B, 1, V) f32,
         cache sized for ``max_len`` positions, at least P + S; decoding
-        continues at position P + S)."""
-        self._unsharded("prefill")
+        continues at position P + S). On a mesh see the module's note."""
         cfg = self.cfg
+        B = tokens.shape[0]
+        rows, row_group = self._rows(B)
+        params = shd.tree_map(shd.local, params)
+        tokens = tokens[rows]
+        if cond_embeddings is not None:
+            cond_embeddings = cond_embeddings[rows]
         h, P = self._embed(params, tokens, cond_embeddings)
         S = h.shape[1]
         max_len = max(max_len, S)
         positions = torch.arange(S, device=tokens.device)
         caches = []
         for lp, kind in zip(params["layers"], self.kinds):
+            lp = self._gather(lp, self._kind_plan(kind))
             hn = common.rmsnorm(lp["pre_norm"], h)
             if kind == SSD:
                 out, c = mamba2.ssd_forward(lp["ssd"], hn, cfg,
-                                            return_cache=True)
+                                            return_cache=True, tp=self.tp)
             elif kind == RGLRU:
                 out, c = rglru.rglru_forward(lp["rglru"], hn, cfg,
-                                             return_cache=True)
+                                             return_cache=True, tp=self.tp)
             else:
+                L = self._cache_len(kind, max_len)
+                shard = self._decode_shard(L)
                 out, (k, v) = attention.attention_train(
                     lp["attn"], hn, cfg, kind=kind, positions=positions,
-                    prefix_len=P, return_kv=True)
-                L = self._cache_len(kind, max_len)
+                    prefix_len=P, return_kv=True,
+                    tp=shard.tp if shard is not None else None)
                 if kind == LOCAL:
                     k, v = attention.ring_pack_kv(k, v, L)
                 else:
                     k = F.pad(k, (0, 0, 0, 0, 0, L - S))
                     v = F.pad(v, (0, 0, 0, 0, 0, L - S))
+                k, v = attention.cache_shard(k, v, shard)
                 c = attention.KVCache(k=k.to(cfg.compute_dtype),
                                       v=v.to(cfg.compute_dtype))
                 if self.kv_container is not None:
@@ -753,12 +886,18 @@ class DecoderModel:
             if kind != SSD:    # a Mamba-2 block carries no MLP
                 hm = common.rmsnorm(lp["mlp_norm"], h)
                 h = h + self._ffn(lp, hm)[0]
-        h = common.rmsnorm(params["final_norm"], h)
-        logits = common.unembed(params, h[:, -1:],
-                                tied=cfg.tie_embeddings,
-                                softcap=cfg.final_softcap,
-                                valid_vocab=cfg.vocab)
-        return logits, {"layers": caches}
+        if self.mesh is not None:
+            caches = [self._as_dtensors(kind, c, B, max_len)
+                      for kind, c in zip(self.kinds, caches)]
+        top = self._top(params)
+        h = common.rmsnorm(top["final_norm"], h)
+        return self._logits(top, h[:, -1:], row_group), {"layers": caches}
+
+    def _top(self, params) -> Dict[str, Any]:
+        """The embedding, final norm and head, each gathered as a layer
+        gathers its leaves."""
+        return {k: self._gather_top(params, k)
+                for k in ("embed", "final_norm", "head") if k in params}
 
     def decode_step(self, params, cache: Dict[str, Any], token: torch.Tensor,
                     pos, tables: Optional[torch.Tensor] = None,
@@ -778,47 +917,65 @@ class DecoderModel:
         state are garbage the engine discards or overwrites at the next
         prefill). ``prefix_planes`` makes every packed-attention read
         decode only the leading P' payload bits (the speculative draft);
-        K/V writes stay full width. Both need ``kv_container``."""
-        self._unsharded("decode_step")
+        K/V writes stay full width. Both need ``kv_container``. On a mesh
+        (the module's note) ``token`` and ``pos`` are the whole batch's
+        and ``cache`` the rank's; the paged step refuses a mesh."""
         if (tables is not None or prefix_planes is not None) and \
                 self.kv_container is None:
             raise ValueError("paged decode and prefix_planes (draft reads) "
                              "need a packed kv_container")
+        if tables is not None and self.mesh is not None:
+            raise NotYetPorted(PAGED_MESH)
         cfg = self.cfg
         B = token.shape[0]
+        rows, row_group = self._rows(B)
+        params = shd.tree_map(shd.local, params)
         pos = torch.as_tensor(pos, dtype=torch.int64, device=token.device)
-        pos = pos.reshape(-1).expand(B).contiguous()
-        h = common.embed(params["embed"], token, self._emb_scale())
+        pos = pos.reshape(-1).expand(B)[rows].contiguous()
+        token = token[rows]
+        h = common.embed(self._gather_top(params, "embed"), token,
+                         self._emb_scale(), mesh=self._embed_mesh)
         for i, (lp, kind) in enumerate(zip(params["layers"], self.kinds)):
+            lp = self._gather(lp, self._kind_plan(kind))
             hn = common.rmsnorm(lp["pre_norm"], h)
-            if kind == SSD:
-                out, cache["layers"][i] = mamba2.ssd_decode(
-                    lp["ssd"], hn, cache["layers"][i], cfg)
-            elif kind == RGLRU:
-                out, cache["layers"][i] = rglru.rglru_decode(
-                    lp["rglru"], hn, cache["layers"][i], cfg)
+            entry, shard = cache["layers"][i], None
+            if self.mesh is not None:
+                # The rank's shards: views of the DTensors' storage, so the
+                # attention caches' in-place writes land in them.
+                entry = shd.tree_map(shd.local, entry)
+                if kind in (GLOBAL, LOCAL):
+                    shard = self._decode_shard(
+                        kvcache.seq_len(cache["layers"][i]))
+            if kind in (SSD, RGLRU):
+                step = mamba2.ssd_decode if kind == SSD else \
+                    rglru.rglru_decode
+                out, new = step(lp[kind], hn, entry, cfg, tp=self.tp)
+                if self.mesh is not None:
+                    new = shd.tree_map(
+                        lambda t, old: shd.from_local(
+                            t, shd.sharding_of(old), old.shape),
+                        new, cache["layers"][i])
+                cache["layers"][i] = new
             elif tables is not None and kind == GLOBAL:
                 out, _ = kvcache.attention_decode_paged(
-                    lp["attn"], hn, cache["layers"][i], tables, pos, cfg,
+                    lp["attn"], hn, entry, tables, pos, cfg,
                     container=self.kv_container,
                     prefix_planes=prefix_planes)
             elif self.kv_container is not None:
                 out, _ = kvcache.attention_decode_packed(
-                    lp["attn"], hn, cache["layers"][i], pos, cfg, kind=kind,
+                    lp["attn"], hn, entry, pos, cfg, kind=kind,
                     container=self.kv_container,
-                    prefix_planes=prefix_planes)
+                    prefix_planes=prefix_planes, shard=shard)
             else:
                 out, _ = attention.attention_decode(
-                    lp["attn"], hn, cache["layers"][i], pos, cfg, kind=kind)
+                    lp["attn"], hn, entry, pos, cfg, kind=kind, shard=shard)
             h = h + out
             if kind != SSD:
                 hm = common.rmsnorm(lp["mlp_norm"], h)
-                h = h + self._ffn_decode(lp, hm)
-        h = common.rmsnorm(params["final_norm"], h)
-        logits = common.unembed(params, h, tied=cfg.tie_embeddings,
-                                softcap=cfg.final_softcap,
-                                valid_vocab=cfg.vocab)
-        return logits, cache
+                h = h + self._ffn_decode(lp, hm, row_group)
+        top = self._top(params)
+        h = common.rmsnorm(top["final_norm"], h)
+        return self._logits(top, h, row_group), cache
 
     def decode_step_paged(self, params, cache: Dict[str, Any],
                           token: torch.Tensor, pos: torch.Tensor,

@@ -30,12 +30,21 @@ the router probabilities, the top-1 assignments, the squared
 log-sum-exp and the kept assignments are averaged over the batch ranks
 before the lb product, and where the EP ranks hold the same rows the aux
 losses' gradient is counted once over the group (``sharding.shared``).
+
+Decode under a mesh (``moe_decode(ep=, rows=)``) keeps the JAX package's
+one capacity group over the whole batch: the rows are gathered over the
+batch axes (B x d), routed together with the token-major cumsum, each EP
+rank computes its own experts' slots of every row as the tp layout's
+training does (the router cut to its experts' columns where it is whole,
+as in the fsdp layout), the combined outputs are summed over the EP
+group, and each rank keeps its own rows.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
@@ -204,12 +213,33 @@ def moe_forward(params, h: torch.Tensor, cfg: ArchConfig,
     return out, aux
 
 
-def moe_decode(params, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def moe_decode(params, h: torch.Tensor, cfg: ArchConfig, ep=None,
+               rows=None) -> torch.Tensor:
     """The single-token path: the whole batch (B, 1, d) routes as one
     group, so the capacity, max(int(B * K / E * cf), K), depends on B and
-    can drop tokens (as the JAX package's does)."""
+    can drop tokens (as the JAX package's does). Under a mesh ``h`` is
+    this rank's rows, ``rows`` the group of the batch ranks (None: every
+    rank holds every row) and ``ep`` the expert-parallel group's
+    ``sharding.TensorParallel`` (the module's note)."""
     B, S, d = h.shape
     if S != 1:
         raise ValueError(f"moe_decode takes one token a row, got {S}")
-    out, _ = moe_forward(params, h.reshape(1, B, d), cfg)
+    if ep is None:
+        out, _ = moe_forward(params, h.reshape(1, B, d), cfg)
+        return out.reshape(B, S, d)
+    x = h.reshape(B, d)
+    if rows is not None:
+        x = shd.all_gather(x, 0, rows)
+    E = cfg.n_experts
+    router = params["router"]
+    if router.shape[1] == E and ep.size > 1:
+        n = E // ep.size
+        router = router[:, ep.rank * n:(ep.rank + 1) * n]
+    out, _ = moe_forward(dict(params, router=router), x[None], cfg,
+                         shards=Shards(ep=ep, exchange=False, batch=None,
+                                       n_batch=1))
+    out = out[0]
+    if rows is not None:
+        r = dist.get_rank(rows)
+        out = out[r * B:(r + 1) * B]
     return out.reshape(B, S, d)

@@ -20,7 +20,8 @@ Under tensor parallelism (``rglru_forward(tp=)``) a rank holds its own
 ``lru`` channels: its columns of ``w_x`` and ``w_gate``, its slices of the
 per-channel conv, gates and ``lam`` (the recurrence never mixes
 channels), and its rows of the row-parallel ``w_out``, whose partial
-output is summed over the TP group.
+output is summed over the TP group. ``rglru_decode(tp=)`` steps the same
+channels over a cache that holds them.
 """
 from __future__ import annotations
 
@@ -122,6 +123,10 @@ class LRUCache(NamedTuple):
     state: torch.Tensor  # (B, lru) f32
 
 
+# The cache's logical axes (the JAX package's ``engine._slot_axes``).
+CACHE_AXES = LRUCache(conv=("batch", None, "lru"), state=("batch", "lru"))
+
+
 def _out(params, y: torch.Tensor, gate: torch.Tensor, dtype):
     g = common.activation("gelu")(gate.to(torch.float32)).to(dtype)
     return (y.to(dtype) * g) @ params["w_out"]
@@ -155,12 +160,15 @@ def lru_cache_init(cfg: ArchConfig, batch: int, dtype, device) -> LRUCache:
 
 
 def rglru_decode(params, h_tok: torch.Tensor, cache: LRUCache,
-                 cfg: ArchConfig) -> Tuple[torch.Tensor, LRUCache]:
-    """One token a row. h_tok (B, 1, d). Returns (out, the new cache)."""
+                 cfg: ArchConfig, tp=None) -> Tuple[torch.Tensor, LRUCache]:
+    """One token a row. h_tok (B, 1, d). Returns (out, the new cache).
+    Under ``tp`` ``params`` and the cache hold this rank's channels and
+    the output is summed over the TP group."""
     xb = h_tok @ params["w_x"]
     gate = h_tok @ params["w_gate"]
     xb, new_conv = causal_conv(xb, params["conv"], cache.conv)
     log_a, b = _gates(params, xb)  # (B, 1, lw)
     state = torch.exp(log_a[:, 0]) * cache.state + b[:, 0]
-    return (_out(params, state[:, None, :], gate, h_tok.dtype),
+    out = _out(params, state[:, None, :], gate, h_tok.dtype)
+    return (shd.reduce(out, tp.group if tp is not None else None),
             LRUCache(conv=new_conv, state=state))

@@ -5,13 +5,20 @@ Two modes share the model:
 * **Contiguous** (``generate``): one prefill, then a greedy decode loop.
   The JAX package's jitted ``lax.scan`` becomes a Python loop over one
   preallocated cache that every step updates in place (JAX donates it).
+  ``make_prefill_step``, ``make_serve_step`` and ``make_decode_loop`` are
+  the JAX package's step functions; on a mesh ``generate`` runs through
+  them, and ``cache_axes`` names where each cache leaf lives: batch rows
+  over the batch axes, the KV sequence over ``model`` (flash-decoding
+  style: each rank attends over its slots, the partials are combined),
+  the SSD heads and RG-LRU channels over ``model`` (the model's note).
 * **Paged** (``PagedEngine``): the continuous-batching substrate. A fixed
   number of batch *slots* share one codec-packed KV block pool
   (serve/pool.py); one fixed-shape decode step advances every slot at its
   own position, and the paged decode kernel reads the GLOBAL layers'
   blocks through the block table; LOCAL layers keep per-slot rings and SSD
   / RG-LRU layers per-slot recurrent state. Queueing, admission and
-  preemption live above, in serve/scheduler.py.
+  preemption live above, in serve/scheduler.py. The JAX package gives its
+  pool no sharding axes, so the paged engine refuses a mesh.
 """
 from __future__ import annotations
 
@@ -22,10 +29,10 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch import codecs, resolve_device
+from repro_torch import NotYetPorted, codecs, resolve_device
 from repro_torch.configs.base import GLOBAL, LOCAL, RGLRU, SSD
 from repro_torch.kernels import ops
-from repro_torch.models.model import DecoderModel
+from repro_torch.models.model import PAGED_MESH, DecoderModel
 from repro_torch.serve import kvcache
 from repro_torch.serve import pool as _pool
 
@@ -45,6 +52,62 @@ def _greedy(logits: torch.Tensor):
     return torch.argmax(last, dim=-1, keepdim=True), top2[:, 0] - top2[:, 1]
 
 
+def cache_axes(model: DecoderModel, batch: int = 1, max_len: int = 1
+               ) -> Dict[str, Any]:
+    """The logical sharding axes of ``model.init_cache(batch, max_len)``,
+    leaf for leaf (the JAX package's ``cache_axes``, one entry a layer
+    instead of a leading ``layers`` axis): a raw KV cache ("batch",
+    "cache_seq", "kv", None), a packed one ("batch", "cache_seq", None,
+    ...) on every part, an SSD state ("batch", "heads", None, None) with
+    ``conv_x`` over "ssm_inner", an RG-LRU state ("batch", "lru")."""
+    return model.cache_axes(batch, max_len)
+
+
+def _serve(model: DecoderModel, params, cache, token, pos):
+    """One greedy decode step: (next token (B, 1), its top-2 margin (B,),
+    cache)."""
+    logits, cache = model.decode_step(params, cache, token, pos)
+    return (*_greedy(logits), cache)
+
+
+def make_serve_step(model: DecoderModel):
+    """(params, cache, token (B, 1), pos) -> (next_token (B, 1), cache):
+    one greedy decode step."""
+
+    def serve_step(params, cache, token, pos):
+        tok, _, cache = _serve(model, params, cache, token, pos)
+        return tok, cache
+
+    return serve_step
+
+
+def make_prefill_step(model: DecoderModel, max_len: int):
+    """(params, tokens (B, S), cond_embeddings=None) -> (logits (B, 1, V),
+    cache): the prompt's prefill into a cache of ``max_len`` slots."""
+
+    def prefill_step(params, tokens, cond_embeddings=None):
+        return model.prefill(params, tokens, max_len,
+                             cond_embeddings=cond_embeddings)
+
+    return prefill_step
+
+
+def make_decode_loop(model: DecoderModel, n_steps: int):
+    """(params, cache, token (B, 1), pos0) -> (tokens (n_steps, B, 1),
+    cache): ``n_steps`` greedy steps from ``token`` at position ``pos0``,
+    the cache updated in place (the JAX package donates it to its scan)."""
+    serve_step = make_serve_step(model)
+
+    def loop(params, cache, tok, pos0):
+        toks = []
+        for i in range(n_steps):
+            tok, cache = serve_step(params, cache, tok, pos0 + i)
+            toks.append(tok)
+        return torch.stack(toks), cache
+
+    return loop
+
+
 @torch.inference_mode()
 def generate(model: DecoderModel, params, prompt: torch.Tensor, max_new: int,
              max_len: Optional[int] = None,
@@ -53,19 +116,22 @@ def generate(model: DecoderModel, params, prompt: torch.Tensor, max_new: int,
     """Greedy batched generation of ``max_new`` tokens after ``prompt``
     (B, S), on the model's device (CUDA unless the model was built with
     ``device="cpu"``). A prefix-LM's ``cond_embeddings`` (B, P, d_model)
-    go before the prompt; decoding then starts at position P + S."""
+    go before the prompt; decoding then starts at position P + S. On a
+    mesh, ``params`` are the rank's shards, ``prompt`` the whole batch on
+    every rank, and the result the whole batch's. The prefill is
+    ``make_prefill_step``'s, each step ``make_serve_step``'s with its
+    margin kept."""
     dev = resolve_device(model.device)
     prompt = prompt.to(dev)
     B, S = prompt.shape
     P = model.cfg.prefix_tokens if cond_embeddings is not None else 0
     max_len = max_len or (P + S + max_new)
-    prefill_logits, cache = model.prefill(params, prompt, max_len,
-                                          cond_embeddings=cond_embeddings)
+    prefill_logits, cache = make_prefill_step(model, max_len)(
+        params, prompt, cond_embeddings)
     tok, margin = _greedy(prefill_logits)
     toks, margins = [tok], [margin]
     for i in range(max_new - 1):
-        logits, cache = model.decode_step(params, cache, tok, P + S + i)
-        tok, margin = _greedy(logits)
+        tok, margin, cache = _serve(model, params, cache, tok, P + S + i)
         toks.append(tok)
         margins.append(margin)
     return GenerationResult(tokens=torch.cat(toks, dim=1), steps=max_new,
@@ -102,6 +168,8 @@ class PagedEngine:
                  max_len: int = 256, num_blocks: Optional[int] = None,
                  degraded_container: Optional[str] = None,
                  integrity: bool = True):
+        if model.mesh is not None:
+            raise NotYetPorted(PAGED_MESH)
         if model.kv_container is None:
             raise ValueError("PagedEngine needs a model with kv_container "
                              "set (the pool stores packed blocks)")

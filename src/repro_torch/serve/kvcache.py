@@ -24,6 +24,16 @@ of 64, no group crosses a (batch, slot) row, so the flat parts of a
 (B, L, D) tensor are exactly (B, L, D // 64, .) arrays, reshaped: the
 cache stores those (the same bytes as JAX's flat pack) and flattens them
 again before ``unpack``.
+
+Under a mesh the cache is a rank's shard (``packed_cache_axes``: batch
+rows over the batch axes, the sequence over ``model``): the prefill packs
+the rank's slots of whole rows, a decode step writes the new row on the
+rank whose shard holds its slot, and the packed SFP caches are read by
+the decode kernel's shard view, whose partials ``sharding.lse_combine``
+joins over ``model`` in f32 before one rounding to the cache dtype;
+``gecko8`` and ``bit_exact`` unpack the rank's shard alone and attend as
+``attention.decode_attend(group=)`` does, the JAX package's softmax
+arithmetic across the ranks.
 """
 from __future__ import annotations
 
@@ -33,6 +43,7 @@ import torch
 
 from repro_torch import codecs
 from repro_torch.configs.base import ArchConfig, LOCAL
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import GECKO_GROUP, GROUP
 from repro_torch.models import attention
@@ -63,6 +74,15 @@ def _codec(container: Optional[str]) -> codecs.Codec:
 _GROUPED = {codecs.GECKO8: ("bases", "widths", "planes")}
 
 
+def seq_len(entry) -> int:
+    """The slots of an attention layer's cache entry (``KVCache`` or
+    ``PackedKV``): the whole cache's for DTensor leaves."""
+    k = entry.k
+    if isinstance(k, codecs.PackedTensor):
+        k = next(iter(k.data.values()))
+    return k.shape[1]
+
+
 def _seq_major(pt: codecs.PackedTensor) -> codecs.PackedTensor:
     """``pt`` (of a (B, L, D) tensor) with every part (B, L, ...)."""
     B, L, D = pt.shape
@@ -80,6 +100,33 @@ def _flat(pt: codecs.PackedTensor) -> codecs.PackedTensor:
     return codecs.PackedTensor(pt.codec, pt.shape, pt.dtype, data)
 
 
+def _row(cfg: ArchConfig, container: Optional[str]) -> codecs.PackedTensor:
+    """One packed zero row (1, 1, D) on the CPU, every part (1, 1, ...):
+    the per-slot shape and dtype of each part (the plain path; no kernel
+    is launched)."""
+    D = cfg.n_kv_heads * cfg.head_dim_
+    if D % GROUP:
+        raise ValueError(f"KV feature dim {D} must align to {GROUP} lanes")
+    return _seq_major(_codec(container).pack(
+        torch.zeros((1, 1, D), dtype=cfg.compute_dtype)))
+
+
+def packed_cache_axes(cfg: ArchConfig, kind: str, batch: int, max_len: int,
+                      container: Optional[str] = None) -> PackedKV:
+    """Logical sharding axes of ``packed_cache_init``'s parts, each
+    (batch, seq, ...): ("batch", "cache_seq", None, ...). The JAX
+    package's ``packed_cache_axes`` gives every part these axes over its
+    own layout; the port's gecko8 parts are (B, L, D / 64, .) where JAX's
+    are flat (the module's note), so they carry two trailing Nones."""
+    row = _row(cfg, container)
+    part = codecs.PackedTensor(row.codec, (batch, cache_len(cfg, kind,
+                                                            max_len),
+                                           row.shape[2]), row.dtype, {
+        k: ("batch", "cache_seq") + (None,) * (v.dim() - 2)
+        for k, v in row.data.items()})
+    return PackedKV(k=part, v=part)
+
+
 def packed_cache_init(cfg: ArchConfig, kind: str, batch: int, max_len: int,
                       container: Optional[str] = None, *,
                       device) -> PackedKV:
@@ -89,16 +136,11 @@ def packed_cache_init(cfg: ArchConfig, kind: str, batch: int, max_len: int,
     (B, L, nd_payload_cols(D)) words or bit-plane bytes and bases
     (B, L, D // 128); bit_exact: (B, L, D) values; gecko8: signman
     (B, L, D) and (B, L, D // 64, .) bases, widths and planes."""
-    codec = _codec(container)
-    D = cfg.n_kv_heads * cfg.head_dim_
-    if D % GROUP:
-        raise ValueError(f"KV feature dim {D} must align to {GROUP} lanes")
     L = cache_len(cfg, kind, max_len)
-    row = _seq_major(codec.pack(torch.zeros((1, 1, D),
-                                            dtype=cfg.compute_dtype)))
+    row = _row(cfg, container)
 
     def part():
-        return codecs.PackedTensor(codec.name, (batch, L, D),
+        return codecs.PackedTensor(row.codec, (batch, L, row.shape[2]),
                                    cfg.compute_dtype, {
             k: torch.zeros((batch, L, *v.shape[2:]), dtype=v.dtype,
                            device=device) for k, v in row.data.items()})
@@ -106,24 +148,30 @@ def packed_cache_init(cfg: ArchConfig, kind: str, batch: int, max_len: int,
 
 
 def _splice(cache_pt: codecs.PackedTensor, new_pt: codecs.PackedTensor,
-            slot: torch.Tensor) -> None:
+            slot: torch.Tensor, slot0: int = 0,
+            L_global: Optional[int] = None) -> None:
     """Write one packed token row per batch row at ``slot`` (B,), in
-    place (the JAX package donates the cache and updates it in place)."""
+    place (the JAX package donates the cache and updates it in place);
+    a shard of slots [slot0, slot0 + L) of an ``L_global``-slot cache
+    takes only the rows whose slot it holds
+    (``attention.splice_rows``)."""
     new_pt = _seq_major(new_pt)
-    rows = torch.arange(slot.shape[0], device=slot.device)
     for k in cache_pt.data:
-        cache_pt.data[k][rows, slot] = new_pt.data[k][:, 0]
+        attention.splice_rows(cache_pt.data[k], new_pt.data[k][:, 0], slot,
+                              slot0, L_global)
 
 
 def attention_decode_packed(params, h_tok: torch.Tensor, cache: PackedKV,
                             pos: torch.Tensor, cfg: ArchConfig, *, kind: str,
                             container: Optional[str] = None,
-                            prefix_planes: Optional[int] = None
+                            prefix_planes: Optional[int] = None,
+                            shard: Optional[attention.DecodeShard] = None
                             ) -> Tuple[torch.Tensor, PackedKV]:
     """One-token decode over the compressed cache, spliced in place.
     h_tok (B, 1, d); pos (B,) int64 decode positions. ``prefix_planes``
     (a speculative draft step) reads only the leading P' payload bits;
-    the write stays full width."""
+    the write stays full width. Under a mesh (``shard``) the cache is the
+    rank's shard (the module's note)."""
     codec = _codec(container)
     B = h_tok.shape[0]
     hd, H, KH = cfg.head_dim_, cfg.n_heads, cfg.n_kv_heads
@@ -132,28 +180,35 @@ def attention_decode_packed(params, h_tok: torch.Tensor, cache: PackedKV,
     dtype = h_tok.dtype
     q, k_new, v_new = attention._project_qkv(params, h_tok, cfg,
                                              pos[:, None])
-    slot = attention.decode_slot_index(pos, L, kind)
-    _splice(cache.k, codec.pack(k_new.reshape(B, 1, D).to(dtype)), slot)
-    _splice(cache.v, codec.pack(v_new.reshape(B, 1, D).to(dtype)), slot)
+    q, k_new, v_new = attention.replicate_qkv(q, k_new, v_new, shard)
+    slot0, L_global, group = attention.cache_span(shard, L)
+    slot = attention.decode_slot_index(pos, L_global, kind)
+    for part, new in ((cache.k, k_new), (cache.v, v_new)):
+        _splice(part, codec.pack(new.reshape(B, 1, D).to(dtype)), slot,
+                slot0, L_global)
     fields = codec.pack_fields(dtype)
     if prefix_planes is not None and fields is None:
         raise ValueError(f"prefix_planes needs a fixed-width payload "
                          f"geometry; codec {codec.name!r} has none")
     if fields is None:
-        # No fused kernel for this codec: unpack the whole cache, attend.
+        # No fused kernel for this codec: unpack the (rank's) cache, attend.
         k_c = codec.unpack(_flat(cache.k)).reshape(B, L, KH, hd)
         v_c = codec.unpack(_flat(cache.v)).reshape(B, L, KH, hd)
-        o = attention.decode_attend(q, k_c, v_c, pos, cfg, kind)
+        o = attention.decode_attend(q, k_c, v_c, pos, cfg, kind,
+                                    slot0=slot0, L_global=L_global,
+                                    group=group)
+        return attention.out_proj(o, params, shard), cache
+    packed = [ops.Packed(c.data["payload"], c.data["bases"])
+              for c in (cache.k, cache.v)]
+    kw = dict(fields=fields, window=cfg.window if kind == LOCAL else None,
+              softcap=cfg.attn_softcap, prefix_planes=prefix_planes)
+    if shard is None:
+        o = ops.packed_flash_decode(q.to(dtype), *packed, pos, **kw)
     else:
-        window = cfg.window if kind == LOCAL else None
-        o = ops.packed_flash_decode(
-            q.to(dtype),
-            ops.Packed(cache.k.data["payload"], cache.k.data["bases"]),
-            ops.Packed(cache.v.data["payload"], cache.v.data["bases"]),
-            pos, fields=fields, window=window, softcap=cfg.attn_softcap,
-            prefix_planes=prefix_planes)
-    out = o.reshape(B, 1, H * hd) @ params["wo"]
-    return out, cache
+        o, lse = ops.packed_flash_decode_shard(
+            q.to(dtype), *packed, pos, slot0=slot0, L_global=L_global, **kw)
+        o = shd.lse_combine(o, lse, group).to(dtype).reshape(B, 1, H, hd)
+    return attention.out_proj(o, params, shard), cache
 
 
 def pack_prefill_cache(cache_kv: attention.KVCache,

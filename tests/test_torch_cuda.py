@@ -956,6 +956,54 @@ def test_recurrentgemma_paged_trace_vs_plain(dev):
             assert ref.margins[0, t] < 2.0, (r.uid, t)
 
 
+@pytest.mark.parametrize("container", ["sfp8", "sfp-m2e4"])
+@pytest.mark.parametrize("draft", [False, True])
+@pytest.mark.parametrize("L,window,pos", [(1088, None, [1087, 300]),
+                                          (1152, None, [1151, 5]),
+                                          (4096, 4096, [5000, 4100])])
+def test_shard_view_kernel(dev, container, draft, L, window, pos):
+    """The decode kernel's shard view over four sequence shards at the
+    port's own split (``shard_split_l``: 272 slots as 8 splits of 34, 288
+    as 4 of 64 and a partial one of 32; a wrapped ring), words and
+    planes, full width and a draft read: each
+    shard's (o, lse) against the plain shard view, the lse exactly
+    -inf where a shard sees no slot; the four combined by their
+    log-sum-exps against the whole-cache kernel, one bf16 ulp apart."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    B, H, KH, hd = 2, 8, 4, 288
+    f = fields_for(container, torch.bfloat16)
+    pp = max(f.payload_bits - 1, f.dexp_bits + 2) if draft else None
+    kp, vp = (ops.sfp_compress_nd(torch.randn(
+        (B, L, KH * hd), generator=g, device=dev).to(torch.bfloat16), f)
+        for _ in range(2))
+    q = (torch.randn((B, 1, H, hd), generator=g, device=dev) * 3
+         ).to(torch.bfloat16)
+    p = torch.tensor(pos, dtype=torch.int32, device=dev)
+    kw = dict(window=window, softcap=50.0, prefix_planes=pp)
+    n, parts = L // 4, []
+    for r in range(4):
+        sl = slice(r * n, (r + 1) * n)
+        args = (q, kp.payload[:, sl].contiguous(), kp.bases[:, sl].contiguous(),
+                vp.payload[:, sl].contiguous(), vp.bases[:, sl].contiguous(),
+                p, f)
+        got = pfd.packed_flash_decode_shard(*args, slot0=r * n, L_global=L,
+                                            **kw)
+        want = ref.packed_flash_decode_shard(*args, slot0=r * n, L_global=L,
+                                             block_l=128, **kw)
+        assert torch.equal(torch.isinf(got[1]), torch.isinf(want[1]))
+        fin = torch.isfinite(want[1])
+        assert float((got[1] - want[1])[fin].abs().max()) <= 1e-4
+        _close(got[0], want[0])
+        parts.append(got)
+    lse = torch.stack([x[1] for x in parts])
+    w = torch.exp(lse - lse.max(0).values)[..., None]
+    o = sum(wi * x[0] for wi, x in zip(w, parts)) / w.sum(0)
+    whole = (pfd.packed_flash_decode_dense if f.dense
+             else pfd.packed_flash_decode)(q, kp.payload, kp.bases,
+                                           vp.payload, vp.bases, p, f, **kw)
+    _close(o.to(torch.bfloat16).reshape(whole.shape), whole)
+
+
 def test_world_of_one_nccl_step_matches_unsharded(dev):
     """The sharded train step over NCCL at a world of one (a (1, 1) mesh)
     in both layouts, two qm + sfp8 steps of the reduced gemma2-2b (bf16,

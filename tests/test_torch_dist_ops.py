@@ -240,8 +240,10 @@ def test_batch_placement_and_what_a_mesh_refuses(ranks):
     """``prefetch`` with the batch specs: in the tp layout each rank holds
     its data rank's rows (the same on both model ranks), in fsdp its own
     quarter; every shard gathers back to the batch, tokens as int64. Under
-    a (2, 2) mesh the serving entry points raise ``NotYetPorted``, and the
-    reduced MoE, SSD and RG-LRU models build in both layouts."""
+    a (2, 2) mesh the paged engine raises ``NotYetPorted`` (pointing at
+    ROADMAP), the reduced gemma2-2b's ``prefill`` and ``decode_step`` run
+    and give the whole batch's logits, and the reduced MoE, SSD and
+    RG-LRU models build in both layouts."""
     batches = _batches()
     for out in ranks["placement"]:
         d, m = out["coord"]
@@ -254,8 +256,9 @@ def test_batch_placement_and_what_a_mesh_refuses(ranks):
                     assert dtype == ("torch.float32" if k == "cond_embeddings"
                                      else "torch.int64")
         refused = out["refused"]
-        assert sorted(refused) == ["decode_step", "prefill"]
+        assert sorted(refused) == ["PagedEngine"]
         assert all("ROADMAP" in v for v in refused.values())
+        assert out["served"] == ((2, 1, 512), (2, 1, 512))
         assert out["built"] == [(name, layout) for name in (
             "olmoe-1b-7b", "mamba2-370m", "recurrentgemma-9b")
             for layout in ("tp", "fsdp")]

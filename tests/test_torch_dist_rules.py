@@ -34,6 +34,7 @@ from repro_torch.distributed import elastic as telastic
 from repro_torch.distributed import sharding as tshd
 from repro_torch.models import attention
 from repro_torch.models.model import META, DecoderModel as TModel
+from repro_torch.serve import engine
 
 NAMES = sorted(jconfigs.names())
 MESHES = {"2x2": (("data", "model"), (2, 2)),
@@ -248,7 +249,8 @@ def test_every_config_builds_on_its_valid_tp_degrees(name, monkeypatch):
     JAX's degrees allow since they count ``d_inner``, not heads): the
     uneven-split ``ValueError``. Under tp each layer keeps its TP leaves
     over ``model`` (the replicated heads' weights gathered whole, with
-    ``same``), and the serving entry points stay refused."""
+    ``same``), and the paged engine refuses the mesh (the JAX package's
+    paged pool has no sharding axes)."""
     monkeypatch.setattr(tshd, "axes_group", lambda mesh, axes: None)
     full = tconfigs.get(name)
     # Full widths, one period and the remainder: every kind of leaf.
@@ -281,9 +283,8 @@ def test_every_config_builds_on_its_valid_tp_degrees(name, monkeypatch):
                         assert plan.keep == "model", (block, leaf)
             if cfg.is_moe:
                 assert model._moe.exchange == (layout == "fsdp")
-            with pytest.raises(NotYetPorted):
-                model.prefill(None, torch.zeros((1, 2), dtype=torch.long),
-                              4)
+            with pytest.raises(NotYetPorted, match="paged pool"):
+                engine.PagedEngine(model, None)
 
 
 def test_prefetch_preserves_order_and_count():

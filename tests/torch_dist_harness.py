@@ -776,8 +776,9 @@ def exchange(rank, world, inputs):
 def placement_and_gates(rank, world, inputs):
     """``data.pipeline.place`` / ``prefetch`` with the batch specs of both
     layouts on a (2, 2) mesh, what a mesh of four ranks refuses (the
-    serving entry points) and the reduced MoE, SSD and RG-LRU models it
-    builds in both layouts."""
+    paged engine) and serves (the reduced gemma2-2b's ``prefill`` and a
+    ``decode_step``: the logits' shape) and the reduced MoE, SSD and
+    RG-LRU models it builds in both layouts."""
     import dataclasses
     import torch
     from repro_torch import NotYetPorted, configs
@@ -785,6 +786,7 @@ def placement_and_gates(rank, world, inputs):
     from repro_torch.data import pipeline
     from repro_torch.distributed import sharding as shd
     from repro_torch.models.model import DecoderModel
+    from repro_torch.serve import engine
     mesh = _mesh(world, (2, 2))
     out = {}
     for layout in ("tp", "fsdp"):
@@ -807,15 +809,17 @@ def placement_and_gates(rank, world, inputs):
     out["built"] = built
     cfg = dataclasses.replace(reduced(configs.get("gemma2-2b")),
                               dtype="float32")
-    model = DecoderModel(cfg, device="cpu", mesh=mesh)
+    model = DecoderModel(cfg, kv_container="sfp8", device="cpu", mesh=mesh)
+    params = model.local_params(DecoderModel(cfg, device="cpu").init(0))
     tokens = torch.zeros((2, 4), dtype=torch.long)
-    for what, call in (("prefill", lambda: model.prefill(None, tokens, 8)),
-                       ("decode_step", lambda: model.decode_step(
-                           None, None, tokens[:, :1], 0))):
-        try:
-            call()
-        except NotYetPorted as e:
-            refused[what] = str(e)
+    try:
+        engine.PagedEngine(model, params)
+    except NotYetPorted as e:
+        refused["PagedEngine"] = str(e)
     out["refused"] = refused
+    with torch.inference_mode():
+        logits, cache = model.prefill(params, tokens, 8)
+        step, _ = model.decode_step(params, cache, tokens[:, :1], 4)
+    out["served"] = (tuple(logits.shape), tuple(step.shape))
     out["coord"] = tuple(mesh.get_coordinate())
     return out
